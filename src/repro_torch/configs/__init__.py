@@ -1,0 +1,7 @@
+"""Architecture config registry of the port.
+
+Importing this package registers the port's architectures with
+``repro_torch.config``.  Only internlm2-1.8b (dense GQA, the serving
+slice's model) is registered so far.
+"""
+from repro_torch.configs import internlm2_1_8b  # noqa: F401
