@@ -5,17 +5,31 @@
 
 Phases, each of which stops the run with a non-zero exit when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every CUDA kernel of the serving path, with its time;
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, with its time, the plain version's, a
-     PyTorch library yardstick's and the least time the card could take;
+  2. the build of every CUDA kernel (serving and training paths), one
+     nvcc per kernel, all started together, with its time;
+  3. the paged-attention kernel against its plain PyTorch version on the
+     card, at the serving path's shapes, with its time, the plain
+     version's, a PyTorch library yardstick's and the least time the
+     card could take;
   4. full-width internlm2-1.8b (bf16, random weights from a seed) served
      through the port's launcher: 8 requests, 32 new tokens each, every
      attention layer of every step through the paged-attention kernel;
   5. engine parity in float32 at full width and 2 layers: ServeEngine's
      token streams equal greedy_reference's in every table mode, and the
      card's logits agree with the CPU's plain path;
-  6. one JSON line describing every kernel, then the final ``ok`` line.
+  6. the flash-attention kernels, forward and backward, against their
+     plain versions (and the backward against autograd of the plain
+     forward) at the training shape and at window, non-causal, MQA and
+     ragged cases, with the same four times;
+  7. full-width internlm2-1.8b trained through the port's launcher: 3
+     steps of 8 x 4,096 tokens in 4 microbatches, every attention layer
+     through the flash kernels (forward twice a step per layer and
+     microbatch, with the recompute of activation checkpointing;
+     backward once);
+  8. training parity in float32 at full width, 2 layers, one 3,072-token
+     sequence: the card's loss and gradients agree with the CPU's plain
+     path;
+  9. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -26,6 +40,7 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -40,10 +55,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import config as C  # noqa: E402
 from repro_torch.core import block_table as BT  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
+from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.models import init_params, prefill  # noqa: E402
 from repro_torch.serving import ServeEngine, greedy_reference  # noqa: E402
+from repro_torch.train import data as DATA  # noqa: E402
+from repro_torch.train.train_loop import loss_fn, trainable  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -61,6 +80,27 @@ TIGHT_BF16_ATOL = 5e-3
 #: CPU vs card logits, float32, 2 layers at full width: both sum in
 #: float32 in different orders over K = 2048 / 8192
 LOGIT_TOL = 1e-3
+#: flash backward: max |kernel - plain| over the largest |plain| of each
+#: of dQ, dK, dV.  A dK / dV element sums S x G products (32,768 for the
+#: MQA case) whose rounding scales with the largest terms, not with the
+#: element, so the error is held against the tensor's scale.  Seen on
+#: the H100: float32 up to 5.4e-6 of it (MQA), bf16 up to 4.0e-3 (half
+#: a bf16 step).  Against autograd of the plain forward, which rounds to
+#: bf16 at other places, bf16 keeps the bf16 2e-2 (7.7e-3 seen)
+FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+FLASH_AUTOGRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: bf16 forward held a second time to a max abs error, 2.5x the largest
+#: seen on the H100 (3.9e-3): the kernel rounds p to bf16 after a 64-key
+#: tile's running max, the plain version after a 512-key block's.  The
+#: float32 cases (2e-5) are the ones that catch a dropped key tile
+FLASH_TIGHT_BF16 = 1e-2
+#: training parity, float32, TF32 off, 2 layers at full width, 3,072
+#: tokens: loss abs difference, and each selected gradient's max abs
+#: difference relative to its largest element (sums over 3,072 tokens,
+#: K = 2048 / 8192 and a 92,544-way softmax in other orders; seen on the
+#: H100: loss equal to 6 decimals, gradients up to 5.4e-6)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 5e-5
 L2_FLUSH_BYTES = 128 << 20       # > the 50 MB L2
 SLEEP_CYCLES = 10_000_000        # about 5 ms at the H100's clock
 
@@ -331,6 +371,273 @@ def phase_parity():
           f"(tol {LOGIT_TOL:g})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: flash attention, forward and backward, against plain versions
+# ---------------------------------------------------------------------------
+#: the training path's attention call: one microbatch of 2 sequences
+TRAIN_ATTN = dict(b=2, s=4096, h=16, kh=8, d=128, causal=True, window=0)
+
+
+def flash_case(*, b, s, h, kh, d, causal, window, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return dict(q=draw(b, s, h, d), k=draw(b, s, kh, d), v=draw(b, s, kh, d),
+                do=draw(b, s, h, d), causal=causal, window=window)
+
+
+def attended_pairs(case) -> int:
+    """(query, key) pairs the mask leaves, per (sequence, head)."""
+    s, causal, window = case["q"].shape[1], case["causal"], case["window"]
+    qp = np.arange(s)
+    hi = qp if causal else np.full(s, s - 1)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(s, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(case, backward: bool):
+    """(ms, "bytes"|"operations"): each input read once, each output
+    written once; 4 D operations per attended pair and head forward (QK^T
+    and PV), 10 D backward (the five products of the flash backward)."""
+    q, k = case["q"], case["k"]
+    b, s, h, d = q.shape
+    item = q.element_size()
+    big = 2 * q.numel() + 2 * k.numel()           # q, o and k, v
+    lse = b * h * s * 4
+    if backward:        # read q k v o do lse; write dq dk dv
+        nbytes = (big + q.numel() + q.numel() + 2 * k.numel()) * item + lse
+    else:               # read q k v; write o lse
+        nbytes = big * item + lse
+    flops = (10 if backward else 4) * b * h * d * attended_pairs(case)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_fwd(impl, case):
+    kw = dict(causal=case["causal"], window=case["window"])
+    if impl == "kernel":
+        return FA.flash_attention_fwd_cuda(case["q"], case["k"], case["v"],
+                                           **kw)
+    return ref.flash_attention_ref(case["q"], case["k"], case["v"],
+                                   return_lse=True, **kw)
+
+
+def flash_bwd(impl, case, o, lse):
+    fn = (FA.flash_attention_bwd_cuda if impl == "kernel"
+          else ref.flash_attention_bwd_ref)
+    return fn(case["q"], case["k"], case["v"], o, lse, case["do"],
+              causal=case["causal"], window=case["window"])
+
+
+def autograd_of_plain(case):
+    leaves = [case[n].detach().clone().requires_grad_(True)
+              for n in ("q", "k", "v")]
+    out = ref.flash_attention_ref(*leaves, causal=case["causal"],
+                                  window=case["window"])
+    return torch.autograd.grad(out, leaves, case["do"])
+
+
+def library_attention(case):
+    """The yardstick: scaled_dot_product_attention over (B, H, S, D)
+    views made once; returns (forward fn, backward fn)."""
+    q, k, v = (case[n].transpose(1, 2).contiguous().requires_grad_(True)
+               for n in ("q", "k", "v"))
+    do = case["do"].transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+
+    @torch.no_grad()
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    return fwd, lambda: torch.autograd.grad(out, (q, k, v), do,
+                                            retain_graph=True)
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def scaled_err(grads, want) -> float:
+    """The worst of max |g - w| / max |w| over (dq, dk, dv)."""
+    return max(max_err(g, w) / float(w.float().abs().max())
+               for g, w in zip(grads, want))
+
+
+def within(got, want, tol: float) -> bool:
+    err = (got.float() - want.float()).abs()
+    return bool((err <= tol + tol * want.float().abs()).all())
+
+
+def phase_flash():
+    ragged = dict(b=1, s=1000, h=8, kh=2, d=64, causal=True, window=0)
+    shapes = {
+        "train": TRAIN_ATTN,
+        "window": dict(TRAIN_ATTN, b=1, s=2048, window=512),
+        "noncausal": dict(TRAIN_ATTN, b=1, s=1024, causal=False),
+        "mqa": dict(TRAIN_ATTN, b=1, s=2048, kh=1),
+        "ragged": ragged,
+    }
+    results = {}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for i, (name, shape) in enumerate(shapes.items()):
+            case = flash_case(**shape, dtype=dt, seed=10 + i)
+            o, lse = flash_fwd("kernel", case)
+            ro, rlse = flash_fwd("plain", case)
+            grads = flash_bwd("kernel", case, o, lse)
+            want = flash_bwd("plain", case, ro, rlse)
+            auto = autograd_of_plain(case)
+            torch.cuda.synchronize()
+            fwd_tol, bwd_tol = TOL[dt], FLASH_BWD_TOL[dt]
+            r = {"fwd_err": max_err(o, ro),
+                 "lse_err": max_err(lse, rlse),
+                 "bwd_err": max(max_err(g, w) for g, w in zip(grads, want)),
+                 "bwd_scaled": scaled_err(grads, want),
+                 "auto_scaled": scaled_err(grads, auto)}
+            ok = (within(o, ro, fwd_tol) and within(lse, rlse, 2e-5)
+                  and r["bwd_scaled"] <= bwd_tol
+                  and r["auto_scaled"] <= FLASH_AUTOGRAD_TOL[dt])
+            if dt == torch.bfloat16:
+                ok &= r["fwd_err"] <= FLASH_TIGHT_BF16
+            r["ok"] = ok
+            results[f"{name}_{tag}"] = r
+            print(f"flash_attention {name}_{tag} {shape}: fwd max_abs_err "
+                  f"{r['fwd_err']:.3e} (allclose {fwd_tol:g}), lse "
+                  f"{r['lse_err']:.3e} (2e-05), bwd vs bwd_ref max_abs_err "
+                  f"{r['bwd_err']:.3e}, of scale {r['bwd_scaled']:.3e} "
+                  f"({bwd_tol:g}), bwd vs autograd of plain, of scale "
+                  f"{r['auto_scaled']:.3e} ({FLASH_AUTOGRAD_TOL[dt]:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            del case, o, lse, ro, rlse, grads, want, auto
+    check(all(r["ok"] for r in results.values()),
+          "flash_attention kernels disagree with their plain versions")
+
+    case = flash_case(**TRAIN_ATTN, dtype=torch.bfloat16, seed=10)
+    o, lse = flash_fwd("kernel", case)
+    ro, rlse = flash_fwd("plain", case)
+    lib_fwd, lib_bwd = library_attention(case)
+    print(f"library yardstick vs plain (train_bf16): max_abs_err "
+          f"{max_err(lib_fwd().transpose(1, 2), ro):.3e}")
+    timed = {}
+    for direction in ("fwd", "bwd"):
+        if direction == "fwd":
+            kern = lambda: flash_fwd("kernel", case)  # noqa: E731
+            plain = lambda: flash_fwd("plain", case)  # noqa: E731
+            lib = lib_fwd
+        else:
+            kern = lambda: flash_bwd("kernel", case, o, lse)  # noqa: E731
+            plain = lambda: flash_bwd("plain", case, ro, rlse)  # noqa: E731
+            lib = lib_bwd
+        ms = time_cold_ms(kern, 10)
+        plain_ms = time_cold_ms(plain, 3)
+        library_ms = time_cold_ms(lib, 10)
+        bound_ms, bound_by = flash_bound(case, direction == "bwd")
+        timed[direction] = dict(ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+        print(f"flash_attention {direction} train_bf16 timing (L2 flushed): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{attended_pairs(case)} attended pairs a head), "
+              f"{bound_ms / ms:.1%} of bound")
+    del case, o, lse, ro, rlse, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
+    return results, timed
+
+
+# ---------------------------------------------------------------------------
+# phase 7: full-width training
+# ---------------------------------------------------------------------------
+def phase_train():
+    ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = TRAIN.build_parser().parse_args(["--ckpt-dir", ckpt_dir])
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches_fwd = FA.launches_bwd = 0
+    out = TRAIN.train(args)
+    launches = (FA.launches_fwd, FA.launches_bwd)
+    cfg, hist, shape = out["cfg"], out["history"], out["shape"]
+    micro = out["microbatches"]
+    check(len(hist) == args.steps, f"trained {len(hist)} of {args.steps} "
+                                   "steps")
+    for m in hist:
+        for key in ("loss", "grad_norm"):
+            check(bool(np.isfinite(m[key])) and m[key] != 0,
+                  f"{key} {m[key]} is not finite and nonzero")
+    layers = cfg.num_layers
+    want = (2 * layers * micro * args.steps, layers * micro * args.steps)
+    check(launches == want, f"flash_attention launches (fwd, bwd) "
+                            f"{launches} != {want}")
+    tokens = shape.global_batch * shape.seq_len
+    secs = [m["seconds"] for m in hist]
+    later = secs[1:] or secs
+    print(f"train {cfg.name} ({cfg.param_count() / 1e9:.2f} B params, "
+          f"{cfg.dtype}): {args.steps} steps of {shape.global_batch} x "
+          f"{shape.seq_len} tokens in {micro} microbatches; losses "
+          f"{[round(m['loss'], 4) for m in hist]}, grad_norms "
+          f"{[round(m['grad_norm'], 4) for m in hist]}; s/step "
+          f"{[round(x, 3) for x in secs]} (first includes warm-up); "
+          f"{np.mean(later):.3f} s/step and {tokens / np.mean(later):.1f} "
+          f"tokens/s after the first; flash_attention launches fwd "
+          f"{launches[0]}, bwd {launches[1]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del out
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training parity in float32
+# ---------------------------------------------------------------------------
+def phase_train_parity():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(C.get_arch("internlm2-1.8b"), num_layers=2,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    model = trainable(init_params(cfg, gen, "cuda"))
+    cpu_model = copy.deepcopy(model).cpu()
+    raw = DATA.SyntheticLM(cfg.vocab_size, 3072, 1).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    FA.launches_fwd = FA.launches_bwd = 0
+    loss_gpu, _ = loss_fn(model, cfg, {k: v.cuda() for k, v in batch.items()})
+    loss_gpu.backward()
+    check(FA.launches_bwd == cfg.num_layers,
+          "the card's parity run did not go through the flash kernels")
+    loss_cpu, _ = loss_fn(cpu_model, cfg, batch)
+    loss_cpu.backward()
+    loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
+    diff = abs(loss_gpu - loss_cpu)
+    check(bool(np.isfinite(loss_gpu)), "non-finite loss")
+    check(diff <= TRAIN_LOSS_TOL, f"card vs CPU loss differ by {diff}")
+    print(f"train parity float32 (2 layers, 1 x 3072 tokens, allow_tf32 = "
+          f"False): loss card {loss_gpu:.6f} CPU {loss_cpu:.6f}, diff "
+          f"{diff:.3e} (tol {TRAIN_LOSS_TOL:g})")
+    cpu_params = dict(cpu_model.named_parameters())
+    worst = 0.0
+    for name in ("embed", "lm_head", "final_norm.scale",
+                 "stack.layers.0.norm1.scale", "stack.layers.0.mixer.wq",
+                 "stack.layers.0.mixer.wk", "stack.layers.1.mixer.wv",
+                 "stack.layers.1.mixer.wo", "stack.layers.1.ffn.w_down"):
+        g_gpu = dict(model.named_parameters())[name].grad.cpu()
+        g_cpu = cpu_params[name].grad
+        rel = float((g_gpu - g_cpu).abs().max() / g_cpu.abs().max())
+        worst = max(worst, rel)
+        check(rel <= TRAIN_GRAD_TOL, f"gradient of {name}: card vs CPU "
+                                     f"relative max error {rel:.3e}")
+        print(f"  grad {name} {tuple(g_cpu.shape)}: max|card - CPU| / "
+              f"max|CPU| = {rel:.3e} (tol {TRAIN_GRAD_TOL:g})")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -345,9 +652,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    PA._lib()                                  # builds and loads the kernel
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    _build.build_all(["paged_attention", "flash_attention"])
+    PA._lib(), FA._lib()                       # load the built kernels
+    print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
+        print(f"  {name}: {log['seconds']:.2f} s")
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
@@ -355,8 +664,27 @@ def main() -> int:
     results, timed = phase_kernel()
     launches = phase_serve()
     phase_parity()
+    t0 = time.perf_counter()
+    flash_results, flash_timed = phase_flash()
+    print(f"phase 6 (flash kernels): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_launches = phase_train()
+    print(f"phase 7 (train): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_parity()
+    print(f"phase 8 (train parity): {time.perf_counter() - t0:.1f} s")
 
     serve_t = timed["serve_bf16"]
+    flash_rows = [{
+        "name": f"flash_attention_{direction}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": n,
+        "max_abs_err": flash_results["train_bf16"][f"{direction}_err"],
+        **{k: flash_timed[direction][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for direction, n in zip(("fwd", "bwd"), train_launches)]
     print(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -369,7 +697,7 @@ def main() -> int:
         "bound_ms": serve_t["bound_ms"],
         "bound_by": serve_t["bound_by"],
         "library_ms": serve_t["library_ms"],
-    }]}))
+    }] + flash_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 Every architecture is described by an :class:`ArchConfig` dataclass and
 registered in ``repro_torch.configs``.  The classes are plain frozen
 dataclasses with no framework dependency, so the port keeps its own copy
-instead of importing the JAX package.  Only the decode slice's
-architecture (internlm2-1.8b) is registered so far.
+instead of importing the JAX package.  Only the serving and training
+slices' architecture (internlm2-1.8b) is registered so far; the shape
+cells (``SHAPES``) are the JAX package's.
 """
 from __future__ import annotations
 
@@ -137,6 +138,25 @@ class ArchConfig:
                 + self.num_heads * self.head_dim * d)
         ffn = (3 if self.gated_ffn else 2) * d * self.d_ff
         return total + self.num_layers * (attn + ffn + 2 * d)
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

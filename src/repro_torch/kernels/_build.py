@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
-seconds, not minutes).  The library lives in ``build/repro_torch/`` at
+seconds, not minutes).  :func:`build_all` starts one ``nvcc`` per
+kernel, all at once.  The library lives in ``build/repro_torch/`` at
 the root of the checkout and is named after a hash of the sources and
 flags, so an edit rebuilds.  A failed build raises; nothing falls back.
 """
@@ -14,8 +15,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -51,6 +53,8 @@ def _library_path(name: str) -> Path:
 def _build(name: str) -> Path:
     """Compile kernel ``name`` unless it is built already."""
     lib = _library_path(name)
+    if name in build_log and build_log[name]["path"] == str(lib):
+        return lib
     if lib.exists():
         build_log[name] = {"seconds": 0.0, "ptxas": "", "path": str(lib)}
         return lib
@@ -70,6 +74,13 @@ def _build(name: str) -> Path:
     build_log[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stdout, "path": str(lib)}
     return lib
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Build every kernel in ``names``, one ``nvcc`` each, in parallel."""
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        list(pool.map(_build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 
 
@@ -25,3 +26,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
                                        valid_lens, window=window)
     raise ValueError(f"no paged_attention for device {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Differentiable self-attention q (B, S, H, D), k/v (B, S, KH, D)
+    (see kernels/flash_attention.py).  On the card the forward and the
+    backward are CUDA kernels; on the CPU autograd differentiates the
+    plain version."""
+    if q.device.type == "cuda":
+        return FlashAttention.apply(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    raise ValueError(f"no flash_attention for device {q.device}")

@@ -98,10 +98,13 @@ def serve(args: argparse.Namespace) -> Dict:
 def print_profile(prof, seconds: float) -> None:
     """Time by operator, and the share of the run's wall clock in which
     the card ran a kernel (the profiler slows the host, so the share is
-    a lower bound of the unprofiled run's)."""
+    a lower bound of the unprofiled run's).  A scheduled profile's step
+    ranges (``ProfilerStep*``) also sit on the device's timeline; they
+    span the kernels and are left out of the sum."""
     avg = prof.key_averages()
     on_device = [e for e in avg
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith("ProfilerStep")]
     sort = "self_device_time_total" if on_device else "self_cpu_time_total"
     print(avg.table(sort_by=sort, row_limit=25))
     if on_device:

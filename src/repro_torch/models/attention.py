@@ -1,14 +1,20 @@
-"""GQA attention for decode: the dense-cache and paged-cache paths.
+"""GQA attention: the training path and the dense-cache and paged-cache
+decode paths.
 
-Mirrors ``repro.models.attention`` ``attn_decode_dense`` and
-``attn_decode_paged``.  KV caches and pools are updated in place.  What
-every layer of one decode step shares (rope tables at the step's
-positions, the translated block table, the page and slot receiving the
-new token) is computed once per step by :func:`prepare_decode`: PyTorch
-runs eagerly, and recomputing it in each layer only adds small launches.
-The mesh branch of the paged path (``_paged_attend_shardmap``) belongs
-to the parallel slice and is not ported yet; train/prefill attention,
-MLA and cross-attention wait for their slices too.
+Mirrors ``repro.models.attention`` ``full_attention``,
+``self_attention``, ``attn_apply``, ``attn_decode_dense`` and
+``attn_decode_paged``.  Training attention above
+:data:`BLOCKWISE_THRESHOLD` tokens goes to ``kernels.ops.flash_attention``
+(the CUDA flash kernels on the card, where the JAX package runs its jnp
+``blockwise_attention`` under ``jax.checkpoint``); shorter sequences take
+the masked softmax of :func:`full_attention`.  KV caches and pools are
+updated in place.  What every layer of one decode step shares (rope
+tables at the step's positions, the translated block table, the page
+and slot receiving the new token) is computed once per step by
+:func:`prepare_decode`: PyTorch runs eagerly, and recomputing it in each
+layer only adds small launches.  The mesh branch of the paged path
+(``_paged_attend_shardmap``) belongs to the parallel slice and is not
+ported yet; MLA and cross-attention wait for their slices too.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.kernels import ops as KOPS
 from repro_torch.models.layers import (apply_rope, dense_init, frozen,
                                        rope_tables)
 
+BLOCKWISE_THRESHOLD = 2048
 NEG_INF = -1e30
 
 
@@ -104,6 +111,51 @@ def _gqa_scores_attend(q, k, v, mask, scale):
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def full_attention(q, k, v, *, causal: bool, window: int = 0
+                   ) -> torch.Tensor:
+    """Masked softmax attention. q:(B,Sq,H,D), k/v:(B,Skv,K,D), query i
+    at position i.  ``window``: if >0, keys older than ``window``
+    positions are masked.
+    """
+    qpos = torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return _gqa_scores_attend(q, k, v, mask[None],
+                              1.0 / math.sqrt(q.shape[-1]))
+
+
+def self_attention(q, k, v, *, causal: bool = True, window: int = 0
+                   ) -> torch.Tensor:
+    """The JAX package's branch: blockwise (flash) attention above
+    :data:`BLOCKWISE_THRESHOLD` tokens, masked softmax below."""
+    if q.shape[1] > BLOCKWISE_THRESHOLD and q.shape[1] == k.shape[1]:
+        return KOPS.flash_attention(q, k, v, causal=causal, window=window)
+    return full_attention(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# GQA layer: train
+# ---------------------------------------------------------------------------
+def attn_apply(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, cfg) -> torch.Tensor:
+    """Causal GQA self-attention of a decoder layer.  x: (B, S, D);
+    ``cos``/``sin``: rope tables at the sequence's positions
+    (:func:`rope_tables`, built once for all layers).  Returns y:
+    (B, S, D)."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = apply_rope((x @ attn.wq).reshape(b, s, h, hd), cos, sin)
+    k = apply_rope((x @ attn.wk).reshape(b, s, kh, hd), cos, sin)
+    v = (x @ attn.wv).reshape(b, s, kh, hd)
+    out = self_attention(q, k, v, causal=True)
+    return out.reshape(b, s, h * hd) @ attn.wo
 
 
 # ---------------------------------------------------------------------------

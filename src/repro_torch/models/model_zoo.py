@@ -1,16 +1,19 @@
-"""Top-level model API: init / prefill / decode.
+"""Top-level model API: init / train forward / prefill / decode.
 
-Entry points used by serving/ and launch/ (counterparts of
+Entry points used by train/, serving/ and launch/ (counterparts of
 ``repro.models.model_zoo``):
 
   init_params(cfg, generator, device)    -> Model
   params_from_numpy(cfg, tree, device)   -> Model (the JAX weights)
+  params_to_numpy(model)                 -> the JAX init_params tree
+  forward_train(model, cfg, batch)       -> (logits, aux_loss)
   init_decode_state(cfg, batch, max_len, kv_mode, page_size, ...) -> state
   decode_step(model, cfg, state, tokens, kv_mode) -> (logits, state)
   prefill(model, cfg, tokens, ...)       -> (logits, state)
 
 KV modes: "dense" | "paged_flat" (NDPage) | "paged_radix" (2-level
-baseline).  ``forward_train`` waits for the training slice.
+baseline).  A model's weights are built frozen, for decode; the trainer
+(``train.train_loop``) turns ``requires_grad`` on.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ class Model(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
         self.lm_head = frozen(dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dt, device))
+        self.cfg = cfg
 
 
 def model_device(model: Model) -> torch.device:
@@ -97,9 +101,56 @@ def params_from_numpy(cfg: C.ArchConfig, tree: Dict[str, Any],
     return model
 
 
+def params_to_numpy(model: Model, *, grads: bool = False
+                    ) -> Dict[str, Any]:
+    """The reverse of :func:`params_from_numpy`: the model's weights (or,
+    with ``grads``, their ``.grad``) as float32 numpy arrays in the JAX
+    ``init_params`` tree, the layers of each ``layer_pattern`` position
+    stacked on the leading period axis of ``stack.scan``."""
+    cfg = model.cfg
+
+    def get(param: torch.Tensor) -> np.ndarray:
+        t = param.grad if grads else param
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        return t.detach().float().cpu().numpy()
+
+    period = len(cfg.layer_pattern)
+    scan = {}
+    for j in range(period):
+        blocks = list(model.stack.layers)[j::period]
+        stack = lambda f: np.stack([get(f(b)) for b in blocks])  # noqa: E731
+        scan[f"block_{j}"] = {
+            "norm1": {"scale": stack(lambda b: b.norm1.scale)},
+            "norm2": {"scale": stack(lambda b: b.norm2.scale)},
+            "mixer": {n: stack(lambda b, n=n: getattr(b.mixer, n))
+                      for n in ("wq", "wk", "wv", "wo")},
+            "ffn": {n: stack(lambda b, n=n: getattr(b.ffn, n))
+                    for n in ("w_up", "w_down", "w_gate")},
+        }
+    return {"embed": get(model.embed),
+            "stack": {"prefix": [], "scan": scan},
+            "final_norm": {"scale": get(model.final_norm.scale)},
+            "lm_head": get(model.lm_head)}
+
+
 def _logits(model: Model, cfg, x: torch.Tensor) -> torch.Tensor:
     x = model.final_norm(x, cfg.rms_norm_eps)
     return (x @ model.lm_head).float()
+
+
+# ---------------------------------------------------------------------------
+# train forward
+# ---------------------------------------------------------------------------
+def forward_train(model: Model, cfg: C.ArchConfig,
+                  batch: Dict[str, torch.Tensor]):
+    """batch: tokens (B, S) on the model's device.  Returns (logits
+    (B, S, V) float32, aux_loss scalar)."""
+    tokens = batch["tokens"]
+    x = model.embed[tokens.long()]
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    x, aux = T.stack_apply_train(model.stack, x, positions, cfg)
+    return _logits(model, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------

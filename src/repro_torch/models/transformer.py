@@ -1,10 +1,12 @@
-"""Block + stack assembly for decode.
+"""Block + stack assembly for training and decode.
 
 The JAX package scans one period of ``layer_pattern`` over stacked
 parameters (``lax.scan``); PyTorch runs eagerly, so the stack here is an
-``nn.ModuleList`` with one ``Block`` per layer and decode is a Python
-loop over it.  Decode state is a list with one dict per layer.  KV
-backends:
+``nn.ModuleList`` with one ``Block`` per layer and training and decode
+are Python loops over it.  With ``cfg.remat`` each training block runs
+under ``torch.utils.checkpoint`` (the JAX side remats each period with
+``jax.checkpoint``; internlm2's period is one block).  Decode state is a
+list with one dict per layer.  KV backends:
   dense       contiguous per-layer KV cache (the no-translation baseline)
   paged_flat  NDPage flattened single-level block table (one indirection)
   paged_radix 2-level directory->leaf block table (two indirections)
@@ -15,14 +17,15 @@ item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import config as C
 from repro_torch.models import attention as A
-from repro_torch.models.layers import FFN, RMSNorm, ffn_apply
+from repro_torch.models.layers import FFN, RMSNorm, ffn_apply, rope_tables
 
 _ROADMAP_ITEM = "ROADMAP module queue item 8, other model families"
 _NOT_PORTED = {C.ATTN_LOCAL: "sliding-window attention",
@@ -56,6 +59,16 @@ class Block(nn.Module):
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
         self.mixer = A.Attention(cfg, dt, device, generator)
         self.ffn = FFN(cfg.d_model, cfg.d_ff, dt, device, generator)
+
+
+def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, cfg
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D).  Returns (x', aux); aux is 0 for a dense FFN."""
+    h = block.norm1(x, cfg.rms_norm_eps)
+    x = x + A.attn_apply(block.mixer, h, cos, sin, cfg)
+    h2 = block.norm2(x, cfg.rms_norm_eps)
+    return x + ffn_apply(block.ffn, h2), torch.zeros((), device=x.device)
 
 
 def block_init_state(cfg, batch: int, max_len: int, kv_mode: str,
@@ -100,6 +113,24 @@ class Stack(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, mk, fk, device, generator)
             for mk, fk in cfg.layer_kinds())
+
+
+def stack_apply_train(stack: Stack, x: torch.Tensor,
+                      positions: torch.Tensor, cfg
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D); positions: (B|1, S).  Returns (x, aux_sum).  The
+    rope tables are built once for all layers (inside a checkpointed
+    block they would be rebuilt in the backward's recompute)."""
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    aux = torch.zeros((), device=x.device)
+    for block in stack.layers:
+        if cfg.remat:
+            x, a = checkpoint(block_apply_train, block, x, cos, sin, cfg,
+                              use_reentrant=False)
+        else:
+            x, a = block_apply_train(block, x, cos, sin, cfg)
+        aux = aux + a
+    return x, aux
 
 
 def stack_init_state(cfg, batch: int, max_len: int, kv_mode: str,

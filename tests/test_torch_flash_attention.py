@@ -1,0 +1,192 @@
+"""The port's flash attention (plain version, the CPU path) against the
+JAX package: the Pallas kernel in interpret mode, its jnp oracle
+``ref.flash_attention_ref`` and the model path's ``blockwise_attention``;
+gradients against ``jax.vjp`` of ``blockwise_attention``.
+
+Inputs are drawn with numpy from a seed and handed to both sides.
+Tolerances (atol = rtol): forward 2e-5 in float32 and 2e-2 in bf16, the
+JAX package's kernel tests' own (``tests/test_kernels.py``).  Gradients
+in float32 5e-5: each gradient element sums S products over the keys
+or queries in another order than XLA's (errors seen up to 4e-6 on
+values up to 8.5).  bf16 gradients are held to the bf16 2e-2: JAX's
+autodiff rounds to bf16 at other places than the port's backward (which
+works in float32 from the saved log-sum-exp), so they differ by up to
+one bf16 rounding step of the result (3.1e-2 seen on values of 4-8.5).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models import attention as jattn
+from repro.models.attention import blockwise_attention
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as A
+
+FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+
+# tests/test_kernels.py's shapes: (b, s, h, kh, d, bq, bk)
+SHAPES = [
+    (2, 128, 4, 2, 64, 64, 64),      # GQA
+    (1, 256, 8, 8, 32, 64, 128),     # MHA
+    (2, 128, 4, 1, 128, 32, 32),     # MQA
+]
+MASKS = [(True, 16), (False, 0)]
+
+
+def _inputs(b, s, h, kh, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, d), np.float32),
+            rng.standard_normal((b, s, kh, d), np.float32),
+            rng.standard_normal((b, s, kh, d), np.float32),
+            rng.standard_normal((b, s, h, d), np.float32))
+
+
+def _torch(arrays, dtype):
+    return [torch.tensor(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,bq,bk", SHAPES)
+def test_forward_matches_pallas_and_oracle(b, s, h, kh, d, bq, bk, dtype):
+    arrays = _inputs(b, s, h, kh, d, seed=0)[:3]
+    q, k, v = _torch(arrays, dtype)
+    jq, jk, jv = _jax(arrays, dtype)
+    got = ref.flash_attention_ref(q, k, v, causal=True)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    pallas = flash_attention_pallas(jq, jk, jv, causal=True, bq=bq, bk=bk,
+                                    interpret=True)
+    _close(got, pallas, FWD_TOL[dtype])
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=True),
+           FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_masks_match_pallas(causal, window):
+    q, k, v = _torch(_inputs(1, 128, 2, 2, 64, seed=1)[:3], "float32")
+    jq, jk, jv = _jax(_inputs(1, 128, 2, 2, 64, seed=1)[:3], "float32")
+    got = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  bq=32, bk=32, interpret=True)
+    _close(got, want, FWD_TOL["float32"])
+
+
+def test_matches_blockwise_across_kv_blocks():
+    """S = 1024 spans two of the plain version's 512-key blocks."""
+    arrays = _inputs(1, 1024, 4, 2, 32, seed=2)[:3]
+    got = ref.flash_attention_ref(*_torch(arrays, "float32"), causal=True,
+                                  window=300)
+    want = blockwise_attention(*_jax(arrays, "float32"), causal=True,
+                               window=300, q_chunk=256, kv_chunk=256)
+    _close(got, want, FWD_TOL["float32"])
+
+
+def test_blockwise_window_case():
+    """tests/test_kernels.py's blockwise case (window 50)."""
+    arrays = _inputs(2, 256, 4, 2, 32, seed=3)[:3]
+    got = ref.flash_attention_ref(*_torch(arrays, "float32"), causal=True,
+                                  window=50)
+    want = blockwise_attention(*_jax(arrays, "float32"), causal=True,
+                               window=50, q_chunk=64, kv_chunk=64)
+    _close(got, want, FWD_TOL["float32"])
+
+
+def _jax_grads(arrays, dtype, causal, window):
+    jq, jk, jv, jdo = _jax(arrays, dtype)
+    _, vjp = jax.vjp(lambda q, k, v: blockwise_attention(
+        q, k, v, causal=causal, window=window, q_chunk=64, kv_chunk=64),
+        jq, jk, jv)
+    return vjp(jdo)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
+    (2, 128, 4, 2, 64, True, 0),      # GQA
+    (1, 256, 8, 8, 32, True, 0),      # MHA
+    (2, 128, 4, 1, 128, True, 0),     # MQA
+    (1, 128, 2, 2, 64, True, 16),     # sliding window
+    (1, 128, 2, 2, 64, False, 0),     # non-causal
+])
+def test_gradients_match_jax(b, s, h, kh, d, causal, window, dtype):
+    arrays = _inputs(b, s, h, kh, d, seed=4)
+    want = _jax_grads(arrays, dtype, causal, window)
+    q, k, v, do = _torch(arrays, dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = ref.flash_attention_ref(*leaves, causal=causal,
+                                       window=window, return_lse=True)
+    out.backward(do)
+    bwd = ref.flash_attention_bwd_ref(q, k, v, out.detach(), lse.detach(),
+                                      do, causal=causal, window=window)
+    tol = GRAD_TOL[dtype]
+    for name, leaf, kernel_ref, w in zip("qkv", leaves, bwd, want):
+        assert kernel_ref.dtype == leaf.dtype
+        _close(leaf.grad, w, tol)
+        _close(kernel_ref, w, tol)
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (64, True, 0), (64, True, 16), (64, False, 0),     # full_attention
+    (3072, True, 0),                                   # the flash branch
+])
+def test_self_attention_matches_jax(s, causal, window):
+    """Both branches of self_attention (threshold 2048 tokens) against
+    the JAX package's, float32."""
+    arrays = _inputs(1, s, 4, 2, 16, seed=8)[:3]
+    got = A.self_attention(*_torch(arrays, "float32"), causal=causal,
+                           window=window)
+    want = jattn.self_attention(*_jax(arrays, "float32"), causal=causal,
+                                window=window)
+    _close(got, want, FWD_TOL["float32"])
+
+
+def test_bwd_ref_lse_is_logsumexp():
+    q, k, v = _torch(_inputs(1, 64, 2, 1, 16, seed=5)[:3], "float32")
+    _, lse = ref.flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    sc = torch.einsum("bshd,btd->bhst", q, k[:, :, 0]) / 4.0
+    mask = torch.ones(64, 64, dtype=torch.bool).tril()
+    want = torch.logsumexp(sc.masked_fill(~mask, -torch.inf), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ops_dispatch_cpu_is_differentiable_plain_version():
+    arrays = _inputs(1, 64, 4, 2, 16, seed=6)
+    q, k, v, do = _torch(arrays, "float32")
+    q.requires_grad_(True)
+    out = ops.flash_attention(q, k, v, causal=True)
+    np.testing.assert_array_equal(
+        out.detach().numpy(),
+        ref.flash_attention_ref(q.detach(), k, v, causal=True).numpy())
+    out.backward(do)
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    q, k, v, do = _torch(_inputs(1, 64, 4, 2, 16, seed=7), "float32")
+    before = (FA.launches_fwd, FA.launches_bwd)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_fwd_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 4, 64), do)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.FlashAttention.apply(q, k, v, True, 0)
+    assert (FA.launches_fwd, FA.launches_bwd) == before
