@@ -17,18 +17,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   5. engine parity in float32 at full width and 2 layers: ServeEngine's
      token streams equal greedy_reference's in every table mode, and the
      card's logits agree with the CPU's plain path;
-  6. the flash-attention kernels, forward and backward, against their
-     plain versions (and the backward against autograd of the plain
-     forward) at the training shape and at window, non-causal, MQA and
-     ragged cases, with the same four times;
+  6. the flash-attention kernels of both routes (bf16: the sm90
+     tensor-core kernels; float32: the simt kernels), forward and
+     backward, against their plain versions (and the backward against
+     autograd of the plain forward) at the training shape and at window,
+     non-causal, MQA and ragged cases; each route timed at its own
+     path's shape with the same four times and the achieved TFLOP/s; the
+     sm90 backward run twice and held bit-identical;
   7. full-width internlm2-1.8b trained through the port's launcher: 3
      steps of 8 x 4,096 tokens in 4 microbatches, every attention layer
-     through the flash kernels (forward twice a step per layer and
+     through the sm90 flash kernels (forward twice a step per layer and
      microbatch, with the recompute of activation checkpointing;
      backward once);
   8. training parity in float32 at full width, 2 layers, one 3,072-token
-     sequence: the card's loss and gradients agree with the CPU's plain
-     path;
+     sequence, through the simt flash kernels: the card's loss and
+     gradients agree with the CPU's plain path;
   9. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
@@ -376,6 +379,14 @@ def phase_parity():
 # ---------------------------------------------------------------------------
 #: the training path's attention call: one microbatch of 2 sequences
 TRAIN_ATTN = dict(b=2, s=4096, h=16, kh=8, d=128, causal=True, window=0)
+#: phase 8's attention call (float32, the simt route's path)
+PARITY_ATTN = dict(TRAIN_ATTN, b=1, s=3072)
+#: each route is timed at its own path's shape and dtype
+ROUTE_CASES = {"sm90": (TRAIN_ATTN, torch.bfloat16),
+               "simt": (PARITY_ATTN, torch.float32)}
+_CSRC = "src/repro_torch/kernels/csrc"
+FLASH_SOURCES = {"sm90": f"{_CSRC}/flash_attention_sm90.cu",
+                 "simt": f"{_CSRC}/flash_attention.cu"}
 
 
 def flash_case(*, b, s, h, kh, d, causal, window, dtype, seed):
@@ -415,6 +426,14 @@ def flash_bound(case, backward: bool):
     t_ops = flops / PEAK_FLOPS[q.dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_flops(case, backward: bool) -> int:
+    """Operations of the products the kernels run: 4 D an attended pair
+    and head forward, 14 D backward (the dQ kernel recomputes S and dP:
+    seven products where the bound counts five)."""
+    b, _, h, d = case["q"].shape
+    return (14 if backward else 4) * b * h * d * attended_pairs(case)
 
 
 def flash_fwd(impl, case):
@@ -487,9 +506,15 @@ def phase_flash():
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for i, (name, shape) in enumerate(shapes.items()):
             case = flash_case(**shape, dtype=dt, seed=10 + i)
+            route = FA._route(dt, shape["d"])
+            before = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
             o, lse = flash_fwd("kernel", case)
             ro, rlse = flash_fwd("plain", case)
             grads = flash_bwd("kernel", case, o, lse)
+            sm90 = (FA.launches_sm90_fwd - before[0],
+                    FA.launches_sm90_bwd - before[1])
+            check(sm90 == ((1, 1) if route == "sm90" else (0, 0)),
+                  f"{name}_{tag}: sm90 launches {sm90} on the {route} route")
             want = flash_bwd("plain", case, ro, rlse)
             auto = autograd_of_plain(case)
             torch.cuda.synchronize()
@@ -506,8 +531,9 @@ def phase_flash():
                 ok &= r["fwd_err"] <= FLASH_TIGHT_BF16
             r["ok"] = ok
             results[f"{name}_{tag}"] = r
-            print(f"flash_attention {name}_{tag} {shape}: fwd max_abs_err "
-                  f"{r['fwd_err']:.3e} (allclose {fwd_tol:g}), lse "
+            print(f"flash_attention {name}_{tag} ({route}) {shape}: fwd "
+                  f"max_abs_err {r['fwd_err']:.3e} (allclose {fwd_tol:g}), "
+                  f"lse "
                   f"{r['lse_err']:.3e} (2e-05), bwd vs bwd_ref max_abs_err "
                   f"{r['bwd_err']:.3e}, of scale {r['bwd_scaled']:.3e} "
                   f"({bwd_tol:g}), bwd vs autograd of plain, of scale "
@@ -517,11 +543,36 @@ def phase_flash():
     check(all(r["ok"] for r in results.values()),
           "flash_attention kernels disagree with their plain versions")
 
-    case = flash_case(**TRAIN_ATTN, dtype=torch.bfloat16, seed=10)
+    timed = {route: time_route(route) for route in ROUTE_CASES}
+    torch.cuda.empty_cache()
+    return timed
+
+
+def time_route(route: str) -> dict:
+    """A route's kernels, plain versions and SDPA at its path's shape:
+    times with L2 flushed, bound, achieved TFLOP/s, max abs errors; the
+    sm90 backward is also run twice and held bit-identical."""
+    shape, dtype = ROUTE_CASES[route]
+    case = flash_case(**shape, dtype=dtype, seed=10)
+    check(FA._route(dtype, shape["d"]) == route, f"{route} case is routed "
+                                                 f"elsewhere")
     o, lse = flash_fwd("kernel", case)
     ro, rlse = flash_fwd("plain", case)
+    grads = flash_bwd("kernel", case, o, lse)
+    want = flash_bwd("plain", case, ro, rlse)
+    errs = {"fwd": max_err(o, ro),
+            "bwd": max(max_err(g, w) for g, w in zip(grads, want))}
+    if route == "sm90":
+        again = flash_bwd("kernel", case, o, lse)
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        check(same, "two sm90 backward runs on the same inputs differ")
+        print("flash_attention sm90 backward deterministic: two runs give "
+              "bit-identical dq, dk, dv")
+        del again
+    del grads, want
     lib_fwd, lib_bwd = library_attention(case)
-    print(f"library yardstick vs plain (train_bf16): max_abs_err "
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"library yardstick vs plain ({route}, {tag}): max_abs_err "
           f"{max_err(lib_fwd().transpose(1, 2), ro):.3e}")
     timed = {}
     for direction in ("fwd", "bwd"):
@@ -533,21 +584,23 @@ def phase_flash():
             kern = lambda: flash_bwd("kernel", case, o, lse)  # noqa: E731
             plain = lambda: flash_bwd("plain", case, ro, rlse)  # noqa: E731
             lib = lib_bwd
+        backward = direction == "bwd"
         ms = time_cold_ms(kern, 10)
         plain_ms = time_cold_ms(plain, 3)
         library_ms = time_cold_ms(lib, 10)
-        bound_ms, bound_by = flash_bound(case, direction == "bwd")
+        bound_ms, bound_by = flash_bound(case, backward)
+        tflops = kernel_flops(case, backward) / (ms * 1e-3) / 1e12
         timed[direction] = dict(ms=ms, plain_ms=plain_ms,
                                 library_ms=library_ms, bound_ms=bound_ms,
-                                bound_by=bound_by)
-        print(f"flash_attention {direction} train_bf16 timing (L2 flushed): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{attended_pairs(case)} attended pairs a head), "
-              f"{bound_ms / ms:.1%} of bound")
-    del case, o, lse, ro, rlse, lib_fwd, lib_bwd
-    torch.cuda.empty_cache()
-    return results, timed
+                                bound_by=bound_by, tflops=tflops,
+                                max_abs_err=errs[direction])
+        print(f"flash_attention {route} {direction} {tag} {shape} timing (L2 "
+              f"flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {attended_pairs(case)} attended pairs a head), "
+              f"{bound_ms / ms:.1%} of bound, {tflops:.1f} TFLOP/s achieved "
+              f"({14 if backward else 4}·D an attended pair)")
+    return timed
 
 
 # ---------------------------------------------------------------------------
@@ -559,8 +612,10 @@ def phase_train():
     args = TRAIN.build_parser().parse_args(["--ckpt-dir", ckpt_dir])
     torch.cuda.reset_peak_memory_stats()
     FA.launches_fwd = FA.launches_bwd = 0
+    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
     out = TRAIN.train(args)
     launches = (FA.launches_fwd, FA.launches_bwd)
+    sm90 = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
     cfg, hist, shape = out["cfg"], out["history"], out["shape"]
     micro = out["microbatches"]
     check(len(hist) == args.steps, f"trained {len(hist)} of {args.steps} "
@@ -573,6 +628,8 @@ def phase_train():
     want = (2 * layers * micro * args.steps, layers * micro * args.steps)
     check(launches == want, f"flash_attention launches (fwd, bwd) "
                             f"{launches} != {want}")
+    check(sm90 == want, f"sm90 flash_attention launches (fwd, bwd) {sm90} "
+                        f"!= {want}: the bf16 train left the sm90 route")
     tokens = shape.global_batch * shape.seq_len
     secs = [m["seconds"] for m in hist]
     later = secs[1:] or secs
@@ -584,7 +641,8 @@ def phase_train():
           f"{[round(x, 3) for x in secs]} (first includes warm-up); "
           f"{np.mean(later):.3f} s/step and {tokens / np.mean(later):.1f} "
           f"tokens/s after the first; flash_attention launches fwd "
-          f"{launches[0]}, bwd {launches[1]}; peak memory "
+          f"{launches[0]}, bwd {launches[1]} (sm90 {sm90[0]}, {sm90[1]}); "
+          f"peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del out
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -606,10 +664,16 @@ def phase_train_parity():
     raw = DATA.SyntheticLM(cfg.vocab_size, 3072, 1).batch_at(0)
     batch = {k: torch.from_numpy(v) for k, v in raw.items()}
     FA.launches_fwd = FA.launches_bwd = 0
+    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
     loss_gpu, _ = loss_fn(model, cfg, {k: v.cuda() for k, v in batch.items()})
     loss_gpu.backward()
-    check(FA.launches_bwd == cfg.num_layers,
+    launches = (FA.launches_fwd, FA.launches_bwd)
+    check(FA.launches_bwd == cfg.num_layers and FA.launches_fwd > 0,
           "the card's parity run did not go through the flash kernels")
+    check(FA.launches_sm90_fwd == FA.launches_sm90_bwd == 0,
+          "the float32 parity run went through the sm90 kernels")
+    print(f"train parity flash_attention launches: simt fwd {launches[0]}, "
+          f"bwd {launches[1]}; sm90 0, 0")
     loss_cpu, _ = loss_fn(cpu_model, cfg, batch)
     loss_cpu.backward()
     loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
@@ -620,7 +684,6 @@ def phase_train_parity():
           f"False): loss card {loss_gpu:.6f} CPU {loss_cpu:.6f}, diff "
           f"{diff:.3e} (tol {TRAIN_LOSS_TOL:g})")
     cpu_params = dict(cpu_model.named_parameters())
-    worst = 0.0
     for name in ("embed", "lm_head", "final_norm.scale",
                  "stack.layers.0.norm1.scale", "stack.layers.0.mixer.wq",
                  "stack.layers.0.mixer.wk", "stack.layers.1.mixer.wv",
@@ -628,14 +691,13 @@ def phase_train_parity():
         g_gpu = dict(model.named_parameters())[name].grad.cpu()
         g_cpu = cpu_params[name].grad
         rel = float((g_gpu - g_cpu).abs().max() / g_cpu.abs().max())
-        worst = max(worst, rel)
         check(rel <= TRAIN_GRAD_TOL, f"gradient of {name}: card vs CPU "
                                      f"relative max error {rel:.3e}")
         print(f"  grad {name} {tuple(g_cpu.shape)}: max|card - CPU| / "
               f"max|CPU| = {rel:.3e} (tol {TRAIN_GRAD_TOL:g})")
     del model, cpu_model
     torch.cuda.empty_cache()
-    return worst
+    return launches
 
 
 def main() -> int:
@@ -652,8 +714,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build_all(["paged_attention", "flash_attention"])
-    PA._lib(), FA._lib()                       # load the built kernels
+    _build.build_all(["paged_attention", "flash_attention",
+                      "flash_attention_sm90"])
+    PA._lib(), FA._lib(), FA._lib_sm90()       # load the built kernels
     print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
         print(f"  {name}: {log['seconds']:.2f} s")
@@ -665,26 +728,28 @@ def main() -> int:
     launches = phase_serve()
     phase_parity()
     t0 = time.perf_counter()
-    flash_results, flash_timed = phase_flash()
+    flash_timed = phase_flash()
     print(f"phase 6 (flash kernels): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train_launches = phase_train()
     print(f"phase 7 (train): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_train_parity()
+    parity_launches = phase_train_parity()
     print(f"phase 8 (train parity): {time.perf_counter() - t0:.1f} s")
 
     serve_t = timed["serve_bf16"]
+    path_launches = {"sm90": train_launches, "simt": parity_launches}
     flash_rows = [{
-        "name": f"flash_attention_{direction}",
+        "name": f"flash_attention_{route}_{direction}",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": FLASH_SOURCES[route],
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": n,
-        "max_abs_err": flash_results["train_bf16"][f"{direction}_err"],
-        **{k: flash_timed[direction][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    } for direction, n in zip(("fwd", "bwd"), train_launches)]
+        **{k: flash_timed[route][direction][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for route in ROUTE_CASES
+        for direction, n in zip(("fwd", "bwd"), path_launches[route])]
     print(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",

@@ -13,6 +13,9 @@ autodiff rounds to bf16 at other places than the port's backward (which
 works in float32 from the saved log-sum-exp), so they differ by up to
 one bf16 rounding step of the result (3.1e-2 seen on values of 4-8.5).
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,13 +183,74 @@ def test_ops_dispatch_cpu_is_differentiable_plain_version():
     assert q.grad is not None and torch.isfinite(q.grad).all()
 
 
-def test_cuda_wrapper_rejects_cpu_tensors():
-    q, k, v, do = _torch(_inputs(1, 64, 4, 2, 16, seed=7), "float32")
-    before = (FA.launches_fwd, FA.launches_bwd)
+@pytest.mark.parametrize("dtype,d", [("float32", 16), ("bfloat16", 64)],
+                         ids=["simt", "sm90"])
+def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
+    q, k, v, do = _torch(_inputs(1, 64, 4, 2, d, seed=7), dtype)
+    counters = ("launches_fwd", "launches_bwd", "launches_sm90_fwd",
+                "launches_sm90_bwd")
+    before = [getattr(FA, c) for c in counters]
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_fwd_cuda(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 4, 64), do)
     with pytest.raises(ValueError, match="CUDA"):
         FA.FlashAttention.apply(q, k, v, True, 0)
-    assert (FA.launches_fwd, FA.launches_bwd) == before
+    assert [getattr(FA, c) for c in counters] == before
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 96, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 96, ValueError), (torch.bfloat16, 256, ValueError),
+    (torch.float32, 256, ValueError), (torch.float16, 128, ValueError),
+])
+def test_route(dtype, d, route):
+    """bf16 with head_dim 64 / 128 takes the tensor-core kernels, float32
+    up to 128 the CUDA-core ones; nothing else has a kernel."""
+    if route is ValueError:
+        with pytest.raises(ValueError, match="no flash_attention kernel"):
+            FA._route(dtype, d)
+    else:
+        assert FA._route(dtype, d) == route
+
+
+def _chip_smoke():
+    """The repository's chip_smoke.py as a module (importing it needs no
+    card: its checks run in main())."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("causal,window", [
+    (True, 0), (True, 7), (False, 0), (False, 7), (True, 100)])
+def test_chip_smoke_pairs_and_bound_match_brute_force(causal, window):
+    cs = _chip_smoke()
+    b, s, h, kh, d = 2, 50, 4, 2, 16
+    case = dict(q=torch.zeros(b, s, h, d, dtype=torch.bfloat16),
+                k=torch.zeros(b, s, kh, d, dtype=torch.bfloat16),
+                causal=causal, window=window)
+    qp, kp = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    pairs = int(mask.sum())
+    assert cs.attended_pairs(case) == pairs
+    q_bytes, kv_bytes, lse_bytes = b * s * h * d * 2, b * s * kh * d * 2, \
+        b * h * s * 4
+    for backward, ops, nbytes in (
+            (False, 4, 2 * q_bytes + 2 * kv_bytes + lse_bytes),
+            (True, 10, 4 * q_bytes + 4 * kv_bytes + lse_bytes)):
+        t_ops = ops * d * b * h * pairs / cs.PEAK_FLOPS[torch.bfloat16]
+        t_bytes = nbytes / cs.HBM_BYTES_PER_S
+        ms, by = cs.flash_bound(case, backward)
+        assert ms == pytest.approx(max(t_ops, t_bytes) * 1e3, rel=1e-12)
+        assert by == ("bytes" if t_bytes >= t_ops else "operations")
+        assert cs.kernel_flops(case, backward) == \
+            (14 if backward else 4) * d * b * h * pairs
