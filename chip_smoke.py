@@ -7,20 +7,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel (serving and training paths), one
      nvcc per kernel, all started together, with its time;
-  3. the paged-attention kernel against its plain PyTorch version on the
-     card, at the serving path's shapes, with its time, the plain
-     version's, a PyTorch library yardstick's and the least time the
-     card could take;
+  3. the paged-attention kernel (split-K over pages, then a combine
+     pass) against its plain PyTorch version on the card, at the serving
+     path's shapes, with its time, the plain version's, a PyTorch library
+     yardstick's and the least time the card could take; the split plan
+     (pages a split, splits, blocks) at the serve and B 8 shapes, and
+     every split size held and timed there;
   4. full-width internlm2-1.8b (bf16, random weights from a seed) served
      through the port's launcher: 8 requests, 32 new tokens each, every
      attention layer of every step through the paged-attention kernel;
   5. engine parity in float32 at full width and 2 layers: ServeEngine's
      token streams equal greedy_reference's in every table mode, and the
      card's logits agree with the CPU's plain path;
-  6. the flash-attention kernels of both routes (bf16: the sm90
-     tensor-core kernels; float32: the simt kernels), forward and
-     backward, against their plain versions (and the backward against
-     autograd of the plain forward) at the training shape and at window,
+  6. the design of the float32 backward (3xTF32 tensor-core products)
+     and the ptxas report of its kernels; the flash-attention kernels of
+     both routes (bf16: the sm90 tensor-core kernels; float32: the simt
+     kernels), forward and backward, against their plain versions (and
+     the backward against autograd of the plain forward) at the training
+     shape and at window,
      non-causal, MQA and ragged cases; each route timed at its own
      path's shape with the same four times and the achieved TFLOP/s; the
      sm90 backward run twice and held bit-identical;
@@ -43,6 +47,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -67,9 +72,11 @@ from repro_torch.serving import ServeEngine, greedy_reference  # noqa: E402
 from repro_torch.train import data as DATA  # noqa: E402
 from repro_torch.train.train_loop import loss_fn, trainable  # noqa: E402
 
-#: NVIDIA H100 SXM data sheet, dense, at the 700 W limit
+#: NVIDIA H100 SXM data sheet, dense, at the 700 W limit.  float32: the
+#: TF32 tensor-core peak (494.7 TFLOP/s) over three, the least time for
+#: float32-accurate products, which the simt backward runs as 3xTF32
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 #: allclose tolerance (atol = rtol) of the kernel against its plain
 #: version: the JAX package's kernel tests use the same
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -111,6 +118,22 @@ SLEEP_CYCLES = 10_000_000        # about 5 ms at the H100's clock
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def ptxas_lines(name: str, kernels) -> list:
+    """The ``ptxas -v`` register and spill lines of the kernels of
+    library ``name`` whose mangled names contain one of ``kernels``,
+    each prefixed by that kernel's name."""
+    out, entry = [], None
+    for line in _build.build_log.get(name, {}).get("ptxas", "").splitlines():
+        if "Compiling entry function" in line:
+            entry = next((k for k in kernels if k in line), None)
+            if entry:   # the template arguments, as the mangled name has them
+                args = re.search(entry + r"I(?:Li)?(\w+?)E+v", line)
+                entry += f"<{args.group(1)}>" if args else ""
+        elif entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry}: {line.strip()}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +294,33 @@ def phase_kernel():
               f"{tol:g}{tight}) {'ok' if ok else 'FAIL'}")
     check(all(r["ok"] for r in results.values()),
           "paged_attention kernel disagrees with its plain version")
+
+    for line in ptxas_lines("paged_attention", ("paged_split_kernel",
+                                                "paged_combine_kernel")):
+        print(f"  paged_attention ptxas: {line}")
+    for name in ("serve_bf16", "b8_bf16"):
+        q, kp, _, table, _ = cases[name]["args"]
+        pps, n_splits, blocks = PA.split_plan(q.shape[0], kp.shape[2],
+                                              table.shape[1])
+        combine = q.shape[0] * q.shape[2] if n_splits > 1 else 0
+        print(f"paged_attention {name} split plan: {pps} pages a split, "
+              f"{n_splits} splits, {blocks} split blocks + {combine} "
+              f"combine blocks")
+    # every split size the kernel takes, against the plain version, and
+    # timed: the data behind PAGES_PER_SPLIT (not on the main path, so
+    # these launches are not counted)
+    for name in ("serve_bf16", "b8_bf16"):
+        case = cases[name]
+        want = run(ref.paged_attention_ref, case)
+        for pps in (1, 2, 4, PA.MAX_PAGES_PER_SPLIT):
+            fn = lambda: PA._launch(*case["args"], case["window"],  # noqa
+                                    pps)
+            err = float((fn().float() - want.float()).abs().max())
+            check(err <= TIGHT_BF16_ATOL, f"paged_attention {name} at {pps} "
+                                          f"pages a split: max_abs_err {err}")
+            print(f"paged_attention {name} at {pps} pages a split: "
+                  f"max_abs_err {err:.3e}, {time_cold_ms(fn, 100):.4f} ms "
+                  f"(L2 flushed)")
 
     lib = run(library_paged_attention, cases["serve_bf16"])
     want = run(ref.paged_attention_ref, cases["serve_bf16"])
@@ -494,6 +544,11 @@ def within(got, want, tol: float) -> bool:
 
 
 def phase_flash():
+    print(f"flash_attention simt backward design: {FA.simt_bwd_design()}")
+    for line in ptxas_lines("flash_attention", ("flash_bwd_delta_kernel",
+                                                "flash_bwd_dkdv_kernel",
+                                                "flash_bwd_dq_kernel")):
+        print(f"  flash_attention ptxas: {line}")
     ragged = dict(b=1, s=1000, h=8, kh=2, d=64, causal=True, window=0)
     shapes = {
         "train": TRAIN_ATTN,

@@ -75,7 +75,7 @@ class KVPageManager:
     FLATTEN_THRESHOLD = 0.5
 
     def __init__(self, num_pages: int, page_size: int, max_seqs: int,
-                 max_len: int, device: torch.device | str = "cpu"):
+                 max_len: int, device: torch.device | str = "cuda"):
         self.pool = PagePool(num_pages)
         self.page_size = page_size
         self.max_seqs = max_seqs

@@ -7,11 +7,13 @@ replaces XLA's autodiff of ``repro.models.attention.blockwise_attention``.
 Two routes, picked by :func:`_route` from the dtype and head_dim:
 ``"sm90"`` (``csrc/flash_attention_sm90.cu``: bf16, head_dim 64 or 128,
 TMA loads and ``wgmma`` products on the tensor cores) and ``"simt"``
-(``csrc/flash_attention.cu``: float32, head_dim up to 128, float32
-products on the CUDA cores).  This module checks the operands, allocates
-the outputs, launches on PyTorch's current stream and counts launches in
-:data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
-backward, which runs the dK/dV and the dQ kernel), the totals of both
+(``csrc/flash_attention.cu``: float32, head_dim up to 128; the
+forward's products on the CUDA cores, the backward's on the tensor cores
+in 3xTF32, which keeps float32 accuracy).  This module checks the
+operands, allocates the outputs and scratch, launches on PyTorch's
+current stream and counts launches in :data:`launches_fwd` (one per
+forward) and :data:`launches_bwd` (one per backward, which runs a delta
+pre-pass, the dK/dV and the dQ kernel), the totals of both
 routes, and per route in :data:`launches_sm90_fwd` /
 :data:`launches_sm90_bwd`.  :class:`FlashAttention` ties the two
 together for autograd and saves q, k, v, the output and its log-sum-exp:
@@ -88,12 +90,20 @@ def _lib() -> ctypes.CDLL:
         tail = [i32] * 7 + [ctypes.c_float, i32, ptr]
         lib.flash_attention_fwd_launch.argtypes = [i32] + [ptr] * 5 + tail
         lib.flash_attention_fwd_launch.restype = i32
-        lib.flash_attention_bwd_launch.argtypes = [i32] + [ptr] * 9 + tail
+        lib.flash_attention_bwd_launch.argtypes = [i32] + [ptr] * 10 + tail
         lib.flash_attention_bwd_launch.restype = i32
+        lib.flash_attention_bwd_design.argtypes = []
+        lib.flash_attention_bwd_design.restype = ctypes.c_char_p
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
+
+
+def simt_bwd_design() -> str:
+    """How the built float32 backward runs its products (from the
+    library itself)."""
+    return _lib().flash_attention_bwd_design().decode()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -191,8 +201,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             q.device.index, *ptrs, stats.data_ptr(),
             *_dims(q, k, causal, window, route))
     else:
+        # delta = rowsum(dO * O), written by the pre-pass
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         err = _lib().flash_attention_bwd_launch(
-            q.device.index, *ptrs, *_dims(q, k, causal, window, route))
+            q.device.index, *ptrs, delta.data_ptr(),
+            *_dims(q, k, causal, window, route))
     _raise_on(err, "backward", route)
     launches_bwd += 1
     if route == "sm90":

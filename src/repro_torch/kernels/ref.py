@@ -12,6 +12,19 @@ from repro_torch.core.kv_page_manager import gather_kv
 NEG_INF = -1e30
 
 
+def _paged_mask(block_table: torch.Tensor, valid_lens: torch.Tensor,
+                page: int, window: int) -> torch.Tensor:
+    """(B, max_pages * page) bool: the token is attendable (mapped page,
+    position < length, inside the window)."""
+    kpos = torch.arange(block_table.shape[1] * page,
+                        device=block_table.device)
+    lens = valid_lens.long()[:, None]
+    mask = kpos[None, :] < lens
+    if window > 0:
+        mask &= kpos[None, :] >= lens - window
+    return mask & (block_table >= 0).repeat_interleave(page, dim=1)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_table: torch.Tensor,
                         valid_lens: torch.Tensor, *, window: int = 0
@@ -41,12 +54,7 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     qg = q.reshape(b, s1, kh, g, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), ks.float())
     scores = scores * (1.0 / math.sqrt(d))
-    kpos = torch.arange(maxp * page, device=q.device)
-    lens = valid_lens.long()[:, None]
-    mask = kpos[None, :] < lens
-    if window > 0:
-        mask &= kpos[None, :] >= lens - window
-    mask &= (block_table >= 0).repeat_interleave(page, dim=1)
+    mask = _paged_mask(block_table, valid_lens, page, window)
     mask = mask[:, None, None, None, :]
     scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
@@ -54,6 +62,60 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     w = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(vs.dtype).float(),
                        vs.float())
+    return out.reshape(b, s1, h, d).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_table: torch.Tensor,
+                              valid_lens: torch.Tensor, *, window: int = 0,
+                              pages_per_split: int) -> torch.Tensor:
+    """:func:`paged_attention_ref` computed the way the CUDA kernel
+    computes it (split-K over pages, flash-decoding); used by the tests.
+
+    The table's slots are cut into splits of ``pages_per_split``
+    consecutive slots.  Each split gives float32 partials for every query
+    head: its max ``m_i`` over its attendable tokens (-inf when it has
+    none), ``l_i = sum exp(s - m_i)`` and ``acc_i = P V`` with P rounded
+    to the value dtype against ``m_i``.  The splits are then merged in
+    order: ``m = max m_i``, ``out = sum e^(m_i - m) acc_i / max(sum
+    e^(m_i - m) l_i, 1e-30)``, skipping empty splits, so a row with no
+    attendable token gives 0.
+    """
+    b, s1, h, d = q.shape
+    n, page, kh, _ = k_pages.shape
+    g = h // kh
+    maxp = block_table.shape[1]
+    ks, vs = gather_kv(k_pages, v_pages, block_table)
+    mask = _paged_mask(block_table, valid_lens, page, window)
+    chunk = pages_per_split * page
+    splits = -(-maxp // pages_per_split)
+    pad = splits * chunk - maxp * page
+    ks = torch.nn.functional.pad(ks.float(), (0, 0, 0, 0, 0, pad))
+    vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+    mask = torch.nn.functional.pad(mask, (0, pad))
+    ks = ks.reshape(b, splits, chunk, kh, d)
+    vs = vs.reshape(b, splits, chunk, kh, d)
+    mask = mask.reshape(b, 1, 1, splits, chunk)             # (b,k,g,n,t)
+
+    qg = q.reshape(b, kh, g, d).float()
+    scores = torch.einsum("bkgd,bntkd->bkgnt", qg, ks) * (1.0 / math.sqrt(d))
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m_i = scores.amax(dim=-1)                                # (b,k,g,n)
+    p = torch.exp(scores - m_i[..., None]).masked_fill(~mask, 0.0)
+    l_i = p.sum(dim=-1)
+    acc_i = torch.einsum("bkgnt,bntkd->bkgnd", p.to(vs.dtype).float(),
+                         vs.float())
+    full = mask.any(dim=-1).expand_as(m_i)                   # split not empty
+    m = torch.where(full, m_i, torch.full_like(m_i, -math.inf)).amax(-1)
+    num = torch.zeros((b, kh, g, d), device=q.device)
+    den = torch.zeros((b, kh, g), device=q.device)
+    for i in range(splits):                                  # fixed order
+        w = torch.where(full[..., i], torch.exp(m_i[..., i] - m),
+                        torch.zeros_like(m))
+        num = num + w[..., None] * acc_i[..., i, :]
+        den = den + w * l_i[..., i]
+    out = num / den.clamp_min(1e-30)[..., None]
     return out.reshape(b, s1, h, d).to(q.dtype)
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_attention_pallas
+from repro_torch.core import block_table as BT
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as PA
 
@@ -140,3 +141,67 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         PA.paged_attention_cuda(*tx)
     assert PA.launches == before
+
+
+#: split-K cases: (name, pages_per_split, inputs kwargs, window, radix).
+#: maxp is 8 throughout, so 8 and 16 are one split holding every page
+SPLIT_CASES = [
+    ("pps1", 1, dict(seed=20), 0, False),
+    ("pps2", 2, dict(seed=21), 0, False),
+    ("pps4", 4, dict(seed=22), 0, False),
+    ("pps8_all_pages", 8, dict(seed=23), 0, False),
+    ("pps16_past_maxp", 16, dict(seed=24), 0, False),
+    ("holes", 2, dict(seed=25, lens=[64, 50, 33],
+                      holes=((0, 1), (0, 2), (1, 0), (2, 4))), 0, False),
+    ("hole_fills_a_split", 2, dict(seed=26, lens=[64, 64, 20],
+                                   holes=((0, 2), (0, 3))), 0, False),
+    ("window", 2, dict(seed=27, lens=[64, 37, 9]), 12, False),
+    ("window_one_split", 1, dict(seed=28, lens=[64, 61, 50]), 5, False),
+    ("radix", 2, dict(seed=29), 0, True),
+    ("one_split_not_empty", 1, dict(seed=30, lens=[3, 8, 1]), 0, False),
+    ("fully_masked_row", 2, dict(seed=31, lens=[0, 40, 17]), 0, False),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,pps,inputs,window,radix", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_split_k_matches_pallas_and_plain(name, pps, inputs, window, radix,
+                                          dtype):
+    """The CUDA kernel's split-K algorithm (per-split partials with P
+    rounded against the split's max, then the fixed-order combine) in its
+    plain form, against the Pallas kernel (interpret mode) and the
+    one-pass plain version, at the file's tolerances."""
+    b = 3
+    jx, tx = _both(_paged_inputs(b, 8, 2, 32, 8, 8, **inputs), dtype)
+    want = paged_attention_pallas(*jx, window=window, interpret=True)
+    q, kp, vp, tab, lens = tx
+    if radix:
+        flat = tab
+        tab = BT.translate_all(
+            BT.radix_from_flat(flat, BT.leaf_size_for(flat.shape[1])),
+            BT.RADIX)
+        assert torch.equal(tab, flat)
+    got = ref.paged_attention_split_ref(q, kp, vp, tab, lens, window=window,
+                                        pages_per_split=pps)
+    _assert_close(got, want, dtype)
+    plain = ref.paged_attention_ref(q, kp, vp, tab, lens, window=window)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               rtol=tol, atol=tol)
+    empty = (lens == 0).nonzero().flatten().tolist()
+    for i in empty:
+        assert (got[i] == 0).all()
+    if name == "fully_masked_row":
+        assert empty == [0]
+
+
+@pytest.mark.parametrize("b,kh,maxp,plan", [
+    (4, 8, 32, (2, 16, 512)),     # the serve shape: 4 pages give 256 blocks
+    (8, 8, 64, (4, 16, 1024)),    # B 8: 4 pages already give 1,024
+    (1, 1, 8, (1, 8, 8)),         # a tiny call halves down to 1 page
+    (64, 8, 4, (4, 1, 512)),      # one split holds the whole table
+])
+def test_split_plan_from_shapes(b, kh, maxp, plan):
+    """The split size depends on the table width and B * KH only."""
+    assert PA.split_plan(b, kh, maxp) == plan
