@@ -19,15 +19,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   5. engine parity in float32 at full width and 2 layers: ServeEngine's
      token streams equal greedy_reference's in every table mode, and the
      card's logits agree with the CPU's plain path;
-  6. the design of the float32 backward (3xTF32 tensor-core products)
-     and the ptxas report of its kernels; the flash-attention kernels of
-     both routes (bf16: the sm90 tensor-core kernels; float32: the simt
-     kernels), forward and backward, against their plain versions (and
-     the backward against autograd of the plain forward) at the training
-     shape and at window,
-     non-causal, MQA and ragged cases; each route timed at its own
-     path's shape with the same four times and the achieved TFLOP/s; the
-     sm90 backward run twice and held bit-identical;
+  6. the design of the float32 kernels (forward and backward, 3xTF32
+     tensor-core products) and the ptxas report of each (a forward that
+     spills fails); the flash-attention kernels of both routes (bf16:
+     the sm90 wgmma kernels; float32: the simt 3xTF32 mma.sync kernels),
+     forward and backward, against their plain versions (and the
+     backward against autograd of the plain forward) at the training
+     shape and at window, non-causal, MQA and ragged cases, and in
+     float32 at head_dim 36 from unaligned rows (head_dim padding and
+     4-byte copies); each route timed at its own path's shape with the
+     same four times and the achieved TFLOP/s; the sm90 backward run
+     twice and held bit-identical;
   7. full-width internlm2-1.8b trained through the port's launcher: 3
      steps of 8 x 4,096 tokens in 4 microbatches, every attention layer
      through the sm90 flash kernels (forward twice a step per layer and
@@ -439,11 +441,20 @@ FLASH_SOURCES = {"sm90": f"{_CSRC}/flash_attention_sm90.cu",
                  "simt": f"{_CSRC}/flash_attention.cu"}
 
 
-def flash_case(*, b, s, h, kh, d, causal, window, dtype, seed):
+def flash_case(*, b, s, h, kh, d, causal, window, dtype, seed,
+               unaligned=False):
+    """Inputs of one flash call; ``unaligned`` starts every tensor one
+    element past a 16-byte boundary, so the kernels take their 4-byte
+    copies."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if not unaligned:
+            return x
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        flat[1:].copy_(x.reshape(-1))
+        return flat[1:].view(shape)
 
     return dict(q=draw(b, s, h, d), k=draw(b, s, kh, d), v=draw(b, s, kh, d),
                 do=draw(b, s, h, d), causal=causal, window=window)
@@ -544,11 +555,17 @@ def within(got, want, tol: float) -> bool:
 
 
 def phase_flash():
-    print(f"flash_attention simt backward design: {FA.simt_bwd_design()}")
-    for line in ptxas_lines("flash_attention", ("flash_bwd_delta_kernel",
-                                                "flash_bwd_dkdv_kernel",
-                                                "flash_bwd_dq_kernel")):
+    for direction, design in FA.simt_design().items():
+        print(f"flash_attention simt {direction} design: {design}")
+    lines = ptxas_lines("flash_attention", (
+        "flash_fwd_kernel", "flash_bwd_delta_kernel",
+        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+    for line in lines:
         print(f"  flash_attention ptxas: {line}")
+    spills = [int(n) for line in lines if line.startswith("flash_fwd_kernel")
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    check(bool(spills) and not any(spills), "the float32 forward spills "
+          "registers, or ptxas reported nothing for it")
     ragged = dict(b=1, s=1000, h=8, kh=2, d=64, causal=True, window=0)
     shapes = {
         "train": TRAIN_ATTN,
@@ -557,9 +574,14 @@ def phase_flash():
         "mqa": dict(TRAIN_ATTN, b=1, s=2048, kh=1),
         "ragged": ragged,
     }
+    # float32 only (bf16 has no kernel at head_dim 36): head_dim padded to
+    # 64 inside the kernel, rows 4 bytes off 16-byte alignment
+    f32_only = {"d36": dict(b=2, s=777, h=6, kh=3, d=36, causal=True,
+                            window=100, unaligned=True)}
     results = {}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for i, (name, shape) in enumerate(shapes.items()):
+        cases = shapes if dt == torch.bfloat16 else {**shapes, **f32_only}
+        for i, (name, shape) in enumerate(cases.items()):
             case = flash_case(**shape, dtype=dt, seed=10 + i)
             route = FA._route(dt, shape["d"])
             before = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)

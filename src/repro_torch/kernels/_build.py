@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build time (0.0 if found built), "ptxas": ptxas -v
-#: report, "path": library path}
+#: report (kept beside the library), "path": library path}
 build_log: Dict[str, dict] = {}
 
 
@@ -55,8 +55,10 @@ def _build(name: str) -> Path:
     lib = _library_path(name)
     if name in build_log and build_log[name]["path"] == str(lib):
         return lib
+    report = lib.with_suffix(".ptxas")
     if lib.exists():
-        build_log[name] = {"seconds": 0.0, "ptxas": "", "path": str(lib)}
+        build_log[name] = {"seconds": 0.0, "path": str(lib), "ptxas":
+                           report.read_text() if report.exists() else ""}
         return lib
     src = CSRC / f"{name}.cu"
     if not src.exists():
@@ -70,6 +72,7 @@ def _build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
+    report.write_text(proc.stdout)
     os.replace(tmp, lib)
     build_log[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": proc.stdout, "path": str(lib)}

@@ -5,9 +5,8 @@
 // `flash_attention_pallas` in src/repro/kernels/flash_attention.py: GQA
 // self-attention (query head h reads kv head h / G) over q (B, S, H, D)
 // and k/v (B, S, KH, D), causal and/or sliding-window masked, with an
-// online softmax in float32 (running max m, sum l, accumulator acc), the
-// probabilities rounded to the value dtype before the PV product, and 0
-// for a row with no attendable key.  The Pallas kernel is forward only;
+// online softmax in float32 (running max m, sum l, accumulator acc), and
+// 0 for a row with no attendable key.  The Pallas kernel is forward only;
 // the JAX package differentiates the jnp form of the same function
 // (`blockwise_attention`) with XLA autodiff.  Here the backward is three
 // kernels of its own, from the saved output O and log-sum-exp
@@ -21,94 +20,83 @@
 //          five).
 // Nothing is accumulated across blocks: the result is deterministic.
 //
-// Forward design.  The TPU grid (B, H, S/bq, S/bk) walks KV blocks in
-// order and carries m / l / acc in VMEM; here a block owns one 64-row q
-// tile and loops over the 64-key tiles that the mask leaves (the Pallas
-// grid visits every KV block and masks it, which gives the same result
-// from more work).  Tiles are staged in shared memory as float32 with a
-// row stride of D | 1 words, so the 16 threads that share a tile row read
-// distinct banks.  256 threads form a 16 x 16 grid: a thread holds a
-// 4 x 4 block of the 64 x 64 score tile and a 4 x 8 block of the 64 x D
-// accumulator; products are float32 FFMA on the CUDA cores.
-//
-// Backward design.  Every product runs on the tensor cores as
-// mma.sync.m16n8k8 with TF32 operands, in 3xTF32: each float32 operand x
-// is split into hi = tf32(x) and lo = tf32(x - hi) (both truncated), and
-// lo*hi + hi*lo + hi*hi are summed in float32 (CUTLASS's
+// Products.  Every product, forward and backward, runs on the tensor
+// cores as mma.sync.m16n8k8 with TF32 operands, in 3xTF32: each float32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (both
+// truncated), and lo*hi + hi*lo + hi*hi are summed in float32 (CUTLASS's
 // OpMultiplyAddFastF32), which keeps float32 accuracy (plain TF32 keeps
 // about three decimal digits) at three times the TF32 work.  In the long
-// sums (dK, dV, dQ) each 8-deep product goes into a fresh accumulator that
-// a float32 add then folds into the running sum: the tensor cores truncate
-// as they accumulate, and over the thousands of steps of a dK sum that
-// drift broke the 2e-5 checks; S and dP, only D deep, accumulate in place.
-// A block is 8 warps in 4 pairs, a pair owning 16 rows of the block's 64
-// (keys in dK/dV, queries in dQ).  In dK/dV one warp of a pair forms P^T
-// and dV, the other dP^T and dK, P^T passing between them through shared
-// memory; in dQ one forms P, the other dP, and each adds dS K to half of
-// dQ's columns.  So a warp keeps at most 16 x D accumulators in registers
-// (64 a thread at D 128), and 16 warps share an SM.  The operand a block
-// streams (16-row Q / dO tiles with their LSE and delta for dK/dV, 16-row
-// K / V tiles for dQ) is double-buffered by cp.async; tiles sit in shared
-// memory with a row stride of 4 mod 32 words, so every fragment load hits
-// 32 distinct banks, and about 110 KB a block lets two blocks share an SM.
-// The dK/dV kernel forms S^T = K Q^T and dP^T = V dO^T, so that P^T and
-// dS^T come out of the accumulators already as the A operands of dV += P^T
-// dO and dK += dS^T Q (their k order permuted, and the B rows loaded in
-// the same order); the dQ kernel does the same for dQ += dS K.  Under the
-// causal mask the k tiles with the most queries (dK/dV) and the q tiles
-// with the most keys (dQ) are launched first, so the long chains start in
-// the first wave.
+// sums (O, dK, dV, dQ) each short product (8 deep; 16 in the forward's
+// O) goes into a fresh accumulator that a float32 add then folds into
+// the running sum: the tensor cores truncate as they accumulate, and
+// over the thousands of steps of a dK sum that drift broke the 2e-5
+// checks; S and dP, only D deep, accumulate in place.  Tiles sit in
+// shared memory with a row stride of 4 mod 32 words, so every fragment
+// load hits 32 distinct banks, and the tile a block streams is
+// double-buffered by cp.async.
+//
+// Forward design.  The TPU grid (B, H, S/bq, S/bk) walks KV blocks in
+// order and carries m / l / acc in VMEM; here a block of 4 warps owns one
+// 64-row q tile of one (h, b), a warp 16 rows and all of O's columns (64
+// accumulators a thread at D 128), and loops over 16-key K / V tiles.
+// About 68 KB a block at D 128 (Q and two stages of K and V) lets three
+// blocks share an SM; O += P V folds 16 keys at a time, which keeps a
+// thread within the 168 registers three blocks leave it.
+// A warp skips the tiles its mask leaves empty, and evaluates the mask
+// per element only on the tiles the causal diagonal, the window's edge or
+// the end of the sequence cut.  The softmax runs on the accumulator
+// fragments (a row's 16 scores sit in the 4 lanes of a quad), and P leaves
+// the accumulator as the A operand of O += P V, its k order permuted
+// (0 2 4 6 1 3 5 7) and V's rows loaded to match, so P never goes through
+// shared memory.  The q tiles with the most keys are launched first.
+//
+// Backward design.  A block is 8 warps in 4 pairs, a pair owning 16 rows
+// of the block's 64 (keys in dK/dV, queries in dQ).  In dK/dV one warp of
+// a pair forms P^T and dV, the other dP^T and dK, P^T passing between
+// them through shared memory; in dQ one forms P, the other dP, and each
+// adds dS K to half of dQ's columns.  So a warp keeps at most 16 x D
+// accumulators in registers (64 a thread at D 128), and 16 warps share an
+// SM.  The operand a block streams (16-row Q / dO tiles with their LSE and
+// delta for dK/dV, 16-row K / V tiles for dQ) is double-buffered, and
+// about 110 KB a block lets two blocks share an SM.  The dK/dV kernel
+// forms S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T come out of
+// the accumulators already as the A operands of dV += P^T dO and dK +=
+// dS^T Q; the dQ kernel does the same for dQ += dS K.  Under the causal
+// mask the k tiles with the most queries (dK/dV) and the q tiles with the
+// most keys (dQ) are launched first, so the long chains start in the
+// first wave.
 //
 // Bound.  At the training shape (S 4096, D 128) attention does about
 // 4 * S / 2 * D operations for each of its 2 * S * D * 2 bytes a head:
 // far above the card's ratio of operations to bytes, so it is bound by
 // operations: for float32-accurate products, the TF32 peak over three.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;
-constexpr int TILE = 64;            // rows of a q tile, keys of a k tile
-constexpr int DMAX = 128;           // largest head_dim
-constexpr int RPT = TILE / 16;      // tile rows held by a thread
-constexpr int CPT = TILE / 16;      // tile keys held by a thread
-constexpr int DPT = DMAX / 16;      // head_dim columns held by a thread
-constexpr int PLD = TILE + 1;       // row stride of a score tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-// x rounded to T and back: the cast of p before the PV product
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int DMAX = 128;         // largest head_dim
+constexpr int FWD_THREADS = 128;  // 4 warps, 16 query rows each
+constexpr int FWD_ROWS = 64;      // query rows a forward block owns
+constexpr int FWD_STEP = 16;      // keys of the K / V tile streamed per step
+constexpr int BWD_THREADS = 256;  // 4 pairs of warps, 16 rows a pair
+constexpr int BWD_ROWS = 64;      // keys (dK/dV) or queries (dQ) a block owns
+constexpr int BWD_STEP = 16;      // rows of the tile streamed per step
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-// reductions over the 16 lanes of a half warp (one tile row)
-__device__ __forceinline__ float row_max(float v) {
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// reductions over the 4 lanes of a quad (one row of an accumulator tile)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
-__device__ __forceinline__ float row_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ bool attendable(int qp, int kp, int S, int causal,
@@ -119,168 +107,9 @@ __device__ __forceinline__ bool attendable(int qp, int kp, int S, int causal,
   return true;
 }
 
-// Keys [lo, hi) that a q tile starting at q0 can attend.
-__device__ __forceinline__ void key_range(int q0, int S, int causal,
-                                          int window, int& lo, int& hi) {
-  lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  hi = causal ? min(S, q0 + TILE) : S;
-  lo = lo / TILE * TILE;
-}
-// Rows [r0, r0 + TILE) of one head of x, whose rows are `row_stride`
-// elements apart from `base`, into dst (TILE x ld floats); 0 past S.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* x,
-                                          long long base,
-                                          long long row_stride, int r0,
-                                          int S, int D, int ld) {
-  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    const int row = r0 + r;
-    dst[r * ld + d] =
-        row < S ? to_f32(x[base + (long long)row * row_stride + d]) : 0.f;
-  }
-}
-
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d]  (both TILE x ld)
-__device__ __forceinline__ void tile_dot(float (&s)[RPT][CPT],
-                                         const float* a, const float* b,
-                                         int D, int ld, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[RPT], bv[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) av[i] = a[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) bv[j] = b[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] += av[i] * bv[j];
-  }
-}
-
-// acc[i][jj] += sum_r w[ty + 16 i][r] * x[r][tx + 16 jj]  (acc += W X),
-// w read with row stride PLD, x TILE x ld
-__device__ __forceinline__ void tile_accumulate(float (&acc)[RPT][DPT],
-                                                const float* w,
-                                                const float* x, int D,
-                                                int ld, int ty, int tx) {
-  for (int r = 0; r < TILE; ++r) {
-    float wv[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) wv[i] = w[(ty + 16 * i) * PLD + r];
-#pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < D) {
-        const float xv = x[r * ld + d];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][jj] += wv[i] * xv;
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward: one block per (q tile, h, b)
+// 3xTF32 products on the tensor cores, shared by the forward and backward
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int KH, int D,
-                     int causal, int window, float scale) {
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KH);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ld = D | 1;
-  const long long q_ss = (long long)H * D, k_ss = (long long)KH * D;
-  const long long q_base = (long long)b * S * q_ss + (long long)h * D;
-  const long long k_base = (long long)b * S * k_ss + (long long)kvh * D;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // TILE x ld
-  float* k_s = q_s + TILE * ld;      // TILE x ld
-  float* v_s = k_s + TILE * ld;      // TILE x ld
-  float* p_s = v_s + TILE * ld;      // TILE x PLD
-
-  load_tile(q_s, q, q_base, q_ss, q0, S, D, ld);
-  float acc[RPT][DPT], m[RPT], l[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = 0.f;
-  }
-
-  int lo, hi;
-  key_range(q0, S, causal, window, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += TILE) {
-    __syncthreads();  // the last tile's readers are done
-    load_tile(k_s, k, k_base, k_ss, k0, S, D, ld);
-    load_tile(v_s, v, k_base, k_ss, k0, S, D, ld);
-    __syncthreads();
-
-    float s[RPT][CPT];
-    tile_dot(s, q_s, k_s, D, ld, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const bool ok = attendable(qp, k0 + tx + 16 * j, S, causal, window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = m[i] > NEG_INF / 2 ? expf(m[i] - m_new) : 0.f;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const bool ok = attendable(qp, k0 + tx + 16 * j, S, causal, window);
-        const float p = ok ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        p_s[(ty + 16 * i) * PLD + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DPT; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-    tile_accumulate(acc, p_s, v_s, D, ld, ty, tx);  // acc += P V
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-    const long long off = q_base + (long long)row * q_ss;
-#pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < D) o[off + d] = from_f32<T>(acc[i][jj] / lc);
-    }
-    if (tx == 0) lse[((long long)b * H + h) * S + row] = m[i] + logf(lc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward (float32 only): a delta pre-pass, then dK/dV and dQ kernels
-// whose products run on the tensor cores as 3xTF32
-// ---------------------------------------------------------------------------
-constexpr int BWD_THREADS = 256;  // 4 pairs of warps, 16 rows a pair
-constexpr int BWD_ROWS = 64;      // keys (dK/dV) or queries (dQ) a block owns
-constexpr int BWD_STEP = 16;      // rows of the tile streamed per step
-
 // x = hi + lo (+ what TF32 cannot hold), as TF32 register operands: the
 // tensor cores read a TF32 operand from the top 19 bits of its register
 // and ignore the low 13, so x's own bits are hi truncated to TF32, and
@@ -323,7 +152,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
 }
 
 // acc += a b in 3xTF32 through a fresh accumulator, for the long sums
-// (dK, dV, dQ over up to 32,768 terms): the tensor cores truncate when
+// (O, dK, dV, dQ over up to 32,768 terms): the tensor cores truncate when
 // they add into an accumulator, which drifts over a long sum (2e-4 of a
 // dK element's scale seen on the H100), while a float32 add rounds to
 // nearest
@@ -444,21 +273,25 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Rows [r0, r0 + R) of one head of x (rows `rs` floats apart from `base`)
 // into dst (R x ld) by cp.async, 16 bytes a copy when `vec4`, else 4;
-// zeros past S.  Columns D .. ld are left alone.
-template <int R>
+// zeros past S.  Columns D .. ld are left alone.  The block's T threads
+// take T / R a row, so the copies need no division (dividing each copy's
+// index by the row length cost the forward 15% of its time)
+template <int R, int T>
 __device__ __forceinline__ void stage_rows(float* dst, const float* x,
                                            long long base, long long rs,
                                            int r0, int S, int D, int ld,
                                            bool vec4) {
-  const int w = vec4 ? 4 : 1, per_row = D / w;
-  for (int i = threadIdx.x; i < R * per_row; i += BWD_THREADS) {
-    const int r = i / per_row, c = (i - r * per_row) * w;
-    const bool in = r0 + r < S;
-    const float* src = x + base + (long long)(in ? r0 + r : 0) * rs + c;
-    if (vec4)
-      cp_async16_zfill(dst + r * ld + c, src, in);
-    else
-      cp_async4_zfill(dst + r * ld + c, src, in);
+  static_assert(T % R == 0, "a whole number of threads a row");
+  constexpr int TPR = T / R;
+  const int r = threadIdx.x / TPR, first = threadIdx.x % TPR;
+  const bool in = r0 + r < S;
+  const float* src = x + base + (long long)(in ? r0 + r : 0) * rs;
+  float* row = dst + r * ld;
+  if (vec4) {
+    for (int c = 4 * first; c < D; c += 4 * TPR)
+      cp_async16_zfill(row + c, src + c, in);
+  } else {
+    for (int c = first; c < D; c += TPR) cp_async4_zfill(row + c, src + c, in);
   }
 }
 // n values of a (B, H, S) row statistic from position r0 into dst; 0 past S
@@ -476,10 +309,183 @@ __device__ __forceinline__ void stage_stats(float* dst, const float* x,
 __device__ __forceinline__ void zero_pad(float* dst, int rows, int D,
                                          int dp, int ld) {
   const int w = dp - D;
-  for (int i = threadIdx.x; i < rows * w; i += BWD_THREADS)
+  for (int i = threadIdx.x; i < rows * w; i += blockDim.x)
     dst[(i / w) * ld + D + i % w] = 0.f;
 }
 
+// ---------------------------------------------------------------------------
+// forward: one block per (64-row q tile, h, b), the q tiles with the most
+// keys launched first.  The block stages its Q tile, then streams 16-key
+// tiles of K and V, double-buffered by cp.async.  Per tile each warp forms
+// S = Q K^T for its 16 rows, the online softmax on the accumulators, and
+// O += P V with P taken from them as A fragments.
+// ---------------------------------------------------------------------------
+template <int NT>  // head_dim padded to 8 NT
+__global__ void __launch_bounds__(FWD_THREADS, 3) flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KH, int D, int causal,
+    int window, float scale, int vec4) {
+  constexpr int LD = 8 * NT + 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FWD_ROWS;  // last tile first
+  const int kvh = h / (H / KH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = warp * 16;  // the warp's first query row in the tile
+  const int w0 = q0 + qr;    // and its position
+  // scores and the running max m in log2 units: P = exp2f(s - m), the
+  // accurate exp2f (not an intrinsic), which costs less than expf
+  const float scale2 = scale * LOG2E;
+  const long long q_ss = (long long)H * D, k_ss = (long long)KH * D;
+  const long long q_base = (long long)b * S * q_ss + (long long)h * D;
+  const long long k_base = (long long)b * S * k_ss + (long long)kvh * D;
+
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                // FWD_ROWS x LD: Q, later O
+  float* st = q_s + FWD_ROWS * LD;  // 2 stages of K, V (STEP x LD)
+  constexpr int STAGE = 2 * FWD_STEP * LD;
+
+  if (D < 8 * NT) {
+    zero_pad(q_s, FWD_ROWS, D, 8 * NT, LD);
+    zero_pad(st, 4 * FWD_STEP, D, 8 * NT, LD);
+  }
+
+  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(S, q0 + FWD_ROWS) : S;
+  lo = lo / FWD_STEP * FWD_STEP;
+  const int steps = max(0, (hi - lo + FWD_STEP - 1) / FWD_STEP);
+  auto stage = [&](int i, int buf) {
+    const int kt0 = lo + i * FWD_STEP;
+    float* k_s = st + buf * STAGE;
+    stage_rows<FWD_STEP, FWD_THREADS>(k_s, k, k_base, k_ss, kt0, S, D, LD,
+                                      vec4);
+    stage_rows<FWD_STEP, FWD_THREADS>(k_s + FWD_STEP * LD, v, k_base, k_ss,
+                                      kt0, S, D, LD, vec4);
+  };
+
+  stage_rows<FWD_ROWS, FWD_THREADS>(q_s, q, q_base, q_ss, q0, S, D, LD, vec4);
+  cp_async_commit();
+  if (steps > 0) stage(0, 0);
+  cp_async_commit();
+  cp_async_wait_one();  // Q has landed
+  __syncthreads();
+
+  // keys [w_lo, w_hi) can reach one of the warp's rows
+  const int w_lo = window > 0 ? w0 - window + 1 : 0;
+  const int w_hi = causal ? min(S, w0 + 16) : S;
+  float acc[NT][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < steps) stage(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();  // step i's K and V have landed
+    __syncthreads();
+    const int kt0 = lo + i * FWD_STEP;
+    if (kt0 < w_hi && kt0 + FWD_STEP > w_lo) {
+      const float* k_s = st + buf * STAGE;
+      const float* v_s = k_s + FWD_STEP * LD;
+      float c[2][4] = {};  // S: rows g, g + 8; keys 8 j + 2 t, + 1
+      tile_product_t<NT>(c, q_s, k_s, qr, g, t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] *= scale2;
+      // the mask cuts this tile: the diagonal, the window's edge or S
+      if ((causal && kt0 + FWD_STEP - 1 > w0) ||
+          (window > 0 && kt0 <= w0 + 15 - window) || kt0 + FWD_STEP > S) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!attendable(w0 + g + (e >> 1) * 8, kt0 + 8 * j + 2 * t +
+                            (e & 1), S, causal, window))
+              c[j][e] = NEG_INF;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mx = quad_max(fmaxf(fmaxf(c[0][2 * r], c[0][2 * r + 1]),
+                                        fmaxf(c[1][2 * r], c[1][2 * r + 1])));
+        const float m_new = fmaxf(m[r], mx);
+        alpha[r] = m[r] > NEG_INF / 2 ? exp2f(m[r] - m_new) : 0.f;
+        m[r] = m_new;
+        l[r] *= alpha[r];  // this lane's part of the row sum
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float s = c[j][e];
+          c[j][e] = s > NEG_INF / 2 ? exp2f(s - m[e >> 1]) : 0.f;  // P
+          l[e >> 1] += c[j][e];
+        }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      // O += P V, each 16-key product folded into acc in float32
+      Frag<4> fa[2];
+      a_from_acc(fa[0], c[0]);
+      a_from_acc(fa[1], c[1]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          Frag<2> fb;
+          load_b_perm(fb, v_s, LD, 8 * j, 8 * n, g, t);
+          mma3(pv, fa[j], fb);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += pv[e];
+      }
+    }
+    __syncthreads();  // buffer `buf` is free again
+  }
+
+  // O = acc / max(l, 1e-30) into the warp's own rows of q_s, then out in
+  // rows, 16 bytes a store when vec4
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+  float* o_s = q_s + qr * LD;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_s[(g + (e >> 1) * 8) * LD + 8 * n + 2 * t + (e & 1)] =
+          acc[n][e] / lc[e >> 1];
+  if (t == 0) {  // lse = m + log(l), m back in natural units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + g + 8 * r;
+      const float mn = m[r] > NEG_INF / 2 ? m[r] * LN2 : NEG_INF;
+      if (row < S) lse[((long long)b * H + h) * S + row] = mn + logf(lc[r]);
+    }
+  }
+  __syncwarp();
+  const int w = vec4 ? 4 : 1, per_row = D / w;
+  for (int i = lane; i < 16 * per_row; i += 32) {
+    const int r = i / per_row, col = (i - r * per_row) * w;
+    if (w0 + r >= S) break;
+    float* dst = o + q_base + (long long)(w0 + r) * q_ss + col;
+    const float* src = o_s + r * LD + col;
+    if (vec4)
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    else
+      *dst = *src;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: a delta pre-pass, then the dK/dV and dQ kernels
+// ---------------------------------------------------------------------------
 // delta = rowsum(dO * O) into (B, H, S): one warp per (b, s, h) row
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
     const float* __restrict__ o, const float* __restrict__ dout,
@@ -554,8 +560,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dkdv_kernel(
     float* q_s = st + buf * STAGE;
     float* do_s = q_s + BWD_STEP * LD;
     float* l_s = do_s + BWD_STEP * LD;
-    stage_rows<BWD_STEP>(q_s, q, q_base, q_ss, q0, S, D, LD, vec4);
-    stage_rows<BWD_STEP>(do_s, dout, q_base, q_ss, q0, S, D, LD, vec4);
+    stage_rows<BWD_STEP, BWD_THREADS>(q_s, q, q_base, q_ss, q0, S, D, LD,
+                                      vec4);
+    stage_rows<BWD_STEP, BWD_THREADS>(do_s, dout, q_base, q_ss, q0, S, D, LD,
+                                      vec4);
     stage_stats(l_s, lse, s_base, q0, S, BWD_STEP, 0);
     stage_stats(l_s + BWD_STEP, delta, s_base, q0, S, BWD_STEP, 32);
   };
@@ -567,8 +575,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dkdv_kernel(
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   if (steps > 0) {
-    stage_rows<BWD_ROWS>(k_s, k, k_base, k_ss, k0, S, D, LD, vec4);
-    stage_rows<BWD_ROWS>(v_s, v, k_base, k_ss, k0, S, D, LD, vec4);
+    stage_rows<BWD_ROWS, BWD_THREADS>(k_s, k, k_base, k_ss, k0, S, D, LD, vec4);
+    stage_rows<BWD_ROWS, BWD_THREADS>(v_s, v, k_base, k_ss, k0, S, D, LD, vec4);
     stage(0, 0);
   }
   cp_async_commit();
@@ -681,9 +689,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dq_kernel(
   auto stage = [&](int i, int buf) {
     const int kt0 = lo + i * BWD_STEP;
     float* k_s = st + buf * STAGE;
-    stage_rows<BWD_STEP>(k_s, k, k_base, k_ss, kt0, S, D, LD, vec4);
-    stage_rows<BWD_STEP>(k_s + BWD_STEP * LD, v, k_base, k_ss, kt0, S, D, LD,
-                         vec4);
+    stage_rows<BWD_STEP, BWD_THREADS>(k_s, k, k_base, k_ss, kt0, S, D, LD,
+                                      vec4);
+    stage_rows<BWD_STEP, BWD_THREADS>(k_s + BWD_STEP * LD, v, k_base, k_ss,
+                                      kt0, S, D, LD, vec4);
   };
 
   float acc[HALF][4];  // dQ, columns [8 HALF role, 8 HALF (role + 1))
@@ -693,8 +702,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dq_kernel(
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   if (steps > 0) {
-    stage_rows<BWD_ROWS>(q_s, q, q_base, q_ss, q0, S, D, LD, vec4);
-    stage_rows<BWD_ROWS>(do_s, dout, q_base, q_ss, q0, S, D, LD, vec4);
+    stage_rows<BWD_ROWS, BWD_THREADS>(q_s, q, q_base, q_ss, q0, S, D, LD, vec4);
+    stage_rows<BWD_ROWS, BWD_THREADS>(do_s, dout, q_base, q_ss, q0, S, D, LD,
+                                      vec4);
     stage_stats(l_s, lse, s_base, q0, S, BWD_ROWS, 0);
     stage_stats(l_s + BWD_ROWS, delta, s_base, q0, S, BWD_ROWS, BWD_ROWS);
     stage(0, 0);
@@ -763,8 +773,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dq_kernel(
 }
 
 // Dynamic shared memory of each kernel, in bytes.
-size_t fwd_smem(int D) {
-  return sizeof(float) * (3 * TILE * (D | 1) + TILE * PLD);
+template <int NT>
+size_t fwd_smem() {
+  const int ld = 8 * NT + 4;
+  return sizeof(float) * (FWD_ROWS * ld + 2 * 2 * FWD_STEP * ld);
 }
 template <int NT>
 size_t dkdv_smem() {
@@ -788,20 +800,39 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int S, int H, int KH, int D,
-                       int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, smem);
+// 16-byte copies need head_dim and every row start 16-byte aligned
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+template <int NT>
+cudaError_t launch_fwd_tiles(const float* q, const float* k, const float* v,
+                             float* o, float* lse, int B, int S, int H,
+                             int KH, int D, int causal, int window,
+                             float scale, int vec4, cudaStream_t stream) {
+  const size_t smem = fwd_smem<NT>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<NT>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + TILE - 1) / TILE, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, KH, D, causal, window, scale);
+  const int tiles = (S + FWD_ROWS - 1) / FWD_ROWS;
+  flash_fwd_kernel<NT><<<dim3(H, B, tiles), FWD_THREADS, smem, stream>>>(
+      q, k, v, o, lse, S, H, KH, D, causal, window, scale, vec4);
   return cudaGetLastError();
+}
+
+cudaError_t launch_fwd(const float* q, const float* k, const float* v,
+                       float* o, float* lse, int B, int S, int H, int KH,
+                       int D, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const int vec4 = D % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(o);
+  if (D <= 32)
+    return launch_fwd_tiles<4>(q, k, v, o, lse, B, S, H, KH, D, causal,
+                               window, scale, vec4, stream);
+  if (D <= 64)
+    return launch_fwd_tiles<8>(q, k, v, o, lse, B, S, H, KH, D, causal,
+                               window, scale, vec4, stream);
+  return launch_fwd_tiles<16>(q, k, v, o, lse, B, S, H, KH, D, causal,
+                              window, scale, vec4, stream);
 }
 
 template <int NT>
@@ -838,11 +869,8 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
       o, dout, delta, S, H, D, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // 16-byte copies need head_dim and every row start 16-byte aligned
-  const auto a16 = [](const void* p) {
-    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-  };
-  const int vec4 = D % 4 == 0 && a16(q) && a16(k) && a16(v) && a16(dout);
+  const int vec4 = D % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(dout);
   if (D <= 32)
     return launch_bwd_tiles<4>(q, k, v, lse, delta, dout, dq, dk, dv, B, S,
                                H, KH, D, causal, window, scale, vec4, stream);
@@ -852,7 +880,6 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
   return launch_bwd_tiles<16>(q, k, v, lse, delta, dout, dq, dk, dv, B, S, H,
                               KH, D, causal, window, scale, vec4, stream);
 }
-
 
 bool bad_shape(int B, int S, int H, int KH, int D) {
   return B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || D <= 0 || D > DMAX;
@@ -879,24 +906,24 @@ int on_device(int device, F body) {
 extern "C" {
 
 // Both launch on `stream`, allocate nothing and do not synchronise.
-// Every tensor is contiguous: q, o, dout, dq (B, S, H, D); k, v, dk, dv
-// (B, S, KH, D); lse (B, H, S) float32.  dtype: 0 = float32, 1 =
-// bfloat16.  causal: 0 or 1; window: 0 = none.  Return cudaGetLastError()
-// (or the error that stopped the launch).
+// Every tensor is contiguous float32: q, o, dout, dq (B, S, H, D); k, v,
+// dk, dv (B, S, KH, D); lse (B, H, S).  dtype must be 0 (float32; the
+// bf16 route is flash_attention_sm90.cu).  causal: 0 or 1; window: 0 =
+// none.  Return cudaGetLastError() (or the error that stopped the
+// launch).
 int flash_attention_fwd_launch(int device, const void* q, const void* k,
                                const void* v, void* o, void* lse, int B,
                                int S, int H, int KH, int D, int causal,
                                int window, float scale, int dtype,
                                void* stream) {
-  if (bad_shape(B, S, H, KH, D) || dtype < 0 || dtype > 1)
+  if (bad_shape(B, S, H, KH, D) || dtype != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
   return on_device(device, [&]() {
-    return dtype == 0 ? launch_fwd<float>(q, k, v, o, lse, B, S, H, KH, D,
-                                          causal, window, scale, s)
-                      : launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, S, H,
-                                                  KH, D, causal, window,
-                                                  scale, s);
+    return launch_fwd(f(q), f(k), f(v), static_cast<float*>(o),
+                      static_cast<float*>(lse), B, S, H, KH, D, causal,
+                      window, scale, s);
   });
 }
 
@@ -906,7 +933,7 @@ int flash_attention_bwd_launch(int device, const void* q, const void* k,
                                void* dv, void* delta, int B, int S, int H,
                                int KH, int D, int causal, int window,
                                float scale, int dtype, void* stream) {
-  if (bad_shape(B, S, H, KH, D) || dtype != 0)  // the backward is float32
+  if (bad_shape(B, S, H, KH, D) || dtype != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -918,7 +945,12 @@ int flash_attention_bwd_launch(int device, const void* q, const void* k,
   });
 }
 
-// The design of the float32 backward's products, for the record.
+// The design of the forward's and backward's products, for the record.
+const char* flash_attention_fwd_design() {
+  return "3xTF32 mma.sync m16n8k8 (hi*hi + hi*lo + lo*hi, truncated "
+         "halves); O summed in float32 one 16-key step at a time";
+}
+
 const char* flash_attention_bwd_design() {
   return "3xTF32 mma.sync m16n8k8 (hi*hi + hi*lo + lo*hi, truncated "
          "halves); dK, dV, dQ summed in float32 one k step at a time";

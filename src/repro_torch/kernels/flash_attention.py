@@ -4,17 +4,17 @@ backward.
 The kernels replace the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; the backward
 replaces XLA's autodiff of ``repro.models.attention.blockwise_attention``.
-Two routes, picked by :func:`_route` from the dtype and head_dim:
-``"sm90"`` (``csrc/flash_attention_sm90.cu``: bf16, head_dim 64 or 128,
-TMA loads and ``wgmma`` products on the tensor cores) and ``"simt"``
-(``csrc/flash_attention.cu``: float32, head_dim up to 128; the
-forward's products on the CUDA cores, the backward's on the tensor cores
-in 3xTF32, which keeps float32 accuracy).  This module checks the
-operands, allocates the outputs and scratch, launches on PyTorch's
-current stream and counts launches in :data:`launches_fwd` (one per
-forward) and :data:`launches_bwd` (one per backward, which runs a delta
-pre-pass, the dK/dV and the dQ kernel), the totals of both
-routes, and per route in :data:`launches_sm90_fwd` /
+Two routes, picked by :func:`_route` from the dtype and head_dim, both
+on the tensor cores: ``"sm90"`` (``csrc/flash_attention_sm90.cu``: bf16,
+head_dim 64 or 128, TMA loads and ``wgmma`` products) and ``"simt"``
+(``csrc/flash_attention.cu``: float32, head_dim up to 128, every product
+of the forward and backward an ``mma.sync`` in 3xTF32, which keeps
+float32 accuracy; the name is kept from the CUDA-core kernels it
+replaced).  This module checks the operands, allocates the outputs and
+scratch, launches on PyTorch's current stream and counts launches in
+:data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
+backward, which runs a delta pre-pass, the dK/dV and the dQ kernel), the
+totals of both routes, and per route in :data:`launches_sm90_fwd` /
 :data:`launches_sm90_bwd`.  :class:`FlashAttention` ties the two
 together for autograd and saves q, k, v, the output and its log-sum-exp:
 the score blocks are never stored, the memory discipline that
@@ -53,8 +53,9 @@ _lib_sm90_handle = None
 
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"sm90"`` for bf16 with head_dim 64 or 128, ``"simt"`` for
-    float32 with head_dim up to 128; anything else raises."""
+    """``"sm90"`` (wgmma) for bf16 with head_dim 64 or 128, ``"simt"``
+    (3xTF32 mma.sync) for float32 with head_dim up to 128; anything else
+    raises."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
     if dtype == torch.float32 and 0 < head_dim <= MAX_HEAD_DIM:
@@ -92,18 +93,22 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd_launch.restype = i32
         lib.flash_attention_bwd_launch.argtypes = [i32] + [ptr] * 10 + tail
         lib.flash_attention_bwd_launch.restype = i32
-        lib.flash_attention_bwd_design.argtypes = []
-        lib.flash_attention_bwd_design.restype = ctypes.c_char_p
+        for design in (lib.flash_attention_fwd_design,
+                       lib.flash_attention_bwd_design):
+            design.argtypes = []
+            design.restype = ctypes.c_char_p
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
 
 
-def simt_bwd_design() -> str:
-    """How the built float32 backward runs its products (from the
-    library itself)."""
-    return _lib().flash_attention_bwd_design().decode()
+def simt_design() -> dict:
+    """How the built float32 forward and backward run their products
+    (from the library itself)."""
+    lib = _lib()
+    return {"fwd": lib.flash_attention_fwd_design().decode(),
+            "bwd": lib.flash_attention_bwd_design().decode()}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -182,6 +182,81 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+#: keys of a K / V tile of the CUDA float32 forward (``FWD_STEP``), and of
+#: each P V product it folds into its float32 sum
+FLASH_FWD_STEP = 16
+#: the bits of a float32 that a TF32 operand keeps (sign, exponent, 10 of
+#: the 23 mantissa bits); as int32
+_TF32_MASK = -0x2000
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x truncated to TF32, as the tensor cores read a float32 register."""
+    return (x.contiguous().view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor,
+                  x3: bool) -> torch.Tensor:
+    """einsum ``eq`` of float32 a and b with TF32 operands: in 3xTF32
+    (x3) each is split into hi = tf32(x) and lo = tf32(x - hi) and
+    lo*hi + hi*lo + hi*hi are summed; else hi*hi alone (1xTF32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if x3:
+        out = (torch.einsum(eq, _tf32(a - ah), bh)
+               + torch.einsum(eq, ah, _tf32(b - bh))) + out
+    return out
+
+
+def flash_attention_tf32x3_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               window: int = 0, x3: bool = True,
+                               return_lse: bool = False):
+    """:func:`flash_attention_ref` in float32 with the CUDA float32
+    forward's rounding steps; used by the tests.
+
+    It models the kernel's operand split, softmax units and fold
+    granularity, not its exact arithmetic: keys go in tiles of
+    :data:`FLASH_FWD_STEP`; per tile S = Q K^T is scaled into log2
+    units, the running max m and P = exp2(S - m) are taken there, ``l``
+    and ``acc`` are rescaled, and the tile's P V is folded into ``acc``
+    by one float32 add.  Both products take TF32 operands split into
+    truncated halves (3xTF32; ``x3=False`` keeps only hi*hi, plain
+    TF32).  The order of the sums inside a product is einsum's, not the
+    tensor cores'.
+    """
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    qg = q.reshape(b, s, kh, g, d).float()
+    m = torch.full((b, kh, g, s), NEG_INF, device=q.device)
+    l = torch.zeros((b, kh, g, s), device=q.device)
+    acc = torch.zeros((b, kh, g, s, d), device=q.device)
+    qpos = torch.arange(s, device=q.device)
+    for j0 in range(0, s, FLASH_FWD_STEP):
+        kj = k[:, j0:j0 + FLASH_FWD_STEP].float()
+        vj = v[:, j0:j0 + FLASH_FWD_STEP].float()
+        kpos = torch.arange(j0, j0 + kj.shape[1], device=q.device)
+        valid = _flash_mask(qpos, kpos, causal, window)
+        sc = _tf32_product("bskgd,btkd->bkgst", qg, kj, x3) * scale2
+        sc = sc.masked_fill(~valid, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.where(m > NEG_INF / 2, torch.exp2(m - m_new),
+                            torch.zeros_like(m))
+        p = torch.exp2(sc - m_new[..., None]).masked_fill(~valid, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _tf32_product("bkgst,btkd->bkgsd",
+                                                     p, vj, x3)
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    out = (acc / lc[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    if return_lse:
+        mn = torch.where(m > NEG_INF / 2, m * math.log(2.0), m)
+        return out, (mn + torch.log(lc)).reshape(b, h, s)
+    return out
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,

@@ -161,6 +161,51 @@ def test_self_attention_matches_jax(s, causal, window):
     _close(got, want, FWD_TOL["float32"])
 
 
+# (b, s, h, kh, d, causal, window, Pallas block): float32 shapes for the
+# CUDA float32 forward's arithmetic (its 16-key tiles, 3xTF32 products,
+# P V folded 16 keys at a time)
+TF32X3_CASES = [
+    (2, 128, 4, 2, 64, True, 0, 64),      # GQA
+    (2, 128, 4, 1, 128, True, 0, 32),     # MQA
+    (1, 128, 2, 2, 64, True, 16, 32),     # sliding window
+    (1, 100, 4, 2, 32, False, 0, 100),    # ragged S (a 4-key last tile)
+    (2, 96, 6, 3, 36, True, 20, 32),      # head_dim 36
+]
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window,blk", TF32X3_CASES,
+                         ids=["gqa", "mqa", "window", "ragged", "d36"])
+def test_tf32x3_ref_matches_pallas(b, s, h, kh, d, causal, window, blk):
+    """The kernel's arithmetic holds the card's 2e-5 against the Pallas
+    kernel (output) and the plain version (log-sum-exp)."""
+    arrays = _inputs(b, s, h, kh, d, seed=9)[:3]
+    q, k, v = _torch(arrays, "float32")
+    got, lse = ref.flash_attention_tf32x3_ref(q, k, v, causal=causal,
+                                              window=window, return_lse=True)
+    assert got.shape == q.shape and lse.shape == (b, h, s)
+    want = flash_attention_pallas(*_jax(arrays, "float32"), causal=causal,
+                                  window=window, bq=blk, bk=blk,
+                                  interpret=True)
+    _close(got, want, FWD_TOL["float32"])
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+    _close(lse, want_lse, FWD_TOL["float32"])
+
+
+def test_tf32_alone_misses_the_tolerance():
+    """1xTF32 (the hi halves alone) is off by far more than 2e-5, so the
+    check above tells 3xTF32 from it."""
+    arrays = _inputs(2, 128, 4, 2, 64, seed=9)[:3]
+    q, k, v = _torch(arrays, "float32")
+    want = _f32(flash_attention_pallas(*_jax(arrays, "float32"), causal=True,
+                                       bq=64, bk=64, interpret=True))
+    one = _f32(ref.flash_attention_tf32x3_ref(q, k, v, causal=True, x3=False))
+    three = _f32(ref.flash_attention_tf32x3_ref(q, k, v, causal=True))
+    tol = FWD_TOL["float32"]
+    assert not np.allclose(one, want, rtol=tol, atol=tol)
+    assert np.abs(one - want).max() > 10 * np.abs(three - want).max()
+
+
 def test_bwd_ref_lse_is_logsumexp():
     q, k, v = _torch(_inputs(1, 64, 2, 1, 16, seed=5)[:3], "float32")
     _, lse = ref.flash_attention_ref(q, k, v, causal=True, return_lse=True)
@@ -207,8 +252,8 @@ def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     (torch.float32, 256, ValueError), (torch.float16, 128, ValueError),
 ])
 def test_route(dtype, d, route):
-    """bf16 with head_dim 64 / 128 takes the tensor-core kernels, float32
-    up to 128 the CUDA-core ones; nothing else has a kernel."""
+    """bf16 with head_dim 64 / 128 takes the wgmma kernels, float32 up to
+    128 the 3xTF32 mma.sync ones; nothing else has a kernel."""
     if route is ValueError:
         with pytest.raises(ValueError, match="no flash_attention kernel"):
             FA._route(dtype, d)
