@@ -38,7 +38,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   8. training parity in float32 at full width, 2 layers, one 3,072-token
      sequence, through the simt flash kernels: the card's loss and
      gradients agree with the CPU's plain path;
-  9. one JSON line describing every kernel, then the final ``ok`` line.
+  9. the translation simulator (the paper's Figs 12-14 experiment):
+     a. the LRU-scan kernel against its plain version on the card at the
+        smoke preset's 2,048-entry windows, every chunk, in the
+        ndp_machine(8) and cpu_machine(4) buckets (11 workloads, the
+        paper's five mechanisms) and zoo_machine(4) with all 17
+        registered mechanisms: packed hit bits, tables and stamps
+        identical;
+     b. the six full-preset buckets (ndp and cpu machines at 1, 4 and 8
+        cores, 11 workloads, 8,000-entry windows) through the port's
+        launcher: the Fig 12-14 rows, the orderings (on NDP ideal >
+        ndpage > 1.0 at every core count, hugepage < radix at 8 cores),
+        exactly 48 kernel launches, and per bucket wall s, entries/s and
+        the kernel's and the plain version's times on one 1,024-step
+        chunk, with the least time the card could take; on that chunk
+        the kernel's packed bits, tables and stamps must equal the plain
+        version's;
+     c. the ndp_machine(4) bucket at the full preset on the card against
+        the port's CPU path: integer counters equal, cycles within rtol
+        1e-5;
+     d. the ndp(8) and cpu(8) buckets at 65,536-entry windows;
+ 10. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -63,16 +83,25 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import config as C  # noqa: E402
+from repro_torch.configs.ndp_sim import (PRESETS, WORKLOADS,  # noqa: E402
+                                         cpu_machine, ndp_machine,
+                                         zoo_machine)
 from repro_torch.core import block_table as BT  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import lru_scan as LS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
+from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.models import init_params, prefill  # noqa: E402
 from repro_torch.serving import ServeEngine, greedy_reference  # noqa: E402
+from repro_torch.sim import simulator as SIM  # noqa: E402
+from repro_torch.sim.mechanisms import (DEFAULT_MECHS,  # noqa: E402
+                                        registered_names)
 from repro_torch.train import data as DATA  # noqa: E402
 from repro_torch.train.train_loop import loss_fn, trainable  # noqa: E402
+from repro_torch.workloads import generate_traces  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W limit.  float32: the
 #: TF32 tensor-core peak (494.7 TFLOP/s) over three, the least time for
@@ -777,6 +806,277 @@ def phase_train_parity():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the translation simulator
+# ---------------------------------------------------------------------------
+SIM_MACHINES = {"ndp": ndp_machine, "cpu": cpu_machine, "zoo": zoo_machine}
+#: the JAX package's average NDP speedups over radix at the full preset
+#: (benchmarks/sim_figures.py, repro.sim on a CPU), printed for the reader
+#: beside the port's; the orderings are the gate
+JAX_NDP_AVG = {1: {"ech": 1.132, "hugepage": 1.151, "ndpage": 1.280,
+                   "ideal": 2.425},
+               4: {"ech": 1.088, "hugepage": 1.039, "ndpage": 1.277,
+                   "ideal": 2.409},
+               8: {"ech": 1.034, "hugepage": 0.849, "ndpage": 1.277,
+                   "ideal": 2.411}}
+#: card vs CPU: the counters of events are integers in float32 and must be
+#: equal; the cycle sums are float32 sums in other orders
+SIM_RTOL = 1e-5
+SIM_INT_COUNTERS = ("walks", "l1tlb_misses", "pte_accesses", "pte_l1_hits",
+                    "pte_mem", "data_l1_misses", "data_mem")
+SIM_FLOAT_COUNTERS = ("cycles", "trans_cycles", "walk_cycles")
+#: the buckets of 9b, each 8 chunks of 1,024 (8,000 entries padded)
+SIM_LAUNCHES = 6 * 8
+SIM_LONG_WINDOW = 65536
+
+
+def sim_bucket(machine: str, cores: int, preset, mechs=DEFAULT_MECHS,
+               trace_len=None):
+    """The inputs of a bucket (every workload) on the card, and its zeroed
+    engine state."""
+    mach = SIM_MACHINES[machine](cores)
+    traces = generate_traces(list(WORKLOADS), cores, length=trace_len,
+                             preset=preset)
+    bk, _ = SIM._prepare([SIM.SimJob(mach, tr, tuple(mechs))
+                          for tr in traces], None, preset.chunk,
+                         torch.device("cuda"))
+    return bk, SIM.init_state(mach, bk.m, batch=bk.b, device="cuda")
+
+
+def scan_state(args) -> list:
+    """The tensors a scan updates in place: the stamp, then each table's
+    tags and stamps."""
+    return [args["stamp"]] + [t for pair in args["tables"].values()
+                              for t in pair]
+
+
+def plain_copy(args) -> dict:
+    """The scan's arguments with the state it updates cloned."""
+    return dict(args, stamp=args["stamp"].clone(),
+                tables={n: (t.clone(), s.clone())
+                        for n, (t, s) in args["tables"].items()})
+
+
+def phase_sim_kernel() -> dict:
+    """9a: every chunk of three smoke-preset buckets through the kernel and
+    the plain version from the same state; counts the differing packed
+    bits, table entries and stamps."""
+    smoke = PRESETS["smoke"]
+    cases = (("ndp", 8, DEFAULT_MECHS), ("cpu", 4, DEFAULT_MECHS),
+             ("zoo", 4, registered_names()))
+    out = {"mismatches": 0, "max_abs_err": 0.0}
+    for machine, cores, mechs in cases:
+        t0 = time.perf_counter()
+        bk, state = sim_bucket(machine, cores, smoke, mechs)
+        mism = compared = 0
+        for i in range(bk.n_chunks):
+            args = SIM._scan_inputs(bk, state, i)
+            args.pop("work")
+            plain = plain_copy(args)
+            got = LS.lru_scan(**args)
+            want = ref.lru_scan_ref(**plain)
+            pairs = [(got, want)] + list(zip(scan_state(args),
+                                             scan_state(plain)))
+            mism += sum(int((a != b).sum()) for a, b in pairs)
+            compared += sum(a.numel() for a, _ in pairs)
+            out["max_abs_err"] = max(out["max_abs_err"], max_err(got, want))
+        torch.cuda.synchronize()
+        print(f"lru_scan vs plain, {machine}_machine({cores}), {bk.b} "
+              f"workloads x {len(mechs)} mechanisms, {bk.n_chunks} chunks of "
+              f"{bk.chunk}: {mism} mismatches in {compared} packed bits, "
+              f"table entries and stamps ({time.perf_counter() - t0:.1f} s)")
+        out["mismatches"] += mism
+        del bk, state
+    check(out["mismatches"] == 0,
+          "lru_scan kernel disagrees with its plain version")
+    return out
+
+
+def scan_bytes(args) -> int:
+    """Bytes a chunk of the scan must move: the inputs, walk lines and
+    packed bits once, the stamps and the tables read once and written
+    once."""
+    t, lanes = args["vpn"].shape
+    m = args["stamp"].shape[1]
+    once = sum(args[k].numel() * args[k].element_size()
+               for k in ("vpn", "off", "is4k", "valid", "pte", "flags"))
+    twice = sum(x.numel() * x.element_size() for x in scan_state(args))
+    return once + 2 * twice + t * lanes * m * 4
+
+
+def time_scan_chunk(machine: str, cores: int) -> dict:
+    """The kernel and the plain version on the middle 1,024-step chunk of
+    a full-preset bucket, from the state the earlier chunks left; the
+    state is restored before each timed call, and L2 flushed.  The plain
+    version's packed bits, tables and stamps are held against one kernel
+    launch's from the same state; the differences are counted."""
+    bk, state = sim_bucket(machine, cores, PRESETS["full"])
+    k = bk.n_chunks // 2
+    for i in range(k):
+        SIM._run_chunk(bk, state, i)
+    args = SIM._scan_inputs(bk, state, k)
+    args.pop("work")
+    saved = [t.clone() for t in scan_state(args)]
+
+    def restore():
+        for t, s in zip(scan_state(args), saved):
+            t.copy_(s)
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    restore()
+    got = [LS._launch(**args)] + [t.clone() for t in scan_state(args)]
+    pairs = []
+    for _ in range(10):
+        restore()
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        LS._launch(**args)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = float(np.mean([s.elapsed_time(e) for s, e in pairs]))
+    restore()
+    flush.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = [ref.lru_scan_ref(**args)] + scan_state(args)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+    compared = sum(a.numel() for a in got)
+    nbytes = scan_bytes(args)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lanes, m = args["stamp"].shape
+    print(f"lru_scan timing, {machine}_machine({cores}) full preset, chunk "
+          f"{k} of {bk.n_chunks} ({bk.chunk} steps, {lanes} lanes x {m} "
+          f"mechanisms = {lanes * m} chains; L2 flushed): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: "
+          f"{nbytes / 1e6:.2f} MB), {bound_ms / ms:.2%} of bound, "
+          f"{ms * 1e6 / bk.chunk:.1f} ns a step; no library call computes "
+          f"an LRU scan; kernel vs plain: {mism} mismatches in {compared} "
+          f"packed bits, table entries and stamps")
+    del bk, state, saved, flush, got, want
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, mismatches=mism)
+
+
+def check_sim_results(buckets) -> None:
+    """Finite positive cycles of the expected shapes, counters of events
+    within the trace's accesses, and the figure orderings."""
+    for bk in buckets:
+        for w, r in bk["results"].items():
+            shape = (len(DEFAULT_MECHS), bk["cores"])
+            check(r.cycles.shape == shape and r.walks.shape == shape,
+                  f"{bk['machine']} {bk['cores']}c {w}: result shape "
+                  f"{r.cycles.shape} != {shape}")
+            check(bool(np.isfinite(r.cycles).all() and (r.cycles > 0).all()),
+                  f"{bk['machine']} {bk['cores']}c {w}: cycles not finite "
+                  "and positive")
+            check(bool((r.walks <= r.l1tlb_misses).all()
+                       and (r.l1tlb_misses <= r.accesses).all()),
+                  f"{bk['machine']} {bk['cores']}c {w}: walks > L1-TLB "
+                  "misses or misses > accesses")
+        if bk["machine"] != "ndp":
+            continue
+        avg = SIMLAUNCH.averages(bk)
+        cores = bk["cores"]
+        check(avg["ideal"] > avg["ndpage"] > 1.0,
+              f"ndp {cores}c: not ideal > ndpage > 1.0: {avg}")
+        if cores == 8:
+            check(avg["hugepage"] < 1.0, f"ndp 8c: hugepage not below "
+                                         f"radix: {avg}")
+        print(f"ndp {cores}c average speedup over radix, port on the card "
+              f"vs the JAX package at the full preset: "
+              + ", ".join(f"{m} {avg[m]:.3f} vs {JAX_NDP_AVG[cores][m]:.3f}"
+                          for m in SIMLAUNCH.SHOWN))
+
+
+def phase_sim_parity() -> None:
+    """9c: the ndp_machine(4) bucket at the full preset, card vs CPU."""
+    full = PRESETS["full"]
+    traces = generate_traces(list(WORKLOADS), 4, preset=full)
+    mach = ndp_machine(4)
+    t0 = time.perf_counter()
+    card = SIM.simulate_batch(mach, traces, chunk=full.chunk, device="cuda")
+    t1 = time.perf_counter()
+    cpu = SIM.simulate_batch(mach, traces, chunk=full.chunk, device="cpu")
+    t2 = time.perf_counter()
+    worst = 0.0
+    for w, a, b in zip(WORKLOADS, card, cpu):
+        for f in SIM_INT_COUNTERS:
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"ndp 4c {w}: {f} differs between the card and the CPU")
+        for f in SIM_FLOAT_COUNTERS:
+            x, y = getattr(a, f), getattr(b, f)
+            check(np.allclose(x, y, rtol=SIM_RTOL, atol=0.0),
+                  f"ndp 4c {w}: {f} card vs CPU beyond rtol {SIM_RTOL:g}")
+            worst = max(worst, float(np.max(np.abs(x - y)
+                                            / np.maximum(np.abs(y), 1e-30))))
+    print(f"simulator card vs CPU, ndp_machine(4) bucket, full preset "
+          f"({len(traces)} workloads, {card[0].accesses} entries): "
+          f"{', '.join(SIM_INT_COUNTERS)} equal; "
+          f"{', '.join(SIM_FLOAT_COUNTERS)} max relative difference "
+          f"{worst:.3e} (rtol {SIM_RTOL:g}); card {t1 - t0:.2f} s, CPU "
+          f"{t2 - t1:.2f} s")
+
+
+def phase_sim() -> dict:
+    t0 = time.perf_counter()
+    kernel = phase_sim_kernel()
+    print(f"phase 9a (lru_scan vs plain): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    before = LS.launches
+    buckets = SIMLAUNCH.run(SIMLAUNCH.build_parser().parse_args([]))
+    launches = LS.launches - before
+    chunks = sum(bk["chunks"] for bk in buckets)
+    check(launches == chunks == SIM_LAUNCHES,
+          f"lru_scan launches {launches} over {chunks} chunks, not "
+          f"{SIM_LAUNCHES}")
+    check_sim_results(buckets)
+    print(f"simulator: 6 full-preset buckets in "
+          f"{sum(bk['wall_s'] for bk in buckets):.3f} s of simulate_batch, "
+          f"lru_scan launches {launches}")
+    # every bucket's chunk, the kernel held against the plain version
+    timed = {(bk["machine"], bk["cores"]): time_scan_chunk(
+        bk["machine"], bk["cores"]) for bk in buckets}
+    chunk_mism = sum(t.pop("mismatches") for t in timed.values())
+    kernel["mismatches"] += chunk_mism
+    check(chunk_mism == 0, "lru_scan kernel disagrees with its plain "
+                           "version on a full-preset chunk")
+    for bk in buckets:
+        t = timed[(bk["machine"], bk["cores"])]
+        print(f"bucket {bk['machine']} {bk['cores']}c, full preset: wall "
+              f"{bk['wall_s']:.3f} s, {bk['entries_per_s']:.0f} trace "
+              f"entries/s, lru_scan {t['ms']:.4f} ms a chunk x "
+              f"{bk['chunks']} chunks")
+    print(f"phase 9b (figures 12-14, full preset): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_sim_parity()
+    print(f"phase 9c (card vs CPU): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    long = SIMLAUNCH.run(SIMLAUNCH.build_parser().parse_args(
+        ["--cores", "8", "--trace-len", str(SIM_LONG_WINDOW)]))
+    for bk in long:
+        print(f"simulator long window, {bk['machine']} 8c, "
+              f"{SIM_LONG_WINDOW} entries: {bk['entries_per_s']:.0f} trace "
+              f"entries/s, {bk['wall_s']:.3f} s, {bk['launches']} launches")
+    print(f"simulator long window peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"phase 9d (long window): {time.perf_counter() - t0:.1f} s")
+    return dict(kernel, launches=launches, timed=timed)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -792,8 +1092,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
-                      "flash_attention_sm90"])
-    PA._lib(), FA._lib(), FA._lib_sm90()       # load the built kernels
+                      "flash_attention_sm90", "lru_scan"])
+    PA._lib(), FA._lib(), FA._lib_sm90(), LS._lib()   # load the built kernels
     print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
         print(f"  {name}: {log['seconds']:.2f} s")
@@ -813,6 +1113,9 @@ def main() -> int:
     t0 = time.perf_counter()
     parity_launches = phase_train_parity()
     print(f"phase 8 (train parity): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sim = phase_sim()
+    print(f"phase 9 (simulator): {time.perf_counter() - t0:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches}
@@ -839,7 +1142,19 @@ def main() -> int:
         "bound_ms": serve_t["bound_ms"],
         "bound_by": serve_t["bound_by"],
         "library_ms": serve_t["library_ms"],
-    }] + flash_rows}))
+    }] + flash_rows + [{
+        "name": "lru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/sim/simulator.py:429",
+        "launches": sim["launches"],
+        "mismatches": sim["mismatches"],
+        "max_abs_err": sim["max_abs_err"],
+        # the ndp_machine(8) bucket's chunk; the cpu_machine(8) one beside
+        **sim["timed"][("ndp", 8)],
+        **{f"cpu8_{k}": v for k, v in sim["timed"][("cpu", 8)].items()
+           if k.endswith("ms")},
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

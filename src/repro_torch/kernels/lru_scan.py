@@ -1,0 +1,165 @@
+"""Wrapper of the hand-written CUDA LRU-scan kernel of the simulator.
+
+The kernel (``csrc/lru_scan.cu``) replaces the per-step body of the JAX
+simulator's serial scan — ``_build_model``'s ``access`` / ``per_mc`` /
+``make_step`` in ``src/repro/sim/simulator.py`` (:429-556), run by
+``jax.lax.scan`` in ``_chunk_runner`` (:793, :835).  It is not a Pallas
+kernel, but it is the simulator's whole serial hot loop, and PyTorch has
+no compiled scan: an eager step loop issues about 250 small operations a
+trace entry.
+
+What it computes, per trace step, lane and mechanism, in program order:
+the L1-DTLB and L2-TLB lookups, the optional cache-as-TLB probe, four
+per-level PWC lookups and, per hierarchy level, the lookups of the four
+PTE lines and the data line, each a set-associative LRU hit plus fill;
+one packed int32 of hit bits per (step, lane, mechanism) comes out, and
+the tables and stamps are updated in place (``ref.lru_scan_ref`` is the
+plain version and the specification).
+
+Bound.  A chunk moves its inputs, walk lines and packed bits once and
+reads and writes each table once: about 26 MB for a 1,024-step chunk of
+the ``ndp_machine(8)`` bucket, 8 us at 3.35 TB/s.  The kernel is bound by
+latency instead: each (lane, mechanism) chain is serial, about 27
+dependent lookups a step, each a load of a table row.
+
+Design.  One warp per (lane, mechanism) chain loops over the chunk's
+steps; lane ``w`` of the warp owns way ``w`` (and ``w + 32``, ... for a
+PWC wider than 32), so a way is only ever read and written by the same
+thread and the warp needs no barrier between lookups.  A hit is a
+``__ballot_sync`` on tag equality; a miss takes the first way of least
+stamp by a warp-shuffle min-reduction over (stamp, way).  Tables stay in
+global memory: each chain touches only its own, so they mostly stay in
+L1 and L2.  One launch per chunk, as the JAX runner dispatches one scan
+per chunk; the walk lines are computed by torch ops for the chunk and
+passed in.  The scan reads neither the queue delay nor the clock, so a
+later version may launch once over many chunks.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.ref import (FLAG_BYPASS, FLAG_CACHE_TLB, FLAG_HUGE,
+                                     FLAG_IDEAL, FLAG_N_PTE_SHIFT,
+                                     FLAG_PWC_SHIFT, FLAG_SEGMENT,
+                                     SCAN_TABLES)
+
+#: number of kernel launches since the counter was last reset
+launches = 0
+
+_lib_handle = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        lib = _build.load("lru_scan")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lru_scan_launch.argtypes = (
+            [i32] + [ptr] * 8 + [i32] * 3
+            + [ctypes.POINTER(ptr)] * 2 + [ctypes.POINTER(i32)] * 2 + [ptr])
+        lib.lru_scan_launch.restype = i32
+        lib.lru_scan_error_string.argtypes = [i32]
+        lib.lru_scan_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def mech_flags(mt: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The scan's (L, M) int32 flag words from per-lane mechanism tables
+    (``ideal``/``huge``/``bypass``/``segment``/``cache_tlb``: (L, M)
+    bool, ``pwc_on``: (L, M, 4) bool, ``n_pte``: (L, M) int)."""
+    f = torch.zeros(mt["n_pte"].shape, dtype=torch.int32,
+                    device=mt["n_pte"].device)
+    for key, bit in (("ideal", FLAG_IDEAL), ("huge", FLAG_HUGE),
+                     ("bypass", FLAG_BYPASS), ("segment", FLAG_SEGMENT),
+                     ("cache_tlb", FLAG_CACHE_TLB)):
+        f |= mt[key].to(torch.int32) * bit
+    for lvl in range(mt["pwc_on"].shape[-1]):
+        f |= mt["pwc_on"][..., lvl].to(torch.int32) << (FLAG_PWC_SHIFT + lvl)
+    return f | (mt["n_pte"].to(torch.int32) << FLAG_N_PTE_SHIFT)
+
+
+def lru_scan(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
+             valid: torch.Tensor, pte: torch.Tensor, flags: torch.Tensor,
+             stamp: torch.Tensor,
+             tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+             ) -> torch.Tensor:
+    """One chunk of the LRU scan (arguments as ``ref.lru_scan_ref``):
+    packed hit bits (T, L, M) int32 out, ``tables`` and ``stamp`` updated
+    in place.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if vpn.device.type == "cpu":
+        return ref.lru_scan_ref(vpn, off, is4k, valid, pte, flags, stamp,
+                                tables)
+    if vpn.device.type != "cuda":
+        raise ValueError(f"no lru_scan for device {vpn.device}")
+    global launches
+    packed = _launch(vpn, off, is4k, valid, pte, flags, stamp, tables)
+    launches += 1
+    return packed
+
+
+def _check(vpn, off, is4k, valid, pte, flags, stamp, tables) -> None:
+    t_len, n_lanes = vpn.shape
+    m = stamp.shape[-1]
+    want = {"vpn": (vpn, torch.int32, (t_len, n_lanes)),
+            "off": (off, torch.int32, (t_len, n_lanes)),
+            "is4k": (is4k, torch.bool, (t_len, n_lanes)),
+            "valid": (valid, torch.bool, (t_len, n_lanes)),
+            "pte": (pte, torch.int32, (t_len, n_lanes, m, 4)),
+            "flags": (flags, torch.int32, (n_lanes, m)),
+            "stamp": (stamp, torch.int32, (n_lanes, m))}
+    for name, (tags, lru) in tables.items():
+        if name not in SCAN_TABLES:
+            raise ValueError(f"unknown scan table {name!r}")
+        shape = (n_lanes, m) + tuple(tags.shape[2:])
+        want[name + ".tags"] = (tags, torch.int32, shape)
+        want[name + ".lru"] = (lru, torch.int32, shape)
+    for name in ("l1tlb", "l2tlb", "pwc", "l1"):
+        if name not in tables:
+            raise ValueError(f"the scan needs table {name!r}")
+    if ("l2" in tables) != ("l3" in tables):
+        raise ValueError("tables l2 and l3 come together")
+    for name, (t, dtype, shape) in want.items():
+        if t.device != vpn.device:
+            raise ValueError(f"{name} is on {t.device}, vpn on {vpn.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if pte.data_ptr() % 16:
+        raise ValueError("pte must be 16-byte aligned")
+
+
+def _launch(vpn, off, is4k, valid, pte, flags, stamp, tables):
+    """Launch the kernel on checked operands; counts nothing
+    (``chip_smoke.py`` times the kernel through it)."""
+    _check(vpn, off, is4k, valid, pte, flags, stamp, tables)
+    t_len, n_lanes = vpn.shape
+    m = stamp.shape[-1]
+    packed = torch.empty((t_len, n_lanes, m), dtype=torch.int32,
+                         device=vpn.device)
+    n = len(SCAN_TABLES)
+    tags_p, lru_p = (ctypes.c_void_p * n)(), (ctypes.c_void_p * n)()
+    sets, ways = (ctypes.c_int * n)(), (ctypes.c_int * n)()
+    for k, name in enumerate(SCAN_TABLES):
+        if name in tables:
+            tags, lru = tables[name]
+            tags_p[k], lru_p[k] = tags.data_ptr(), lru.data_ptr()
+            sets[k], ways[k] = tags.shape[2], tags.shape[3]
+    lib = _lib()
+    err = lib.lru_scan_launch(
+        vpn.device.index, vpn.data_ptr(), off.data_ptr(), is4k.data_ptr(),
+        valid.data_ptr(), pte.data_ptr(), flags.data_ptr(), stamp.data_ptr(),
+        packed.data_ptr(), t_len, n_lanes, m, tags_p, lru_p, sets, ways,
+        torch.cuda.current_stream(vpn.device).cuda_stream)
+    if err != 0:
+        msg = lib.lru_scan_error_string(err).decode()
+        raise RuntimeError(f"lru_scan kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    return packed

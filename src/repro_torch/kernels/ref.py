@@ -299,3 +299,151 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
     return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
             torch.cat(dvs, dim=1).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the simulator's LRU hit-extraction scan
+# ---------------------------------------------------------------------------
+#: the scan's LRU tables, in the kernel's order: "l2" and "l3" exist on
+#: machines with a cache hierarchy below L1, "ctlb" on machines with a
+#: cache-as-TLB; each is (lanes, mechanisms, sets, ways) tags + stamps
+SCAN_TABLES = ("l1tlb", "l2tlb", "pwc", "l1", "l2", "l3", "ctlb")
+#: bits of the per-(lane, mechanism) flag word the scan reads
+FLAG_IDEAL, FLAG_HUGE, FLAG_BYPASS, FLAG_SEGMENT, FLAG_CACHE_TLB = (
+    1, 2, 4, 8, 16)
+FLAG_PWC_SHIFT = 5          # bits 5..8: a PWC in front of walk level 0..3
+FLAG_N_PTE_SHIFT = 12       # bits 12..14: PTE accesses of a walk
+SCAN_MAX_PTE = 4
+SCAN_HUGE_SHIFT = 9         # 2MB pages: 512 x 4KB
+_INT32_MIN = -2 ** 31
+
+
+def scan_layout(tables) -> tuple:
+    """(hierarchy table names, has a cache-as-TLB, stamp slots a step) of
+    a scan over ``tables``.  The packed hit bits of a step are: 0 L1
+    DTLB, 1 L2 TLB, 2..5 the PWC of walk level 0..3, 6 + 5h .. 10 + 5h
+    hierarchy level h for [pte0..pte3, data], then the cache-as-TLB."""
+    hier = ("l1", "l2", "l3") if "l2" in tables else ("l1",)
+    has_ctlb = "ctlb" in tables
+    return hier, has_ctlb, 2 + SCAN_MAX_PTE + 5 * len(hier) + int(has_ctlb)
+
+
+def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
+                 valid: torch.Tensor, pte: torch.Tensor, flags: torch.Tensor,
+                 stamp: torch.Tensor, tables: dict) -> torch.Tensor:
+    """The serial LRU scan of one chunk, as an eager step loop vectorized
+    over (lane, mechanism).
+
+    vpn, off: (T, L) int32; is4k, valid: (T, L) bool; pte: (T, L, M, 4)
+    int32 walk lines; flags: (L, M) int32 (``FLAG_*``); stamp: (L, M)
+    int32; tables: name -> (tags, lru), each (L, M, sets, ways) int32.
+    Returns the packed hit bits (T, L, M) int32; ``tables`` and ``stamp``
+    are updated in place.
+
+    Each lookup is a set-associative LRU hit plus fill: ``set = key %
+    sets``, ``tag = key / sets + 1`` (PWC: set = walk level, tag = line +
+    1); a matching way wins, else the first way of least stamp; a disabled
+    site neither writes nor hits; the stamp written is ``stamp + slot``,
+    and ``stamp`` advances by the slots of a step on every step, padding
+    included.
+    """
+    t_len, n_lanes = vpn.shape
+    m = stamp.shape[1]
+    hier, has_ctlb, n_slots = scan_layout(tables)
+    ctlb_slot = 2 + SCAN_MAX_PTE + 5 * len(hier)
+
+    def flag(bit):
+        return (flags & bit) != 0
+
+    ideal, huge, bypass = flag(FLAG_IDEAL), flag(FLAG_HUGE), flag(FLAG_BYPASS)
+    segment, cache_tlb = flag(FLAG_SEGMENT), flag(FLAG_CACHE_TLB)
+    n_pte = (flags >> FLAG_N_PTE_SHIFT) & 7
+
+    # everything that does not depend on the tables, for the whole chunk
+    is4k3, valid3, vpn3 = is4k[:, :, None], valid[:, :, None], vpn[:, :, None]
+    tlb_key = torch.where(huge & ~is4k3,
+                          (vpn3 >> SCAN_HUGE_SHIFT) | (1 << 26), vpn3)
+    en0 = valid3 & ~ideal & ~(segment & ~is4k3)
+    eff_n = torch.where(huge & is4k3, SCAN_MAX_PTE, n_pte)
+    pwc_ok = [(lvl < eff_n) & flag(1 << (FLAG_PWC_SHIFT + lvl))
+              for lvl in range(SCAN_MAX_PTE)]
+    pte_ok = [(lvl < eff_n) & ~bypass for lvl in range(SCAN_MAX_PTE)]
+    valid_lm = valid3.expand(t_len, n_lanes, m)
+    data = (vpn * 64 + off)[:, :, None].expand(t_len, n_lanes, m)
+    lines = [pte[..., i] for i in range(SCAN_MAX_PTE)] + [data]
+
+    # tables flattened to rows, with one scratch row at the end that
+    # takes the writes of disabled sites
+    chain = torch.arange(n_lanes * m, device=vpn.device).view(n_lanes, m)
+    flat = {}
+    for name, (tags, lru) in tables.items():
+        ways = tags.shape[-1]
+        pad = tags.new_zeros(1, ways)
+        flat[name] = (torch.cat([tags.reshape(-1, ways), pad]),
+                      torch.cat([lru.reshape(-1, ways), pad]),
+                      tags.shape[2], ways, tags.numel() // ways)
+
+    def site(name, key):
+        sets = flat[name][2]
+        return chain * sets + (key % sets).long(), key // sets + 1
+
+    tlb_sites = {n: site(n, tlb_key)
+                 for n in ("l1tlb", "l2tlb", "ctlb") if n in flat}
+    pwc_rows = [chain * SCAN_MAX_PTE + lvl for lvl in range(SCAN_MAX_PTE)]
+    hier_sites = {n: [site(n, line) for line in lines] for n in hier}
+
+    def access(name, rows, tag, en, st):
+        ft, fl, _, ways, scratch = flat[name]
+        r = rows.reshape(-1)
+        rt = ft.index_select(0, r).view(n_lanes, m, ways)
+        match = rt == tag[..., None]
+        hit = match.any(-1) & en
+        way = torch.where(
+            match, _INT32_MIN,
+            fl.index_select(0, r).view(n_lanes, m, ways)).argmin(-1)
+        idx = (torch.where(en.reshape(-1), r, scratch), way.reshape(-1))
+        ft.index_put_(idx, tag.reshape(-1))
+        fl.index_put_(idx, st.reshape(-1))
+        return hit
+
+    steps = []
+    s = stamp.clone()
+    for t in range(t_len):
+        rows, tag = tlb_sites["l1tlb"]
+        h_l1tlb = access("l1tlb", rows[t], tag[t], en0[t], s)
+        en1 = en0[t] & ~h_l1tlb
+        rows, tag = tlb_sites["l2tlb"]
+        h_l2tlb = access("l2tlb", rows[t], tag[t], en1, s + 1)
+        walk = en1 & ~h_l2tlb
+        if has_ctlb:
+            rows, tag = tlb_sites["ctlb"]
+            h_ctlb = access("ctlb", rows[t], tag[t], walk & cache_tlb,
+                            s + ctlb_slot)
+            walk = walk & ~h_ctlb
+        bits = [h_l1tlb, h_l2tlb]
+        for lvl in range(SCAN_MAX_PTE):
+            h = access("pwc", pwc_rows[lvl], lines[lvl][t] + 1,
+                       walk & pwc_ok[lvl][t], s + 2 + lvl)
+            bits.append(h)
+        ens = [walk & pte_ok[lvl][t] & ~bits[2 + lvl]
+               for lvl in range(SCAN_MAX_PTE)] + [valid_lm[t]]
+        for h_i, name in enumerate(hier):
+            for i, (rows, tag) in enumerate(hier_sites[name]):
+                h = access(name, rows[t], tag[t], ens[i],
+                           s + 2 + SCAN_MAX_PTE + 5 * h_i + i)
+                ens[i] = ens[i] & ~h
+                bits.append(h)
+        if has_ctlb:
+            bits.append(h_ctlb)
+        steps.append(torch.stack(bits, -1))
+        s = s + n_slots
+
+    for name, (tags, lru) in tables.items():
+        ft, fl = flat[name][:2]
+        tags.copy_(ft[:-1].view_as(tags))
+        lru.copy_(fl[:-1].view_as(lru))
+    stamp.copy_(s)
+    hits = torch.stack(steps).to(torch.int32)         # (T, L, M, bits)
+    weights = 1 << torch.arange(hits.shape[-1], dtype=torch.int32,
+                                device=vpn.device)
+    return (hits * weights).sum(-1, dtype=torch.int32)

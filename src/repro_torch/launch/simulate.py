@@ -1,0 +1,154 @@
+"""Simulator launcher of the port: the paper's Figs 12-14 experiment.
+
+On the card, the default (the ``full`` preset: 8,000-entry windows,
+Table-II footprints, seed 0, chunks of 1,024):
+  python -m repro_torch.launch.simulate [--preset full|smoke] \
+      [--machines ndp,cpu] [--cores 1,4,8] [--workloads bc,bfs,...] \
+      [--trace-len N] [--profile]
+runs one ``simulate_batch`` per (machine, cores) bucket, every workload
+on the batch axis, the paper's five mechanisms on the mechanism axis, and
+prints each workload's speedup over radix, the NDP averages beside the
+paper's (Figs 12, 13, 14 at 1, 4, 8 cores), and per bucket the wall
+seconds, chunks, LRU-scan kernel launches and trace entries a second.
+The card's context and the kernel's build come before the first bucket,
+so no bucket's wall time holds them.  ``--profile`` traces each bucket with torch.profiler and prints
+its time by operator and the card's busy share.
+
+On the CPU (plain PyTorch scan):
+  python -m repro_torch.launch.simulate --preset smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.ndp_sim import (CORE_COUNTS, PRESETS, WORKLOADS,
+                                         cpu_machine, ndp_machine)
+from repro_torch.kernels import lru_scan as LS
+from repro_torch.sim import DEFAULT_MECHS, simulate_batch
+from repro_torch.util.device import resolve_device
+from repro_torch.util.profile import print_profile
+from repro_torch.workloads import generate_traces
+
+MACHINES = {"ndp": ndp_machine, "cpu": cpu_machine}
+#: the figure of each core count, and the paper's average NDP speedups
+#: over radix in it (benchmarks/sim_figures.py of the JAX package)
+FIGS = {1: "fig12_1c", 4: "fig13_4c", 8: "fig14_8c"}
+PAPER = {1: {"ech": 1.176, "hugepage": 1.08, "ndpage": 1.344},
+         4: {"ech": 1.299, "ndpage": 1.426},
+         8: {"ech": 1.078, "hugepage": 0.901, "ndpage": 1.407}}
+SHOWN = tuple(m for m in DEFAULT_MECHS if m != "radix")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="full", choices=sorted(PRESETS))
+    ap.add_argument("--machines", default="ndp,cpu",
+                    help="comma-separated, of " + ",".join(MACHINES))
+    ap.add_argument("--cores", default=",".join(map(str, CORE_COUNTS)))
+    ap.add_argument("--workloads", default=",".join(WORKLOADS))
+    ap.add_argument("--trace-len", type=int, default=None,
+                    help="trace window (default: the preset's)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace each bucket with torch.profiler and print "
+                         "the time by operator")
+    return ap
+
+
+def run_bucket(machine: str, cores: int, workloads: List[str], preset,
+               trace_len: Optional[int], device,
+               profile: bool = False) -> Dict:
+    """One (machine, cores) bucket: every workload as one batch."""
+    t0 = time.perf_counter()
+    traces = generate_traces(workloads, cores, length=trace_len,
+                             preset=preset)
+    gen_s = time.perf_counter() - t0
+    before = LS.launches
+    timings: Dict = {}
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts) if profile else None
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        results = simulate_batch(MACHINES[machine](cores), traces,
+                                 chunk=preset.chunk, timings=timings,
+                                 device=device)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        print_profile(prof, wall)
+    entries = sum(tr["vpn"].shape[0] * tr["vpn"].shape[1] for tr in traces)
+    return {"machine": machine, "cores": cores,
+            "results": dict(zip(workloads, results)),
+            "speedups": {w: r.speedup_vs() for w, r in
+                         zip(workloads, results)},
+            "trace_gen_s": gen_s, "wall_s": wall,
+            "chunks": timings["chunks"],
+            "launches": LS.launches - before, "entries": entries,
+            "entries_per_s": entries / wall}
+
+
+def averages(bucket: Dict) -> Dict[str, float]:
+    """Mean speedup over radix of each mechanism across the workloads."""
+    return {m: float(np.mean([s[m] for s in bucket["speedups"].values()]))
+            for m in SHOWN}
+
+
+def run(args) -> List[Dict]:
+    """Every requested bucket in the order of the JAX package's figure
+    benchmark (cores outer, machines inner); prints as it goes."""
+    device = resolve_device(args.device)
+    preset = PRESETS[args.preset]
+    machines = args.machines.split(",")
+    for m in machines:
+        if m not in MACHINES:
+            raise ValueError(f"unknown machine {m!r}: one of "
+                             f"{sorted(MACHINES)}")
+    workloads = args.workloads.split(",")
+    for w in workloads:
+        if w not in WORKLOADS:
+            raise ValueError(f"unknown workload {w!r}: one of "
+                             f"{sorted(WORKLOADS)}")
+    window = args.trace_len or preset.trace_len
+    if device.type == "cuda":       # no bucket's wall holds the set-up:
+        torch.cuda.synchronize(device)      # the card's context
+        LS._lib()                           # the kernel's build and load
+    print(f"simulate: preset {preset.name}, {window}-entry windows, seed "
+          f"{preset.seed}, chunk {preset.chunk}, device {device}, "
+          f"mechanisms {','.join(DEFAULT_MECHS)}")
+    out = []
+    for cores in (int(c) for c in args.cores.split(",")):
+        for machine in machines:
+            bk = run_bucket(machine, cores, workloads, preset,
+                            args.trace_len, device, args.profile)
+            out.append(bk)
+            tag = FIGS.get(cores, f"{cores}c") if machine == "ndp" else (
+                f"cpu_{cores}c")
+            for w, s in bk["speedups"].items():
+                print(f"{tag}_{w}: "
+                      + " ".join(f"{m}={s[m]:.3f}" for m in SHOWN))
+            avg = averages(bk)
+            paper = (f" (paper: {PAPER[cores]})"
+                     if machine == "ndp" and cores in PAPER else "")
+            print(f"{tag}_avg: "
+                  + " ".join(f"{m}={avg[m]:.3f}" for m in SHOWN) + paper)
+            print(f"bucket {machine} {cores}c: {len(workloads)} sims, "
+                  f"{bk['chunks']} chunks, wall {bk['wall_s']:.3f} s "
+                  f"(traces {bk['trace_gen_s']:.3f} s apart), lru_scan "
+                  f"launches {bk['launches']}, "
+                  f"{bk['entries_per_s']:.0f} trace entries/s")
+    return out
+
+
+def main(argv=None) -> None:
+    run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch import config as C
-from repro_torch.launch.serve import print_profile
+from repro_torch.util.profile import print_profile
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.fault_tolerance import FaultConfig, GuardedTrainer
 from repro_torch.train.optimizer import AdamWConfig

@@ -1,0 +1,710 @@
+"""Trace-driven timing simulator for NDP/CPU address translation.
+
+The port of ``repro.sim.simulator``.  Mechanistic interval model
+(Sniper-style): every trace entry is one memory instruction preceded by
+``work`` non-memory instructions.  Per entry the engine models, for all
+mechanisms at once (M axis) and all lanes (the fused simulations x cores
+axis): the L1 DTLB -> L2 TLB (-> cache-as-TLB) -> page-table walk, the
+walk's PTE accesses through the per-level PWCs and then the cache
+hierarchy or, for a bypassing mechanism (NDPage), memory directly, the
+data access through the hierarchy, and a shared-memory queueing delay
+from the measured aggregate demand (``q = service * rho * K``).
+
+Engine.  The trace is padded to chunks and streamed through one chunk
+runner, split along the only serial dependency:
+
+* the **scan** (``kernels.lru_scan``: a hand-written CUDA kernel on the
+  card, an eager step loop on the CPU) carries only the LRU tag/stamp
+  tables and emits one packed int32 of hit bits per (step, lane,
+  mechanism);
+* a vectorized **epilogue** (torch ops) expands the hit bits over the
+  whole chunk and does every latency and counter computation.
+
+The queueing delay is held constant within a chunk (recomputed from the
+aggregate demand at every chunk boundary), which is what makes the split
+exact.  Tables are laid out ``(B, C, M, sets, ways)`` and viewed as the
+fused ``(B*C, M, sets, ways)`` lane layout for the scan; the scan updates
+them in place.
+
+Everything runs on one engine, the batched one: :func:`simulate` is
+:func:`simulate_batch` of one trace, and :func:`simulate_batch` is
+:func:`simulate_batch_varied` of one machine.  The JAX package reroutes
+one-core runs to its batch engine and pads them to two lanes, around an
+XLA reduction whose float order changes at width 1, to keep its two
+engines bit-identical; the port has one engine and needs neither.  Lanes
+never interact, but torch picks a reduction's order by shape, so a
+lane's float sums (cycles) may differ in the last bits between batch
+widths; its integer-valued counters do not.
+
+Not ported yet: banked memory (``MemoryModel.kind == "banked"``) raises
+``NotImplementedError`` (ROADMAP module item 4), real-trace specs
+(``"trace:<path>"``) raise in :mod:`repro_torch.workloads` (item 2), and
+``devices > 1`` raises (item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import page_table as PT
+from repro_torch.kernels import lru_scan as LS
+from repro_torch.sim import memory_model as MM
+from repro_torch.sim.mechanisms import (DEFAULT_MECHS, MAX_PTE, specs_for,
+                                        tables_for)
+from repro_torch.util.device import resolve_device
+
+if TYPE_CHECKING:       # configs.ndp_sim imports sim.memory_model
+    from repro_torch.configs.ndp_sim import MachineConfig
+
+M = len(DEFAULT_MECHS)
+
+#: scan-chunk length; traces are padded to a multiple of this
+DEFAULT_CHUNK = 512
+
+# 2MB huge pages: 512 x 4KB pages (footprints are unscaled)
+HUGE_SHIFT = 9
+# salt of the region hash that picks the 4KB-fallback regions
+_FRAG_SALT = 0x9E3779B9
+
+# huge-page cost model: FRAC_4K is the fraction of memory falling back to
+# 4KB mappings as contiguity is consumed (grows with allocating cores);
+# HP_STALL the amortized per-access stall for 2MB fault latency /
+# compaction / bloat, growing with core count.  Calibrated against Figs
+# 12-14 by the JAX package.
+FRAC_4K = {1: 0.16, 2: 0.27, 4: 0.49, 8: 0.93}
+HP_STALL_BASE = 55.0
+HP_STALL_PER_CORE = 7.0
+QUEUE_K = MM.QUEUE_K        # bounded-linear queue slope (cycles at rho=1)
+# ECH: cuckoo upsizing/rehash churn per walk ~ (cores - 2)^2
+ECH_REHASH_QUAD = 5.0
+
+_COUNTERS = ("trans", "walks", "walk_cyc", "l1tlb_miss", "pte_acc",
+             "pte_l1_hit", "pte_mem", "data_l1_miss", "data_mem")
+
+
+@dataclasses.dataclass
+class SimResult:
+    mechs: Tuple[str, ...]
+    cycles: np.ndarray            # (M, C)
+    instructions: np.ndarray      # (C,)
+    trans_cycles: np.ndarray      # (M, C) translation stall cycles
+    walk_cycles: np.ndarray       # (M, C)
+    walks: np.ndarray             # (M, C)
+    l1tlb_misses: np.ndarray      # (M, C)
+    accesses: int
+    pte_accesses: np.ndarray      # (M, C)
+    pte_l1_hits: np.ndarray       # (M, C)
+    pte_mem: np.ndarray           # (M, C)
+    data_l1_misses: np.ndarray    # (M, C)
+    data_mem: np.ndarray          # (M, C)
+
+    # -- derived metrics ----------------------------------------------------
+    def ipc(self) -> np.ndarray:
+        return self.instructions[None, :] / self.cycles
+
+    def speedup_vs(self, base: str = "radix") -> Dict[str, float]:
+        b = self.mechs.index(base)
+        mean_c = self.cycles.mean(axis=1)
+        return {m: float(mean_c[b] / mean_c[i])
+                for i, m in enumerate(self.mechs)}
+
+    def avg_ptw_latency(self) -> np.ndarray:
+        return (self.walk_cycles / np.maximum(self.walks, 1)).mean(axis=1)
+
+    def translation_fraction(self) -> np.ndarray:
+        return (self.trans_cycles / self.cycles).mean(axis=1)
+
+    def tlb_miss_rate(self) -> np.ndarray:
+        return (self.l1tlb_misses / self.accesses).mean(axis=1)
+
+    def pte_l1_miss_rate(self) -> np.ndarray:
+        return 1.0 - (self.pte_l1_hits
+                      / np.maximum(self.pte_accesses, 1)).mean(axis=1)
+
+    def data_l1_miss_rate(self) -> np.ndarray:
+        return (self.data_l1_misses / self.accesses).mean(axis=1)
+
+    # -- slicing helpers ----------------------------------------------------
+    def select(self, mechs: Sequence[str] | str | None = None,
+               cores: Sequence[int] | slice | int | None = None
+               ) -> "SimResult":
+        """Sub-view of the result restricted to ``mechs`` (names, order
+        preserved as given) and/or ``cores`` (index/slice/sequence)."""
+        if isinstance(mechs, str):
+            mechs = (mechs,)
+        names = self.mechs if mechs is None else tuple(mechs)
+        mi = np.asarray([self.mechs.index(n) for n in names])
+        if cores is None:
+            ci = np.arange(self.cycles.shape[1])
+        elif isinstance(cores, slice):
+            ci = np.arange(self.cycles.shape[1])[cores]
+        else:
+            ci = np.atleast_1d(np.asarray(cores))
+        mc = lambda a: a[np.ix_(mi, ci)]                     # noqa: E731
+        return SimResult(
+            mechs=names,
+            cycles=mc(self.cycles),
+            instructions=self.instructions[ci],
+            trans_cycles=mc(self.trans_cycles),
+            walk_cycles=mc(self.walk_cycles),
+            walks=mc(self.walks),
+            l1tlb_misses=mc(self.l1tlb_misses),
+            accesses=self.accesses,
+            pte_accesses=mc(self.pte_accesses),
+            pte_l1_hits=mc(self.pte_l1_hits),
+            pte_mem=mc(self.pte_mem),
+            data_l1_misses=mc(self.data_l1_misses),
+            data_mem=mc(self.data_mem),
+        )
+
+    def scalar(self, metric: str, mech: str) -> float:
+        """One derived metric for one mechanism, as a plain float:
+        ``res.scalar("avg_ptw_latency", "radix")``."""
+        return getattr(self.select(mechs=(mech,)), metric)().item()
+
+
+# ---------------------------------------------------------------------------
+# state construction and the shape/data split
+# ---------------------------------------------------------------------------
+def _table_shapes(mach: "MachineConfig") -> Dict[str, Tuple[int, int]]:
+    """name -> (num_sets, ways) for every LRU table of one (mech, core)."""
+    shapes = {
+        "l1": (mach.l1d.num_sets, mach.l1d.ways),
+        "l1tlb": (mach.l1_dtlb.entries // mach.l1_dtlb.ways,
+                  mach.l1_dtlb.ways),
+        "l2tlb": (mach.l2_tlb.entries // 12, 12),
+        # per-level PWCs as one table: set index IS the walk level
+        "pwc": (MAX_PTE, mach.pwc_entries),
+    }
+    if mach.l2 is not None:
+        shapes["l2"] = (mach.l2.num_sets, mach.l2.ways)
+    if mach.l3 is not None:
+        shapes["l3"] = (mach.l3.num_sets, mach.l3.ways)
+    if mach.ctlb_kb > 0:
+        # cache-as-TLB: ctlb_kb KB of repurposed cache, one translation
+        # per 64B line; structurally absent at ctlb_kb=0
+        entries = mach.ctlb_kb * 1024 // 64
+        shapes["ctlb"] = (max(entries // mach.ctlb_ways, 1),
+                          mach.ctlb_ways)
+    return shapes
+
+
+@dataclasses.dataclass(frozen=True)
+class MachineShape:
+    """Everything about a ``MachineConfig`` that determines ARRAY SHAPES:
+    the core count, the (sets, ways) geometry of every LRU table, and the
+    memory model's shape half.  Jobs of one batch must share it; their
+    other differences (latencies, service times, per-mechanism flags)
+    ride the lanes as data."""
+
+    num_cores: int
+    tables: Tuple[Tuple[str, int, int], ...]    # (name, sets, ways)
+    memory: Tuple = ("bounded_linear",)
+
+    @property
+    def hier(self) -> Tuple[str, ...]:
+        names = {n for n, _, _ in self.tables}
+        return ("l1", "l2", "l3") if "l2" in names else ("l1",)
+
+
+def machine_shape(mach: "MachineConfig") -> MachineShape:
+    return MachineShape(
+        num_cores=mach.num_cores,
+        tables=tuple((n, s, w)
+                     for n, (s, w) in _table_shapes(mach).items()),
+        memory=mach.memory.shape_key())
+
+
+def _data_params(mach: "MachineConfig") -> Dict[str, np.float32]:
+    """The value-like half of a ``MachineConfig``: every latency the
+    timing epilogue consumes, as float32 scalars.  ``mem_lat`` is the
+    closed-row/full access latency, ``row_save`` the cycles an open-row
+    hit skips (0.0 for bounded_linear), ``service`` the queue service
+    time."""
+    return {k: np.float32(v) for k, v in {
+        "mem_lat": mach.memory.miss_latency(),
+        "row_save": mach.memory.row_hit_save(),
+        "l1_lat": mach.l1d.latency,
+        "l2_lat": mach.l2.latency if mach.l2 else 0.0,
+        "l3_lat": mach.l3.latency if mach.l3 else 0.0,
+        "l2tlb_lat": mach.l2_tlb.latency,
+        "pwc_lat": mach.pwc_latency,
+        "service": mach.memory.service,
+        "promo": (HP_STALL_BASE
+                  + HP_STALL_PER_CORE * max(mach.num_cores - 1, 0)),
+        "ech_rehash": ECH_REHASH_QUAD * max(mach.num_cores - 2, 0) ** 2,
+        "ctlb_lat": mach.ctlb_latency,
+        # multi-stack NDP memory: the expected extra hop cost of a memory
+        # access, (remote fraction) x (hop cycles); 0.0 at num_stacks=1
+        "stack_pen": ((1.0 - 1.0 / mach.num_stacks)
+                      * mach.stack_hop_cycles),
+    }.items()}
+
+
+def _mech_arrays(names: Tuple[str, ...]) -> Dict[str, np.ndarray]:
+    """The spec registry lowered to per-mechanism VALUE arrays, so lanes
+    of one batch may disagree on walk depth, bypass, PWC placement, or
+    huge-page semantics.  Only the walk FUNCTIONS must agree."""
+    t = tables_for(names)
+    return {"n_pte": t.n_pte, "parallel": t.parallel, "bypass": t.bypass,
+            "pwc_on": t.pwc_on, "huge": t.huge, "ideal": t.ideal,
+            "cache_tlb": t.cache_tlb, "segment": t.segment,
+            "colocate": t.colocate}
+
+
+def _walk_fns(names: Tuple[str, ...]) -> Tuple:
+    """The code half of a mechanism tuple: the VPN -> PTE-line functions."""
+    return tuple(s.walk_fn for s in specs_for(names))
+
+
+def _no_banked(mach: "MachineConfig") -> None:
+    if mach.memory.kind == "banked":
+        raise NotImplementedError(
+            f"machine {mach.name!r}: banked memory is not ported to "
+            "repro_torch's simulator yet (ROADMAP module item 4: banked "
+            "memory in the scan and the epilogue)")
+
+
+def init_state(mach: "MachineConfig", m: int = M, batch: int | None = None,
+               *, device="cuda") -> Dict:
+    """Zeroed engine state on ``device``.  ``batch=None``: one simulation,
+    tables (C, M, sets, ways); ``batch=B``: B independent simulations,
+    tables (B, C, M, sets, ways).  Clock and counters are (M, C) per
+    simulation, ``mem_accs`` (M,)."""
+    _no_banked(mach)
+    dev = resolve_device(device)
+    c = mach.num_cores
+    lead = () if batch is None else (batch,)
+
+    def zeros(shape, dtype):
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
+    st = {name: {"tags": zeros((c, m, sets, ways), torch.int32),
+                 "lru": zeros((c, m, sets, ways), torch.int32)}
+          for name, (sets, ways) in _table_shapes(mach).items()}
+    st["stamp"] = zeros((c, m), torch.int32)
+    st["clock"] = zeros((m, c), torch.float32)
+    st["mem_accs"] = zeros((m,), torch.float32)
+    st["counters"] = {k: zeros((m, c), torch.float32) for k in _COUNTERS}
+    return st
+
+
+# ---------------------------------------------------------------------------
+# the per-chunk pieces around the scan
+# ---------------------------------------------------------------------------
+def _pad_lines(a: torch.Tensor) -> torch.Tensor:
+    """Pad (..., d) walk lines to (..., MAX_PTE)."""
+    return torch.nn.functional.pad(a, (0, MAX_PTE - a.shape[-1]))
+
+
+def walk_lines(vpn: torch.Tensor, is4k: torch.Tensor, huge: torch.Tensor,
+               walk_fns: Tuple) -> torch.Tensor:
+    """(T, L) vpns -> (T, L, M, MAX_PTE) int32 PTE line ids.  ``huge`` is
+    (L, M) data: huge-page mechanisms take the radix lines in fragmented
+    (4KB) regions."""
+    radix = _pad_lines(PT.radix4_walk_lines(vpn))
+    per_mech = []
+    for i, fn in enumerate(walk_fns):
+        if fn is None:
+            lines = torch.zeros_like(radix)
+        elif fn is PT.radix4_walk_lines:
+            lines = radix
+        else:
+            lines = _pad_lines(fn(vpn))
+        h = huge[None, :, i, None]
+        per_mech.append(torch.where(h & is4k[..., None], radix, lines))
+    return torch.stack(per_mech, dim=-2)
+
+
+def _queue(clock: torch.Tensor, mem_accs: torch.Tensor,
+           service: torch.Tensor) -> torch.Tensor:
+    """Queue delay per (sim, mech) from the demand measured so far,
+    bounded-linear law, held constant within the chunk.  clock (B, M, C),
+    mem_accs (B, M), service (B,) -> (B, M)."""
+    elapsed = torch.clamp(clock.mean(dim=-1), min=1.0)
+    rate = mem_accs / elapsed                 # aggregate accesses/cycle
+    svc = service[:, None]
+    rho = torch.clamp(rate * svc, 0.0, MM.RHO_MAX)
+    return svc * rho * QUEUE_K
+
+
+def _epilogue(packed: torch.Tensor, work: torch.Tensor, is4k: torch.Tensor,
+              valid: torch.Tensor, q: torch.Tensor, mt: Dict, dp: Dict,
+              n_hier: int, has_ctlb: bool):
+    """Vectorized timing over the whole chunk.
+
+    packed: (T, M, L) hit bits; work: (T, L) float32; is4k, valid: (T, L)
+    bool; q: (M, L) queue delay, constant within the chunk; mt: lane
+    mechanism tables ((L, M) leaves); dp: lane data params ((L,) leaves).
+    Re-derives the gates the scan used from the hit bits and returns the
+    (M, L) counter deltas, clock delta and memory accesses.
+    """
+    def bit(i):
+        return ((packed >> i) & 1).bool()
+
+    def mb(a):          # lane mech table (L, M) -> (1, M, L)
+        return a.T[None]
+
+    def d3(v):          # lane data param -> broadcast over (T, M, L)
+        return v[None, None, :]
+
+    def d4(v):          # lane data param -> broadcast over (T, M, L, 5)
+        return v[None, None, :, None]
+
+    ctlb_bit = 6 + 5 * n_hier
+    validb = valid[:, None, :]                           # (T, 1, L)
+    is4kb = is4k[:, None, :]
+    hugeb, bypb = mb(mt["huge"]), mb(mt["bypass"])
+    hier_lat = [dp["l1_lat"], dp["l2_lat"], dp["l3_lat"]][:n_hier]
+    # multi-stack remote-hop penalty per memory access: co-locating
+    # mechanisms dodge ~90% of it; exactly +0.0 on one stack
+    pen = d3(dp["stack_pen"]) * torch.where(mb(mt["colocate"]), 0.1, 1.0)
+    mem_cost = d4(dp["mem_lat"]) + q[None, ..., None] + pen[..., None]
+
+    h_l1tlb, h_l2tlb = bit(0), bit(1)
+    en0 = validb & ~mb(mt["ideal"]) & ~(mb(mt["segment"]) & ~is4kb)
+    walk = en0 & ~h_l1tlb & ~h_l2tlb                    # (T, M, L)
+    if has_ctlb:
+        ctlb_probe = walk & mb(mt["cache_tlb"])
+        walk = walk & ~bit(ctlb_bit)
+    eff_n = torch.where(hugeb & is4kb, MAX_PTE, mb(mt["n_pte"]))
+
+    # hierarchy latency per line (pte0..3, data): chain the per-level hit
+    # bits top-down; a line that misses everywhere pays memory + q
+    shape5 = packed.shape + (5,)
+    lat = torch.zeros(shape5, dtype=torch.float32, device=packed.device)
+    reached = torch.ones(shape5, dtype=torch.bool, device=packed.device)
+    went_mem = reached.clone()
+    for h_i in range(n_hier):
+        h = torch.stack([bit(6 + 5 * h_i + i) for i in range(5)], -1)
+        lat = lat + torch.where(reached, d4(hier_lat[h_i]), 0.0)
+        went_mem = went_mem & ~h
+        reached = reached & ~h
+    lat = lat + torch.where(reached, mem_cost, 0.0)
+
+    # per-PTE-level walk latency: a PWC hit beats everything; a bypassing
+    # mechanism goes straight to memory; the others pay the chain
+    pwc_hit = torch.stack([bit(2 + lvl) for lvl in range(MAX_PTE)], -1)
+    levels = torch.arange(MAX_PTE, device=packed.device)
+    pte_en = walk[..., None] & (levels < eff_n[..., None])
+    need_mem = pte_en & ~pwc_hit
+    pte_lat = torch.where(bypb[..., None], mem_cost[..., :MAX_PTE],
+                          lat[..., :MAX_PTE])
+    pte_lat = torch.where(pwc_hit, d4(dp["pwc_lat"]), pte_lat)
+    pte_lat = torch.where(pte_en, pte_lat, 0.0)
+
+    # parallel (ECH) walks complete when the hitting probe returns: one
+    # access latency plus issue overhead and the multi-core rehash churn
+    walk_cyc = torch.where(mb(mt["parallel"]),
+                           pte_lat.amax(-1) + 2.0 + d3(dp["ech_rehash"]),
+                           pte_lat.sum(-1))
+
+    trans = torch.where(walk, walk_cyc, 0.0)
+    if has_ctlb:
+        # the cache-as-TLB probe is serial after the L2-TLB miss: paid on
+        # hit and miss; a hit replaces the walk
+        trans = trans + torch.where(ctlb_probe, d3(dp["ctlb_lat"]), 0.0)
+    trans = torch.where(en0 & ~h_l1tlb, d3(dp["l2tlb_lat"]) + trans, 0.0)
+    trans = trans + torch.where(hugeb & validb, d3(dp["promo"]), 0.0)
+
+    pte_l1_hit = torch.stack([bit(6 + i) for i in range(MAX_PTE)], -1)
+    pte_mem = need_mem & (bypb[..., None] | went_mem[..., :MAX_PTE])
+    data_mem = validb & went_mem[..., MAX_PTE]
+    dlat = torch.where(validb, lat[..., MAX_PTE], 0.0)
+
+    step_cyc = torch.where(
+        validb,
+        work[:, None, :] + 1.0 + trans + (dlat - d3(dp["l1_lat"])),
+        0.0)
+
+    def count(a, dims=0):
+        return a.to(torch.float32).sum(dim=dims)
+
+    cnt = {
+        "trans": trans.sum(dim=0),
+        "walks": count(walk),
+        "walk_cyc": torch.where(walk, walk_cyc, 0.0).sum(dim=0),
+        "l1tlb_miss": count(en0 & ~h_l1tlb),
+        "pte_acc": count(need_mem, (0, -1)),
+        "pte_l1_hit": count(pte_l1_hit, (0, -1)),
+        "pte_mem": count(pte_mem, (0, -1)),
+        "data_l1_miss": count(validb & ~bit(6 + MAX_PTE)),
+        "data_mem": count(data_mem),
+    }
+    mem_n = count(pte_mem, (0, -1)) + count(data_mem)
+    return cnt, step_cyc.sum(dim=0), mem_n
+
+
+# ---------------------------------------------------------------------------
+# the chunk loop
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class _Bucket:
+    """One batch on the device: the padded inputs (T_pad, B, C) (valid
+    (T_pad, B)), the per-lane mechanism tables and data params, and the
+    scan's flag words."""
+
+    mach: "MachineConfig"
+    shape: MachineShape
+    walk_fns: Tuple
+    b: int
+    m: int
+    chunk: int
+    lens: List[int]
+    xs: Tuple[torch.Tensor, ...]    # vpn, off, work, is4k, valid
+    mt_l: Dict[str, torch.Tensor]   # (L, M) (pwc_on (L, M, 4))
+    dp: Dict[str, torch.Tensor]     # (B,)
+    dp_l: Dict[str, torch.Tensor]   # (L,)
+    flags: torch.Tensor             # (L, M) int32
+
+    @property
+    def c(self) -> int:
+        return self.shape.num_cores
+
+    @property
+    def n_chunks(self) -> int:
+        return self.xs[0].shape[0] // self.chunk
+
+
+def _resolve_trace(trace, num_cores: int, length: int | None):
+    """Accept a workload name anywhere a trace dict is expected
+    (``"trace:<path>"`` specs raise: ingest is not ported)."""
+    if isinstance(trace, str):
+        from repro_torch.workloads import generate_trace, parse_workload_spec
+        parse_workload_spec(trace)       # fail loudly at the boundary
+        return generate_trace(trace, num_cores, length=length)
+    return trace
+
+
+def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
+             dev: torch.device) -> Tuple[_Bucket, List[np.ndarray]]:
+    """Check the shape bucket, pad and pack the traces, move everything
+    the chunks need to ``dev``.  Returns the bucket and each job's work
+    array (for the instruction counts)."""
+    shape = machine_shape(jobs[0].mach)
+    wf = _walk_fns(jobs[0].mechs)
+    m = len(specs_for(jobs[0].mechs))
+    c = shape.num_cores
+    for j in jobs:
+        _no_banked(j.mach)
+        if machine_shape(j.mach) != shape:
+            raise ValueError(
+                f"job {j.mach.name!r} breaks the shape bucket: "
+                f"{machine_shape(j.mach)} != {shape} — split the batch "
+                "by machine_shape() first")
+        if _walk_fns(j.mechs) != wf:
+            raise ValueError(
+                f"job mechs {j.mechs} have different walk functions "
+                "than the bucket's — bucket by walk-fn tuple first")
+
+    vpns, offs, works, lens = [], [], [], []
+    for j in jobs:
+        vpn = j.trace["vpn"][:, :length] if length else j.trace["vpn"]
+        if vpn.shape[0] != c:
+            raise ValueError(f"trace has {vpn.shape[0]} cores, machine "
+                             f"{j.mach.name!r} {c}")
+        vpns.append(vpn)
+        offs.append(j.trace["off"][:, : vpn.shape[1]])
+        works.append(j.trace["work"][:, : vpn.shape[1]])
+        lens.append(vpn.shape[1])
+    t_pad = max(lens) + (-max(lens)) % chunk
+    b = len(jobs)
+
+    def pack(arrs, dtype):
+        out = np.zeros((t_pad, b, c), dtype)
+        for i, a in enumerate(arrs):
+            out[: lens[i], i] = np.ascontiguousarray(a.T)
+        return out
+
+    # huge-page fragmentation: which 2MB regions fell back to 4KB (host)
+    is4ks = []
+    for j, v in zip(jobs, vpns):
+        frac = FRAC_4K.get(j.mach.num_cores, min(0.93, 0.05 + 0.11 *
+                                                 j.mach.num_cores))
+        region = PT._hash_np(v >> HUGE_SHIFT, _FRAG_SALT)
+        is4ks.append(region % 1000 < int(frac * 1000))
+    valid = np.zeros((t_pad, b), bool)
+    for i, n in enumerate(lens):
+        valid[:n, i] = True
+    xs = tuple(torch.from_numpy(a).to(dev) for a in (
+        pack(vpns, np.int32), pack(offs, np.int32),
+        pack(works, np.float32), pack(is4ks, bool), valid))
+
+    mts = [_mech_arrays(j.mechs) for j in jobs]
+    dps = [_data_params(j.mach) for j in jobs]
+    mt = {k: torch.from_numpy(np.stack([t[k] for t in mts])).to(dev)
+          for k in mts[0]}
+    dp = {k: torch.from_numpy(np.stack([d[k] for d in dps])).to(dev)
+          for k in dps[0]}
+    mt_l = {k: torch.repeat_interleave(v, c, dim=0) for k, v in mt.items()}
+    dp_l = {k: torch.repeat_interleave(v, c, dim=0) for k, v in dp.items()}
+    bucket = _Bucket(mach=jobs[0].mach, shape=shape, walk_fns=wf, b=b, m=m,
+                     chunk=chunk, lens=lens, xs=xs, mt_l=mt_l, dp=dp,
+                     dp_l=dp_l, flags=LS.mech_flags(mt_l))
+    return bucket, works
+
+
+def _scan_inputs(bk: _Bucket, state: Dict, i: int) -> Dict:
+    """The scan's operands for chunk ``i`` on the fused lane layout, the
+    tables and stamp as views of ``state`` (the scan updates them in
+    place), plus ``work`` for the epilogue."""
+    sl = slice(i * bk.chunk, (i + 1) * bk.chunk)
+    vpn, off, work, is4k, valid = (a[sl] for a in bk.xs)
+    t, lanes = vpn.shape[0], bk.b * bk.c
+
+    def fuse(a):
+        return a.reshape(t, lanes)
+
+    vpn, off, work, is4k = fuse(vpn), fuse(off), fuse(work), fuse(is4k)
+    tables = {name: tuple(state[name][k].view((lanes,)
+                                              + state[name][k].shape[2:])
+                          for k in ("tags", "lru"))
+              for name, _, _ in bk.shape.tables}
+    return dict(vpn=vpn, off=off, is4k=is4k,
+                valid=torch.repeat_interleave(valid, bk.c, dim=1),
+                pte=walk_lines(vpn, is4k, bk.mt_l["huge"], bk.walk_fns),
+                flags=bk.flags,
+                stamp=state["stamp"].view(lanes, bk.m),
+                tables=tables, work=work)
+
+
+def _run_chunk(bk: _Bucket, state: Dict, i: int) -> None:
+    """Chunk ``i``: scan, epilogue, and the state update (in place)."""
+    args = _scan_inputs(bk, state, i)
+    work = args.pop("work")
+    q = _queue(state["clock"], state["mem_accs"], bk.dp["service"])
+    q_lane = torch.repeat_interleave(q.T, bk.c, dim=1)        # (M, B*C)
+    packed = LS.lru_scan(**args)
+    # the scan emits (T, L, M); the epilogue works in (T, M, L)
+    cnt, cyc, mem_n = _epilogue(
+        packed.transpose(1, 2), work, args["is4k"], args["valid"], q_lane,
+        bk.mt_l, bk.dp_l, len(bk.shape.hier), "ctlb" in args["tables"])
+
+    def unfuse(a):                    # (M, B*C) -> (B, M, C)
+        return a.reshape(a.shape[0], bk.b, bk.c).transpose(0, 1)
+
+    state["clock"] += unfuse(cyc)
+    state["mem_accs"] += unfuse(mem_n).sum(dim=2)
+    for k, v in cnt.items():
+        state["counters"][k] += unfuse(v)
+
+
+def simulate(mach: "MachineConfig", trace: Dict[str, np.ndarray] | str,
+             length: int | None = None, *,
+             mechs: Tuple[str, ...] | None = None,
+             chunk: int = DEFAULT_CHUNK, device="cuda") -> SimResult:
+    """Run the registered mechanisms over a multi-core trace on ``mach``.
+
+    ``mechs`` selects/orders mechanisms from the spec registry (default:
+    the paper's five).  The trace is zero-padded to a multiple of
+    ``chunk`` (padding is masked out of every counter).  Runs on
+    ``device`` (the card by default; ``"cpu"`` runs the plain scan)."""
+    names = DEFAULT_MECHS if mechs is None else tuple(mechs)
+    return simulate_batch(mach, [trace], length, mechs=names, chunk=chunk,
+                          device=device)[0]
+
+
+def simulate_batch(mach: "MachineConfig",
+                   traces: Sequence[Dict[str, np.ndarray] | str],
+                   length: int | None = None, *,
+                   mechs: Tuple[str, ...] | None = None,
+                   chunk: int = DEFAULT_CHUNK,
+                   devices: int | None = None,
+                   timings: Dict | None = None,
+                   device="cuda") -> List[SimResult]:
+    """Run B independent simulations sharing ``mach`` as one batch.
+
+    ``traces`` is a sequence of trace dicts (each ``(num_cores, T_i)``);
+    lanes with shorter traces are masked with per-sim valid bits, so
+    mixed-length buckets are fine.  Lanes never interact.
+    ``devices > 1`` raises (sharding is ROADMAP module item 10).
+    ``timings``, if given, is filled with wall clock: "total_s",
+    "compile_s_est" (first-chunk excess over the steady per-chunk rate:
+    the kernel's build and load, on the card), "run_s" (= total -
+    compile estimate), and "chunks"."""
+    names = DEFAULT_MECHS if mechs is None else tuple(mechs)
+    return simulate_batch_varied(
+        [SimJob(mach, tr, names) for tr in traces], length,
+        chunk=chunk, devices=devices, timings=timings, device=device)
+
+
+@dataclasses.dataclass
+class SimJob:
+    """One lane of a varied batch: a machine, its trace, and the
+    mechanism tuple to evaluate.  All jobs of one
+    :func:`simulate_batch_varied` call must share the machine SHAPE
+    (:func:`machine_shape`) and the mechanisms' walk-fn tuple —
+    everything value-like (latencies, service time, bypass/PWC/huge
+    flags, walk depth) may differ per lane."""
+
+    mach: "MachineConfig"
+    trace: Dict[str, np.ndarray] | str
+    mechs: Tuple[str, ...] = DEFAULT_MECHS
+
+
+def simulate_batch_varied(jobs: Sequence[SimJob],
+                          length: int | None = None, *,
+                          chunk: int = DEFAULT_CHUNK,
+                          devices: int | None = None,
+                          timings: Dict | None = None,
+                          device="cuda") -> List[SimResult]:
+    """B heterogeneous (machine, trace, mechanisms) jobs as one batch.
+
+    The jobs must form one shape bucket: equal :func:`machine_shape` and
+    equal mechanism walk-fn tuples (a ``ValueError`` names the offender
+    otherwise).  Everything value-like varies per lane."""
+    if devices is not None and devices > 1:
+        raise NotImplementedError(
+            f"devices={devices}: sharding the batch over several cards is "
+            "not ported yet (ROADMAP module item 10)")
+    dev = resolve_device(device)
+    if not jobs:
+        return []
+    jobs = [j if not isinstance(j.trace, str)
+            else dataclasses.replace(
+                j, trace=_resolve_trace(j.trace, j.mach.num_cores, length))
+            for j in jobs]
+    bk, works = _prepare(jobs, length, chunk, dev)
+    state = init_state(bk.mach, bk.m, batch=bk.b, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    t_first = 0.0
+    for i in range(bk.n_chunks):
+        _run_chunk(bk, state, i)
+        if timings is not None and i == 0:
+            sync()
+            t_first = time.perf_counter() - t0
+    cnt = {k: v.cpu().numpy() for k, v in state["counters"].items()}
+    clock = state["clock"].cpu().numpy()
+    if timings is not None:
+        total = time.perf_counter() - t0
+        steady = ((total - t_first) / (bk.n_chunks - 1)
+                  if bk.n_chunks > 1 else 0.0)
+        timings["chunks"] = bk.n_chunks
+        timings["total_s"] = total
+        timings["compile_s_est"] = max(0.0, t_first - steady)
+        timings["run_s"] = total - timings["compile_s_est"]
+
+    return [SimResult(
+        mechs=jobs[i].mechs,
+        cycles=clock[i],
+        instructions=np.asarray((works[i] + 1).sum(axis=1), np.float64),
+        trans_cycles=cnt["trans"][i],
+        walk_cycles=cnt["walk_cyc"][i],
+        walks=cnt["walks"][i],
+        l1tlb_misses=cnt["l1tlb_miss"][i],
+        accesses=bk.lens[i],
+        pte_accesses=cnt["pte_acc"][i],
+        pte_l1_hits=cnt["pte_l1_hit"][i],
+        pte_mem=cnt["pte_mem"][i],
+        data_l1_misses=cnt["data_l1_miss"][i],
+        data_mem=cnt["data_mem"][i],
+    ) for i in range(len(jobs))]

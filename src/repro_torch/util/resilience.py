@@ -1,12 +1,16 @@
-"""Recovery event log and deterministic fault injection for serving.
+"""Recovery event log, deterministic fault injection, and the
+integrity-checked cache store.
 
-The part of ``repro.util.resilience`` that the scheduler and engine
-call: :func:`log_event` records every recovery decision in a bounded
-process-wide log, and :class:`FaultInjector` replays a deterministic
-fault plan against the instrumented sites, so chaos tests can prove that
-injected faults cost only retries (outputs stay bit-exact vs a
-fault-free run).  The integrity-checked cache entries and the watchdog
-belong to the simulator slice and are not ported yet.
+The part of ``repro.util.resilience`` that the serving path and the
+simulator's trace cache call: :func:`log_event` records every recovery
+decision in a bounded process-wide log; :class:`FaultInjector` replays a
+deterministic fault plan against the instrumented sites, so chaos tests
+can prove that injected faults cost only retries; and
+:func:`write_bytes` / :func:`read_bytes` (with their npz forms) publish
+cache entries atomically (temp file + rename) beside a sha256 sidecar,
+and move an entry that fails its check to ``quarantine/`` so the caller
+recomputes it.  The watchdog belongs to the sweep slice and is not
+ported yet.
 
 Each fault names its site, an occurrence set (``at``) counted per
 (site, match) pair, and an optional substring ``match`` on the site tag.
@@ -16,9 +20,20 @@ sites consult :func:`fault_injector`.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import io
+import os
+import tempfile
 import threading
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+
+#: sidecar suffix holding the hex sha256 of the entry's bytes
+SIDECAR_SUFFIX = ".sha256"
+#: subdirectory (of the entry's cache dir) corrupted entries move to
+QUARANTINE_DIR = "quarantine"
 
 _EVENTS: "deque[Tuple[str, str]]" = deque(maxlen=512)
 _EVENTS_LOCK = threading.Lock()
@@ -83,8 +98,7 @@ class FaultInjector:
     @classmethod
     def from_plan(cls, name: str) -> "FaultInjector":
         """A named fault plan (the serving plan of the JAX package's
-        matrix; the cache and dispatch plans come with the simulator
-        slice)."""
+        matrix; its cache and dispatch plans are not ported)."""
         plans: Dict[str, Tuple[Fault, ...]] = {
             # repeated mid-decode evictions: preempt -> re-prefill
             "evict_storm": (Fault("evict", at=(0, 1, 2)),),
@@ -118,3 +132,113 @@ class inject_faults:
     def __exit__(self, *exc) -> None:
         global _INJECTOR
         _INJECTOR = self._prev
+
+
+# ---------------------------------------------------------------------------
+# integrity-checked cache entries
+# ---------------------------------------------------------------------------
+def _sidecar(path: str) -> str:
+    return path + SIDECAR_SUFFIX
+
+
+def quarantine(path: str, reason: str) -> Optional[str]:
+    """Move a corrupted cache entry (and its sidecar) into the
+    ``quarantine/`` subdirectory of its cache dir; returns the new path
+    (None if the move failed — the entry is then unlinked so it cannot
+    poison the next run either)."""
+    qdir = os.path.join(os.path.dirname(path), QUARANTINE_DIR)
+    dest = os.path.join(qdir, os.path.basename(path))
+    try:
+        os.makedirs(qdir, exist_ok=True)
+        n = 0
+        while os.path.exists(dest):
+            n += 1
+            dest = os.path.join(qdir, f"{os.path.basename(path)}.{n}")
+        os.replace(path, dest)
+        if os.path.exists(_sidecar(path)):
+            os.replace(_sidecar(path), dest + SIDECAR_SUFFIX)
+        log_event("quarantine", f"{path} -> {dest} ({reason})")
+        return dest
+    except OSError:
+        for p in (path, _sidecar(path)):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        log_event("quarantine", f"{path} unlinked ({reason}; "
+                                "quarantine dir unwritable)")
+        return None
+
+
+def write_bytes(path: str, data: bytes) -> bool:
+    """Atomically publish ``data`` at ``path`` with its sha256 sidecar.
+    Any filesystem failure degrades to cache-off (returns False)."""
+    tmp = None
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        # sidecar first: a crash between the two renames leaves a sidecar
+        # without an entry (harmless), never an unverifiable entry
+        fd2, tmp2 = tempfile.mkstemp(dir=os.path.dirname(path),
+                                     suffix=".tmp")
+        with os.fdopen(fd2, "w") as f:
+            f.write(hashlib.sha256(data).hexdigest())
+        os.replace(tmp2, _sidecar(path))
+        os.replace(tmp, path)
+        return True
+    except OSError as e:
+        log_event("cache_off", f"write failed: {path} ({e})")
+        if tmp is not None and os.path.exists(tmp):
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+        return False
+
+
+def read_bytes(path: str) -> Optional[bytes]:
+    """Verified read of one cache entry; None means "recompute".  A
+    missing entry gives None; a sidecar mismatch or an unreadable file
+    quarantines the entry first."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        quarantine(path, f"unreadable: {e}")
+        return None
+    sc = _sidecar(path)
+    if os.path.exists(sc):
+        try:
+            with open(sc) as f:
+                want = f.read().strip()
+        except OSError:
+            want = ""
+        if want and hashlib.sha256(data).hexdigest() != want:
+            quarantine(path, "sha256 sidecar mismatch")
+            return None
+    return data
+
+
+def read_npz(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """Verified npz read -> array dict; a corrupt entry (bit flips,
+    truncation — with or without a sidecar) is quarantined and None
+    returned."""
+    data = read_bytes(path)
+    if data is None:
+        return None
+    try:
+        with np.load(io.BytesIO(data), allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    except Exception as e:               # zipfile/zlib/ValueError zoo
+        quarantine(path, f"npz parse failed: {type(e).__name__}: {e}")
+        return None
+
+
+def write_npz(path: str, arrays: Dict) -> bool:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return write_bytes(path, buf.getvalue())

@@ -28,7 +28,7 @@ from repro.train import optimizer as jopt
 from repro.train import train_loop as jtl
 from repro_torch import config as C
 from repro_torch.launch import train as LT
-from repro_torch.launch.serve import print_profile
+from repro_torch.util.profile import print_profile
 from repro_torch.models import (forward_train, params_from_numpy,
                                 params_to_numpy)
 from repro_torch.train import checkpoint as ckpt
