@@ -5,8 +5,8 @@
 
 Phases, each of which stops the run with a non-zero exit when it fails:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every CUDA kernel (serving and training paths), one
-     nvcc per kernel, all started together, with its time;
+  2. the build of every CUDA kernel (serving, training and simulator
+     paths), one nvcc per kernel, all started together, with its time;
   3. the paged-attention kernel (split-K over pages, then a combine
      pass) against its plain PyTorch version on the card, at the serving
      path's shapes, with its time, the plain version's, a PyTorch library
@@ -39,21 +39,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      sequence, through the simt flash kernels: the card's loss and
      gradients agree with the CPU's plain path;
   9. the translation simulator (the paper's Figs 12-14 experiment):
-     a. the LRU-scan kernel against its plain version on the card at the
-        smoke preset's 2,048-entry windows, every chunk, in the
-        ndp_machine(8) and cpu_machine(4) buckets (11 workloads, the
-        paper's five mechanisms) and zoo_machine(4) with all 17
-        registered mechanisms: packed hit bits, tables and stamps
-        identical;
+     a. the LRU-scan and timing-epilogue kernels against their plain
+        versions on the card at the smoke preset's 2,048-entry windows,
+        every chunk, in the ndp_machine(8) and cpu_machine(4) buckets (11
+        workloads, the paper's five mechanisms) and zoo_machine(4) with
+        all 17 registered mechanisms: packed hit bits, tables and stamps
+        identical; counters of events equal, cycles within rtol 1e-5;
      b. the six full-preset buckets (ndp and cpu machines at 1, 4 and 8
         cores, 11 workloads, 8,000-entry windows) through the port's
         launcher: the Fig 12-14 rows, the orderings (on NDP ideal >
         ndpage > 1.0 at every core count, hugepage < radix at 8 cores),
-        exactly 48 kernel launches, and per bucket wall s, entries/s and
-        the kernel's and the plain version's times on one 1,024-step
-        chunk, with the least time the card could take; on that chunk
-        the kernel's packed bits, tables and stamps must equal the plain
-        version's;
+        exactly 48 launches of each kernel, the CUDA kernels a chunk of
+        the ndp(8) bucket from torch.profiler (at most 12), and per
+        bucket wall s, entries/s and both kernels' and their plain
+        versions' times on one 1,024-step chunk (L2 flushed), with the
+        least time the card could take and both kernels' registers and
+        spills; on that chunk each kernel is held against its plain
+        version again; at 8 cores the scan also timed with no step valid
+        and with every chain one mechanism;
      c. the ndp_machine(4) bucket at the full preset on the card against
         the port's CPU path: integer counters equal, cycles within rtol
         1e-5;
@@ -91,6 +94,7 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import lru_scan as LS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import sim_epilogue as SE  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
@@ -827,6 +831,9 @@ SIM_INT_COUNTERS = ("walks", "l1tlb_misses", "pte_accesses", "pte_l1_hits",
 SIM_FLOAT_COUNTERS = ("cycles", "trans_cycles", "walk_cycles")
 #: the buckets of 9b, each 8 chunks of 1,024 (8,000 entries padded)
 SIM_LAUNCHES = 6 * 8
+#: CUDA kernels a chunk of the simulator on the card: the queue delay's
+#: few torch ops, the scan and the epilogue
+SIM_KERNELS_A_CHUNK = 12
 SIM_LONG_WINDOW = 65536
 
 
@@ -857,21 +864,70 @@ def plain_copy(args) -> dict:
                         for n, (t, s) in args["tables"].items()})
 
 
+def state_out(state) -> list:
+    """The state an epilogue adds into: the counters, clock, mem_accs."""
+    return [state["counters"][k] for k in ref.COUNTERS] + [
+        state["clock"], state["mem_accs"]]
+
+
+def epilogue_args(bk, state, args, packed) -> dict:
+    """The epilogue's arguments for a chunk whose scan gave ``packed``."""
+    return dict(packed=packed, work=args["work"], is4k=args["is4k"],
+                valid=args["valid"],
+                q=SIM._queue(state["clock"], state["mem_accs"],
+                             bk.dp["service"]),
+                flags=bk.flags, params=bk.params, clock=state["clock"],
+                mem_accs=state["mem_accs"], counters=state["counters"],
+                n_hier=len(bk.shape.hier), has_ctlb="ctlb" in args["tables"])
+
+
+def plain_state(ep: dict) -> dict:
+    """The epilogue's arguments with the state it adds into cloned."""
+    return dict(ep, clock=ep["clock"].clone(), mem_accs=ep["mem_accs"].clone(),
+                counters={k: v.clone() for k, v in ep["counters"].items()})
+
+
+def epilogue_diff(got: dict, want: dict) -> tuple:
+    """(mismatches, compared, max abs error, max relative error) of two
+    states after an epilogue: counters of events and memory accesses must
+    be equal, the cycle sums within SIM_RTOL."""
+    floats = {"trans", "walk_cyc"}
+    mism = compared = 0
+    err = rel = 0.0
+    pairs = [(k, got["counters"][k], want["counters"][k])
+             for k in ref.COUNTERS] + [
+        ("clock", got["clock"], want["clock"]),
+        ("mem_accs", got["mem_accs"], want["mem_accs"])]
+    for k, a, b in pairs:
+        compared += a.numel()
+        if k in floats or k == "clock":
+            d = (a - b).abs()
+            err = max(err, float(d.max()))
+            r = d / b.abs().clamp_min(1e-30)
+            rel = max(rel, float(r.max()))
+            mism += int((d > SIM_RTOL * b.abs()).sum())
+        else:
+            mism += int((a != b).sum())
+    return mism, compared, err, rel
+
+
 def phase_sim_kernel() -> dict:
-    """9a: every chunk of three smoke-preset buckets through the kernel and
-    the plain version from the same state; counts the differing packed
-    bits, table entries and stamps."""
+    """9a: every chunk of three smoke-preset buckets through both kernels
+    and their plain versions from the same state; counts the differing
+    packed bits, table entries and stamps, and the epilogue's counters
+    that differ (cycles: beyond SIM_RTOL)."""
     smoke = PRESETS["smoke"]
     cases = (("ndp", 8, DEFAULT_MECHS), ("cpu", 4, DEFAULT_MECHS),
              ("zoo", 4, registered_names()))
-    out = {"mismatches": 0, "max_abs_err": 0.0}
+    out = {"mismatches": 0, "max_abs_err": 0.0, "ep_mismatches": 0,
+           "ep_max_abs_err": 0.0, "ep_max_rel_err": 0.0}
     for machine, cores, mechs in cases:
         t0 = time.perf_counter()
         bk, state = sim_bucket(machine, cores, smoke, mechs)
-        mism = compared = 0
+        mism = compared = ep_mism = ep_compared = 0
         for i in range(bk.n_chunks):
             args = SIM._scan_inputs(bk, state, i)
-            args.pop("work")
+            work = args.pop("work")
             plain = plain_copy(args)
             got = LS.lru_scan(**args)
             want = ref.lru_scan_ref(**plain)
@@ -880,15 +936,31 @@ def phase_sim_kernel() -> dict:
             mism += sum(int((a != b).sum()) for a, b in pairs)
             compared += sum(a.numel() for a, _ in pairs)
             out["max_abs_err"] = max(out["max_abs_err"], max_err(got, want))
+            ep = epilogue_args(bk, state, dict(args, work=work), got)
+            ep_plain = plain_state(ep)
+            SE.sim_epilogue(**ep)
+            SE._plain(**ep_plain)
+            d = epilogue_diff(ep, ep_plain)
+            ep_mism += d[0]
+            ep_compared += d[1]
+            out["ep_max_abs_err"] = max(out["ep_max_abs_err"], d[2])
+            out["ep_max_rel_err"] = max(out["ep_max_rel_err"], d[3])
         torch.cuda.synchronize()
         print(f"lru_scan vs plain, {machine}_machine({cores}), {bk.b} "
               f"workloads x {len(mechs)} mechanisms, {bk.n_chunks} chunks of "
               f"{bk.chunk}: {mism} mismatches in {compared} packed bits, "
-              f"table entries and stamps ({time.perf_counter() - t0:.1f} s)")
+              f"table entries and stamps; sim_epilogue vs plain: {ep_mism} "
+              f"mismatches in {ep_compared} counters, cycle sums and memory "
+              f"accesses (cycles max relative error "
+              f"{out['ep_max_rel_err']:.3e}, rtol {SIM_RTOL:g}) "
+              f"({time.perf_counter() - t0:.1f} s)")
         out["mismatches"] += mism
+        out["ep_mismatches"] += ep_mism
         del bk, state
     check(out["mismatches"] == 0,
           "lru_scan kernel disagrees with its plain version")
+    check(out["ep_mismatches"] == 0,
+          "sim_epilogue kernel disagrees with its plain version")
     return out
 
 
@@ -904,49 +976,96 @@ def scan_bytes(args) -> int:
     return once + 2 * twice + t * lanes * m * 4
 
 
-def time_scan_chunk(machine: str, cores: int) -> dict:
-    """The kernel and the plain version on the middle 1,024-step chunk of
-    a full-preset bucket, from the state the earlier chunks left; the
-    state is restored before each timed call, and L2 flushed.  The plain
-    version's packed bits, tables and stamps are held against one kernel
-    launch's from the same state; the differences are counted."""
-    bk, state = sim_bucket(machine, cores, PRESETS["full"])
-    k = bk.n_chunks // 2
-    for i in range(k):
-        SIM._run_chunk(bk, state, i)
-    args = SIM._scan_inputs(bk, state, k)
-    args.pop("work")
-    saved = [t.clone() for t in scan_state(args)]
+def epilogue_bytes(ep) -> int:
+    """Bytes a chunk of the epilogue must move: its inputs once, the state
+    it adds into read once and written once."""
+    once = sum(ep[k].numel() * ep[k].element_size() for k in (
+        "packed", "work", "is4k", "valid", "q", "flags", "params"))
+    return once + 2 * sum(t.numel() * 4 for t in state_out(ep))
 
-    def restore():
-        for t, s in zip(scan_state(args), saved):
-            t.copy_(s)
 
+def time_device_ms(fn, restore, iters: int = 10) -> float:
+    """Mean device time of ``fn`` with ``restore()`` run and L2 flushed
+    before each call, outside the timed window, and the card idling on a
+    sleep kernel before the start event (see time_cold_ms)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    restore()
-    got = [LS._launch(**args)] + [t.clone() for t in scan_state(args)]
+    for _ in range(2):
+        restore()
+        fn()
     pairs = []
-    for _ in range(10):
+    for _ in range(iters):
         restore()
         flush.zero_()
         torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        LS._launch(**args)
+        fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    ms = float(np.mean([s.elapsed_time(e) for s, e in pairs]))
-    restore()
+    return float(np.mean([s.elapsed_time(e) for s, e in pairs]))
+
+
+def time_plain_ms(fn) -> float:
+    """Device time of one call of a plain version, L2 flushed first."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     flush.zero_()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = [ref.lru_scan_ref(**args)] + scan_state(args)
+    fn()
     end.record()
     torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    return start.elapsed_time(end)
+
+
+def probe_scan(args, restore, machine: str, cores: int, chunk: int
+               ) -> None:
+    """What the scan's time moves with, on the same chunk: no step valid
+    (no lookup at all: the step's fixed instructions), and every chain set
+    to one mechanism (its lookups a step: ideal 1, ndpage 7 at most, radix
+    11 at most on an NDP machine)."""
+    idle = dict(args, valid=torch.zeros_like(args["valid"]))
+    ms = time_device_ms(lambda: LS._launch(**idle), restore)
+    print(f"lru_scan probe, {machine}_machine({cores}): no step valid "
+          f"{ms:.4f} ms ({ms * 1e6 / chunk:.1f} ns a step)")
+    flags = args["flags"]
+    for col, mech in enumerate(DEFAULT_MECHS):
+        one = dict(args, flags=flags[:, col:col + 1].expand_as(flags)
+                   .contiguous())
+        ms = time_device_ms(lambda: LS._launch(**one), restore)
+        print(f"lru_scan probe, {machine}_machine({cores}): every chain "
+              f"{mech} {ms:.4f} ms ({ms * 1e6 / chunk:.1f} ns a step)")
+    restore()
+
+
+def time_sim_chunk(machine: str, cores: int, probe: bool = False) -> dict:
+    """Both kernels and their plain versions on the middle 1,024-step
+    chunk of a full-preset bucket, from the state the earlier chunks
+    left; the state is restored before each timed call, and L2 flushed.
+    Each plain version is held against one kernel launch from the same
+    state; the differences are counted."""
+    bk, state = sim_bucket(machine, cores, PRESETS["full"])
+    k = bk.n_chunks // 2
+    for i in range(k):
+        SIM._run_chunk(bk, state, i)
+    args = SIM._scan_inputs(bk, state, k)
+    work = args.pop("work")
+    saved = [t.clone() for t in scan_state(args)]
+
+    def restore():
+        for t, s in zip(scan_state(args), saved):
+            t.copy_(s)
+
+    restore()
+    packed = LS._launch(**args)
+    got = [packed] + [t.clone() for t in scan_state(args)]
+    ms = time_device_ms(lambda: LS._launch(**args), restore)
+    restore()
+    want = []
+    plain_ms = time_plain_ms(lambda: want.extend(
+        [ref.lru_scan_ref(**args)] + scan_state(args)))
     mism = sum(int((a != b).sum()) for a, b in zip(got, want))
     compared = sum(a.numel() for a in got)
     nbytes = scan_bytes(args)
@@ -960,10 +1079,89 @@ def time_scan_chunk(machine: str, cores: int) -> dict:
           f"{ms * 1e6 / bk.chunk:.1f} ns a step; no library call computes "
           f"an LRU scan; kernel vs plain: {mism} mismatches in {compared} "
           f"packed bits, table entries and stamps")
-    del bk, state, saved, flush, got, want
-    torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    scan = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None, mismatches=mism)
+    if probe:
+        probe_scan(args, restore, machine, cores, bk.chunk)
+
+    # the epilogue on the kernel's packed bits
+    ep = epilogue_args(bk, state, dict(args, work=work), packed)
+    out = state_out(ep)
+    ep_saved = [t.clone() for t in out]
+
+    def ep_restore():
+        for t, s in zip(out, ep_saved):
+            t.copy_(s)
+
+    def ep_kernel():
+        SE._launch(**ep)
+
+    ep_restore()
+    ep_kernel()
+    got_state = plain_state(ep)
+    ep_ms = time_device_ms(ep_kernel, ep_restore)
+    ep_restore()
+    ep_plain = plain_state(ep)
+    ep_plain_ms = time_plain_ms(lambda: SE._plain(**ep_plain))
+    ep_mism, ep_compared, ep_err, ep_rel = epilogue_diff(got_state, ep_plain)
+    ep_bytes = epilogue_bytes(ep)
+    ep_bound = ep_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"sim_epilogue timing, {machine}_machine({cores}) full preset, "
+          f"the same chunk ({bk.b} x {m} blocks; L2 flushed): kernel "
+          f"{ep_ms:.4f} ms, plain {ep_plain_ms:.4f} ms, bound {ep_bound:.4f}"
+          f" ms (bytes: {ep_bytes / 1e6:.3f} MB), {ep_bound / ep_ms:.2%} of "
+          f"bound; no library call computes the epilogue; kernel vs plain: "
+          f"{ep_mism} mismatches in {ep_compared} counters and sums, cycles "
+          f"max relative error {ep_rel:.3e}")
+    epilogue = dict(ms=ep_ms, plain_ms=ep_plain_ms, bound_ms=ep_bound,
+                    bound_by="bytes", library_ms=None, mismatches=ep_mism,
+                    max_abs_err=ep_err)
+    del bk, state, saved, got, want, ep_saved, got_state, ep_plain
+    torch.cuda.empty_cache()
+    return {"lru_scan": scan, "sim_epilogue": epilogue}
+
+
+def count_chunk_kernels(machine: str, cores: int) -> dict:
+    """CUDA kernels (device-side events of torch.profiler: kernels,
+    memsets and copies) a chunk of a full-preset bucket: over the chunk
+    loop alone (the gate), and over a whole simulate_batch with its
+    set-up (traces to the card, zeroed state, the walk lines)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def device_events(prof) -> dict:
+        names: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        return names
+
+    bk, state = sim_bucket(machine, cores, PRESETS["full"])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(bk.n_chunks):
+            SIM._run_chunk(bk, state, i)
+        torch.cuda.synchronize()
+    loop = device_events(prof)
+    n_chunks = bk.n_chunks
+    mach = SIM_MACHINES[machine](cores)
+    traces = generate_traces(list(WORKLOADS), cores, preset=PRESETS["full"])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        SIM.simulate_batch(mach, traces, chunk=PRESETS["full"].chunk,
+                           device="cuda")
+        torch.cuda.synchronize()
+    whole = device_events(prof)
+    a_chunk = sum(loop.values()) / n_chunks
+    print(f"CUDA kernels a chunk, {machine}_machine({cores}) full preset "
+          f"(torch.profiler): {a_chunk:.2f} over the chunk loop "
+          f"({sum(loop.values())} in {n_chunks} chunks: "
+          + ", ".join(f"{v} x {k[:60]}" for k, v in sorted(
+              loop.items(), key=lambda kv: -kv[1]))
+          + f"); {sum(whole.values()) / n_chunks:.2f} over simulate_batch "
+          f"with its set-up ({sum(whole.values())})")
+    del bk, state
+    return {"loop": a_chunk, "whole": sum(whole.values()) / n_chunks}
 
 
 def check_sim_results(buckets) -> None:
@@ -1029,32 +1227,51 @@ def phase_sim_parity() -> None:
 def phase_sim() -> dict:
     t0 = time.perf_counter()
     kernel = phase_sim_kernel()
-    print(f"phase 9a (lru_scan vs plain): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 9a (lru_scan and sim_epilogue vs plain): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    before = LS.launches
+    before, before_ep = LS.launches, SE.launches
     buckets = SIMLAUNCH.run(SIMLAUNCH.build_parser().parse_args([]))
-    launches = LS.launches - before
+    launches, ep_launches = LS.launches - before, SE.launches - before_ep
     chunks = sum(bk["chunks"] for bk in buckets)
-    check(launches == chunks == SIM_LAUNCHES,
-          f"lru_scan launches {launches} over {chunks} chunks, not "
-          f"{SIM_LAUNCHES}")
+    check(launches == ep_launches == chunks == SIM_LAUNCHES,
+          f"lru_scan launches {launches}, sim_epilogue launches "
+          f"{ep_launches} over {chunks} chunks, not {SIM_LAUNCHES} each")
     check_sim_results(buckets)
     print(f"simulator: 6 full-preset buckets in "
           f"{sum(bk['wall_s'] for bk in buckets):.3f} s of simulate_batch, "
-          f"lru_scan launches {launches}")
-    # every bucket's chunk, the kernel held against the plain version
-    timed = {(bk["machine"], bk["cores"]): time_scan_chunk(
-        bk["machine"], bk["cores"]) for bk in buckets}
-    chunk_mism = sum(t.pop("mismatches") for t in timed.values())
+          f"lru_scan launches {launches}, sim_epilogue launches "
+          f"{ep_launches}")
+    for line in (ptxas_lines("lru_scan", ["lru_scan_kernel"])
+                 + ptxas_lines("sim_epilogue", ["sim_epilogue_kernel"])):
+        print(f"  ptxas {line}")
+    per_chunk = count_chunk_kernels("ndp", 8)
+    check(per_chunk["loop"] <= SIM_KERNELS_A_CHUNK,
+          f"{per_chunk['loop']:.2f} CUDA kernels a chunk, more than "
+          f"{SIM_KERNELS_A_CHUNK}")
+    # every bucket's chunk, both kernels held against their plain versions;
+    # at 8 cores what the scan's time moves with
+    timed = {(bk["machine"], bk["cores"]): time_sim_chunk(
+        bk["machine"], bk["cores"], probe=bk["cores"] == 8) for bk in buckets}
+    chunk_mism = sum(t["lru_scan"].pop("mismatches") for t in timed.values())
+    ep_mism = sum(t["sim_epilogue"].pop("mismatches")
+                  for t in timed.values())
     kernel["mismatches"] += chunk_mism
+    kernel["ep_mismatches"] += ep_mism
+    kernel["ep_max_abs_err"] = max(
+        [kernel["ep_max_abs_err"]] + [t["sim_epilogue"].pop("max_abs_err")
+                                      for t in timed.values()])
     check(chunk_mism == 0, "lru_scan kernel disagrees with its plain "
                            "version on a full-preset chunk")
+    check(ep_mism == 0, "sim_epilogue kernel disagrees with its plain "
+                        "version on a full-preset chunk")
     for bk in buckets:
         t = timed[(bk["machine"], bk["cores"])]
         print(f"bucket {bk['machine']} {bk['cores']}c, full preset: wall "
               f"{bk['wall_s']:.3f} s, {bk['entries_per_s']:.0f} trace "
-              f"entries/s, lru_scan {t['ms']:.4f} ms a chunk x "
+              f"entries/s, lru_scan {t['lru_scan']['ms']:.4f} ms and "
+              f"sim_epilogue {t['sim_epilogue']['ms']:.4f} ms a chunk x "
               f"{bk['chunks']} chunks")
     print(f"phase 9b (figures 12-14, full preset): "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1070,11 +1287,13 @@ def phase_sim() -> dict:
     for bk in long:
         print(f"simulator long window, {bk['machine']} 8c, "
               f"{SIM_LONG_WINDOW} entries: {bk['entries_per_s']:.0f} trace "
-              f"entries/s, {bk['wall_s']:.3f} s, {bk['launches']} launches")
+              f"entries/s, {bk['wall_s']:.3f} s, {bk['launches']} + "
+              f"{bk['epilogue_launches']} launches")
     print(f"simulator long window peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"phase 9d (long window): {time.perf_counter() - t0:.1f} s")
-    return dict(kernel, launches=launches, timed=timed)
+    return dict(kernel, launches=launches, ep_launches=ep_launches,
+                timed=timed)
 
 
 def main() -> int:
@@ -1092,8 +1311,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
-                      "flash_attention_sm90", "lru_scan"])
-    PA._lib(), FA._lib(), FA._lib_sm90(), LS._lib()   # load the built kernels
+                      "flash_attention_sm90", "lru_scan", "sim_epilogue"])
+    PA._lib(), FA._lib(), FA._lib_sm90(), LS._lib(), SE._lib()  # load them
     print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
         print(f"  {name}: {log['seconds']:.2f} s")
@@ -1151,8 +1370,22 @@ def main() -> int:
         "mismatches": sim["mismatches"],
         "max_abs_err": sim["max_abs_err"],
         # the ndp_machine(8) bucket's chunk; the cpu_machine(8) one beside
-        **sim["timed"][("ndp", 8)],
-        **{f"cpu8_{k}": v for k, v in sim["timed"][("cpu", 8)].items()
+        **sim["timed"][("ndp", 8)]["lru_scan"],
+        **{f"cpu8_{k}": v for k, v in
+           sim["timed"][("cpu", 8)]["lru_scan"].items() if k.endswith("ms")},
+    }, {
+        "name": "sim_epilogue",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sim_epilogue.cu",
+        "replaces": "src/repro/sim/simulator.py:558",
+        "launches": sim["ep_launches"],
+        "mismatches": sim["ep_mismatches"],
+        # the largest |kernel - plain| of the cycle sums
+        "max_abs_err": sim["ep_max_abs_err"],
+        "max_rel_err": sim["ep_max_rel_err"],
+        **sim["timed"][("ndp", 8)]["sim_epilogue"],
+        **{f"cpu8_{k}": v for k, v in
+           sim["timed"][("cpu", 8)]["sim_epilogue"].items()
            if k.endswith("ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -26,28 +26,48 @@
 // bits per (t, l, m) comes out: bits 0-1 the TLBs, 2-5 the PWC levels,
 // 6 + 5h .. 10 + 5h hierarchy level h, then the cache-as-TLB.
 //
+// Lookups a step: 11 on an NDP machine (2 TLB + 4 PWC + 5 l1) and 21 on a
+// CPU machine (2 + 4 + 15), plus the cache-as-TLB probe where there is one.
+//
 // Bound.  A chunk moves its inputs, walk lines and packed bits once and
 // reads and writes each table once: about 26 MB for a 1,024-step chunk
 // of the ndp_machine(8) bucket, 8 us at 3.35 TB/s.  The scan is bound by
-// latency, not bytes: each (lane, mechanism) chain is serial, about 27
-// dependent lookups a step, each a load of a table row.
+// latency, not bytes: each (lane, mechanism) chain is serial, a step's
+// lookups one after another, each a read of a table row, warp votes and
+// a write, some fifty dependent instructions.
 //
 // Design.  One warp per (lane, mechanism) chain, looping over the chunk's
-// steps; 440 chains at the cpu_machine(8) bucket of 11 simulations.
-// Lane w of the warp owns way w of every row (and w + 32, ... for a PWC
-// wider than 32): it alone loads and stores that way, so a fill is seen
-// by the next lookup of the same row without a barrier.  A hit is a
-// __ballot_sync on tag equality (the first matching way); a miss takes
-// the victim by a warp-shuffle min-reduction over (stamp, way), which
-// gives the lowest way on a tie.  Tables stay in global memory, (L, M,
-// sets, ways) int32 tags and stamps: a chain touches only its own (18 KB
-// on an NDP machine, 342 KB on a CPU machine), so they mostly stay in L1
-// and L2.  One launch per chunk; the walk lines come in computed, (T, L,
-// M, 4) int32.  The scan reads neither the queue delay nor the clock, so
-// a later version may launch once over many chunks.
+// steps, a chain a block.  Lane w of the warp owns way w and way w + 32
+// of every row (tables up to 64 ways): it alone reads and writes them
+// during the steps, so a fill is seen by the next lookup of the same row
+// without a barrier.  The tables stay in global memory, reached through
+// L1 (staging a chain's tables in shared memory for the chunk measured
+// the same: the chain of dependent instructions sets the pace, not where
+// the rows live).
+//   * A cheap lookup.  The hit is a __ballot_sync on tag equality; the
+//     victim is __reduce_min_sync over the lane's least stamp, a ballot of
+//     the lanes that hold it and __ffs: the first way of least stamp (a
+//     lane's way w before w + 32).  Sites whose rows no other site of the
+//     step can share (the two TLBs, the four PWC levels) resolve without
+//     a branch, hit and victim side by side, so their votes interleave;
+//     the rest (cache-as-TLB, hierarchy) are skipped by a branch where
+//     disabled and take the victim only on a miss.
+//   * Reads issued ahead.  Lane j of the warp loads step base + j's
+//     inputs 32 steps ahead, and each step takes them from that lane by
+//     shuffles (an input loaded one step ahead into registers is copied
+//     at the end of the step, which then waits for the load).  A step's
+//     TLB, cache-as-TLB and four PWC rows are distinct rows (three
+//     tables, one PWC row a level), so all are read before the first of
+//     their lookups resolves.  The hierarchy lookups stay strictly
+//     serial: the five lines may share a set.
+//   * Keys split without a divide: set and tag by a 64-bit multiply with
+//     a magic number per table (computed on the host), exact for keys
+//     below 2^31.
+// One launch per chunk; the walk lines come in computed, (T, L, M, 4)
+// int32.  The scan reads neither the queue delay nor the clock, so a
+// later version may launch once over many chunks.
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <initializer_list>
 
 namespace {
@@ -57,7 +77,9 @@ enum { T_L1TLB, T_L2TLB, T_PWC, T_L1, T_L2, T_L3, T_CTLB, N_TABLES };
 
 constexpr int MAX_PTE = 4;
 constexpr int HUGE_SHIFT = 9;
-constexpr int THREADS = 128;
+constexpr int MAX_WAYS = 64;                // two ways a lane
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NO_STAMP = 0xffffffffu;  // above every stamp: no way
 // flag word bits (ref.FLAG_*)
 constexpr int FLAG_IDEAL = 1, FLAG_HUGE = 2, FLAG_BYPASS = 4,
               FLAG_SEGMENT = 8, FLAG_CACHE_TLB = 16;
@@ -68,7 +90,7 @@ struct Params {
   const int* off;               // (T, L)
   const unsigned char* is4k;    // (T, L)
   const unsigned char* valid;   // (T, L)
-  const int* pte;               // (T, L, M, 4)
+  const int4* pte;              // (T, L, M) x 4
   const int* flags;             // (L, M)
   int* stamp;                   // (L, M)
   int* packed;                  // (T, L, M)
@@ -77,6 +99,8 @@ struct Params {
   int* lru[N_TABLES];
   int sets[N_TABLES];
   int ways[N_TABLES];
+  unsigned long long magic[N_TABLES];  // key / sets = key * magic >> shift
+  int shift[N_TABLES];
 };
 
 // One table of one chain.
@@ -85,74 +109,148 @@ struct Table {
   int* lru;
   int sets;
   int ways;
+  unsigned long long magic;     // key / sets = key * magic >> shift
+  int shift;
 };
 
-// One LRU lookup + fill of row `set` on behalf of the whole warp.
-// `en` is the same on every lane, so is the result.
-__device__ __forceinline__ bool lookup(const Table& tb, int set, int tag,
-                                       bool en, int stamp, int lane) {
-  if (!en) return false;
-  int* rt = tb.tags + (size_t)set * tb.ways;
-  int* rl = tb.lru + (size_t)set * tb.ways;
-  int way = -1;
-  long long best = LLONG_MAX;  // (stamp << 32 | way) of the lane's ways
-  for (int w0 = 0; w0 < tb.ways; w0 += 32) {
-    const int w = w0 + lane;
-    const bool in = w < tb.ways;
-    // both loads issue before either is used
-    const int t = in ? rt[w] : 0;
-    const int st = in ? rl[w] : 0;
-    const unsigned match = __ballot_sync(0xffffffffu, in && t == tag);
-    if (match) {
-      way = w0 + __ffs(match) - 1;
-      break;
+// The lane's two ways of one row: tags and stamps, NO_STAMP and tag 0
+// (no tag is 0) where the way does not exist or the row was not read.
+struct Row {
+  int t0, t1;
+  unsigned s0, s1;
+};
+
+// set and tag of key (0 <= key < 2^31): the multiply-high is exact there
+// because magic = floor(2^shift / sets) + 1 with shift = 31 + ceil(log2
+// sets) (error below 2^31 / 2^shift <= 1 / sets)
+__device__ __forceinline__ void split(const Table& tb, int key, int& set,
+                                      int& tag) {
+  const unsigned q =
+      (unsigned)(((unsigned long long)(unsigned)key * tb.magic) >> tb.shift);
+  set = key - (int)q * tb.sets;
+  tag = (int)q + 1;
+}
+
+// Read the lane's ways of row `set` where `en` (uniform across the warp).
+__device__ __forceinline__ Row fetch(const Table& tb, int set, bool en,
+                                     int lane) {
+  Row r{0, 0, NO_STAMP, NO_STAMP};
+  if (en) {
+    const int* rt = tb.tags + set * tb.ways;
+    const int* rl = tb.lru + set * tb.ways;
+    if (lane < tb.ways) {
+      r.t0 = rt[lane];
+      r.s0 = (unsigned)rl[lane];
     }
-    if (in) {
-      const long long key = ((long long)st << 32) | (long long)(unsigned)w;
-      best = key < best ? key : best;
+    if (lane + 32 < tb.ways) {
+      r.t1 = rt[lane + 32];
+      r.s1 = (unsigned)rl[lane + 32];
     }
   }
-  const bool hit = way >= 0;
-  if (!hit) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const long long other = __shfl_xor_sync(0xffffffffu, best, o);
-      best = other < best ? other : best;
-    }
-    way = (int)(best & 0xffffffffLL);
+  return r;
+}
+
+// The LRU hit plus fill of `row` (read by fetch), called only where the
+// site is enabled (uniform across the warp, so is the result).  A hit
+// needs one vote; a miss adds the stamp reduction and a second vote.
+__device__ __forceinline__ bool resolve(const Table& tb, int set, int tag,
+                                        const Row& r, int stamp, int lane) {
+  const bool wide = tb.ways > 32;
+  const unsigned m0 = __ballot_sync(FULL, r.t0 == tag);
+  const unsigned m1 = wide ? __ballot_sync(FULL, r.t1 == tag) : 0u;
+  int way;
+  if (m0 | m1) {
+    way = m0 ? __ffs(m0) - 1 : __ffs(m1) + 31;
+  } else {
+    const unsigned least = __reduce_min_sync(FULL, min(r.s0, r.s1));
+    const unsigned v0 = __ballot_sync(FULL, r.s0 == least);
+    way = v0 ? __ffs(v0) - 1
+             : __ffs(__ballot_sync(FULL, r.s1 == least)) + 31;
   }
   if ((way & 31) == lane) {
-    rt[way] = tag;
-    rl[way] = stamp;
+    const int i = set * tb.ways + way;
+    tb.tags[i] = tag;
+    tb.lru[i] = stamp;
   }
-  return hit;
+  return (m0 | m1) != 0;
 }
 
-// A lookup by key: set = key % sets, tag = key / sets + 1 (key >= 0).
-__device__ __forceinline__ bool lookup_key(const Table& tb, int key, bool en,
-                                           int stamp, int lane) {
-  return lookup(tb, key % tb.sets, key / tb.sets + 1, en, stamp, lane);
+// The LRU hit plus fill of a site whose row no other site of the step
+// shares: no branch, the votes run whether or not the site is enabled,
+// the write only where it is, so the compiler may interleave such sites.
+__device__ __forceinline__ bool resolve_flat(const Table& tb, int set,
+                                             int tag, const Row& r, bool en,
+                                             int stamp, int lane) {
+  const unsigned m0 = __ballot_sync(FULL, r.t0 == tag);
+  const unsigned m1 = __ballot_sync(FULL, r.t1 == tag);
+  const unsigned least = __reduce_min_sync(FULL, min(r.s0, r.s1));
+  const unsigned v0 = __ballot_sync(FULL, r.s0 == least);
+  const unsigned v1 = __ballot_sync(FULL, r.s1 == least);
+  const unsigned pick = m0 ? m0 : m1 ? m1 : v0 ? v0 : v1;
+  const int way = __ffs(pick) - 1 + ((!m0 && (m1 || !v0)) ? 32 : 0);
+  if (en && (way & 31) == lane) {
+    const int i = set * tb.ways + way;
+    tb.tags[i] = tag;
+    tb.lru[i] = stamp;
+  }
+  return en && (m0 | m1);
 }
 
+// Chain `chain`'s rows of table k.
 __device__ __forceinline__ Table chain_table(const Params& p, int k,
                                              int chain) {
-  Table tb{nullptr, nullptr, p.sets[k], p.ways[k]};
-  if (p.tags[k] != nullptr) {
-    const size_t off = (size_t)chain * p.sets[k] * p.ways[k];
-    tb.tags = p.tags[k] + off;
-    tb.lru = p.lru[k] + off;
-  }
+  Table tb{nullptr, nullptr, p.sets[k], p.ways[k], p.magic[k], p.shift[k]};
+  if (p.tags[k] == nullptr) return tb;
+  const size_t n = (size_t)p.sets[k] * p.ways[k];
+  tb.tags = p.tags[k] + chain * n;
+  tb.lru = p.lru[k] + chain * n;
   return tb;
+}
+
+// One step's inputs for lane l, mechanism m.
+struct Input {
+  int vpn, off;
+  bool is4k, valid;
+  int4 pte;
+};
+
+// The inputs of 32 steps, lane j holding step base + j (zeros past T).
+struct Batch {
+  int vpn, off, bits;           // bits: is4k | valid << 1
+  int4 pte;
+};
+
+__device__ __forceinline__ Batch load_batch(const Params& p, int base, int l,
+                                            int m, int lane) {
+  Batch b{0, 0, 0, make_int4(0, 0, 0, 0)};
+  const int t = base + lane;
+  if (t < p.T) {
+    const size_t i = (size_t)t * p.L + l;
+    b.vpn = __ldg(p.vpn + i);
+    b.off = __ldg(p.off + i);
+    b.bits = (__ldg(p.is4k + i) != 0) | ((__ldg(p.valid + i) != 0) << 1);
+    b.pte = __ldg(p.pte + i * p.M + m);
+  }
+  return b;
+}
+
+// Step base + j's inputs, from the lane that holds them.
+__device__ __forceinline__ Input step_input(const Batch& b, int j) {
+  const int bits = __shfl_sync(FULL, b.bits, j);
+  return Input{__shfl_sync(FULL, b.vpn, j), __shfl_sync(FULL, b.off, j),
+               (bits & 1) != 0, (bits & 2) != 0,
+               make_int4(__shfl_sync(FULL, b.pte.x, j),
+                         __shfl_sync(FULL, b.pte.y, j),
+                         __shfl_sync(FULL, b.pte.z, j),
+                         __shfl_sync(FULL, b.pte.w, j))};
 }
 
 // NH: hierarchy levels (1 on an NDP machine, 3 on a CPU machine);
 // CTLB: the machine has a cache-as-TLB.
 template <int NH, bool CTLB>
-__global__ void __launch_bounds__(THREADS)
-    lru_scan_kernel(const Params p) {
-  const int lane = threadIdx.x & 31;
-  const int chain = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  if (chain >= p.L * p.M) return;  // the whole warp leaves together
+__global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
+  const int lane = threadIdx.x;
+  const int chain = blockIdx.x;
   const int l = chain / p.M;
   const int m = chain - l * p.M;
 
@@ -166,62 +264,100 @@ __global__ void __launch_bounds__(THREADS)
   const bool cache_tlb = flags & FLAG_CACHE_TLB;
   const int n_pte = (flags >> FLAG_N_PTE_SHIFT) & 7;
 
-  const Table l1tlb = chain_table(p, T_L1TLB, chain);
-  const Table l2tlb = chain_table(p, T_L2TLB, chain);
-  const Table pwc = chain_table(p, T_PWC, chain);
-  const Table ctlb = chain_table(p, T_CTLB, chain);
-  Table hier[NH];
+  Table tabs[N_TABLES];
 #pragma unroll
-  for (int h = 0; h < NH; ++h) hier[h] = chain_table(p, T_L1 + h, chain);
+  for (int k = 0; k < N_TABLES; ++k) tabs[k] = chain_table(p, k, chain);
+  const Table& l1tlb = tabs[T_L1TLB];
+  const Table& l2tlb = tabs[T_L2TLB];
+  const Table& pwc = tabs[T_PWC];
+  const Table& ctlb = tabs[T_CTLB];
 
   int stamp = p.stamp[chain];
+  // the inputs of the next 32 steps are loaded while the current 32 run
+  Batch cur = load_batch(p, 0, l, m, lane);
+  Batch nxt = load_batch(p, 32, l, m, lane);
   for (int t = 0; t < p.T; ++t) {
-    const size_t i = (size_t)t * p.L + l;
-    const bool valid = p.valid[i];
-    const bool is4k = p.is4k[i];
-    const int vpn = p.vpn[i];
-    const int4 pl = *reinterpret_cast<const int4*>(p.pte + (i * p.M + m) * 4);
+    const int j = t & 31;
+    if (j == 0 && t > 0) {
+      cur = nxt;
+      nxt = load_batch(p, t + 32, l, m, lane);
+    }
+    const Input in = step_input(cur, j);
 
     const int tlb_key =
-        (huge && !is4k) ? ((vpn >> HUGE_SHIFT) | (1 << 26)) : vpn;
-    const bool en0 = valid && !ideal && !(segment && !is4k);
-    const bool h_l1tlb = lookup_key(l1tlb, tlb_key, en0, stamp, lane);
+        (huge && !in.is4k) ? ((in.vpn >> HUGE_SHIFT) | (1 << 26)) : in.vpn;
+    const bool en0 = in.valid && !ideal && !(segment && !in.is4k);
+    const int eff_n = (huge && in.is4k) ? MAX_PTE : n_pte;
+    const int lines[5] = {in.pte.x, in.pte.y, in.pte.z, in.pte.w,
+                          in.vpn * 64 + in.off};
+    bool pwc_ok[MAX_PTE];
+#pragma unroll
+    for (int lvl = 0; lvl < MAX_PTE; ++lvl)
+      pwc_ok[lvl] = lvl < eff_n && ((flags >> (FLAG_PWC_SHIFT + lvl)) & 1);
+
+    // the rows of the TLBs, the cache-as-TLB and the four PWC levels:
+    // distinct rows, all read before the first of their lookups resolves
+    int set1, tag1, set2, tag2, setc = 0, tagc = 0;
+    split(l1tlb, tlb_key, set1, tag1);
+    split(l2tlb, tlb_key, set2, tag2);
+    if (CTLB) split(ctlb, tlb_key, setc, tagc);
+    const Row r1 = fetch(l1tlb, set1, en0, lane);
+    const Row r2 = fetch(l2tlb, set2, en0, lane);
+    const Row rc = CTLB ? fetch(ctlb, setc, en0 && cache_tlb, lane) : Row{};
+    Row rp[MAX_PTE];
+#pragma unroll
+    for (int lvl = 0; lvl < MAX_PTE; ++lvl)
+      rp[lvl] = fetch(pwc, lvl, en0 && pwc_ok[lvl], lane);
+
+    // the two TLBs are distinct rows, and so are the four PWC levels:
+    // their votes run side by side, the enables decide only the writes;
+    // a chain that does not walk, or has no PWC level on, skips the PWC
+    const bool h_l1tlb =
+        resolve_flat(l1tlb, set1, tag1, r1, en0, stamp, lane);
+    const bool h_l2tlb = resolve_flat(l2tlb, set2, tag2, r2,
+                                      en0 && !h_l1tlb, stamp + 1, lane);
     const bool en1 = en0 && !h_l1tlb;
-    const bool h_l2tlb = lookup_key(l2tlb, tlb_key, en1, stamp + 1, lane);
     bool walk = en1 && !h_l2tlb;
     bool h_ctlb = false;
     if (CTLB) {
-      h_ctlb = lookup_key(ctlb, tlb_key, walk && cache_tlb,
-                          stamp + CTLB_SLOT, lane);
+      h_ctlb = walk && cache_tlb &&
+               resolve(ctlb, setc, tagc, rc, stamp + CTLB_SLOT, lane);
       walk = walk && !h_ctlb;
     }
     int bits = (int)h_l1tlb | ((int)h_l2tlb << 1);
 
-    const int eff_n = (huge && is4k) ? MAX_PTE : n_pte;
-    const int lines[5] = {pl.x, pl.y, pl.z, pl.w, vpn * 64 + p.off[i]};
-    bool ens[5];
+    bool ens[5] = {false, false, false, false, in.valid};
+    if (walk) {
+      bool hp[MAX_PTE] = {false, false, false, false};
+      if ((flags >> FLAG_PWC_SHIFT) & ((1 << eff_n) - 1)) {
 #pragma unroll
-    for (int lvl = 0; lvl < MAX_PTE; ++lvl) {
-      const bool on = walk && lvl < eff_n;
-      const bool h = lookup(pwc, lvl, lines[lvl] + 1,
-                            on && ((flags >> (FLAG_PWC_SHIFT + lvl)) & 1),
-                            stamp + 2 + lvl, lane);
-      bits |= (int)h << (2 + lvl);
-      ens[lvl] = on && !h && !bypass;
+        for (int lvl = 0; lvl < MAX_PTE; ++lvl) {
+          hp[lvl] = resolve_flat(pwc, lvl, lines[lvl] + 1, rp[lvl],
+                                 pwc_ok[lvl], stamp + 2 + lvl, lane);
+          bits |= (int)hp[lvl] << (2 + lvl);
+        }
+      }
+#pragma unroll
+      for (int lvl = 0; lvl < MAX_PTE; ++lvl)
+        ens[lvl] = lvl < eff_n && !hp[lvl] && !bypass;
     }
-    ens[MAX_PTE] = valid;
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
+      const Table& tb = tabs[T_L1 + h];
 #pragma unroll
       for (int s = 0; s < 5; ++s) {
-        const bool hit = lookup_key(hier[h], lines[s], ens[s],
-                                    stamp + 2 + MAX_PTE + 5 * h + s, lane);
+        if (!ens[s]) continue;  // uniform: a disabled site reads nothing
+        int set, tag;
+        split(tb, lines[s], set, tag);
+        const Row r = fetch(tb, set, true, lane);
+        const bool hit =
+            resolve(tb, set, tag, r, stamp + 2 + MAX_PTE + 5 * h + s, lane);
         bits |= (int)hit << (6 + 5 * h + s);
-        ens[s] = ens[s] && !hit;
+        ens[s] = !hit;
       }
     }
     if (CTLB) bits |= (int)h_ctlb << CTLB_BIT;
-    if (lane == 0) p.packed[i * p.M + m] = bits;
+    if (lane == 0) p.packed[((size_t)t * p.L + l) * p.M + m] = bits;
     stamp += N_SLOTS;
   }
   if (lane == 0) p.stamp[chain] = stamp;
@@ -229,9 +365,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int NH, bool CTLB>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const long long threads = (long long)p.L * p.M * 32;
-  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  lru_scan_kernel<NH, CTLB><<<blocks, THREADS, 0, stream>>>(p);
+  lru_scan_kernel<NH, CTLB><<<(unsigned)(p.L * p.M), 32, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -240,10 +374,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Launches on `stream`, allocates nothing, does not synchronise.  Every
-// tensor is contiguous int32 (is4k and valid: bytes); `tags`, `lru`,
-// `sets` and `ways` hold one entry per table in the order l1tlb, l2tlb,
-// pwc, l1, l2, l3, ctlb, with null pointers for the tables the machine
-// lacks (l2 and l3 come together).  Returns cudaGetLastError().
+// tensor is contiguous int32 (is4k and valid: bytes; pte 16-byte
+// aligned); `tags`, `lru`, `sets` and `ways` hold one entry per table in
+// the order l1tlb, l2tlb, pwc, l1, l2, l3, ctlb, with null pointers for
+// the tables the machine lacks (l2 and l3 come together); no table has
+// more than 64 ways.  Returns cudaGetLastError().
 int lru_scan_launch(int device, const void* vpn, const void* off,
                     const void* is4k, const void* valid, const void* pte,
                     const void* flags, void* stamp, void* packed, int T, int L,
@@ -253,9 +388,11 @@ int lru_scan_launch(int device, const void* vpn, const void* off,
   for (int k : {T_L1TLB, T_L2TLB, T_PWC, T_L1})
     if (tags[k] == nullptr || lru[k] == nullptr)
       return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < N_TABLES; ++k)
-    if (tags[k] != nullptr && (sets[k] <= 0 || ways[k] <= 0))
+  for (int k = 0; k < N_TABLES; ++k) {
+    if (tags[k] == nullptr) continue;
+    if (sets[k] <= 0 || ways[k] <= 0 || ways[k] > MAX_WAYS)
       return (int)cudaErrorInvalidValue;
+  }
   const bool deep = tags[T_L2] != nullptr;
   if (deep != (tags[T_L3] != nullptr)) return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaSuccess;
@@ -264,7 +401,7 @@ int lru_scan_launch(int device, const void* vpn, const void* off,
   p.off = static_cast<const int*>(off);
   p.is4k = static_cast<const unsigned char*>(is4k);
   p.valid = static_cast<const unsigned char*>(valid);
-  p.pte = static_cast<const int*>(pte);
+  p.pte = static_cast<const int4*>(pte);
   p.flags = static_cast<const int*>(flags);
   p.stamp = static_cast<int*>(stamp);
   p.packed = static_cast<int*>(packed);
@@ -274,8 +411,13 @@ int lru_scan_launch(int device, const void* vpn, const void* off,
   for (int k = 0; k < N_TABLES; ++k) {
     p.tags[k] = static_cast<int*>(tags[k]);
     p.lru[k] = static_cast<int*>(lru[k]);
-    p.sets[k] = tags[k] != nullptr ? sets[k] : 0;
+    p.sets[k] = tags[k] != nullptr ? sets[k] : 1;
     p.ways[k] = tags[k] != nullptr ? ways[k] : 0;
+    // magic = floor(2^shift / sets) + 1, shift = 31 + ceil(log2 sets)
+    int log2 = 0;
+    while ((1LL << log2) < p.sets[k]) ++log2;
+    p.shift[k] = 31 + log2;
+    p.magic[k] = (1ULL << p.shift[k]) / (unsigned long long)p.sets[k] + 1;
   }
   // launch on the tensors' device and hand the caller's current device back
   int prev = 0;

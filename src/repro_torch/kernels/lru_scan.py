@@ -19,20 +19,25 @@ plain version and the specification).
 Bound.  A chunk moves its inputs, walk lines and packed bits once and
 reads and writes each table once: about 26 MB for a 1,024-step chunk of
 the ``ndp_machine(8)`` bucket, 8 us at 3.35 TB/s.  The kernel is bound by
-latency instead: each (lane, mechanism) chain is serial, about 27
-dependent lookups a step, each a load of a table row.
+latency instead: each (lane, mechanism) chain is serial, 11 lookups a
+step on an NDP machine (2 TLB + 4 PWC + 5 l1) and 21 on a CPU machine
+(2 + 4 + 15), plus the cache-as-TLB probe where there is one.
 
-Design.  One warp per (lane, mechanism) chain loops over the chunk's
-steps; lane ``w`` of the warp owns way ``w`` (and ``w + 32``, ... for a
-PWC wider than 32), so a way is only ever read and written by the same
-thread and the warp needs no barrier between lookups.  A hit is a
-``__ballot_sync`` on tag equality; a miss takes the first way of least
-stamp by a warp-shuffle min-reduction over (stamp, way).  Tables stay in
-global memory: each chain touches only its own, so they mostly stay in
-L1 and L2.  One launch per chunk, as the JAX runner dispatches one scan
-per chunk; the walk lines are computed by torch ops for the chunk and
-passed in.  The scan reads neither the queue delay nor the clock, so a
-later version may launch once over many chunks.
+Design.  One warp per (lane, mechanism) chain, a chain a block, loops
+over the chunk's steps; lane ``w`` of the warp owns ways ``w`` and
+``w + 32`` (tables of up to 64 ways), so a way is only ever read and
+written by the same thread and the warp needs no barrier between
+lookups.  The tables stay in global memory.  A hit is a ``__ballot_sync`` on tag
+equality; a miss takes the first way of least stamp by
+``__reduce_min_sync``, a ballot and ``__ffs``.  The inputs are loaded 32
+steps ahead (a step a lane, handed out by shuffles); a step's TLB and
+PWC rows are read before their lookups resolve, and those lookups
+resolve without a branch, side by side; the hierarchy lookups stay
+serial, each skipped where disabled.  One launch per chunk, as the JAX
+runner dispatches one scan per chunk; the walk lines are computed by
+torch ops once for a group of chunks and passed in.  The scan reads
+neither the queue delay nor the clock, so a later version may launch
+once over many chunks.
 """
 from __future__ import annotations
 
@@ -42,13 +47,17 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.ref import (FLAG_BYPASS, FLAG_CACHE_TLB, FLAG_HUGE,
-                                     FLAG_IDEAL, FLAG_N_PTE_SHIFT,
+from repro_torch.kernels.ref import (FLAG_BYPASS, FLAG_CACHE_TLB,
+                                     FLAG_COLOCATE, FLAG_HUGE, FLAG_IDEAL,
+                                     FLAG_N_PTE_SHIFT, FLAG_PARALLEL,
                                      FLAG_PWC_SHIFT, FLAG_SEGMENT,
                                      SCAN_TABLES)
 
 #: number of kernel launches since the counter was last reset
 launches = 0
+
+#: the most ways a table may have (two a lane of the warp)
+MAX_WAYS = 64
 
 _lib_handle = None
 
@@ -60,7 +69,8 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lru_scan_launch.argtypes = (
             [i32] + [ptr] * 8 + [i32] * 3
-            + [ctypes.POINTER(ptr)] * 2 + [ctypes.POINTER(i32)] * 2 + [ptr])
+            + [ctypes.POINTER(ptr)] * 2 + [ctypes.POINTER(i32)] * 2
+            + [ptr])
         lib.lru_scan_launch.restype = i32
         lib.lru_scan_error_string.argtypes = [i32]
         lib.lru_scan_error_string.restype = ctypes.c_char_p
@@ -69,14 +79,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def mech_flags(mt: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The scan's (L, M) int32 flag words from per-lane mechanism tables
-    (``ideal``/``huge``/``bypass``/``segment``/``cache_tlb``: (L, M)
-    bool, ``pwc_on``: (L, M, 4) bool, ``n_pte``: (L, M) int)."""
+    """The scan's and the epilogue's (L, M) int32 flag words from
+    per-lane mechanism tables (``ideal``/``huge``/``bypass``/``segment``/
+    ``cache_tlb``/``colocate``/``parallel``: (L, M) bool, ``pwc_on``:
+    (L, M, 4) bool, ``n_pte``: (L, M) int)."""
     f = torch.zeros(mt["n_pte"].shape, dtype=torch.int32,
                     device=mt["n_pte"].device)
     for key, bit in (("ideal", FLAG_IDEAL), ("huge", FLAG_HUGE),
                      ("bypass", FLAG_BYPASS), ("segment", FLAG_SEGMENT),
-                     ("cache_tlb", FLAG_CACHE_TLB)):
+                     ("cache_tlb", FLAG_CACHE_TLB),
+                     ("colocate", FLAG_COLOCATE),
+                     ("parallel", FLAG_PARALLEL)):
         f |= mt[key].to(torch.int32) * bit
     for lvl in range(mt["pwc_on"].shape[-1]):
         f |= mt["pwc_on"][..., lvl].to(torch.int32) << (FLAG_PWC_SHIFT + lvl)
@@ -117,6 +130,10 @@ def _check(vpn, off, is4k, valid, pte, flags, stamp, tables) -> None:
         if name not in SCAN_TABLES:
             raise ValueError(f"unknown scan table {name!r}")
         shape = (n_lanes, m) + tuple(tags.shape[2:])
+        if tags.dim() != 4 or tags.shape[-1] > MAX_WAYS:
+            raise ValueError(f"table {name!r} must be (L, M, sets, ways) "
+                             f"with at most {MAX_WAYS} ways, got "
+                             f"{tuple(tags.shape)}")
         want[name + ".tags"] = (tags, torch.int32, shape)
         want[name + ".lru"] = (lru, torch.int32, shape)
     for name in ("l1tlb", "l2tlb", "pwc", "l1"):

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the
-card-side oracle in ``chip_smoke.py``): paged decode attention, and the
-flash attention forward and backward of the training path."""
+card-side oracle in ``chip_smoke.py``): paged decode attention, the
+flash attention forward and backward of the training path, and the
+simulator's LRU scan and timing epilogue."""
 from __future__ import annotations
 
 import math
@@ -308,10 +309,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 #: machines with a cache hierarchy below L1, "ctlb" on machines with a
 #: cache-as-TLB; each is (lanes, mechanisms, sets, ways) tags + stamps
 SCAN_TABLES = ("l1tlb", "l2tlb", "pwc", "l1", "l2", "l3", "ctlb")
-#: bits of the per-(lane, mechanism) flag word the scan reads
+#: bits of the per-(lane, mechanism) flag word the scan and the epilogue
+#: read (colocate and parallel: the epilogue only)
 FLAG_IDEAL, FLAG_HUGE, FLAG_BYPASS, FLAG_SEGMENT, FLAG_CACHE_TLB = (
     1, 2, 4, 8, 16)
 FLAG_PWC_SHIFT = 5          # bits 5..8: a PWC in front of walk level 0..3
+FLAG_COLOCATE, FLAG_PARALLEL = 1 << 9, 1 << 10
 FLAG_N_PTE_SHIFT = 12       # bits 12..14: PTE accesses of a walk
 SCAN_MAX_PTE = 4
 SCAN_HUGE_SHIFT = 9         # 2MB pages: 512 x 4KB
@@ -447,3 +450,122 @@ def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
     weights = 1 << torch.arange(hits.shape[-1], dtype=torch.int32,
                                 device=vpn.device)
     return (hits * weights).sum(-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the simulator's timing epilogue
+# ---------------------------------------------------------------------------
+#: the epilogue's counters, in the kernel's output order
+COUNTERS = ("trans", "walks", "walk_cyc", "l1tlb_miss", "pte_acc",
+            "pte_l1_hit", "pte_mem", "data_l1_miss", "data_mem")
+#: the per-lane data parameters the epilogue reads, in the column order of
+#: the kernel's (lanes, K) float32 parameter array
+EPILOGUE_PARAMS = ("mem_lat", "l1_lat", "l2_lat", "l3_lat", "l2tlb_lat",
+                   "pwc_lat", "promo", "ech_rehash", "ctlb_lat", "stack_pen")
+
+
+def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
+                     is4k: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
+                     mt: dict, dp: dict, n_hier: int, has_ctlb: bool):
+    """Vectorized timing over the whole chunk.
+
+    packed: (T, M, L) hit bits; work: (T, L) float32; is4k, valid: (T, L)
+    bool; q: (M, L) queue delay, constant within the chunk; mt: lane
+    mechanism tables ((L, M) leaves); dp: lane data params ((L,) leaves).
+    Re-derives the gates the scan used from the hit bits and returns the
+    (M, L) counter deltas, clock delta and memory accesses.
+    """
+    def bit(i):
+        return ((packed >> i) & 1).bool()
+
+    def mb(a):          # lane mech table (L, M) -> (1, M, L)
+        return a.T[None]
+
+    def d3(v):          # lane data param -> broadcast over (T, M, L)
+        return v[None, None, :]
+
+    def d4(v):          # lane data param -> broadcast over (T, M, L, 5)
+        return v[None, None, :, None]
+
+    ctlb_bit = 6 + 5 * n_hier
+    validb = valid[:, None, :]                           # (T, 1, L)
+    is4kb = is4k[:, None, :]
+    hugeb, bypb = mb(mt["huge"]), mb(mt["bypass"])
+    hier_lat = [dp["l1_lat"], dp["l2_lat"], dp["l3_lat"]][:n_hier]
+    # multi-stack remote-hop penalty per memory access: co-locating
+    # mechanisms dodge ~90% of it; exactly +0.0 on one stack
+    pen = d3(dp["stack_pen"]) * torch.where(mb(mt["colocate"]), 0.1, 1.0)
+    mem_cost = d4(dp["mem_lat"]) + q[None, ..., None] + pen[..., None]
+
+    h_l1tlb, h_l2tlb = bit(0), bit(1)
+    en0 = validb & ~mb(mt["ideal"]) & ~(mb(mt["segment"]) & ~is4kb)
+    walk = en0 & ~h_l1tlb & ~h_l2tlb                    # (T, M, L)
+    if has_ctlb:
+        ctlb_probe = walk & mb(mt["cache_tlb"])
+        walk = walk & ~bit(ctlb_bit)
+    eff_n = torch.where(hugeb & is4kb, SCAN_MAX_PTE, mb(mt["n_pte"]))
+
+    # hierarchy latency per line (pte0..3, data): chain the per-level hit
+    # bits top-down; a line that misses everywhere pays memory + q
+    shape5 = packed.shape + (5,)
+    lat = torch.zeros(shape5, dtype=torch.float32, device=packed.device)
+    reached = torch.ones(shape5, dtype=torch.bool, device=packed.device)
+    went_mem = reached.clone()
+    for h_i in range(n_hier):
+        h = torch.stack([bit(6 + 5 * h_i + i) for i in range(5)], -1)
+        lat = lat + torch.where(reached, d4(hier_lat[h_i]), 0.0)
+        went_mem = went_mem & ~h
+        reached = reached & ~h
+    lat = lat + torch.where(reached, mem_cost, 0.0)
+
+    # per-PTE-level walk latency: a PWC hit beats everything; a bypassing
+    # mechanism goes straight to memory; the others pay the chain
+    pwc_hit = torch.stack([bit(2 + lvl) for lvl in range(SCAN_MAX_PTE)], -1)
+    levels = torch.arange(SCAN_MAX_PTE, device=packed.device)
+    pte_en = walk[..., None] & (levels < eff_n[..., None])
+    need_mem = pte_en & ~pwc_hit
+    pte_lat = torch.where(bypb[..., None], mem_cost[..., :SCAN_MAX_PTE],
+                          lat[..., :SCAN_MAX_PTE])
+    pte_lat = torch.where(pwc_hit, d4(dp["pwc_lat"]), pte_lat)
+    pte_lat = torch.where(pte_en, pte_lat, 0.0)
+
+    # parallel (ECH) walks complete when the hitting probe returns: one
+    # access latency plus issue overhead and the multi-core rehash churn
+    walk_cyc = torch.where(mb(mt["parallel"]),
+                           pte_lat.amax(-1) + 2.0 + d3(dp["ech_rehash"]),
+                           pte_lat.sum(-1))
+
+    trans = torch.where(walk, walk_cyc, 0.0)
+    if has_ctlb:
+        # the cache-as-TLB probe is serial after the L2-TLB miss: paid on
+        # hit and miss; a hit replaces the walk
+        trans = trans + torch.where(ctlb_probe, d3(dp["ctlb_lat"]), 0.0)
+    trans = torch.where(en0 & ~h_l1tlb, d3(dp["l2tlb_lat"]) + trans, 0.0)
+    trans = trans + torch.where(hugeb & validb, d3(dp["promo"]), 0.0)
+
+    pte_l1_hit = torch.stack([bit(6 + i) for i in range(SCAN_MAX_PTE)], -1)
+    pte_mem = need_mem & (bypb[..., None] | went_mem[..., :SCAN_MAX_PTE])
+    data_mem = validb & went_mem[..., SCAN_MAX_PTE]
+    dlat = torch.where(validb, lat[..., SCAN_MAX_PTE], 0.0)
+
+    step_cyc = torch.where(
+        validb,
+        work[:, None, :] + 1.0 + trans + (dlat - d3(dp["l1_lat"])),
+        0.0)
+
+    def count(a, dims=0):
+        return a.to(torch.float32).sum(dim=dims)
+
+    cnt = {
+        "trans": trans.sum(dim=0),
+        "walks": count(walk),
+        "walk_cyc": torch.where(walk, walk_cyc, 0.0).sum(dim=0),
+        "l1tlb_miss": count(en0 & ~h_l1tlb),
+        "pte_acc": count(need_mem, (0, -1)),
+        "pte_l1_hit": count(pte_l1_hit, (0, -1)),
+        "pte_mem": count(pte_mem, (0, -1)),
+        "data_l1_miss": count(validb & ~bit(6 + SCAN_MAX_PTE)),
+        "data_mem": count(data_mem),
+    }
+    mem_n = count(pte_mem, (0, -1)) + count(data_mem)
+    return cnt, step_cyc.sum(dim=0), mem_n

@@ -9,10 +9,11 @@ runs one ``simulate_batch`` per (machine, cores) bucket, every workload
 on the batch axis, the paper's five mechanisms on the mechanism axis, and
 prints each workload's speedup over radix, the NDP averages beside the
 paper's (Figs 12, 13, 14 at 1, 4, 8 cores), and per bucket the wall
-seconds, chunks, LRU-scan kernel launches and trace entries a second.
-The card's context and the kernel's build come before the first bucket,
-so no bucket's wall time holds them.  ``--profile`` traces each bucket with torch.profiler and prints
-its time by operator and the card's busy share.
+seconds, chunks, LRU-scan and epilogue kernel launches and trace entries
+a second.  The card's context and the kernels' builds come before the
+first bucket, so no bucket's wall time holds them.  ``--profile`` traces
+each bucket with torch.profiler and prints its time by operator and the
+card's busy share.
 
 On the CPU (plain PyTorch scan):
   python -m repro_torch.launch.simulate --preset smoke --device cpu
@@ -29,7 +30,9 @@ import torch
 
 from repro_torch.configs.ndp_sim import (CORE_COUNTS, PRESETS, WORKLOADS,
                                          cpu_machine, ndp_machine)
+from repro_torch.kernels import _build
 from repro_torch.kernels import lru_scan as LS
+from repro_torch.kernels import sim_epilogue as SE
 from repro_torch.sim import DEFAULT_MECHS, simulate_batch
 from repro_torch.util.device import resolve_device
 from repro_torch.util.profile import print_profile
@@ -69,7 +72,7 @@ def run_bucket(machine: str, cores: int, workloads: List[str], preset,
     traces = generate_traces(workloads, cores, length=trace_len,
                              preset=preset)
     gen_s = time.perf_counter() - t0
-    before = LS.launches
+    before, before_ep = LS.launches, SE.launches
     timings: Dict = {}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -90,7 +93,8 @@ def run_bucket(machine: str, cores: int, workloads: List[str], preset,
                          zip(workloads, results)},
             "trace_gen_s": gen_s, "wall_s": wall,
             "chunks": timings["chunks"],
-            "launches": LS.launches - before, "entries": entries,
+            "launches": LS.launches - before,
+            "epilogue_launches": SE.launches - before_ep, "entries": entries,
             "entries_per_s": entries / wall}
 
 
@@ -118,7 +122,8 @@ def run(args) -> List[Dict]:
     window = args.trace_len or preset.trace_len
     if device.type == "cuda":       # no bucket's wall holds the set-up:
         torch.cuda.synchronize(device)      # the card's context
-        LS._lib()                           # the kernel's build and load
+        _build.build_all(["lru_scan", "sim_epilogue"])   # the kernels'
+        LS._lib(), SE._lib()                # builds and loads
     print(f"simulate: preset {preset.name}, {window}-entry windows, seed "
           f"{preset.seed}, chunk {preset.chunk}, device {device}, "
           f"mechanisms {','.join(DEFAULT_MECHS)}")
@@ -141,7 +146,8 @@ def run(args) -> List[Dict]:
             print(f"bucket {machine} {cores}c: {len(workloads)} sims, "
                   f"{bk['chunks']} chunks, wall {bk['wall_s']:.3f} s "
                   f"(traces {bk['trace_gen_s']:.3f} s apart), lru_scan "
-                  f"launches {bk['launches']}, "
+                  f"launches {bk['launches']}, sim_epilogue launches "
+                  f"{bk['epilogue_launches']}, "
                   f"{bk['entries_per_s']:.0f} trace entries/s")
     return out
 

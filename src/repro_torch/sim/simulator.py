@@ -17,14 +17,21 @@ runner, split along the only serial dependency:
   card, an eager step loop on the CPU) carries only the LRU tag/stamp
   tables and emits one packed int32 of hit bits per (step, lane,
   mechanism);
-* a vectorized **epilogue** (torch ops) expands the hit bits over the
-  whole chunk and does every latency and counter computation.
+* the **epilogue** (``kernels.sim_epilogue``: a hand-written CUDA kernel
+  on the card, vectorized torch ops on the CPU) expands the hit bits over
+  the whole chunk, does every latency and counter computation, and adds
+  the chunk's deltas into the state.
 
 The queueing delay is held constant within a chunk (recomputed from the
 aggregate demand at every chunk boundary), which is what makes the split
 exact.  Tables are laid out ``(B, C, M, sets, ways)`` and viewed as the
 fused ``(B*C, M, sets, ways)`` lane layout for the scan; the scan updates
-them in place.
+them in place.  Everything a chunk reads that does not depend on the
+state is made once a bucket: the inputs on the fused lane layout, the
+per-lane valid bits, flag words and parameters, and the PTE walk lines
+(by group of chunks, at most ``LINES_GROUP_BYTES`` of them at once).  On
+the card a chunk is then the queue delay (a few torch ops), one scan
+launch and one epilogue launch.
 
 Everything runs on one engine, the batched one: :func:`simulate` is
 :func:`simulate_batch` of one trace, and :func:`simulate_batch` is
@@ -52,6 +59,8 @@ import torch
 
 from repro_torch.core import page_table as PT
 from repro_torch.kernels import lru_scan as LS
+from repro_torch.kernels import sim_epilogue as SE
+from repro_torch.kernels.ref import COUNTERS
 from repro_torch.sim import memory_model as MM
 from repro_torch.sim.mechanisms import (DEFAULT_MECHS, MAX_PTE, specs_for,
                                         tables_for)
@@ -64,6 +73,10 @@ M = len(DEFAULT_MECHS)
 
 #: scan-chunk length; traces are padded to a multiple of this
 DEFAULT_CHUNK = 512
+#: the most bytes of PTE walk lines held at once: the lines are made for
+#: a group of chunks this size (the whole trace of the full preset's
+#: buckets, and of 65,536-entry windows at 8 cores)
+LINES_GROUP_BYTES = 1 << 30
 
 # 2MB huge pages: 512 x 4KB pages (footprints are unscaled)
 HUGE_SHIFT = 9
@@ -81,9 +94,6 @@ HP_STALL_PER_CORE = 7.0
 QUEUE_K = MM.QUEUE_K        # bounded-linear queue slope (cycles at rho=1)
 # ECH: cuckoo upsizing/rehash churn per walk ~ (cores - 2)^2
 ECH_REHASH_QUAD = 5.0
-
-_COUNTERS = ("trans", "walks", "walk_cyc", "l1tlb_miss", "pte_acc",
-             "pte_l1_hit", "pte_mem", "data_l1_miss", "data_mem")
 
 
 @dataclasses.dataclass
@@ -289,12 +299,12 @@ def init_state(mach: "MachineConfig", m: int = M, batch: int | None = None,
     st["stamp"] = zeros((c, m), torch.int32)
     st["clock"] = zeros((m, c), torch.float32)
     st["mem_accs"] = zeros((m,), torch.float32)
-    st["counters"] = {k: zeros((m, c), torch.float32) for k in _COUNTERS}
+    st["counters"] = {k: zeros((m, c), torch.float32) for k in COUNTERS}
     return st
 
 
 # ---------------------------------------------------------------------------
-# the per-chunk pieces around the scan
+# the pieces around the kernels
 # ---------------------------------------------------------------------------
 def _pad_lines(a: torch.Tensor) -> torch.Tensor:
     """Pad (..., d) walk lines to (..., MAX_PTE)."""
@@ -332,121 +342,15 @@ def _queue(clock: torch.Tensor, mem_accs: torch.Tensor,
     return svc * rho * QUEUE_K
 
 
-def _epilogue(packed: torch.Tensor, work: torch.Tensor, is4k: torch.Tensor,
-              valid: torch.Tensor, q: torch.Tensor, mt: Dict, dp: Dict,
-              n_hier: int, has_ctlb: bool):
-    """Vectorized timing over the whole chunk.
-
-    packed: (T, M, L) hit bits; work: (T, L) float32; is4k, valid: (T, L)
-    bool; q: (M, L) queue delay, constant within the chunk; mt: lane
-    mechanism tables ((L, M) leaves); dp: lane data params ((L,) leaves).
-    Re-derives the gates the scan used from the hit bits and returns the
-    (M, L) counter deltas, clock delta and memory accesses.
-    """
-    def bit(i):
-        return ((packed >> i) & 1).bool()
-
-    def mb(a):          # lane mech table (L, M) -> (1, M, L)
-        return a.T[None]
-
-    def d3(v):          # lane data param -> broadcast over (T, M, L)
-        return v[None, None, :]
-
-    def d4(v):          # lane data param -> broadcast over (T, M, L, 5)
-        return v[None, None, :, None]
-
-    ctlb_bit = 6 + 5 * n_hier
-    validb = valid[:, None, :]                           # (T, 1, L)
-    is4kb = is4k[:, None, :]
-    hugeb, bypb = mb(mt["huge"]), mb(mt["bypass"])
-    hier_lat = [dp["l1_lat"], dp["l2_lat"], dp["l3_lat"]][:n_hier]
-    # multi-stack remote-hop penalty per memory access: co-locating
-    # mechanisms dodge ~90% of it; exactly +0.0 on one stack
-    pen = d3(dp["stack_pen"]) * torch.where(mb(mt["colocate"]), 0.1, 1.0)
-    mem_cost = d4(dp["mem_lat"]) + q[None, ..., None] + pen[..., None]
-
-    h_l1tlb, h_l2tlb = bit(0), bit(1)
-    en0 = validb & ~mb(mt["ideal"]) & ~(mb(mt["segment"]) & ~is4kb)
-    walk = en0 & ~h_l1tlb & ~h_l2tlb                    # (T, M, L)
-    if has_ctlb:
-        ctlb_probe = walk & mb(mt["cache_tlb"])
-        walk = walk & ~bit(ctlb_bit)
-    eff_n = torch.where(hugeb & is4kb, MAX_PTE, mb(mt["n_pte"]))
-
-    # hierarchy latency per line (pte0..3, data): chain the per-level hit
-    # bits top-down; a line that misses everywhere pays memory + q
-    shape5 = packed.shape + (5,)
-    lat = torch.zeros(shape5, dtype=torch.float32, device=packed.device)
-    reached = torch.ones(shape5, dtype=torch.bool, device=packed.device)
-    went_mem = reached.clone()
-    for h_i in range(n_hier):
-        h = torch.stack([bit(6 + 5 * h_i + i) for i in range(5)], -1)
-        lat = lat + torch.where(reached, d4(hier_lat[h_i]), 0.0)
-        went_mem = went_mem & ~h
-        reached = reached & ~h
-    lat = lat + torch.where(reached, mem_cost, 0.0)
-
-    # per-PTE-level walk latency: a PWC hit beats everything; a bypassing
-    # mechanism goes straight to memory; the others pay the chain
-    pwc_hit = torch.stack([bit(2 + lvl) for lvl in range(MAX_PTE)], -1)
-    levels = torch.arange(MAX_PTE, device=packed.device)
-    pte_en = walk[..., None] & (levels < eff_n[..., None])
-    need_mem = pte_en & ~pwc_hit
-    pte_lat = torch.where(bypb[..., None], mem_cost[..., :MAX_PTE],
-                          lat[..., :MAX_PTE])
-    pte_lat = torch.where(pwc_hit, d4(dp["pwc_lat"]), pte_lat)
-    pte_lat = torch.where(pte_en, pte_lat, 0.0)
-
-    # parallel (ECH) walks complete when the hitting probe returns: one
-    # access latency plus issue overhead and the multi-core rehash churn
-    walk_cyc = torch.where(mb(mt["parallel"]),
-                           pte_lat.amax(-1) + 2.0 + d3(dp["ech_rehash"]),
-                           pte_lat.sum(-1))
-
-    trans = torch.where(walk, walk_cyc, 0.0)
-    if has_ctlb:
-        # the cache-as-TLB probe is serial after the L2-TLB miss: paid on
-        # hit and miss; a hit replaces the walk
-        trans = trans + torch.where(ctlb_probe, d3(dp["ctlb_lat"]), 0.0)
-    trans = torch.where(en0 & ~h_l1tlb, d3(dp["l2tlb_lat"]) + trans, 0.0)
-    trans = trans + torch.where(hugeb & validb, d3(dp["promo"]), 0.0)
-
-    pte_l1_hit = torch.stack([bit(6 + i) for i in range(MAX_PTE)], -1)
-    pte_mem = need_mem & (bypb[..., None] | went_mem[..., :MAX_PTE])
-    data_mem = validb & went_mem[..., MAX_PTE]
-    dlat = torch.where(validb, lat[..., MAX_PTE], 0.0)
-
-    step_cyc = torch.where(
-        validb,
-        work[:, None, :] + 1.0 + trans + (dlat - d3(dp["l1_lat"])),
-        0.0)
-
-    def count(a, dims=0):
-        return a.to(torch.float32).sum(dim=dims)
-
-    cnt = {
-        "trans": trans.sum(dim=0),
-        "walks": count(walk),
-        "walk_cyc": torch.where(walk, walk_cyc, 0.0).sum(dim=0),
-        "l1tlb_miss": count(en0 & ~h_l1tlb),
-        "pte_acc": count(need_mem, (0, -1)),
-        "pte_l1_hit": count(pte_l1_hit, (0, -1)),
-        "pte_mem": count(pte_mem, (0, -1)),
-        "data_l1_miss": count(validb & ~bit(6 + MAX_PTE)),
-        "data_mem": count(data_mem),
-    }
-    mem_n = count(pte_mem, (0, -1)) + count(data_mem)
-    return cnt, step_cyc.sum(dim=0), mem_n
-
-
 # ---------------------------------------------------------------------------
 # the chunk loop
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class _Bucket:
-    """One batch on the device: the padded inputs (T_pad, B, C) (valid
-    (T_pad, B)), the per-lane mechanism tables and data params, and the
-    scan's flag words."""
+    """One batch on the device: the padded inputs on the fused lane layout
+    (T_pad, B*C), the per-lane mechanism tables, the per-sim data params
+    (for the queue), and the kernels' flag words and parameter array.
+    The walk lines of the chunks of one group are kept in ``lines``."""
 
     mach: "MachineConfig"
     shape: MachineShape
@@ -455,11 +359,13 @@ class _Bucket:
     m: int
     chunk: int
     lens: List[int]
-    xs: Tuple[torch.Tensor, ...]    # vpn, off, work, is4k, valid
+    xs: Tuple[torch.Tensor, ...]    # vpn, off, work, is4k, valid: (T_pad, L)
     mt_l: Dict[str, torch.Tensor]   # (L, M) (pwc_on (L, M, 4))
     dp: Dict[str, torch.Tensor]     # (B,)
-    dp_l: Dict[str, torch.Tensor]   # (L,)
     flags: torch.Tensor             # (L, M) int32
+    params: torch.Tensor            # (L, K) float32
+    group: int                      # chunks a group of walk lines
+    lines: Tuple[int, torch.Tensor | None] = (-1, None)  # (group, lines)
 
     @property
     def c(self) -> int:
@@ -468,6 +374,19 @@ class _Bucket:
     @property
     def n_chunks(self) -> int:
         return self.xs[0].shape[0] // self.chunk
+
+    def chunk_lines(self, i: int) -> torch.Tensor:
+        """Chunk ``i``'s (T, L, M, MAX_PTE) walk lines, a slice of its
+        group's, which are made (torch ops) when the group is first
+        reached."""
+        g, first = divmod(i, self.group)
+        if self.lines[0] != g:
+            self.lines = (-1, None)     # free the last group first
+            sl = slice(g * self.group * self.chunk,
+                       (g + 1) * self.group * self.chunk)
+            self.lines = (g, walk_lines(self.xs[0][sl], self.xs[3][sl],
+                                        self.mt_l["huge"], self.walk_fns))
+        return self.lines[1][first * self.chunk:(first + 1) * self.chunk]
 
 
 def _resolve_trace(trace, num_cores: int, length: int | None):
@@ -527,10 +446,11 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
                                                  j.mach.num_cores))
         region = PT._hash_np(v >> HUGE_SHIFT, _FRAG_SALT)
         is4ks.append(region % 1000 < int(frac * 1000))
-    valid = np.zeros((t_pad, b), bool)
+    valid = np.zeros((t_pad, b, c), bool)     # per lane
     for i, n in enumerate(lens):
         valid[:n, i] = True
-    xs = tuple(torch.from_numpy(a).to(dev) for a in (
+    # the fused lane layout (T_pad, B*C): lane b * C + core
+    xs = tuple(torch.from_numpy(a.reshape(t_pad, b * c)).to(dev) for a in (
         pack(vpns, np.int32), pack(offs, np.int32),
         pack(works, np.float32), pack(is4ks, bool), valid))
 
@@ -542,55 +462,43 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
           for k in dps[0]}
     mt_l = {k: torch.repeat_interleave(v, c, dim=0) for k, v in mt.items()}
     dp_l = {k: torch.repeat_interleave(v, c, dim=0) for k, v in dp.items()}
+    group = max(1, LINES_GROUP_BYTES // (chunk * b * c * m * MAX_PTE * 4))
     bucket = _Bucket(mach=jobs[0].mach, shape=shape, walk_fns=wf, b=b, m=m,
                      chunk=chunk, lens=lens, xs=xs, mt_l=mt_l, dp=dp,
-                     dp_l=dp_l, flags=LS.mech_flags(mt_l))
+                     flags=LS.mech_flags(mt_l), params=SE.lane_params(dp_l),
+                     group=group)
+    bucket.chunk_lines(0)           # the first group's walk lines
     return bucket, works
 
 
 def _scan_inputs(bk: _Bucket, state: Dict, i: int) -> Dict:
     """The scan's operands for chunk ``i`` on the fused lane layout, the
     tables and stamp as views of ``state`` (the scan updates them in
-    place), plus ``work`` for the epilogue."""
+    place), plus ``work`` for the epilogue.  Views only: no copies."""
     sl = slice(i * bk.chunk, (i + 1) * bk.chunk)
     vpn, off, work, is4k, valid = (a[sl] for a in bk.xs)
-    t, lanes = vpn.shape[0], bk.b * bk.c
-
-    def fuse(a):
-        return a.reshape(t, lanes)
-
-    vpn, off, work, is4k = fuse(vpn), fuse(off), fuse(work), fuse(is4k)
+    lanes = bk.b * bk.c
     tables = {name: tuple(state[name][k].view((lanes,)
                                               + state[name][k].shape[2:])
                           for k in ("tags", "lru"))
               for name, _, _ in bk.shape.tables}
-    return dict(vpn=vpn, off=off, is4k=is4k,
-                valid=torch.repeat_interleave(valid, bk.c, dim=1),
-                pte=walk_lines(vpn, is4k, bk.mt_l["huge"], bk.walk_fns),
-                flags=bk.flags,
+    return dict(vpn=vpn, off=off, is4k=is4k, valid=valid,
+                pte=bk.chunk_lines(i), flags=bk.flags,
                 stamp=state["stamp"].view(lanes, bk.m),
                 tables=tables, work=work)
 
 
 def _run_chunk(bk: _Bucket, state: Dict, i: int) -> None:
-    """Chunk ``i``: scan, epilogue, and the state update (in place)."""
+    """Chunk ``i``: the queue delay, the scan and the epilogue, which adds
+    the chunk's deltas into ``state``."""
     args = _scan_inputs(bk, state, i)
     work = args.pop("work")
     q = _queue(state["clock"], state["mem_accs"], bk.dp["service"])
-    q_lane = torch.repeat_interleave(q.T, bk.c, dim=1)        # (M, B*C)
     packed = LS.lru_scan(**args)
-    # the scan emits (T, L, M); the epilogue works in (T, M, L)
-    cnt, cyc, mem_n = _epilogue(
-        packed.transpose(1, 2), work, args["is4k"], args["valid"], q_lane,
-        bk.mt_l, bk.dp_l, len(bk.shape.hier), "ctlb" in args["tables"])
-
-    def unfuse(a):                    # (M, B*C) -> (B, M, C)
-        return a.reshape(a.shape[0], bk.b, bk.c).transpose(0, 1)
-
-    state["clock"] += unfuse(cyc)
-    state["mem_accs"] += unfuse(mem_n).sum(dim=2)
-    for k, v in cnt.items():
-        state["counters"][k] += unfuse(v)
+    SE.sim_epilogue(packed, work, args["is4k"], args["valid"], q, bk.flags,
+                    bk.params, state["clock"], state["mem_accs"],
+                    state["counters"], n_hier=len(bk.shape.hier),
+                    has_ctlb="ctlb" in args["tables"])
 
 
 def simulate(mach: "MachineConfig", trace: Dict[str, np.ndarray] | str,
