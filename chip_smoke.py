@@ -61,6 +61,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         the port's CPU path: integer counters equal, cycles within rtol
         1e-5;
      d. the ndp(8) and cpu(8) buckets at 65,536-entry windows;
+     e. banked DRAM memory and real traces: the six full-preset buckets
+        with every machine's memory banked (16 banks of 2 KB rows)
+        through the launcher (exactly 48 launches of each kernel, the
+        average speedups at each core count, wall s and entries/s beside
+        the bounded ones); both kernels held against their plain
+        versions and timed (L2 flushed) on the middle chunk of the banked
+        ndp(8) and cpu(8) buckets (packed bits, tables, stamps and open
+        rows identical; counters and per-bank accesses equal, cycles
+        within rtol 1e-5); the banked ndp(4) bucket card vs CPU; the two
+        fixture traces (ChampSim xz, Valgrind lackey gz) as ``trace:``
+        specs at 1 and 8 cores with both memory models, card vs CPU
+        (integer counters equal, cycles within rtol 1e-5);
  10. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
@@ -835,13 +847,18 @@ SIM_LAUNCHES = 6 * 8
 #: few torch ops, the scan and the epilogue
 SIM_KERNELS_A_CHUNK = 12
 SIM_LONG_WINDOW = 65536
+#: the real traces of phase 9e, committed beside the tests
+FIXTURE_TRACES = tuple(
+    "trace:" + os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "traces", name)
+    for name in ("gups_small.champsim.xz", "graph_small.lackey.gz"))
 
 
 def sim_bucket(machine: str, cores: int, preset, mechs=DEFAULT_MECHS,
-               trace_len=None):
+               trace_len=None, memory="bounded_linear"):
     """The inputs of a bucket (every workload) on the card, and its zeroed
     engine state."""
-    mach = SIM_MACHINES[machine](cores)
+    mach = SIMLAUNCH.with_memory(SIM_MACHINES[machine](cores), memory)
     traces = generate_traces(list(WORKLOADS), cores, length=trace_len,
                              preset=preset)
     bk, _ = SIM._prepare([SIM.SimJob(mach, tr, tuple(mechs))
@@ -851,17 +868,21 @@ def sim_bucket(machine: str, cores: int, preset, mechs=DEFAULT_MECHS,
 
 
 def scan_state(args) -> list:
-    """The tensors a scan updates in place: the stamp, then each table's
-    tags and stamps."""
+    """The tensors a scan updates in place: the stamp, each table's tags
+    and stamps, and (banked memory) the open rows."""
     return [args["stamp"]] + [t for pair in args["tables"].values()
-                              for t in pair]
+                              for t in pair] + (
+        [args["bank_row"]] if "bank_row" in args else [])
 
 
 def plain_copy(args) -> dict:
     """The scan's arguments with the state it updates cloned."""
-    return dict(args, stamp=args["stamp"].clone(),
-                tables={n: (t.clone(), s.clone())
-                        for n, (t, s) in args["tables"].items()})
+    out = dict(args, stamp=args["stamp"].clone(),
+               tables={n: (t.clone(), s.clone())
+                       for n, (t, s) in args["tables"].items()})
+    if "bank_row" in args:
+        out["bank_row"] = args["bank_row"].clone()
+    return out
 
 
 def state_out(state) -> list:
@@ -872,13 +893,17 @@ def state_out(state) -> list:
 
 def epilogue_args(bk, state, args, packed) -> dict:
     """The epilogue's arguments for a chunk whose scan gave ``packed``."""
-    return dict(packed=packed, work=args["work"], is4k=args["is4k"],
-                valid=args["valid"],
-                q=SIM._queue(state["clock"], state["mem_accs"],
-                             bk.dp["service"]),
-                flags=bk.flags, params=bk.params, clock=state["clock"],
-                mem_accs=state["mem_accs"], counters=state["counters"],
-                n_hier=len(bk.shape.hier), has_ctlb="ctlb" in args["tables"])
+    ep = dict(packed=packed, work=args["work"], is4k=args["is4k"],
+              valid=args["valid"],
+              q=SIM._queue(state["clock"], state["mem_accs"],
+                           bk.dp["service"]),
+              flags=bk.flags, params=bk.params, clock=state["clock"],
+              mem_accs=state["mem_accs"], counters=state["counters"],
+              n_hier=len(bk.shape.hier), has_ctlb="ctlb" in args["tables"])
+    if "bank_row" in args:
+        ep.update({k: args[k] for k in ("pte", "vpn", "off",
+                                        "lines_per_row")})
+    return ep
 
 
 def plain_state(ep: dict) -> dict:
@@ -917,13 +942,15 @@ def phase_sim_kernel() -> dict:
     packed bits, table entries and stamps, and the epilogue's counters
     that differ (cycles: beyond SIM_RTOL)."""
     smoke = PRESETS["smoke"]
-    cases = (("ndp", 8, DEFAULT_MECHS), ("cpu", 4, DEFAULT_MECHS),
-             ("zoo", 4, registered_names()))
+    cases = (("ndp", 8, DEFAULT_MECHS, "bounded_linear"),
+             ("cpu", 4, DEFAULT_MECHS, "bounded_linear"),
+             ("zoo", 4, registered_names(), "bounded_linear"),
+             ("zoo", 4, registered_names(), "banked"))
     out = {"mismatches": 0, "max_abs_err": 0.0, "ep_mismatches": 0,
            "ep_max_abs_err": 0.0, "ep_max_rel_err": 0.0}
-    for machine, cores, mechs in cases:
+    for machine, cores, mechs, memory in cases:
         t0 = time.perf_counter()
-        bk, state = sim_bucket(machine, cores, smoke, mechs)
+        bk, state = sim_bucket(machine, cores, smoke, mechs, memory=memory)
         mism = compared = ep_mism = ep_compared = 0
         for i in range(bk.n_chunks):
             args = SIM._scan_inputs(bk, state, i)
@@ -946,8 +973,9 @@ def phase_sim_kernel() -> dict:
             out["ep_max_abs_err"] = max(out["ep_max_abs_err"], d[2])
             out["ep_max_rel_err"] = max(out["ep_max_rel_err"], d[3])
         torch.cuda.synchronize()
-        print(f"lru_scan vs plain, {machine}_machine({cores}), {bk.b} "
-              f"workloads x {len(mechs)} mechanisms, {bk.n_chunks} chunks of "
+        print(f"lru_scan vs plain, {machine}_machine({cores}) {memory}, "
+              f"{bk.b} workloads x {len(mechs)} mechanisms, {bk.n_chunks} "
+              f"chunks of "
               f"{bk.chunk}: {mism} mismatches in {compared} packed bits, "
               f"table entries and stamps; sim_epilogue vs plain: {ep_mism} "
               f"mismatches in {ep_compared} counters, cycle sums and memory "
@@ -979,8 +1007,9 @@ def scan_bytes(args) -> int:
 def epilogue_bytes(ep) -> int:
     """Bytes a chunk of the epilogue must move: its inputs once, the state
     it adds into read once and written once."""
-    once = sum(ep[k].numel() * ep[k].element_size() for k in (
-        "packed", "work", "is4k", "valid", "q", "flags", "params"))
+    names = ("packed", "work", "is4k", "valid", "q", "flags", "params") + (
+        ("pte", "vpn", "off") if "pte" in ep else ())
+    once = sum(ep[k].numel() * ep[k].element_size() for k in names)
     return once + 2 * sum(t.numel() * 4 for t in state_out(ep))
 
 
@@ -1040,13 +1069,14 @@ def probe_scan(args, restore, machine: str, cores: int, chunk: int
     restore()
 
 
-def time_sim_chunk(machine: str, cores: int, probe: bool = False) -> dict:
+def time_sim_chunk(machine: str, cores: int, probe: bool = False,
+                   memory: str = "bounded_linear") -> dict:
     """Both kernels and their plain versions on the middle 1,024-step
     chunk of a full-preset bucket, from the state the earlier chunks
     left; the state is restored before each timed call, and L2 flushed.
     Each plain version is held against one kernel launch from the same
     state; the differences are counted."""
-    bk, state = sim_bucket(machine, cores, PRESETS["full"])
+    bk, state = sim_bucket(machine, cores, PRESETS["full"], memory=memory)
     k = bk.n_chunks // 2
     for i in range(k):
         SIM._run_chunk(bk, state, i)
@@ -1071,7 +1101,8 @@ def time_sim_chunk(machine: str, cores: int, probe: bool = False) -> dict:
     nbytes = scan_bytes(args)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     lanes, m = args["stamp"].shape
-    print(f"lru_scan timing, {machine}_machine({cores}) full preset, chunk "
+    print(f"lru_scan timing, {machine}_machine({cores}) {memory} full "
+          f"preset, chunk "
           f"{k} of {bk.n_chunks} ({bk.chunk} steps, {lanes} lanes x {m} "
           f"mechanisms = {lanes * m} chains; L2 flushed): kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: "
@@ -1106,8 +1137,8 @@ def time_sim_chunk(machine: str, cores: int, probe: bool = False) -> dict:
     ep_mism, ep_compared, ep_err, ep_rel = epilogue_diff(got_state, ep_plain)
     ep_bytes = epilogue_bytes(ep)
     ep_bound = ep_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"sim_epilogue timing, {machine}_machine({cores}) full preset, "
-          f"the same chunk ({bk.b} x {m} blocks; L2 flushed): kernel "
+    print(f"sim_epilogue timing, {machine}_machine({cores}) {memory} full "
+          f"preset, the same chunk ({bk.b} x {m} blocks; L2 flushed): kernel "
           f"{ep_ms:.4f} ms, plain {ep_plain_ms:.4f} ms, bound {ep_bound:.4f}"
           f" ms (bytes: {ep_bytes / 1e6:.3f} MB), {ep_bound / ep_ms:.2%} of "
           f"bound; no library call computes the epilogue; kernel vs plain: "
@@ -1164,9 +1195,10 @@ def count_chunk_kernels(machine: str, cores: int) -> dict:
     return {"loop": a_chunk, "whole": sum(whole.values()) / n_chunks}
 
 
-def check_sim_results(buckets) -> None:
+def check_sim_results(buckets, reference=JAX_NDP_AVG) -> None:
     """Finite positive cycles of the expected shapes, counters of events
-    within the trace's accesses, and the figure orderings."""
+    within the trace's accesses, and the figure orderings; the NDP
+    averages printed beside ``reference``'s where one is given."""
     for bk in buckets:
         for w, r in bk["results"].items():
             shape = (len(DEFAULT_MECHS), bk["cores"])
@@ -1189,39 +1221,57 @@ def check_sim_results(buckets) -> None:
         if cores == 8:
             check(avg["hugepage"] < 1.0, f"ndp 8c: hugepage not below "
                                          f"radix: {avg}")
-        print(f"ndp {cores}c average speedup over radix, port on the card "
-              f"vs the JAX package at the full preset: "
-              + ", ".join(f"{m} {avg[m]:.3f} vs {JAX_NDP_AVG[cores][m]:.3f}"
-                          for m in SIMLAUNCH.SHOWN))
+        if reference is not None:
+            print(f"ndp {cores}c average speedup over radix, port on the "
+                  f"card vs the JAX package at the full preset: "
+                  + ", ".join(f"{m} {avg[m]:.3f} vs "
+                              f"{reference[cores][m]:.3f}"
+                              for m in SIMLAUNCH.SHOWN))
 
 
-def phase_sim_parity() -> None:
-    """9c: the ndp_machine(4) bucket at the full preset, card vs CPU."""
-    full = PRESETS["full"]
-    traces = generate_traces(list(WORKLOADS), 4, preset=full)
-    mach = ndp_machine(4)
+def card_vs_cpu(mach, traces, names, what: str, length=None) -> float:
+    """``traces`` through simulate_batch on the card and on the CPU:
+    counters of events equal, cycles within SIM_RTOL; returns the largest
+    relative difference of the cycles."""
+    chunk = PRESETS["full"].chunk
     t0 = time.perf_counter()
-    card = SIM.simulate_batch(mach, traces, chunk=full.chunk, device="cuda")
+    card = SIM.simulate_batch(mach, traces, length, chunk=chunk,
+                              device="cuda")
     t1 = time.perf_counter()
-    cpu = SIM.simulate_batch(mach, traces, chunk=full.chunk, device="cpu")
+    cpu = SIM.simulate_batch(mach, traces, length, chunk=chunk, device="cpu")
     t2 = time.perf_counter()
     worst = 0.0
-    for w, a, b in zip(WORKLOADS, card, cpu):
+    for w, a, b in zip(names, card, cpu):
+        check(a.accesses == b.accesses and a.accesses > 0,
+              f"{what} {w}: {a.accesses} entries on the card, {b.accesses} "
+              "on the CPU")
         for f in SIM_INT_COUNTERS:
             check(np.array_equal(getattr(a, f), getattr(b, f)),
-                  f"ndp 4c {w}: {f} differs between the card and the CPU")
+                  f"{what} {w}: {f} differs between the card and the CPU")
         for f in SIM_FLOAT_COUNTERS:
             x, y = getattr(a, f), getattr(b, f)
+            check(bool(np.isfinite(x).all()) and x.shape == y.shape,
+                  f"{what} {w}: {f} not finite or of another shape")
             check(np.allclose(x, y, rtol=SIM_RTOL, atol=0.0),
-                  f"ndp 4c {w}: {f} card vs CPU beyond rtol {SIM_RTOL:g}")
+                  f"{what} {w}: {f} card vs CPU beyond rtol {SIM_RTOL:g}")
             worst = max(worst, float(np.max(np.abs(x - y)
                                             / np.maximum(np.abs(y), 1e-30))))
-    print(f"simulator card vs CPU, ndp_machine(4) bucket, full preset "
-          f"({len(traces)} workloads, {card[0].accesses} entries): "
+    print(f"simulator card vs CPU, {what} ({len(traces)} traces, "
+          f"{', '.join(str(r.accesses) for r in card[:2])}"
+          f"{' ...' if len(card) > 2 else ''} entries): "
           f"{', '.join(SIM_INT_COUNTERS)} equal; "
           f"{', '.join(SIM_FLOAT_COUNTERS)} max relative difference "
           f"{worst:.3e} (rtol {SIM_RTOL:g}); card {t1 - t0:.2f} s, CPU "
           f"{t2 - t1:.2f} s")
+    return worst
+
+
+def phase_sim_parity(memory: str = "bounded_linear") -> float:
+    """9c: the ndp_machine(4) bucket at the full preset, card vs CPU."""
+    traces = generate_traces(list(WORKLOADS), 4, preset=PRESETS["full"])
+    mach = SIMLAUNCH.bucket_machine("ndp", 4, memory)
+    return card_vs_cpu(mach, traces, list(WORKLOADS),
+                       f"ndp_machine(4) {memory} bucket, full preset")
 
 
 def phase_sim() -> dict:
@@ -1231,9 +1281,9 @@ def phase_sim() -> dict:
           f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    before, before_ep = LS.launches, SE.launches
+    LS.launches = SE.launches = 0
     buckets = SIMLAUNCH.run(SIMLAUNCH.build_parser().parse_args([]))
-    launches, ep_launches = LS.launches - before, SE.launches - before_ep
+    launches, ep_launches = LS.launches, SE.launches
     chunks = sum(bk["chunks"] for bk in buckets)
     check(launches == ep_launches == chunks == SIM_LAUNCHES,
           f"lru_scan launches {launches}, sim_epilogue launches "
@@ -1292,8 +1342,90 @@ def phase_sim() -> dict:
     print(f"simulator long window peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"phase 9d (long window): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    banked = phase_sim_banked(buckets, timed)
+    kernel["mismatches"] += banked.pop("mismatches")
+    kernel["ep_mismatches"] += banked.pop("ep_mismatches")
+    kernel["ep_max_abs_err"] = max(kernel["ep_max_abs_err"],
+                                   banked.pop("ep_max_abs_err"))
+    print(f"phase 9e (banked memory and real traces): "
+          f"{time.perf_counter() - t0:.1f} s")
     return dict(kernel, launches=launches, ep_launches=ep_launches,
-                timed=timed)
+                timed=timed, banked=banked)
+
+
+def phase_sim_banked(bounded, bounded_timed) -> dict:
+    """9e: the six full-preset buckets on banked memory through the
+    launcher, both kernels against their plain versions on the middle
+    chunk of the banked ndp(8) and cpu(8) buckets, the banked ndp(4)
+    bucket card vs CPU, and the fixture traces card vs CPU."""
+    LS.launches = SE.launches = 0
+    buckets = SIMLAUNCH.run(SIMLAUNCH.build_parser().parse_args(
+        ["--memory", "banked"]))
+    launches, ep_launches = LS.launches, SE.launches
+    chunks = sum(bk["chunks"] for bk in buckets)
+    check(launches == ep_launches == chunks == SIM_LAUNCHES,
+          f"banked: lru_scan launches {launches}, sim_epilogue launches "
+          f"{ep_launches} over {chunks} chunks, not {SIM_LAUNCHES} each")
+    check_sim_results(buckets, reference=None)
+    before = {(bk["machine"], bk["cores"]): bk for bk in bounded}
+    for bk in buckets:
+        avg = SIMLAUNCH.averages(bk)
+        b = before[(bk["machine"], bk["cores"])]
+        print(f"banked {bk['machine']} {bk['cores']}c average speedup over "
+              f"radix: radix 1.000, "
+              + ", ".join(f"{m} {avg[m]:.3f}" for m in SIMLAUNCH.SHOWN)
+              + f"; wall {bk['wall_s']:.3f} s, {bk['entries_per_s']:.0f} "
+              f"entries/s (bounded {b['wall_s']:.3f} s, "
+              f"{b['entries_per_s']:.0f} entries/s)")
+    print(f"simulator banked: 6 full-preset buckets in "
+          f"{sum(bk['wall_s'] for bk in buckets):.3f} s of simulate_batch "
+          f"(bounded {sum(bk['wall_s'] for bk in bounded):.3f} s), "
+          f"lru_scan launches {launches}, sim_epilogue launches "
+          f"{ep_launches}")
+
+    timed = {mc: time_sim_chunk(*mc, memory="banked")
+             for mc in (("ndp", 8), ("cpu", 8))}
+    for (machine, cores), t in timed.items():
+        b = bounded_timed[(machine, cores)]
+        print(f"banked vs bounded, {machine}_machine({cores}) chunk: lru_scan "
+              f"{t['lru_scan']['ms']:.4f} vs {b['lru_scan']['ms']:.4f} ms "
+              f"({t['lru_scan']['ms'] / b['lru_scan']['ms'] - 1:+.1%}), "
+              f"sim_epilogue {t['sim_epilogue']['ms']:.4f} vs "
+              f"{b['sim_epilogue']['ms']:.4f} ms")
+    mism = sum(t["lru_scan"].pop("mismatches") for t in timed.values())
+    ep_mism = sum(t["sim_epilogue"].pop("mismatches")
+                  for t in timed.values())
+    ep_err = max(t["sim_epilogue"].pop("max_abs_err") for t in timed.values())
+    check(mism == 0, "banked lru_scan kernel disagrees with its plain "
+                     "version on a full-preset chunk")
+    check(ep_mism == 0, "banked sim_epilogue kernel disagrees with its "
+                        "plain version on a full-preset chunk")
+
+    parity = phase_sim_parity("banked")
+    names = [spec.rsplit("/", 1)[1] for spec in FIXTURE_TRACES]
+    for cores in (1, 8):
+        for memory in ("bounded_linear", "banked"):
+            parity = max(parity, card_vs_cpu(
+                SIMLAUNCH.bucket_machine("ndp", cores, memory),
+                list(FIXTURE_TRACES), names,
+                f"fixture traces, ndp_machine({cores}) {memory}"))
+    return dict(launches=launches, ep_launches=ep_launches, timed=timed,
+                mismatches=mism, ep_mismatches=ep_mism, ep_max_abs_err=ep_err,
+                parity_max_rel=parity)
+
+
+def banked_keys(banked: dict, kernel: str) -> dict:
+    """The banked path's launches and chunk times of one simulator kernel,
+    for its row of the kernels line."""
+    out = {"banked_launches": banked["launches" if kernel == "lru_scan"
+                                     else "ep_launches"]}
+    for (machine, cores), t in banked["timed"].items():
+        tag = "banked" if machine == "ndp" else f"banked_{machine}{cores}"
+        out.update({f"{tag}_{k}": v for k, v in t[kernel].items()
+                    if k.endswith("ms")})
+    return out
 
 
 def main() -> int:
@@ -1373,6 +1505,8 @@ def main() -> int:
         **sim["timed"][("ndp", 8)]["lru_scan"],
         **{f"cpu8_{k}": v for k, v in
            sim["timed"][("cpu", 8)]["lru_scan"].items() if k.endswith("ms")},
+        # banked memory (phase 9e): its launches and the same chunks
+        **banked_keys(sim["banked"], "lru_scan"),
     }, {
         "name": "sim_epilogue",
         "route": "cuda",
@@ -1387,6 +1521,7 @@ def main() -> int:
         **{f"cpu8_{k}": v for k, v in
            sim["timed"][("cpu", 8)]["sim_epilogue"].items()
            if k.endswith("ms")},
+        **banked_keys(sim["banked"], "sim_epilogue"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,24 @@
 // stamp written is stamp + slot, and the stamp advances by the step's
 // slots on every step, padding steps included.  One packed int32 of hit
 // bits per (t, l, m) comes out: bits 0-1 the TLBs, 2-5 the PWC levels,
-// 6 + 5h .. 10 + 5h hierarchy level h, then the cache-as-TLB.
+// 6 + 5h .. 10 + 5h hierarchy level h, then the cache-as-TLB, then, on a
+// banked memory, five row-buffer hits (pte0..pte3, data).
+//
+// Banked memory.  Each (lane, mechanism) chain also carries one open-row
+// id per DRAM bank (-1: closed).  A site reaches memory when it is a PTE
+// site that walks, is within the walk's depth, missed its PWC level and
+// bypasses the caches, or when it missed every hierarchy level; the five
+// sites then touch their bank in program order: bank = line /
+// lines_per_row % banks, row = line / (lines_per_row * banks), the hit is
+// open row == row, and the bank keeps the row open.  Lane k of the warp
+// holds bank k's row (and bank k + 32's) in a register for the chunk.
+// The rows change only at the end of a step, so each site's bank, row
+// and open row (one shuffle from its bank's lane) are read at the start
+// of the step, beside the table lookups; at the end a site sees the row
+// an earlier site of the step opened in its bank, else the one read,
+// and the bank's lane takes the last row opened in it.  Line ids are
+// non-negative (the engine takes vpns below 2^25), where the truncating
+// division here equals the epilogue's floor division.
 //
 // Lookups a step: 11 on an NDP machine (2 TLB + 4 PWC + 5 l1) and 21 on a
 // CPU machine (2 + 4 + 15), plus the cache-as-TLB probe where there is one.
@@ -101,7 +118,26 @@ struct Params {
   int ways[N_TABLES];
   unsigned long long magic[N_TABLES];  // key / sets = key * magic >> shift
   int shift[N_TABLES];
+  int* bank_row;                // (L, M, banks), banked memory only
+  int banks, lines_per_row;
+  unsigned long long row_magic, bank_magic;  // / lines_per_row, / banks
+  int row_shift, bank_shift;
 };
+
+// magic and shift that divide a key 0 <= key < 2^31 by d with a multiply:
+// magic = floor(2^shift / d) + 1, shift = 31 + ceil(log2 d) (the error is
+// below 2^31 / 2^shift <= 1 / d, so the quotient is exact)
+void divisor(int d, unsigned long long& magic, int& shift) {
+  int log2 = 0;
+  while ((1LL << log2) < d) ++log2;
+  shift = 31 + log2;
+  magic = (1ULL << shift) / (unsigned long long)d + 1;
+}
+
+__device__ __forceinline__ int quotient(int key, unsigned long long magic,
+                                        int shift) {
+  return (int)(((unsigned long long)(unsigned)key * magic) >> shift);
+}
 
 // One table of one chain.
 struct Table {
@@ -125,10 +161,9 @@ struct Row {
 // sets) (error below 2^31 / 2^shift <= 1 / sets)
 __device__ __forceinline__ void split(const Table& tb, int key, int& set,
                                       int& tag) {
-  const unsigned q =
-      (unsigned)(((unsigned long long)(unsigned)key * tb.magic) >> tb.shift);
-  set = key - (int)q * tb.sets;
-  tag = (int)q + 1;
+  const int q = quotient(key, tb.magic, tb.shift);
+  set = key - q * tb.sets;
+  tag = q + 1;
 }
 
 // Read the lane's ways of row `set` where `en` (uniform across the warp).
@@ -246,8 +281,8 @@ __device__ __forceinline__ Input step_input(const Batch& b, int j) {
 }
 
 // NH: hierarchy levels (1 on an NDP machine, 3 on a CPU machine);
-// CTLB: the machine has a cache-as-TLB.
-template <int NH, bool CTLB>
+// CTLB: the machine has a cache-as-TLB; BANKED: its memory is banked.
+template <int NH, bool CTLB, bool BANKED>
 __global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
   const int lane = threadIdx.x;
   const int chain = blockIdx.x;
@@ -257,6 +292,7 @@ __global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
   constexpr int N_SLOTS = 2 + MAX_PTE + 5 * NH + (CTLB ? 1 : 0);
   constexpr int CTLB_SLOT = 2 + MAX_PTE + 5 * NH;
   constexpr int CTLB_BIT = 6 + 5 * NH;
+  constexpr int BANK_BIT = CTLB_BIT + (CTLB ? 1 : 0);
 
   const int flags = p.flags[chain];
   const bool ideal = flags & FLAG_IDEAL, huge = flags & FLAG_HUGE;
@@ -273,6 +309,14 @@ __global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
   const Table& ctlb = tabs[T_CTLB];
 
   int stamp = p.stamp[chain];
+  // banked: lane k holds the open rows of banks k and k + 32
+  int* const bank_row = BANKED ? p.bank_row + (size_t)chain * p.banks
+                               : nullptr;
+  int row0 = -1, row1 = -1;
+  if (BANKED) {
+    if (lane < p.banks) row0 = bank_row[lane];
+    if (lane + 32 < p.banks) row1 = bank_row[lane + 32];
+  }
   // the inputs of the next 32 steps are loaded while the current 32 run
   Batch cur = load_batch(p, 0, l, m, lane);
   Batch nxt = load_batch(p, 32, l, m, lane);
@@ -294,6 +338,19 @@ __global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
 #pragma unroll
     for (int lvl = 0; lvl < MAX_PTE; ++lvl)
       pwc_ok[lvl] = lvl < eff_n && ((flags >> (FLAG_PWC_SHIFT + lvl)) & 1);
+    // banked: each site's bank and row, and its bank's open row as the
+    // step found it (the rows change only at the end of the step), read
+    // now, off the chain of lookups
+    int bk[5], rw[5], open[5];
+    if (BANKED) {
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        const int q = quotient(lines[s], p.row_magic, p.row_shift);
+        rw[s] = quotient(q, p.bank_magic, p.bank_shift);
+        bk[s] = q - rw[s] * p.banks;
+        open[s] = __shfl_sync(FULL, bk[s] < 32 ? row0 : row1, bk[s] & 31);
+      }
+    }
 
     // the rows of the TLBs, the cache-as-TLB and the four PWC levels:
     // distinct rows, all read before the first of their lookups resolves
@@ -327,8 +384,8 @@ __global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
     int bits = (int)h_l1tlb | ((int)h_l2tlb << 1);
 
     bool ens[5] = {false, false, false, false, in.valid};
+    bool hp[MAX_PTE] = {false, false, false, false};
     if (walk) {
-      bool hp[MAX_PTE] = {false, false, false, false};
       if ((flags >> FLAG_PWC_SHIFT) & ((1 << eff_n) - 1)) {
 #pragma unroll
         for (int lvl = 0; lvl < MAX_PTE; ++lvl) {
@@ -357,16 +414,52 @@ __global__ void __launch_bounds__(32) lru_scan_kernel(const Params p) {
       }
     }
     if (CTLB) bits |= (int)h_ctlb << CTLB_BIT;
+    if (BANKED) {
+      // the sites that reached memory touch their banks in program order:
+      // a site sees the row an earlier site of the step left open in its
+      // bank, else the row the step found; the bank's lane keeps the last
+      bool mem_en[5];
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        mem_en[s] = ens[s] ||
+                    (s < MAX_PTE && walk && s < eff_n && !hp[s] && bypass);
+        int cur = open[s];
+#pragma unroll
+        for (int e = 0; e < s; ++e)
+          cur = (mem_en[e] && bk[e] == bk[s]) ? rw[e] : cur;
+        bits |= (int)(mem_en[s] && cur == rw[s]) << (BANK_BIT + s);
+      }
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        if (mem_en[s] && lane == (bk[s] & 31)) {
+          if (bk[s] < 32)
+            row0 = rw[s];
+          else
+            row1 = rw[s];
+        }
+      }
+    }
     if (lane == 0) p.packed[((size_t)t * p.L + l) * p.M + m] = bits;
     stamp += N_SLOTS;
   }
   if (lane == 0) p.stamp[chain] = stamp;
+  if (BANKED) {
+    if (lane < p.banks) bank_row[lane] = row0;
+    if (lane + 32 < p.banks) bank_row[lane + 32] = row1;
+  }
+}
+
+template <int NH, bool CTLB, bool BANKED>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  lru_scan_kernel<NH, CTLB, BANKED>
+      <<<(unsigned)(p.L * p.M), 32, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int NH, bool CTLB>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  lru_scan_kernel<NH, CTLB><<<(unsigned)(p.L * p.M), 32, 0, stream>>>(p);
-  return cudaGetLastError();
+  return p.bank_row != nullptr ? launch<NH, CTLB, true>(p, stream)
+                               : launch<NH, CTLB, false>(p, stream);
 }
 
 }  // namespace
@@ -378,12 +471,15 @@ extern "C" {
 // aligned); `tags`, `lru`, `sets` and `ways` hold one entry per table in
 // the order l1tlb, l2tlb, pwc, l1, l2, l3, ctlb, with null pointers for
 // the tables the machine lacks (l2 and l3 come together); no table has
-// more than 64 ways.  Returns cudaGetLastError().
+// more than 64 ways.  `bank_row` is null for a bounded memory; for a
+// banked one it is (L, M, banks) int32, 1 <= banks <= 64, with rows of
+// `lines_per_row` >= 1 lines.  Returns cudaGetLastError().
 int lru_scan_launch(int device, const void* vpn, const void* off,
                     const void* is4k, const void* valid, const void* pte,
                     const void* flags, void* stamp, void* packed, int T, int L,
                     int M, void* const* tags, void* const* lru,
-                    const int* sets, const int* ways, void* stream) {
+                    const int* sets, const int* ways, void* bank_row,
+                    int banks, int lines_per_row, void* stream) {
   if (T < 0 || L <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
   for (int k : {T_L1TLB, T_L2TLB, T_PWC, T_L1})
     if (tags[k] == nullptr || lru[k] == nullptr)
@@ -395,6 +491,9 @@ int lru_scan_launch(int device, const void* vpn, const void* off,
   }
   const bool deep = tags[T_L2] != nullptr;
   if (deep != (tags[T_L3] != nullptr)) return (int)cudaErrorInvalidValue;
+  if (bank_row != nullptr &&
+      (banks < 1 || banks > 64 || lines_per_row < 1))
+    return (int)cudaErrorInvalidValue;
   if (T == 0) return (int)cudaSuccess;
   Params p;
   p.vpn = static_cast<const int*>(vpn);
@@ -413,12 +512,13 @@ int lru_scan_launch(int device, const void* vpn, const void* off,
     p.lru[k] = static_cast<int*>(lru[k]);
     p.sets[k] = tags[k] != nullptr ? sets[k] : 1;
     p.ways[k] = tags[k] != nullptr ? ways[k] : 0;
-    // magic = floor(2^shift / sets) + 1, shift = 31 + ceil(log2 sets)
-    int log2 = 0;
-    while ((1LL << log2) < p.sets[k]) ++log2;
-    p.shift[k] = 31 + log2;
-    p.magic[k] = (1ULL << p.shift[k]) / (unsigned long long)p.sets[k] + 1;
+    divisor(p.sets[k], p.magic[k], p.shift[k]);
   }
+  p.bank_row = static_cast<int*>(bank_row);
+  p.banks = bank_row != nullptr ? banks : 1;
+  p.lines_per_row = bank_row != nullptr ? lines_per_row : 1;
+  divisor(p.lines_per_row, p.row_magic, p.row_shift);
+  divisor(p.banks, p.bank_magic, p.bank_shift);
   // launch on the tensors' device and hand the caller's current device back
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);

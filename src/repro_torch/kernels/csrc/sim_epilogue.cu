@@ -36,8 +36,16 @@
 // counts in int and its cycle sums in double; the block then folds each
 // lane's partial sums in a fixed order through shared memory, and thread c
 // alone adds lane c's sums into the state, so no atomics are needed.
-// Banked memory (per-bank queue windows, which need the five access
-// sites' line ids) is not ported; `lines` must be null.
+//
+// Banked memory (the BANKED instantiation).  A memory access at one of
+// the five sites costs the closed-row latency, less the precharge and
+// activate an open-row hit skips (the scan's five row-buffer bits, after
+// every other bit), plus its own bank's queue delay: bank = line /
+// lines_per_row % banks, the lines being the four PTE lines the scan
+// read (pte, (T, L, M) x 4) and the data line vpn * 64 + off.  q is
+// (B, M, banks), staged in shared memory a block; the accesses are
+// counted per bank, integers, by shared-memory atomics (exact in any
+// order), and added into mem_accs (B, M, banks).
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,8 +61,9 @@ constexpr int FLAG_N_PTE_SHIFT = 12;
 // per-lane parameter columns (ref.EPILOGUE_PARAMS)
 enum {
   P_MEM_LAT, P_L1_LAT, P_L2_LAT, P_L3_LAT, P_L2TLB_LAT, P_PWC_LAT, P_PROMO,
-  P_ECH_REHASH, P_CTLB_LAT, P_STACK_PEN, N_PARAMS
+  P_ECH_REHASH, P_CTLB_LAT, P_STACK_PEN, P_ROW_SAVE, N_PARAMS
 };
+constexpr int MAX_BANKS = 64;
 // outputs (ref.COUNTERS, then the clock and the memory accesses)
 enum {
   O_TRANS, O_WALKS, O_WALK_CYC, O_L1TLB_MISS, O_PTE_ACC, O_PTE_L1_HIT,
@@ -66,17 +75,25 @@ struct Params {
   const float* work;            // (T, L)
   const unsigned char* is4k;    // (T, L)
   const unsigned char* valid;   // (T, L)
-  const float* q;               // (B, M)
+  const float* q;               // (B, M); banked (B, M, banks)
   const int* flags;             // (L, M)
   const float* params;          // (L, N_PARAMS)
-  float* out[N_OUT];            // (B, M, C) each; O_MEM (B, M)
+  const int4* pte;              // (T, L, M) x 4, banked only
+  const int* vpn;               // (T, L), banked only
+  const int* off;               // (T, L), banked only
+  float* out[N_OUT];            // (B, M, C) each; O_MEM (B, M[, banks])
   int T, B, C, M, n_hier;
   bool ctlb;
+  int banks, lines_per_row;
 };
 
+template <bool BANKED>
 __global__ void __launch_bounds__(THREADS)
     sim_epilogue_kernel(const Params p) {
   __shared__ double part[N_OUT][THREADS];
+  // banked: the block's queue delay and access count of each bank
+  __shared__ float q_bank[BANKED ? MAX_BANKS : 1];
+  __shared__ int n_bank[BANKED ? MAX_BANKS : 1];
   const int b = blockIdx.x / p.M;
   const int m = blockIdx.x - b * p.M;
   const int tid = threadIdx.x;
@@ -84,6 +101,13 @@ __global__ void __launch_bounds__(THREADS)
   const int c = tid % p.C;
   const int slice = tid / p.C;
   const int L = p.B * p.C;
+  if (BANKED) {
+    if (tid < p.banks) {
+      q_bank[tid] = p.q[((size_t)b * p.M + m) * p.banks + tid];
+      n_bank[tid] = 0;
+    }
+    __syncthreads();
+  }
 
   int n_walks = 0, n_l1tlb_miss = 0, n_pte_acc = 0, n_pte_l1_hit = 0;
   int n_pte_mem = 0, n_data_l1_miss = 0, n_data_mem = 0;
@@ -101,8 +125,10 @@ __global__ void __launch_bounds__(THREADS)
                                       dp[P_L3_LAT]};
     const float pen =
         __fmul_rn(dp[P_STACK_PEN], (flags & FLAG_COLOCATE) ? 0.1f : 1.0f);
-    const float mem_cost = (dp[P_MEM_LAT] + p.q[b * p.M + m]) + pen;
+    const float mem_cost0 =
+        BANKED ? 0.0f : (dp[P_MEM_LAT] + p.q[b * p.M + m]) + pen;
     const int ctlb_bit = 6 + 5 * p.n_hier;
+    const int bank_bit = ctlb_bit + (p.ctlb ? 1 : 0);
 
     for (int t = slice; t < p.T; t += per_lane) {
       const size_t i = (size_t)t * L + l;
@@ -111,6 +137,26 @@ __global__ void __launch_bounds__(THREADS)
       const bool is4k = __ldg(p.is4k + i) != 0;
       const float work = __ldg(p.work + i);
       auto bit = [bits](int k) { return ((bits >> k) & 1) != 0; };
+
+      // each site's memory cost: banked, its bank's queue delay and the
+      // row-buffer discount
+      float mem_cost[5];
+      int bank[5];
+      if (BANKED) {
+        const int4 pl = __ldg(p.pte + i * p.M + m);
+        const int lines[5] = {pl.x, pl.y, pl.z, pl.w,
+                              __ldg(p.vpn + i) * 64 + __ldg(p.off + i)};
+#pragma unroll
+        for (int s = 0; s < 5; ++s) {
+          bank[s] = (int)(((unsigned)lines[s] / (unsigned)p.lines_per_row) %
+                          (unsigned)p.banks);
+          const float save = bit(bank_bit + s) ? dp[P_ROW_SAVE] : 0.0f;
+          mem_cost[s] = ((dp[P_MEM_LAT] - save) + q_bank[bank[s]]) + pen;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < 5; ++s) mem_cost[s] = mem_cost0;
+      }
 
       const bool h_l1tlb = bit(0), h_l2tlb = bit(1);
       const bool en0 = valid && !ideal && !(segment && !is4k);
@@ -143,7 +189,7 @@ __global__ void __launch_bounds__(THREADS)
       }
 #pragma unroll
       for (int s = 0; s < 5; ++s)
-        lat[s] = lat[s] + (reached[s] ? mem_cost : 0.0f);
+        lat[s] = lat[s] + (reached[s] ? mem_cost[s] : 0.0f);
 
       // per-PTE-level walk latency
       float pte_lat[MAX_PTE];
@@ -153,14 +199,16 @@ __global__ void __launch_bounds__(THREADS)
         const bool pwc_hit = bit(2 + lvl);
         const bool pte_en = walk && lvl < eff_n;
         const bool need_mem = pte_en && !pwc_hit;
-        float v = bypass ? mem_cost : lat[lvl];
+        float v = bypass ? mem_cost[lvl] : lat[lvl];
         v = pwc_hit ? dp[P_PWC_LAT] : v;
         pte_lat[lvl] = pte_en ? v : 0.0f;
         lat_max = lvl == 0 ? pte_lat[0] : fmaxf(lat_max, pte_lat[lvl]);
         lat_sum = lvl == 0 ? pte_lat[0] : lat_sum + pte_lat[lvl];
+        const bool pte_mem = need_mem && (bypass || went_mem[lvl]);
         n_pte_acc += need_mem;
         n_pte_l1_hit += bit(6 + lvl);
-        n_pte_mem += need_mem && (bypass || went_mem[lvl]);
+        n_pte_mem += pte_mem;
+        if (BANKED && pte_mem) atomicAdd(&n_bank[bank[lvl]], 1);
       }
       const float walk_cyc =
           parallel ? (lat_max + 2.0f) + dp[P_ECH_REHASH] : lat_sum;
@@ -179,7 +227,9 @@ __global__ void __launch_bounds__(THREADS)
       s_walk_cyc += (double)(walk ? walk_cyc : 0.0f);
       n_l1tlb_miss += en0 && !h_l1tlb;
       n_data_l1_miss += valid && !bit(6 + MAX_PTE);
-      n_data_mem += valid && went_mem[MAX_PTE];
+      const bool data_mem = valid && went_mem[MAX_PTE];
+      n_data_mem += data_mem;
+      if (BANKED && data_mem) atomicAdd(&n_bank[bank[MAX_PTE]], 1);
       s_cyc += (double)step_cyc;
     }
   }
@@ -211,7 +261,11 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  if (tid == 0) {
+  if (BANKED) {
+    if (tid < p.banks)
+      p.out[O_MEM][((size_t)b * p.M + m) * p.banks + tid] +=
+          (float)n_bank[tid];
+  } else if (tid == 0) {
     double sum = 0.0;
     for (int j = 0; j < p.C; ++j) sum += lane_mem[j];
     p.out[O_MEM][b * p.M + m] += (float)sum;
@@ -226,16 +280,26 @@ extern "C" {
 // tensor is contiguous (is4k and valid: bytes); `out` holds the nine
 // counters (ref.COUNTERS order) and the clock, each (B, M, C) float32,
 // then mem_accs (B, M) float32, all added to in place.  C is at most 256;
-// n_hier is 1 or 3; `lines` (banked memory) must be null.  Returns
-// cudaGetLastError().
+// n_hier is 1 or 3.  `banks` is 0 for a bounded memory, and `pte`, `vpn`
+// and `off` null; for a banked one 1 <= banks <= 64, q and mem_accs are
+// (B, M, banks), `pte` is the (T, L, M, 4) int32 walk lines (16-byte
+// aligned), `vpn` and `off` (T, L) int32, rows `lines_per_row` >= 1
+// lines.  Returns cudaGetLastError().
 int sim_epilogue_launch(int device, const void* packed, const void* work,
                         const void* is4k, const void* valid, const void* q,
                         const void* flags, const void* params,
-                        const void* lines, void* const* out, int T, int B,
-                        int C, int M, int n_hier, int ctlb, void* stream) {
+                        const void* pte, const void* vpn, const void* off,
+                        void* const* out, int T, int B, int C, int M,
+                        int n_hier, int ctlb, int banks, int lines_per_row,
+                        void* stream) {
   if (T < 0 || B <= 0 || C <= 0 || C > THREADS || M <= 0)
     return (int)cudaErrorInvalidValue;
-  if ((n_hier != 1 && n_hier != MAX_HIER) || lines != nullptr)
+  if (n_hier != 1 && n_hier != MAX_HIER) return (int)cudaErrorInvalidValue;
+  const bool banked = banks != 0;
+  if (banked && (banks < 0 || banks > MAX_BANKS || lines_per_row < 1 ||
+                 pte == nullptr || vpn == nullptr || off == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!banked && (pte != nullptr || vpn != nullptr || off != nullptr))
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < N_OUT; ++k)
     if (out[k] == nullptr) return (int)cudaErrorInvalidValue;
@@ -248,6 +312,11 @@ int sim_epilogue_launch(int device, const void* packed, const void* work,
   p.q = static_cast<const float*>(q);
   p.flags = static_cast<const int*>(flags);
   p.params = static_cast<const float*>(params);
+  p.pte = static_cast<const int4*>(pte);
+  p.vpn = static_cast<const int*>(vpn);
+  p.off = static_cast<const int*>(off);
+  p.banks = banks;
+  p.lines_per_row = lines_per_row;
   for (int k = 0; k < N_OUT; ++k) p.out[k] = static_cast<float*>(out[k]);
   p.T = T;
   p.B = B;
@@ -260,8 +329,11 @@ int sim_epilogue_launch(int device, const void* packed, const void* work,
   if (err != cudaSuccess) return (int)err;
   if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
     return (int)err;
-  sim_epilogue_kernel<<<(unsigned)(B * M), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (banked)
+    sim_epilogue_kernel<true><<<(unsigned)(B * M), THREADS, 0, s>>>(p);
+  else
+    sim_epilogue_kernel<false><<<(unsigned)(B * M), THREADS, 0, s>>>(p);
   err = cudaGetLastError();
   if (prev != device) {
     const cudaError_t restored = cudaSetDevice(prev);

@@ -14,7 +14,9 @@ per-level PWC lookups and, per hierarchy level, the lookups of the four
 PTE lines and the data line, each a set-associative LRU hit plus fill;
 one packed int32 of hit bits per (step, lane, mechanism) comes out, and
 the tables and stamps are updated in place (``ref.lru_scan_ref`` is the
-plain version and the specification).
+plain version and the specification).  On a banked memory the scan also
+carries each bank's open row and appends five row-buffer-hit bits, one
+per line site that reached memory.
 
 Bound.  A chunk moves its inputs, walk lines and packed bits once and
 reads and writes each table once: about 26 MB for a 1,024-step chunk of
@@ -38,11 +40,20 @@ runner dispatches one scan per chunk; the walk lines are computed by
 torch ops once for a group of chunks and passed in.  The scan reads
 neither the queue delay nor the clock, so a later version may launch
 once over many chunks.
+
+Banked memory (``BANKED`` instantiations; the bounded ones are compiled
+without it): lane ``k`` of the warp keeps bank ``k``'s open row (and
+``k + 32``'s, up to 64 banks) in a register for the chunk.  The rows
+change only at the end of a step, so each site's bank, row and open row
+(one shuffle) are read at the start of the step, beside the lookups; at
+the end a site that reached memory sees the row an earlier site of the
+step opened in its bank, else the one read, and the bank's lane takes
+the last row opened in it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,8 +67,10 @@ from repro_torch.kernels.ref import (FLAG_BYPASS, FLAG_CACHE_TLB,
 #: number of kernel launches since the counter was last reset
 launches = 0
 
-#: the most ways a table may have (two a lane of the warp)
+#: the most ways a table may have (two a lane of the warp), and the most
+#: banks of a banked memory (the same)
 MAX_WAYS = 64
+MAX_BANKS = 64
 
 _lib_handle = None
 
@@ -70,7 +83,7 @@ def _lib() -> ctypes.CDLL:
         lib.lru_scan_launch.argtypes = (
             [i32] + [ptr] * 8 + [i32] * 3
             + [ctypes.POINTER(ptr)] * 2 + [ctypes.POINTER(i32)] * 2
-            + [ptr])
+            + [ptr, i32, i32, ptr])
         lib.lru_scan_launch.restype = i32
         lib.lru_scan_error_string.argtypes = [i32]
         lib.lru_scan_error_string.restype = ctypes.c_char_p
@@ -99,24 +112,29 @@ def mech_flags(mt: Dict[str, torch.Tensor]) -> torch.Tensor:
 def lru_scan(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
              valid: torch.Tensor, pte: torch.Tensor, flags: torch.Tensor,
              stamp: torch.Tensor,
-             tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
-             ) -> torch.Tensor:
+             tables: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+             bank_row: Optional[torch.Tensor] = None,
+             lines_per_row: int = 0) -> torch.Tensor:
     """One chunk of the LRU scan (arguments as ``ref.lru_scan_ref``):
-    packed hit bits (T, L, M) int32 out, ``tables`` and ``stamp`` updated
-    in place.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    packed hit bits (T, L, M) int32 out, ``tables``, ``stamp`` and
+    (banked memory) ``bank_row`` updated in place.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
     if vpn.device.type == "cpu":
+        _check(vpn, off, is4k, valid, pte, flags, stamp, tables, bank_row,
+               lines_per_row)
         return ref.lru_scan_ref(vpn, off, is4k, valid, pte, flags, stamp,
-                                tables)
+                                tables, bank_row, lines_per_row)
     if vpn.device.type != "cuda":
         raise ValueError(f"no lru_scan for device {vpn.device}")
     global launches
-    packed = _launch(vpn, off, is4k, valid, pte, flags, stamp, tables)
+    packed = _launch(vpn, off, is4k, valid, pte, flags, stamp, tables,
+                     bank_row, lines_per_row)
     launches += 1
     return packed
 
 
-def _check(vpn, off, is4k, valid, pte, flags, stamp, tables) -> None:
+def _check(vpn, off, is4k, valid, pte, flags, stamp, tables, bank_row=None,
+           lines_per_row=0) -> None:
     t_len, n_lanes = vpn.shape
     m = stamp.shape[-1]
     want = {"vpn": (vpn, torch.int32, (t_len, n_lanes)),
@@ -141,6 +159,16 @@ def _check(vpn, off, is4k, valid, pte, flags, stamp, tables) -> None:
             raise ValueError(f"the scan needs table {name!r}")
     if ("l2" in tables) != ("l3" in tables):
         raise ValueError("tables l2 and l3 come together")
+    if bank_row is not None:
+        nb = bank_row.shape[-1]
+        if bank_row.dim() != 3 or not 1 <= nb <= MAX_BANKS:
+            raise ValueError(f"bank_row must be (L, M, banks) with 1 to "
+                             f"{MAX_BANKS} banks, got "
+                             f"{tuple(bank_row.shape)}")
+        if lines_per_row < 1:
+            raise ValueError(f"lines_per_row must be >= 1, got "
+                             f"{lines_per_row}")
+        want["bank_row"] = (bank_row, torch.int32, (n_lanes, m, nb))
     for name, (t, dtype, shape) in want.items():
         if t.device != vpn.device:
             raise ValueError(f"{name} is on {t.device}, vpn on {vpn.device}")
@@ -153,10 +181,12 @@ def _check(vpn, off, is4k, valid, pte, flags, stamp, tables) -> None:
         raise ValueError("pte must be 16-byte aligned")
 
 
-def _launch(vpn, off, is4k, valid, pte, flags, stamp, tables):
+def _launch(vpn, off, is4k, valid, pte, flags, stamp, tables,
+            bank_row=None, lines_per_row=0):
     """Launch the kernel on checked operands; counts nothing
     (``chip_smoke.py`` times the kernel through it)."""
-    _check(vpn, off, is4k, valid, pte, flags, stamp, tables)
+    _check(vpn, off, is4k, valid, pte, flags, stamp, tables, bank_row,
+           lines_per_row)
     t_len, n_lanes = vpn.shape
     m = stamp.shape[-1]
     packed = torch.empty((t_len, n_lanes, m), dtype=torch.int32,
@@ -174,6 +204,8 @@ def _launch(vpn, off, is4k, valid, pte, flags, stamp, tables):
         vpn.device.index, vpn.data_ptr(), off.data_ptr(), is4k.data_ptr(),
         valid.data_ptr(), pte.data_ptr(), flags.data_ptr(), stamp.data_ptr(),
         packed.data_ptr(), t_len, n_lanes, m, tags_p, lru_p, sets, ways,
+        None if bank_row is None else bank_row.data_ptr(),
+        0 if bank_row is None else bank_row.shape[-1], lines_per_row,
         torch.cuda.current_stream(vpn.device).cuda_stream)
     if err != 0:
         msg = lib.lru_scan_error_string(err).decode()

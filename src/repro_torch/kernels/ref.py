@@ -325,15 +325,25 @@ def scan_layout(tables) -> tuple:
     """(hierarchy table names, has a cache-as-TLB, stamp slots a step) of
     a scan over ``tables``.  The packed hit bits of a step are: 0 L1
     DTLB, 1 L2 TLB, 2..5 the PWC of walk level 0..3, 6 + 5h .. 10 + 5h
-    hierarchy level h for [pte0..pte3, data], then the cache-as-TLB."""
+    hierarchy level h for [pte0..pte3, data], then the cache-as-TLB,
+    then (banked memory) the five row-buffer hits (:func:`bank_bit`)."""
     hier = ("l1", "l2", "l3") if "l2" in tables else ("l1",)
     has_ctlb = "ctlb" in tables
     return hier, has_ctlb, 2 + SCAN_MAX_PTE + 5 * len(hier) + int(has_ctlb)
 
 
+def bank_bit(n_hier: int, has_ctlb: bool) -> int:
+    """The first of the five row-buffer-hit bits (pte0..pte3, data) a
+    banked machine appends after every other hit bit: at most 6 + 15 + 1 +
+    5 = 27 bits."""
+    return 6 + 5 * n_hier + int(has_ctlb)
+
+
 def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
                  valid: torch.Tensor, pte: torch.Tensor, flags: torch.Tensor,
-                 stamp: torch.Tensor, tables: dict) -> torch.Tensor:
+                 stamp: torch.Tensor, tables: dict,
+                 bank_row: torch.Tensor | None = None,
+                 lines_per_row: int = 0) -> torch.Tensor:
     """The serial LRU scan of one chunk, as an eager step loop vectorized
     over (lane, mechanism).
 
@@ -349,6 +359,16 @@ def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
     site neither writes nor hits; the stamp written is ``stamp + slot``,
     and ``stamp`` advances by the slots of a step on every step, padding
     included.
+
+    Banked memory: ``bank_row`` (L, M, banks) int32 holds each bank's open
+    row (-1: closed), updated in place, and ``lines_per_row`` the 64B
+    lines of a row.  A site reaches memory when it is a PTE site that
+    walks, is within the walk's depth, missed its PWC level and bypasses
+    the caches, or when it missed every hierarchy level; the five sites
+    then touch their bank in program order (pte0..pte3, data): ``bank =
+    line / lines_per_row % banks``, ``row = line / (lines_per_row *
+    banks)`` (truncating, as the JAX scan; line ids are non-negative),
+    the hit bit is ``open row == row``, and the bank keeps ``row`` open.
     """
     t_len, n_lanes = vpn.shape
     m = stamp.shape[1]
@@ -392,6 +412,15 @@ def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
 
     tlb_sites = {n: site(n, tlb_key)
                  for n in ("l1tlb", "l2tlb", "ctlb") if n in flat}
+    opened = None
+    if bank_row is not None:
+        n_banks = bank_row.shape[-1]
+        opened = bank_row.clone()
+        byp_ok = [(lvl < eff_n) & bypass for lvl in range(SCAN_MAX_PTE)]
+        div = lambda a, d: torch.div(a, d, rounding_mode="trunc")  # noqa: E731
+        banks = [torch.fmod(div(line, lines_per_row), n_banks).long()
+                 for line in lines]
+        open_rows = [div(line, lines_per_row * n_banks) for line in lines]
     pwc_rows = [chain * SCAN_MAX_PTE + lvl for lvl in range(SCAN_MAX_PTE)]
     hier_sites = {n: [site(n, line) for line in lines] for n in hier}
 
@@ -438,6 +467,15 @@ def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
                 bits.append(h)
         if has_ctlb:
             bits.append(h_ctlb)
+        if opened is not None:
+            mem_ens = [(walk & byp_ok[lvl][t] & ~bits[2 + lvl]) | ens[lvl]
+                       for lvl in range(SCAN_MAX_PTE)] + [ens[SCAN_MAX_PTE]]
+            for i in range(5):
+                bk, rw = banks[i][t][..., None], open_rows[i][t]
+                cur = opened.gather(-1, bk)[..., 0]
+                bits.append((cur == rw) & mem_ens[i])
+                opened.scatter_(-1, bk, torch.where(mem_ens[i], rw,
+                                                    cur)[..., None])
         steps.append(torch.stack(bits, -1))
         s = s + n_slots
 
@@ -446,6 +484,8 @@ def lru_scan_ref(vpn: torch.Tensor, off: torch.Tensor, is4k: torch.Tensor,
         tags.copy_(ft[:-1].view_as(tags))
         lru.copy_(fl[:-1].view_as(lru))
     stamp.copy_(s)
+    if opened is not None:
+        bank_row.copy_(opened)
     hits = torch.stack(steps).to(torch.int32)         # (T, L, M, bits)
     weights = 1 << torch.arange(hits.shape[-1], dtype=torch.int32,
                                 device=vpn.device)
@@ -461,12 +501,15 @@ COUNTERS = ("trans", "walks", "walk_cyc", "l1tlb_miss", "pte_acc",
 #: the per-lane data parameters the epilogue reads, in the column order of
 #: the kernel's (lanes, K) float32 parameter array
 EPILOGUE_PARAMS = ("mem_lat", "l1_lat", "l2_lat", "l3_lat", "l2tlb_lat",
-                   "pwc_lat", "promo", "ech_rehash", "ctlb_lat", "stack_pen")
+                   "pwc_lat", "promo", "ech_rehash", "ctlb_lat", "stack_pen",
+                   "row_save")
 
 
 def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
                      is4k: torch.Tensor, valid: torch.Tensor, q: torch.Tensor,
-                     mt: dict, dp: dict, n_hier: int, has_ctlb: bool):
+                     mt: dict, dp: dict, n_hier: int, has_ctlb: bool,
+                     lines: torch.Tensor | None = None,
+                     lines_per_row: int = 0):
     """Vectorized timing over the whole chunk.
 
     packed: (T, M, L) hit bits; work: (T, L) float32; is4k, valid: (T, L)
@@ -474,6 +517,13 @@ def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
     mechanism tables ((L, M) leaves); dp: lane data params ((L,) leaves).
     Re-derives the gates the scan used from the hit bits and returns the
     (M, L) counter deltas, clock delta and memory accesses.
+
+    Banked memory: ``lines`` (T, M, L, 5) int32 holds the five access
+    sites' line ids (pte0..pte3, data), q is (M, L, banks), and a site's
+    memory cost is the closed-row latency, less ``row_save`` where the
+    scan's row-buffer bit is set, plus its own bank's queue delay (bank =
+    ``line // lines_per_row % banks``); the memory accesses come back per
+    bank, (M, L, banks).
     """
     def bit(i):
         return ((packed >> i) & 1).bool()
@@ -495,7 +545,18 @@ def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
     # multi-stack remote-hop penalty per memory access: co-locating
     # mechanisms dodge ~90% of it; exactly +0.0 on one stack
     pen = d3(dp["stack_pen"]) * torch.where(mb(mt["colocate"]), 0.1, 1.0)
-    mem_cost = d4(dp["mem_lat"]) + q[None, ..., None] + pen[..., None]
+    if lines is not None:
+        # closed-row latency, less what an open-row hit skips, plus the
+        # access's own bank's queue delay
+        first = bank_bit(n_hier, has_ctlb)
+        rowhit = torch.stack([bit(first + i) for i in range(5)], -1)
+        n_banks = q.shape[-1]
+        bank5 = ((lines // lines_per_row) % n_banks).long()  # (T, M, L, 5)
+        q_acc = q[None].expand(packed.shape + (n_banks,)).gather(-1, bank5)
+        mem_cost = (d4(dp["mem_lat"]) - rowhit * d4(dp["row_save"])
+                    + q_acc + pen[..., None])
+    else:
+        mem_cost = d4(dp["mem_lat"]) + q[None, ..., None] + pen[..., None]
 
     h_l1tlb, h_l2tlb = bit(0), bit(1)
     en0 = validb & ~mb(mt["ideal"]) & ~(mb(mt["segment"]) & ~is4kb)
@@ -567,5 +628,14 @@ def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
         "data_l1_miss": count(validb & ~bit(6 + SCAN_MAX_PTE)),
         "data_mem": count(data_mem),
     }
-    mem_n = count(pte_mem, (0, -1)) + count(data_mem)
+    if lines is not None:
+        # per-bank demand: each access that reached memory, on its bank
+        acc5 = torch.cat([pte_mem, data_mem[..., None]], -1)
+        m, n_lanes = packed.shape[1:]
+        flat = lambda a: a.permute(1, 2, 0, 3).reshape(m, n_lanes, -1)  # noqa: E731
+        mem_n = torch.zeros((m, n_lanes, n_banks), dtype=torch.float32,
+                            device=packed.device).scatter_add_(
+            -1, flat(bank5), flat(acc5).to(torch.float32))
+    else:
+        mem_n = count(pte_mem, (0, -1)) + count(data_mem)
     return cnt, step_cyc.sum(dim=0), mem_n

@@ -4,7 +4,7 @@ On the card, the default (the ``full`` preset: 8,000-entry windows,
 Table-II footprints, seed 0, chunks of 1,024):
   python -m repro_torch.launch.simulate [--preset full|smoke] \
       [--machines ndp,cpu] [--cores 1,4,8] [--workloads bc,bfs,...] \
-      [--trace-len N] [--profile]
+      [--memory bounded_linear|banked] [--trace-len N] [--profile]
 runs one ``simulate_batch`` per (machine, cores) bucket, every workload
 on the batch axis, the paper's five mechanisms on the mechanism axis, and
 prints each workload's speedup over radix, the NDP averages beside the
@@ -13,7 +13,12 @@ seconds, chunks, LRU-scan and epilogue kernel launches and trace entries
 a second.  The card's context and the kernels' builds come before the
 first bucket, so no bucket's wall time holds them.  ``--profile`` traces
 each bucket with torch.profiler and prints its time by operator and the
-card's busy share.
+card's busy share.  ``--memory banked`` switches every machine to the
+banked DRAM model (16 banks of 2 KB rows; the machine's own latency
+kept, ``memory_model.with_kind``).  ``--workloads`` also takes
+``trace:<path>[?opt=val&...]`` specs of real traces (ChampSim, Valgrind
+lackey or CSV; ``repro_torch.workloads.ingest``), each replayed up to
+the window.
 
 On the CPU (plain PyTorch scan):
   python -m repro_torch.launch.simulate --preset smoke --device cpu
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -34,9 +40,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import lru_scan as LS
 from repro_torch.kernels import sim_epilogue as SE
 from repro_torch.sim import DEFAULT_MECHS, simulate_batch
+from repro_torch.sim.memory_model import MEMORY_MODELS, with_kind
 from repro_torch.util.device import resolve_device
 from repro_torch.util.profile import print_profile
-from repro_torch.workloads import generate_traces
+from repro_torch.workloads import generate_traces, parse_workload_spec
 
 MACHINES = {"ndp": ndp_machine, "cpu": cpu_machine}
 #: the figure of each core count, and the paper's average NDP speedups
@@ -54,7 +61,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--machines", default="ndp,cpu",
                     help="comma-separated, of " + ",".join(MACHINES))
     ap.add_argument("--cores", default=",".join(map(str, CORE_COUNTS)))
-    ap.add_argument("--workloads", default=",".join(WORKLOADS))
+    ap.add_argument("--workloads", default=",".join(WORKLOADS),
+                    help="comma-separated Table-II names or "
+                         "trace:<path> specs")
+    ap.add_argument("--memory", default="bounded_linear",
+                    choices=sorted(MEMORY_MODELS),
+                    help="the machines' DRAM model")
     ap.add_argument("--trace-len", type=int, default=None,
                     help="trace window (default: the preset's)")
     ap.add_argument("--device", default="cuda")
@@ -64,9 +76,22 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def with_memory(mach, memory: str):
+    """``mach`` with its memory switched to the ``memory`` preset, the
+    machine's own calibration kept (``memory_model.with_kind``)."""
+    if mach.memory.kind == memory:
+        return mach
+    return dataclasses.replace(mach, memory=with_kind(mach.memory, memory))
+
+
+def bucket_machine(machine: str, cores: int, memory: str = "bounded_linear"):
+    """The bucket's machine, its memory switched to ``memory``."""
+    return with_memory(MACHINES[machine](cores), memory)
+
+
 def run_bucket(machine: str, cores: int, workloads: List[str], preset,
                trace_len: Optional[int], device,
-               profile: bool = False) -> Dict:
+               profile: bool = False, memory: str = "bounded_linear") -> Dict:
     """One (machine, cores) bucket: every workload as one batch."""
     t0 = time.perf_counter()
     traces = generate_traces(workloads, cores, length=trace_len,
@@ -80,7 +105,8 @@ def run_bucket(machine: str, cores: int, workloads: List[str], preset,
     prof = torch.profiler.profile(activities=acts) if profile else None
     t0 = time.perf_counter()
     with prof if prof is not None else contextlib.nullcontext():
-        results = simulate_batch(MACHINES[machine](cores), traces,
+        results = simulate_batch(bucket_machine(machine, cores, memory),
+                                 traces,
                                  chunk=preset.chunk, timings=timings,
                                  device=device)
     wall = time.perf_counter() - t0
@@ -116,9 +142,7 @@ def run(args) -> List[Dict]:
                              f"{sorted(MACHINES)}")
     workloads = args.workloads.split(",")
     for w in workloads:
-        if w not in WORKLOADS:
-            raise ValueError(f"unknown workload {w!r}: one of "
-                             f"{sorted(WORKLOADS)}")
+        parse_workload_spec(w)          # a name or a trace spec, or raise
     window = args.trace_len or preset.trace_len
     if device.type == "cuda":       # no bucket's wall holds the set-up:
         torch.cuda.synchronize(device)      # the card's context
@@ -126,12 +150,13 @@ def run(args) -> List[Dict]:
         LS._lib(), SE._lib()                # builds and loads
     print(f"simulate: preset {preset.name}, {window}-entry windows, seed "
           f"{preset.seed}, chunk {preset.chunk}, device {device}, "
-          f"mechanisms {','.join(DEFAULT_MECHS)}")
+          f"memory {args.memory}, mechanisms {','.join(DEFAULT_MECHS)}")
     out = []
     for cores in (int(c) for c in args.cores.split(",")):
         for machine in machines:
             bk = run_bucket(machine, cores, workloads, preset,
-                            args.trace_len, device, args.profile)
+                            args.trace_len, device, args.profile,
+                            args.memory)
             out.append(bk)
             tag = FIGS.get(cores, f"{cores}c") if machine == "ndp" else (
                 f"cpu_{cores}c")

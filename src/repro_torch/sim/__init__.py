@@ -3,11 +3,14 @@
 The port of ``repro.sim``: set-associative caches, TLBs and page-walk
 caches as per-chunk LRU tables, scanned by a hand-written CUDA kernel on
 the card (``kernels/csrc/lru_scan.cu``) and by a plain PyTorch step loop
-on the CPU; a vectorized timing epilogue in torch ops; a queueing memory
-model; and the declarative registry of translation mechanisms
-(:mod:`repro_torch.sim.mechanisms`), evaluated together along a
-mechanism axis — the paper's five by default.  The sweep, search and
-cost model of the JAX package are not ported yet (ROADMAP module item 6).
+on the CPU; a vectorized timing epilogue (a hand-written CUDA kernel on
+the card, torch ops on the CPU); a queueing memory model, bounded-linear
+or banked DRAM with per-bank open rows; the standalone LRU model
+(:mod:`repro_torch.sim.cache_model`); and the declarative registry of
+translation mechanisms (:mod:`repro_torch.sim.mechanisms`), evaluated
+together along a mechanism axis — the paper's five by default.  The
+sweep, search and cost model of the JAX package are not ported yet
+(ROADMAP module item 6).
 """
 from repro_torch.sim.mechanisms import (DEFAULT_MECHS, MechanismSpec,  # noqa: F401
                                         register)

@@ -8,8 +8,9 @@ The port's copy of ``repro.sim.memory_model``.  Two named presets:
 * ``banked`` — per-bank row-buffer model: ``num_banks`` banks, each
   holding one open row of ``row_buffer_bytes``; an open-row access pays
   ``overhead + t_cas``, a closed-row one ``overhead + t_rp + t_rcd +
-  t_cas``, and the queue is per bank.  The spec is ported; the port's
-  simulator does not run it yet and raises (ROADMAP module item 4).
+  t_cas``, and the queue is per bank: traffic on one bank never delays
+  another.  The simulator's scan tracks each bank's open row and its
+  epilogue prices each access by its own bank.
 
 Address -> (bank, row) mapping is the open-page row-interleave over 64B
 line ids::

@@ -8,15 +8,17 @@ axis): the L1 DTLB -> L2 TLB (-> cache-as-TLB) -> page-table walk, the
 walk's PTE accesses through the per-level PWCs and then the cache
 hierarchy or, for a bypassing mechanism (NDPage), memory directly, the
 data access through the hierarchy, and a shared-memory queueing delay
-from the measured aggregate demand (``q = service * rho * K``).
+from the measured demand (``q = service * rho * K``): aggregate for the
+bounded-linear memory, per bank for the banked one, whose row buffers
+discount an access to a bank's open row.
 
 Engine.  The trace is padded to chunks and streamed through one chunk
 runner, split along the only serial dependency:
 
 * the **scan** (``kernels.lru_scan``: a hand-written CUDA kernel on the
   card, an eager step loop on the CPU) carries only the LRU tag/stamp
-  tables and emits one packed int32 of hit bits per (step, lane,
-  mechanism);
+  tables (and, banked, each bank's open row) and emits one packed int32
+  of hit bits per (step, lane, mechanism);
 * the **epilogue** (``kernels.sim_epilogue``: a hand-written CUDA kernel
   on the card, vectorized torch ops on the CPU) expands the hit bits over
   the whole chunk, does every latency and counter computation, and adds
@@ -43,10 +45,10 @@ never interact, but torch picks a reduction's order by shape, so a
 lane's float sums (cycles) may differ in the last bits between batch
 widths; its integer-valued counters do not.
 
-Not ported yet: banked memory (``MemoryModel.kind == "banked"``) raises
-``NotImplementedError`` (ROADMAP module item 4), real-trace specs
-(``"trace:<path>"``) raise in :mod:`repro_torch.workloads` (item 2), and
-``devices > 1`` raises (item 10).
+A trace may be a ``"trace:<path>"`` spec of a real trace, ingested by
+:mod:`repro_torch.workloads.ingest`.  Sharding the batch over several
+cards (``devices > 1``) is not ported yet and raises (ROADMAP module
+item 10).
 """
 from __future__ import annotations
 
@@ -271,12 +273,10 @@ def _walk_fns(names: Tuple[str, ...]) -> Tuple:
     return tuple(s.walk_fn for s in specs_for(names))
 
 
-def _no_banked(mach: "MachineConfig") -> None:
-    if mach.memory.kind == "banked":
-        raise NotImplementedError(
-            f"machine {mach.name!r}: banked memory is not ported to "
-            "repro_torch's simulator yet (ROADMAP module item 4: banked "
-            "memory in the scan and the epilogue)")
+#: the largest vpn the engine takes: the data line ``vpn * 64 + off``
+#: stays below 2^31, so the scan's truncating and the epilogue's floor
+#: division give the same bank and row, as in the JAX package
+MAX_VPN = (1 << 25) - 1
 
 
 def init_state(mach: "MachineConfig", m: int = M, batch: int | None = None,
@@ -284,8 +284,9 @@ def init_state(mach: "MachineConfig", m: int = M, batch: int | None = None,
     """Zeroed engine state on ``device``.  ``batch=None``: one simulation,
     tables (C, M, sets, ways); ``batch=B``: B independent simulations,
     tables (B, C, M, sets, ways).  Clock and counters are (M, C) per
-    simulation, ``mem_accs`` (M,)."""
-    _no_banked(mach)
+    simulation, ``mem_accs`` (M,); a banked machine adds ``bank_row``
+    (C, M, banks) open-row ids (-1: closed) and has ``mem_accs`` (M,
+    banks)."""
     dev = resolve_device(device)
     c = mach.num_cores
     lead = () if batch is None else (batch,)
@@ -298,7 +299,13 @@ def init_state(mach: "MachineConfig", m: int = M, batch: int | None = None,
           for name, (sets, ways) in _table_shapes(mach).items()}
     st["stamp"] = zeros((c, m), torch.int32)
     st["clock"] = zeros((m, c), torch.float32)
-    st["mem_accs"] = zeros((m,), torch.float32)
+    if mach.memory.kind == "banked":
+        nb = mach.memory.num_banks
+        st["bank_row"] = torch.full(lead + (c, m, nb), -1, dtype=torch.int32,
+                                    device=dev)
+        st["mem_accs"] = zeros((m, nb), torch.float32)
+    else:
+        st["mem_accs"] = zeros((m,), torch.float32)
     st["counters"] = {k: zeros((m, c), torch.float32) for k in COUNTERS}
     return st
 
@@ -334,8 +341,13 @@ def _queue(clock: torch.Tensor, mem_accs: torch.Tensor,
            service: torch.Tensor) -> torch.Tensor:
     """Queue delay per (sim, mech) from the demand measured so far,
     bounded-linear law, held constant within the chunk.  clock (B, M, C),
-    mem_accs (B, M), service (B,) -> (B, M)."""
+    mem_accs (B, M), service (B,) -> (B, M).  Banked: the same law per
+    bank, mem_accs (B, M, banks) -> (B, M, banks), so traffic on one bank
+    never delays another."""
     elapsed = torch.clamp(clock.mean(dim=-1), min=1.0)
+    if mem_accs.dim() == 3:
+        return MM.queue_delay(mem_accs / elapsed[..., None],
+                              service[:, None, None])
     rate = mem_accs / elapsed                 # aggregate accesses/cycle
     svc = service[:, None]
     rho = torch.clamp(rate * svc, 0.0, MM.RHO_MAX)
@@ -390,8 +402,10 @@ class _Bucket:
 
 
 def _resolve_trace(trace, num_cores: int, length: int | None):
-    """Accept a workload name anywhere a trace dict is expected
-    (``"trace:<path>"`` specs raise: ingest is not ported)."""
+    """Accept a workload name or a ``"trace:<path>"`` spec of a real
+    trace anywhere a trace dict is expected: resolved through
+    :func:`repro_torch.workloads.generate_trace`, which dispatches specs
+    to the ingest layer."""
     if isinstance(trace, str):
         from repro_torch.workloads import generate_trace, parse_workload_spec
         parse_workload_spec(trace)       # fail loudly at the boundary
@@ -409,7 +423,6 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
     m = len(specs_for(jobs[0].mechs))
     c = shape.num_cores
     for j in jobs:
-        _no_banked(j.mach)
         if machine_shape(j.mach) != shape:
             raise ValueError(
                 f"job {j.mach.name!r} breaks the shape bucket: "
@@ -426,6 +439,9 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
         if vpn.shape[0] != c:
             raise ValueError(f"trace has {vpn.shape[0]} cores, machine "
                              f"{j.mach.name!r} {c}")
+        if vpn.size and not 0 <= vpn.min() <= vpn.max() <= MAX_VPN:
+            raise ValueError(f"trace vpns span [{vpn.min()}, {vpn.max()}]; "
+                             f"the engine takes 0..{MAX_VPN}")
         vpns.append(vpn)
         offs.append(j.trace["off"][:, : vpn.shape[1]])
         works.append(j.trace["work"][:, : vpn.shape[1]])
@@ -473,19 +489,26 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
 
 def _scan_inputs(bk: _Bucket, state: Dict, i: int) -> Dict:
     """The scan's operands for chunk ``i`` on the fused lane layout, the
-    tables and stamp as views of ``state`` (the scan updates them in
-    place), plus ``work`` for the epilogue.  Views only: no copies."""
+    tables, stamp and (banked) open rows as views of ``state`` (the scan
+    updates them in place), plus ``work`` for the epilogue.  Views only:
+    no copies."""
     sl = slice(i * bk.chunk, (i + 1) * bk.chunk)
     vpn, off, work, is4k, valid = (a[sl] for a in bk.xs)
     lanes = bk.b * bk.c
-    tables = {name: tuple(state[name][k].view((lanes,)
-                                              + state[name][k].shape[2:])
-                          for k in ("tags", "lru"))
+
+    def fused(t):
+        return t.view((lanes,) + t.shape[2:])
+
+    tables = {name: (fused(state[name]["tags"]), fused(state[name]["lru"]))
               for name, _, _ in bk.shape.tables}
-    return dict(vpn=vpn, off=off, is4k=is4k, valid=valid,
+    args = dict(vpn=vpn, off=off, is4k=is4k, valid=valid,
                 pte=bk.chunk_lines(i), flags=bk.flags,
-                stamp=state["stamp"].view(lanes, bk.m),
-                tables=tables, work=work)
+                stamp=state["stamp"].view(lanes, bk.m), tables=tables,
+                work=work)
+    if "bank_row" in state:
+        args.update(bank_row=fused(state["bank_row"]),
+                    lines_per_row=bk.mach.memory.lines_per_row)
+    return args
 
 
 def _run_chunk(bk: _Bucket, state: Dict, i: int) -> None:
@@ -495,10 +518,12 @@ def _run_chunk(bk: _Bucket, state: Dict, i: int) -> None:
     work = args.pop("work")
     q = _queue(state["clock"], state["mem_accs"], bk.dp["service"])
     packed = LS.lru_scan(**args)
+    banked = {k: args[k] for k in ("pte", "vpn", "off", "lines_per_row")
+              } if "bank_row" in args else {}
     SE.sim_epilogue(packed, work, args["is4k"], args["valid"], q, bk.flags,
                     bk.params, state["clock"], state["mem_accs"],
                     state["counters"], n_hier=len(bk.shape.hier),
-                    has_ctlb="ctlb" in args["tables"])
+                    has_ctlb="ctlb" in args["tables"], **banked)
 
 
 def simulate(mach: "MachineConfig", trace: Dict[str, np.ndarray] | str,

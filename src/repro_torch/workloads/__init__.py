@@ -1,7 +1,6 @@
-"""Workload axis of the simulator: the Table-II synthetic generators, and
-the ONE parser every consumer resolves a workload-axis value through
-(:func:`parse_workload_spec`).  Real-trace ingest (``"trace:<path>"``
-specs) is not ported yet (ROADMAP module item 2) and raises."""
+"""Workload axis of the simulator: the Table-II synthetic generators plus
+real-trace ingest, and the ONE parser every consumer resolves a
+workload-axis value through (:func:`parse_workload_spec`)."""
 import dataclasses
 from typing import Dict
 
@@ -9,34 +8,50 @@ from repro_torch.workloads.generators import (TRACE_PATTERNS,  # noqa: F401
                                               generate_trace,
                                               generate_traces,
                                               trace_cache_dir)
-
-_TRACE_PREFIX = "trace:"
+from repro_torch.workloads.ingest import (TraceFormatError,  # noqa: F401
+                                          ingest_trace, is_trace_spec,
+                                          parse_trace_spec)
 
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
-    """A parsed workload-axis value: ``kind`` is ``"named"`` (a Table-II
-    generator; ``name`` indexes ``configs.ndp_sim.WORKLOADS``).  The
-    ``"trace"`` kind of the JAX package comes with the ingest layer."""
+    """A parsed workload-axis value.
+
+    ``kind`` is ``"named"`` (a Table-II generator; ``name`` indexes
+    ``configs.ndp_sim.WORKLOADS``) or ``"trace"`` (``name`` is the trace
+    file path, ``opts`` the validated ingest options).
+    """
 
     kind: str
     name: str
     opts: Dict = dataclasses.field(default_factory=dict)
 
+    def with_path(self, path: str) -> "WorkloadSpec":
+        """Same spec, different trace path (path absolutization)."""
+        assert self.kind == "trace", self
+        return dataclasses.replace(self, name=path)
+
     def canonical(self) -> str:
-        """Back to the string form."""
-        return self.name
+        """Back to the string form (``"name"`` / ``"trace:<path>?..."``),
+        options in parse order."""
+        if self.kind == "named":
+            return self.name
+        query = "&".join(f"{k}={v}" for k, v in self.opts.items())
+        return f"trace:{self.name}" + (f"?{query}" if query else "")
 
 
 def parse_workload_spec(workload: str) -> WorkloadSpec:
-    """Parse/validate a workload-axis value.  A name of a Table-II
-    generator gives a ``"named"`` spec; anything else raises ``KeyError``
-    listing the known names.  A ``"trace:<path>"`` spec raises
-    ``NotImplementedError``: real-trace ingest is ROADMAP module item 2."""
-    if isinstance(workload, str) and workload.startswith(_TRACE_PREFIX):
-        raise NotImplementedError(
-            f"{workload!r}: real-trace ingest ('trace:<path>' specs) is not "
-            "ported to repro_torch yet (ROADMAP module item 2)")
+    """Parse/validate a workload-axis value.
+
+    ``"trace:<path>[?opt=val&...]"`` is a real-trace ingest spec; unknown
+    or malformed query options raise ``ValueError``
+    (:func:`repro_torch.workloads.ingest.parse_trace_spec`).  Anything
+    else must name a Table-II generator or it raises ``KeyError`` listing
+    the known names.
+    """
+    if is_trace_spec(workload):
+        path, opts = parse_trace_spec(workload)
+        return WorkloadSpec("trace", path, opts)
     from repro_torch.configs.ndp_sim import WORKLOADS
     if workload not in WORKLOADS:
         raise KeyError(f"unknown workload {workload!r}; known: "

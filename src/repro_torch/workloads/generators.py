@@ -286,9 +286,13 @@ def generate_trace(workload: str, num_cores: int, length: int | None = None,
     its name, e.g. ``"smoke"``) supplying defaults for ``length`` and
     ``seed`` and scaling the Table-II footprint; explicit
     ``length``/``seed`` win.  ``use_cache=False`` bypasses the on-disk
-    trace cache for this call.  A ``"trace:<path>"`` workload (a real
-    trace) raises ``NotImplementedError``: the ingest layer is not
-    ported yet (ROADMAP module item 2).
+    trace cache for this call.
+
+    A ``workload`` of the form ``"trace:<path>[?opt=val&...]"`` ingests
+    a real trace (ChampSim / Valgrind lackey / csv, see
+    :mod:`repro_torch.workloads.ingest`) instead of generating one:
+    ``length`` clamps it (``None`` replays the whole file), ``seed`` and
+    the footprint scale are ignored.
     """
     from repro_torch.configs.ndp_sim import PRESETS, WORKLOADS
     from repro_torch.workloads import parse_workload_spec
@@ -299,7 +303,11 @@ def generate_trace(workload: str, num_cores: int, length: int | None = None,
         length = preset.trace_len if length is None else length
         seed = preset.seed if seed is None else seed
         scale = preset.footprint_scale
-    parse_workload_spec(workload)
+    wspec = parse_workload_spec(workload)
+    if wspec.kind == "trace":
+        from repro_torch.workloads.ingest import ingest_trace
+        return ingest_trace(wspec.name, num_cores, length=length,
+                            use_cache=use_cache, **wspec.opts)
     if length is None:
         raise TypeError("generate_trace needs `length` or a `preset`")
     if seed is None:

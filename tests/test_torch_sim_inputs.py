@@ -309,7 +309,20 @@ def test_parse_workload_spec_equal():
         jparse("nope")
     with pytest.raises(KeyError):
         tparse("nope")
-    with pytest.raises(NotImplementedError, match="module item 2"):
-        tparse("trace:/tmp/x.champsim")
-    with pytest.raises(NotImplementedError, match="module item 2"):
-        tgenerate_trace("trace:/tmp/x.champsim", 2, use_cache=False)
+    for spec in ("trace:/tmp/x.champsim",
+                 "trace:/tmp/a.csv?interleave=thread&page_bytes=8192",
+                 "trace:rel/b.lackey.gz?gap_cap=64&work_clip=8&fmt=lackey"):
+        j, t = jparse(spec), tparse(spec)
+        assert (t.kind, t.name, t.opts, t.canonical()) == (
+            j.kind, j.name, j.opts, j.canonical()) == (
+            "trace", j.name, j.opts, spec)
+        assert t.with_path("/abs/x").canonical() == \
+            j.with_path("/abs/x").canonical()
+    for bad in ("trace:/tmp/a.csv?nope=1", "trace:", "trace:/a.csv?gap_cap"):
+        with pytest.raises(ValueError) as want:
+            jparse(bad)
+        with pytest.raises(ValueError) as got:
+            tparse(bad)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(FileNotFoundError):
+        tgenerate_trace("trace:/nonexistent/x.champsim", 2, use_cache=False)

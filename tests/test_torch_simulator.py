@@ -330,15 +330,10 @@ def test_launcher_profile(monkeypatch, capsys):
 
 def test_unported_paths_raise(smoke_trace, monkeypatch):
     tr = cut(smoke_trace("rnd", 2), 64)
-    banked = dataclasses.replace(TC.ndp_machine(2), memory="banked")
-    with pytest.raises(NotImplementedError, match="module item 4"):
-        TSIM.simulate(banked, tr, device="cpu")
-    with pytest.raises(NotImplementedError, match="module item 4"):
-        TSIM.init_state(banked, device="cpu")
     with pytest.raises(NotImplementedError, match="module item 10"):
         TSIM.simulate_batch(TC.ndp_machine(2), [tr], devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="module item 2"):
-        TSIM.simulate(TC.ndp_machine(2), "trace:/tmp/t.champsim",
+    with pytest.raises(FileNotFoundError):        # a trace spec is ingested
+        TSIM.simulate(TC.ndp_machine(2), "trace:/nonexistent/t.champsim",
                       device="cpu")
     with pytest.raises(ValueError, match="cores"):
         TSIM.simulate(TC.ndp_machine(4), tr, device="cpu")
