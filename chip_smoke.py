@@ -73,6 +73,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         fixture traces (ChampSim xz, Valgrind lackey gz) as ``trace:``
         specs at 1 and 8 cores with both memory models, card vs CPU
         (integer counters equal, cycles within rtol 1e-5);
+     f. the paper's sensitivity sweeps: the nine named sweeps at the full
+        preset (180 points, 21 shape buckets) through the launcher's
+        ``--sweep``, every bucket at most one bucket plan, and once more
+        under torch.profiler (the card's busy share); the orderings of
+        the JAX package's sweep benchmark (NDPage >= radix at every PWC
+        size, L1-DTLB size, memory latency and banked timing point, and
+        cycles monotone in tCAS; bypass off degrades toward radix; both
+        flattenings beat radix; the radix walk latency grows with cores
+        and huge pages fall below radix by 8 cores; ideal bounds the zoo
+        and the Victima reach, Victima within 0.9 of radix); both
+        kernels held against their plain
+        versions and timed on the middle chunk of the ndp(8) bucket at
+        the table geometries only the sweeps and the search reach (PWC
+        of 64 and of 8 ways, a 512 KB cache-as-TLB, the search's largest
+        TLBs); the l1_bypass sweep (bypassing and polluting lanes in one
+        launch) card vs CPU;
+     g. the design-space search: the seeded ``quick`` search on the card
+        and on the CPU (the same evaluated genomes and frontier,
+        objectives within rtol 1e-5), eight genomes of the ``default``
+        space that differ only in per-lane data (PWC latency, bypass,
+        huge pages) in one bucket card vs CPU, and the seeded
+        ``default`` search on the card (>= 200 evaluated, at most one
+        bucket plan a bucket, a frontier, one launch of each kernel a
+        dispatch), with the verdict on the paper's design point, and
+        once more under torch.profiler;
  10. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
@@ -98,9 +123,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import config as C  # noqa: E402
-from repro_torch.configs.ndp_sim import (PRESETS, WORKLOADS,  # noqa: E402
-                                         cpu_machine, ndp_machine,
-                                         zoo_machine)
+from repro_torch.configs.ndp_sim import (PRESETS, SWEEPS,  # noqa: E402
+                                         WORKLOADS, cpu_machine,
+                                         ndp_machine, zoo_machine)
 from repro_torch.core import block_table as BT  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -112,11 +137,14 @@ from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.models import init_params, prefill  # noqa: E402
 from repro_torch.serving import ServeEngine, greedy_reference  # noqa: E402
+from repro_torch.sim import _search as SEARCH  # noqa: E402
+from repro_torch.sim import apply_param, run_bucketed, sweep  # noqa: E402
 from repro_torch.sim import simulator as SIM  # noqa: E402
 from repro_torch.sim.mechanisms import (DEFAULT_MECHS,  # noqa: E402
                                         registered_names)
 from repro_torch.train import data as DATA  # noqa: E402
 from repro_torch.train.train_loop import loss_fn, trainable  # noqa: E402
+from repro_torch.util.profile import print_profile  # noqa: E402
 from repro_torch.workloads import generate_traces  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W limit.  float32: the
@@ -855,10 +883,13 @@ FIXTURE_TRACES = tuple(
 
 
 def sim_bucket(machine: str, cores: int, preset, mechs=DEFAULT_MECHS,
-               trace_len=None, memory="bounded_linear"):
+               trace_len=None, memory="bounded_linear", params=()):
     """The inputs of a bucket (every workload) on the card, and its zeroed
-    engine state."""
+    engine state; ``params`` are (path, value) overrides of the machine
+    (``apply_param``)."""
     mach = SIMLAUNCH.with_memory(SIM_MACHINES[machine](cores), memory)
+    for path, value in params:
+        mach = apply_param(mach, path, value)
     traces = generate_traces(list(WORKLOADS), cores, length=trace_len,
                              preset=preset)
     bk, _ = SIM._prepare([SIM.SimJob(mach, tr, tuple(mechs))
@@ -1070,13 +1101,18 @@ def probe_scan(args, restore, machine: str, cores: int, chunk: int
 
 
 def time_sim_chunk(machine: str, cores: int, probe: bool = False,
-                   memory: str = "bounded_linear") -> dict:
+                   memory: str = "bounded_linear", params=(),
+                   mechs=DEFAULT_MECHS) -> dict:
     """Both kernels and their plain versions on the middle 1,024-step
     chunk of a full-preset bucket, from the state the earlier chunks
     left; the state is restored before each timed call, and L2 flushed.
     Each plain version is held against one kernel launch from the same
-    state; the differences are counted."""
-    bk, state = sim_bucket(machine, cores, PRESETS["full"], memory=memory)
+    state; the differences are counted.  ``params`` overrides the
+    machine, ``mechs`` the mechanisms."""
+    bk, state = sim_bucket(machine, cores, PRESETS["full"], mechs,
+                           memory=memory, params=params)
+    where = (f"{machine}_machine({cores}) {memory}"
+             + "".join(f" {p}={v}" for p, v in params) + " full preset")
     k = bk.n_chunks // 2
     for i in range(k):
         SIM._run_chunk(bk, state, i)
@@ -1101,10 +1137,9 @@ def time_sim_chunk(machine: str, cores: int, probe: bool = False,
     nbytes = scan_bytes(args)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     lanes, m = args["stamp"].shape
-    print(f"lru_scan timing, {machine}_machine({cores}) {memory} full "
-          f"preset, chunk "
-          f"{k} of {bk.n_chunks} ({bk.chunk} steps, {lanes} lanes x {m} "
-          f"mechanisms = {lanes * m} chains; L2 flushed): kernel {ms:.4f} "
+    print(f"lru_scan timing, {where}, chunk {k} of {bk.n_chunks} "
+          f"({bk.chunk} steps, {lanes} lanes x {m} mechanisms = "
+          f"{lanes * m} chains; L2 flushed): kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: "
           f"{nbytes / 1e6:.2f} MB), {bound_ms / ms:.2%} of bound, "
           f"{ms * 1e6 / bk.chunk:.1f} ns a step; no library call computes "
@@ -1137,11 +1172,11 @@ def time_sim_chunk(machine: str, cores: int, probe: bool = False,
     ep_mism, ep_compared, ep_err, ep_rel = epilogue_diff(got_state, ep_plain)
     ep_bytes = epilogue_bytes(ep)
     ep_bound = ep_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"sim_epilogue timing, {machine}_machine({cores}) {memory} full "
-          f"preset, the same chunk ({bk.b} x {m} blocks; L2 flushed): kernel "
-          f"{ep_ms:.4f} ms, plain {ep_plain_ms:.4f} ms, bound {ep_bound:.4f}"
-          f" ms (bytes: {ep_bytes / 1e6:.3f} MB), {ep_bound / ep_ms:.2%} of "
-          f"bound; no library call computes the epilogue; kernel vs plain: "
+    print(f"sim_epilogue timing, {where}, the same chunk ({bk.b} x {m} "
+          f"blocks; L2 flushed): kernel {ep_ms:.4f} ms, plain "
+          f"{ep_plain_ms:.4f} ms, bound {ep_bound:.4f} ms (bytes: "
+          f"{ep_bytes / 1e6:.3f} MB), {ep_bound / ep_ms:.2%} of bound; no "
+          f"library call computes the epilogue; kernel vs plain: "
           f"{ep_mism} mismatches in {ep_compared} counters and sums, cycles "
           f"max relative error {ep_rel:.3e}")
     epilogue = dict(ms=ep_ms, plain_ms=ep_plain_ms, bound_ms=ep_bound,
@@ -1229,22 +1264,18 @@ def check_sim_results(buckets, reference=JAX_NDP_AVG) -> None:
                               for m in SIMLAUNCH.SHOWN))
 
 
-def card_vs_cpu(mach, traces, names, what: str, length=None) -> float:
-    """``traces`` through simulate_batch on the card and on the CPU:
-    counters of events equal, cycles within SIM_RTOL; returns the largest
-    relative difference of the cycles."""
-    chunk = PRESETS["full"].chunk
-    t0 = time.perf_counter()
-    card = SIM.simulate_batch(mach, traces, length, chunk=chunk,
-                              device="cuda")
-    t1 = time.perf_counter()
-    cpu = SIM.simulate_batch(mach, traces, length, chunk=chunk, device="cpu")
-    t2 = time.perf_counter()
+def hold_card_vs_cpu(names, card, cpu, what: str) -> float:
+    """Results of the same jobs on the card and on the CPU: counters of
+    events equal, cycles within SIM_RTOL; returns the largest relative
+    difference of the cycles."""
     worst = 0.0
+    check(len(card) == len(cpu), f"{what}: {len(card)} results on the "
+                                 f"card, {len(cpu)} on the CPU")
     for w, a, b in zip(names, card, cpu):
-        check(a.accesses == b.accesses and a.accesses > 0,
-              f"{what} {w}: {a.accesses} entries on the card, {b.accesses} "
-              "on the CPU")
+        check(a.mechs == b.mechs and a.accesses == b.accesses
+              and a.accesses > 0,
+              f"{what} {w}: {a.mechs} x {a.accesses} entries on the card, "
+              f"{b.mechs} x {b.accesses} on the CPU")
         for f in SIM_INT_COUNTERS:
             check(np.array_equal(getattr(a, f), getattr(b, f)),
                   f"{what} {w}: {f} differs between the card and the CPU")
@@ -1256,6 +1287,21 @@ def card_vs_cpu(mach, traces, names, what: str, length=None) -> float:
                   f"{what} {w}: {f} card vs CPU beyond rtol {SIM_RTOL:g}")
             worst = max(worst, float(np.max(np.abs(x - y)
                                             / np.maximum(np.abs(y), 1e-30))))
+    return worst
+
+
+def card_vs_cpu(mach, traces, names, what: str, length=None) -> float:
+    """``traces`` through simulate_batch on the card and on the CPU:
+    counters of events equal, cycles within SIM_RTOL; returns the largest
+    relative difference of the cycles."""
+    chunk = PRESETS["full"].chunk
+    t0 = time.perf_counter()
+    card = SIM.simulate_batch(mach, traces, length, chunk=chunk,
+                              device="cuda")
+    t1 = time.perf_counter()
+    cpu = SIM.simulate_batch(mach, traces, length, chunk=chunk, device="cpu")
+    t2 = time.perf_counter()
+    worst = hold_card_vs_cpu(names, card, cpu, what)
     print(f"simulator card vs CPU, {what} ({len(traces)} traces, "
           f"{', '.join(str(r.accesses) for r in card[:2])}"
           f"{' ...' if len(card) > 2 else ''} entries): "
@@ -1351,8 +1397,19 @@ def phase_sim() -> dict:
                                    banked.pop("ep_max_abs_err"))
     print(f"phase 9e (banked memory and real traces): "
           f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sweeps = phase_sim_sweeps()
+    kernel["mismatches"] += sweeps.pop("mismatches")
+    kernel["ep_mismatches"] += sweeps.pop("ep_mismatches")
+    kernel["ep_max_abs_err"] = max(kernel["ep_max_abs_err"],
+                                   sweeps.pop("ep_max_abs_err"))
+    print(f"phase 9f (sensitivity sweeps): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    search = phase_sim_search()
+    print(f"phase 9g (design-space search): {time.perf_counter() - t0:.1f} s")
     return dict(kernel, launches=launches, ep_launches=ep_launches,
-                timed=timed, banked=banked)
+                timed=timed, banked=banked, sweeps=sweeps, search=search)
 
 
 def phase_sim_banked(bounded, bounded_timed) -> dict:
@@ -1416,6 +1473,272 @@ def phase_sim_banked(bounded, bounded_timed) -> dict:
                 parity_max_rel=parity)
 
 
+#: the nine named sweeps at the full preset: points and shape buckets
+SWEEP_POINTS = 180
+SWEEP_BUCKETS = 21
+#: bypass-off NDPage may beat bypass-on on one workload by at most this
+#: much (the JAX package's sweep benchmark: the suite mean must order)
+BYPASS_WL_TOL = 0.02
+#: table geometries that only the sweeps and the search reach, held and
+#: timed on the middle chunk of the full-preset ndp(8) bucket: (tag,
+#: machine overrides, mechanisms)
+SWEEP_GEOMETRIES = (
+    ("pwc64", (("pwc_entries", 64),), DEFAULT_MECHS),
+    ("pwc8", (("pwc_entries", 8),), DEFAULT_MECHS),
+    ("ctlb512", (("ctlb_kb", 512),), ("radix", "victima", "ideal")),
+    ("tlb256_l2tlb3072", (("l1_dtlb.entries", 256), ("l1_dtlb.ways", 8),
+                          ("l2_tlb.entries", 3072)), DEFAULT_MECHS),
+)
+
+
+def profiled(what: str, fn) -> None:
+    """``fn()`` once more under torch.profiler: time by operator and the
+    share of the wall in which the card ran a kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"{what} under torch.profiler:")
+    print_profile(prof, wall)
+
+
+def check_sweep_orderings(by: dict) -> None:
+    """The orderings the JAX package's sweep benchmark checks
+    (``benchmarks/sim_sweep.py``), restated on the port's results."""
+    for name in ("pwc_size", "tlb_size", "mem_latency", "banked_timing"):
+        sp = by[name].speedup("ndpage")
+        check(bool((sp >= 1.0).all()), f"sweep {name}: ndpage below radix "
+                                       f"at a point (min {sp.min():.3f})")
+        print(f"sweep {name}: ndpage >= radix at all {sp.size} points "
+              f"(min {sp.min():.3f}, mean {sp.mean():.3f})")
+    r = by["banked_timing"]
+    cyc = r.map(lambda x: float(x.cycles.mean()))
+    check(bool((np.diff(cyc, axis=1) >= -1e-6).all()),
+          "sweep banked_timing: cycles fall as t_cas grows")
+    r = by["l1_bypass"]
+    m_on, m_off = r.axes["mechs"]
+    on = r.select(mechs=m_on).map(lambda x: x.speedup_vs()["ndpage"])
+    off = r.select(mechs=m_off).map(
+        lambda x: x.speedup_vs()["ndpage_nobyp"])
+    check(bool(off.mean() < on.mean() and (off >= 1.0).all()
+               and (off <= on + BYPASS_WL_TOL).all()),
+          f"sweep l1_bypass: bypass off does not degrade toward radix "
+          f"(on {on}, off {off})")
+    print(f"sweep l1_bypass: bypass on {on.mean():.4f}, off {off.mean():.4f} "
+          f"(suite means; off >= 1.0 everywhere, worst inversion "
+          f"{(off - on).max():+.4f} <= {BYPASS_WL_TOL})")
+    r = by["flatten_level"]
+    m2, m3 = r.axes["mechs"]
+    pl2 = r.select(mechs=m2).map(lambda x: x.speedup_vs()["ndpage"])
+    pl3 = r.select(mechs=m3).map(lambda x: x.speedup_vs()["ndpage_pl3"])
+    check(bool((pl2 >= 1.0).all() and (pl3 >= 1.0).all()),
+          f"sweep flatten_level: a flattening below radix ({pl2}, {pl3})")
+    print(f"sweep flatten_level: pl2 {pl2.mean():.4f}, pl3 {pl3.mean():.4f}, "
+          f"both >= radix everywhere")
+    r = by["core_scaling"]
+    ptw = r.scalar("avg_ptw_latency", "radix").mean(axis=1)
+    hp = r.map(lambda x: x.speedup_vs()["hugepage"]).mean(axis=1)
+    check(bool((np.diff(ptw) > 0).all() and hp[0] > 1.0 > hp[-1]),
+          f"sweep core_scaling: radix walk latency {ptw} not growing with "
+          f"cores or huge pages {hp} not collapsing by 8 cores")
+    print(f"sweep core_scaling: radix walk latency {np.round(ptw, 1)} cycles "
+          f"at {r.axes['cores']} cores, hugepage {np.round(hp, 3)}")
+    for name in ("zoo", "victima_reach"):
+        r = by[name]
+        mechs = [m for m in r.results.flat[0].mechs if m != "radix"]
+        sp = {m: r.map(lambda x, m=m: x.speedup_vs()[m]) for m in mechs}
+        check(all(bool((sp["ideal"] >= sp[m] - 1e-6).all()) for m in mechs)
+              and bool((sp["victima"] >= 0.9).all()),
+              f"sweep {name}: ideal not the upper bound or victima below "
+              f"0.9: " + ", ".join(f"{m} {v.min():.3f}-{v.max():.3f}"
+                                   for m, v in sp.items()))
+        print(f"sweep {name}: ideal bounds every mechanism; "
+              + ", ".join(f"{m} {v.mean():.3f}" for m, v in sp.items()))
+
+
+def phase_sim_sweeps() -> dict:
+    """9f: the nine named sweeps at the full preset through the
+    launcher, on the card; the orderings and the bucket plans; both
+    kernels held and timed at the sweeps' and the search's table
+    geometries; the l1_bypass sweep card vs CPU."""
+    full = PRESETS["full"]
+    args = SIMLAUNCH.build_parser().parse_args(
+        ["--sweep", ",".join(SWEEPS)])
+    LS.launches = SE.launches = 0
+    t0 = time.perf_counter()
+    by = SIMLAUNCH.run_sweeps(args, show_points=False)
+    wall = time.perf_counter() - t0
+    launches, ep_launches = LS.launches, SE.launches
+    points = sum(r.stats["points"] for r in by.values())
+    buckets = sum(r.stats["buckets"] for r in by.values())
+    chunks = -(-full.trace_len // full.chunk)
+    check(points == SWEEP_POINTS and buckets == SWEEP_BUCKETS,
+          f"sweeps: {points} points in {buckets} buckets, not "
+          f"{SWEEP_POINTS} in {SWEEP_BUCKETS}")
+    check(launches == ep_launches == buckets * chunks,
+          f"sweeps: lru_scan launches {launches}, sim_epilogue launches "
+          f"{ep_launches}, not {buckets} buckets x {chunks} chunks")
+    for name, r in by.items():
+        per = [b["compiles"] for b in r.stats["per_bucket"]]
+        check(all(c <= 1 for c in per),
+              f"sweep {name}: more than one bucket plan a bucket: {per}")
+        check(all(bool(np.isfinite(x.cycles).all() and (x.cycles > 0).all())
+                  for x in r.results.flat),
+              f"sweep {name}: cycles not finite and positive")
+    check_sweep_orderings(by)
+    dispatch = sum(r.stats["wall_s"] for r in by.values())
+    loops = sum(b["total_s"] for r in by.values()
+                for b in r.stats["per_bucket"])
+    print(f"sweeps (full preset, card): {points} points, {buckets} buckets, "
+          f"{sum(r.stats['runner_compiles'] for r in by.values())} bucket "
+          f"plans, {wall:.3f} s in all ({dispatch:.3f} s dispatching, of "
+          f"which the chunk loops {loops:.3f} s and the buckets' set-up "
+          f"the rest); lru_scan launches {launches}, sim_epilogue launches "
+          f"{ep_launches}")
+    profiled("the nine sweeps",
+             lambda: SIMLAUNCH.run_sweeps(args, show_points=False))
+
+    timed = {tag: time_sim_chunk("ndp", 8, params=params, mechs=mechs)
+             for tag, params, mechs in SWEEP_GEOMETRIES}
+    mism = sum(t["lru_scan"].pop("mismatches") for t in timed.values())
+    ep_mism = sum(t["sim_epilogue"].pop("mismatches")
+                  for t in timed.values())
+    ep_err = max(t["sim_epilogue"].pop("max_abs_err") for t in timed.values())
+    check(mism == 0, "lru_scan kernel disagrees with its plain version at a "
+                     "sweep or search table geometry")
+    check(ep_mism == 0, "sim_epilogue kernel disagrees with its plain "
+                        "version at a sweep or search table geometry")
+
+    t0 = time.perf_counter()
+    cpu = sweep("l1_bypass", preset=full.name, device="cpu")
+    card = by["l1_bypass"]
+    names = [SIMLAUNCH.point_label(card.axes, idx)
+             for idx in np.ndindex(*card.results.shape)]
+    parity = hold_card_vs_cpu(names, list(card.results.flat),
+                              list(cpu.results.flat),
+                              "l1_bypass sweep, full preset")
+    print(f"l1_bypass sweep card vs CPU ({len(names)} points, bypassing and "
+          f"polluting lanes in one launch): "
+          f"{', '.join(SIM_INT_COUNTERS)} equal; cycles max relative "
+          f"difference {parity:.3e} (rtol {SIM_RTOL:g}); CPU "
+          f"{time.perf_counter() - t0:.2f} s")
+    return dict(launches=launches, ep_launches=ep_launches, timed=timed,
+                mismatches=mism, ep_mismatches=ep_mism, ep_max_abs_err=ep_err,
+                parity_max_rel=parity)
+
+
+def same_search(card, cpu, what: str) -> float:
+    """The same genomes evaluated in the same order and the same frontier
+    on the card and on the CPU, objectives within SIM_RTOL; returns the
+    largest relative difference of an objective."""
+    check([dict(c.genome) for c in card.candidates]
+          == [dict(c.genome) for c in cpu.candidates],
+          f"{what}: the card and the CPU evaluated other genomes")
+    check([dict(c.genome) for c in card.frontier]
+          == [dict(c.genome) for c in cpu.frontier],
+          f"{what}: the frontier differs between the card and the CPU")
+    worst = 0.0
+    for a, b in zip(card.candidates, cpu.candidates):
+        for k, v in a.objectives.items():
+            rel = abs(v - b.objectives[k]) / max(abs(b.objectives[k]), 1e-30)
+            worst = max(worst, rel)
+    check(worst <= SIM_RTOL, f"{what}: objectives differ by {worst:.3e}")
+    return worst
+
+
+def print_search(res, device: str, wall: float) -> None:
+    p, v = res.provenance, res.verdict
+    print(f"search {res.space.name} on {device}: {p['evaluated']} of "
+          f"{res.space.size()} genomes evaluated in {p['generations']} "
+          f"generations, {p['lanes_dispatched']} lanes in "
+          f"{p['dispatch_buckets']} dispatches, {p['distinct_buckets']} "
+          f"distinct buckets, {p['runner_compiles']} bucket plans, "
+          f"{len(res.frontier)} on the frontier, {wall:.3f} s")
+    print(f"search {res.space.name} verdict: paper config "
+          f"{v['paper_objectives']} "
+          + (f"dominated by {v['n_dominating']} discovered point(s), e.g. "
+             f"{v['dominating_points'][0]['genome']}"
+             if v["dominates_paper"] else
+             "not dominated by any discovered point")
+          + f"; on the frontier: {v['paper_on_frontier']}")
+
+
+def phase_sim_search() -> dict:
+    """9g: the seeded quick search card vs CPU, eight default-space genomes
+    that differ only in lane data card vs CPU in one bucket, and the
+    seeded default search on the card."""
+    LS.launches = SE.launches = 0
+    t0 = time.perf_counter()
+    quick = SEARCH.search("quick", use_cache=False, device="cuda")
+    quick_s = time.perf_counter() - t0
+    quick_launches = LS.launches
+    check(quick_launches == SE.launches
+          == quick.provenance["dispatch_buckets"],
+          f"quick search: {quick_launches} lru_scan and {SE.launches} "
+          f"sim_epilogue launches, not one a dispatch "
+          f"({quick.provenance['dispatch_buckets']})")
+    print_search(quick, "the card", quick_s)
+    t0 = time.perf_counter()
+    quick_cpu = SEARCH.search("quick", use_cache=False, device="cpu")
+    print_search(quick_cpu, "the CPU", time.perf_counter() - t0)
+    worst = same_search(quick, quick_cpu, "quick search")
+    print(f"quick search card vs CPU: the same {len(quick.candidates)} "
+          f"genomes and {len(quick.frontier)} frontier genomes; objectives "
+          f"max relative difference {worst:.3e} (rtol {SIM_RTOL:g})")
+
+    # lanes of one bucket that differ in PWC latency, bypass and huge pages,
+    # at the default space's largest geometry
+    space = SEARCH.resolve_space("default")
+    genomes = [(64, lat, (256, 8), 3072, "pl2", byp, huge)
+               for lat in (2, 4) for byp in (True, False)
+               for huge in (False, True)]
+    traces = SEARCH._trace_table(space)
+    jobs = [SIM.SimJob(SEARCH.build_machine(space, g), traces[w],
+                       ("radix", SEARCH.mech_for(space, g)))
+            for g in genomes for w in space.workloads]
+    card, st = run_bucketed(jobs, chunk=space.chunk, device="cuda")
+    cpu, _ = run_bucketed(jobs, chunk=space.chunk, device="cpu")
+    check(st["buckets"] == 1, f"mixed-lane jobs in {st['buckets']} buckets")
+    mixed = hold_card_vs_cpu(
+        [f"{g} {w}" for g in genomes for w in space.workloads], card, cpu,
+        "default-space genomes in one bucket")
+    print(f"default-space genomes in one bucket card vs CPU ({len(jobs)} "
+          f"jobs, PWC latency, bypass and huge pages per lane): counters "
+          f"equal; cycles max relative difference {mixed:.3e}")
+
+    LS.launches = SE.launches = 0
+    t0 = time.perf_counter()
+    res = SEARCH.search("default", use_cache=False, device="cuda")
+    wall = time.perf_counter() - t0
+    launches, ep_launches = LS.launches, SE.launches
+    p = res.provenance
+    check(p["evaluated"] >= 200, f"default search evaluated {p['evaluated']}"
+                                 f", fewer than 200")
+    check(p["runner_compiles"] <= p["distinct_buckets"],
+          f"default search: {p['runner_compiles']} bucket plans for "
+          f"{p['distinct_buckets']} distinct buckets")
+    check(bool(res.frontier), "default search: empty frontier")
+    check(launches == ep_launches == p["dispatch_buckets"],
+          f"default search: {launches} lru_scan and {ep_launches} "
+          f"sim_epilogue launches, not one a dispatch "
+          f"({p['dispatch_buckets']})")
+    print_search(res, "the card", wall)
+    profiled("the default search",
+             lambda: SEARCH.search("default", use_cache=False,
+                                   device="cuda"))
+    for c in res.frontier:
+        o = c.objectives
+        print(f"  frontier: {o['mean_speedup']:.4f} / {o['sram_kb']:.2f} KB "
+              f"/ {o['worst_ptw']:.1f} cycles  {c.mech}  {dict(c.genome)}")
+    return dict(launches=launches, ep_launches=ep_launches,
+                quick_launches=quick_launches, evaluated=p["evaluated"],
+                wall_s=wall, parity_max_rel=max(worst, mixed))
+
+
 def banked_keys(banked: dict, kernel: str) -> dict:
     """The banked path's launches and chunk times of one simulator kernel,
     for its row of the kernels line."""
@@ -1423,6 +1746,18 @@ def banked_keys(banked: dict, kernel: str) -> dict:
                                      else "ep_launches"]}
     for (machine, cores), t in banked["timed"].items():
         tag = "banked" if machine == "ndp" else f"banked_{machine}{cores}"
+        out.update({f"{tag}_{k}": v for k, v in t[kernel].items()
+                    if k.endswith("ms")})
+    return out
+
+
+def sweep_search_keys(sim: dict, kernel: str) -> dict:
+    """The launches of one simulator kernel on the sweep and search paths
+    (9f, 9g) and its chunk times at the sweep and search geometries."""
+    key = "launches" if kernel == "lru_scan" else "ep_launches"
+    out = {"sweep_launches": sim["sweeps"][key],
+           "search_launches": sim["search"][key]}
+    for tag, t in sim["sweeps"]["timed"].items():
         out.update({f"{tag}_{k}": v for k, v in t[kernel].items()
                     if k.endswith("ms")})
     return out
@@ -1507,6 +1842,8 @@ def main() -> int:
            sim["timed"][("cpu", 8)]["lru_scan"].items() if k.endswith("ms")},
         # banked memory (phase 9e): its launches and the same chunks
         **banked_keys(sim["banked"], "lru_scan"),
+        # the sweeps and the search (9f, 9g)
+        **sweep_search_keys(sim, "lru_scan"),
     }, {
         "name": "sim_epilogue",
         "route": "cuda",
@@ -1522,6 +1859,7 @@ def main() -> int:
            sim["timed"][("cpu", 8)]["sim_epilogue"].items()
            if k.endswith("ms")},
         **banked_keys(sim["banked"], "sim_epilogue"),
+        **sweep_search_keys(sim, "sim_epilogue"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

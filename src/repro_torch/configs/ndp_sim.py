@@ -2,8 +2,9 @@
 
 The port's copy of ``repro.configs.ndp_sim``: it parameterizes the
 translation simulator (``repro_torch.sim``).  All latencies are in core
-cycles at 2.6 GHz, matching Table I of the paper.  The sweep, search and
-serving tables of the reference wait for the sweep slice, and the
+cycles at 2.6 GHz, matching Table I of the paper.  The sweep and
+search presets (``SWEEPS``, ``SEARCH_SPACES``) are the reference's plain
+data.  Its serving tables wait for the costed-serving slice, and the
 deprecated flat memory kwargs (``mem_latency=`` ...) are not ported:
 ``memory`` takes a ``MemoryModel``, a preset name, a field dict or None.
 """
@@ -11,8 +12,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Tuple
-
-from repro_torch.sim.memory_model import resolve_memory_model
 
 
 @dataclass(frozen=True)
@@ -73,6 +72,9 @@ class MachineConfig:
     stack_hop_cycles: int = 36
 
     def __post_init__(self):
+        # lazy: importing repro_torch.sim runs its __init__, whose sweep
+        # and search modules import this one
+        from repro_torch.sim.memory_model import resolve_memory_model
         object.__setattr__(self, "memory", resolve_memory_model(self.memory))
 
 
@@ -148,4 +150,186 @@ PRESETS: Dict[str, SimPreset] = {
                        seed=1234, chunk=512),
     "full": SimPreset("full", trace_len=8000, footprint_scale=1.0,
                       seed=0, chunk=1024),
+}
+
+
+# ---------------------------------------------------------------------------
+# sensitivity-sweep presets (consumed by repro_torch.sim.sweep(name))
+# ---------------------------------------------------------------------------
+#: the workload subset the sensitivity figures sweep over: one per
+#: suite-level behaviour (uniform, graph, frontier, MC lookup,
+#: embedding, k-mer) — 6 workloads x 4 machine variants = 24 points
+SWEEP_WORKLOADS: Tuple[str, ...] = ("rnd", "bc", "bfs", "xs", "dlrm",
+                                    "gen")
+
+#: Declarative grids for the paper's sensitivity studies.  Each entry is
+#: plain data: ``axes`` is an ordered (name, values) tuple — special
+#: names workload/machine/cores/mechs, everything else a MachineConfig
+#: override path — plus optional base/cores/workload/mechs/preset
+#: defaults and a human-facing ``figure`` note.  Shape-changing axes
+#: (PWC/TLB sizes) cost one bucket per size; value-only axes
+#: (latencies, bypass flags) share ONE bucket plan across the whole
+#: grid — the bucketing is asserted in tests/test_torch_sweep.py.
+SWEEPS: Dict[str, dict] = {
+    # PWC sizing: NDPage keeps its lead at every page-walk-cache size
+    "pwc_size": dict(
+        axes=(("pwc_entries", (8, 16, 32, 64)),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        figure="PWC-size sensitivity (4 shapes, 24 points)"),
+    # L1-DTLB sizing: translation overhead vs TLB reach
+    "tlb_size": dict(
+        axes=(("l1_dtlb.entries", (32, 64, 128, 256)),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        figure="L1-DTLB-size sensitivity (4 shapes, 24 points)"),
+    # L1-bypass ablation: ndpage vs ndpage_nobyp share walk functions,
+    # so BOTH mechanism tuples land in one shape bucket (bypass is
+    # per-lane data) — 24 points, at most one bucket plan
+    "l1_bypass": dict(
+        axes=(("mechs", (("radix", "ndpage", "ideal"),
+                         ("radix", "ndpage_nobyp", "ideal"))),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        figure="L1-bypass on/off ablation (1 shape, 12 points)"),
+    # flattened-level choice: PL2-merge (ndpage) vs PL3-merge
+    # (ndpage_pl3) — different walk functions, two buckets
+    "flatten_level": dict(
+        axes=(("mechs", (("radix", "ndpage", "ideal"),
+                         ("radix", "ndpage_pl3", "ideal"))),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        figure="flattened-level choice PL2 vs PL3 (2 buckets)"),
+    # core scaling: the paper's 1/4/8-core study as one sweep
+    "core_scaling": dict(
+        axes=(("cores", CORE_COUNTS),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp",
+        figure="1/4/8-core scaling (3 shapes, 18 points)"),
+    # memory latency: pure value axis — 24 points, ONE bucket plan
+    "mem_latency": dict(
+        axes=(("memory.latency", (60.0, 100.0, 170.0, 240.0)),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        figure="memory-latency sensitivity (1 shape, 24 points, "
+               "1 compile)"),
+    # banked DRAM timing: switch the memory model to the banked preset
+    # (ONE shape — bank geometry is part of it), then sweep the
+    # open/closed-row timings as pure value axes.  memory_model comes
+    # FIRST: overrides apply in axis order, so t_cas/t_rp land on the
+    # already-banked model.
+    "banked_timing": dict(
+        axes=(("memory_model", ("banked",)),
+              ("memory.t_cas", (15.0, 25.0, 40.0)),
+              ("memory.t_rp", (20.0, 30.0)),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        figure="banked DRAM timing sensitivity (1 shape, 36 points, "
+               "1 compile)"),
+    # mechanism zoo: the related-work designs (Victima cache-as-TLB,
+    # Picorel inverted/segment, CODA co-location, range table) against
+    # the paper set on the zoo machine (ctlb enabled, 4 memory stacks).
+    # One mechs tuple + one shape => ONE bucket for all 6 points.
+    "zoo": dict(
+        axes=(("ctlb_kb", (256,)),
+              ("num_stacks", (4,)),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        mechs=("radix", "ndpage_search", "victima", "picorel",
+               "coda", "range_table", "ideal"),
+        figure="related-work mechanism zoo (1 shape, 6 points, "
+               "1 compile)"),
+    # Victima reach: sweep the cache-capacity-repurposing (demotion /
+    # promotion occupancy) knob — each ctlb_kb is a distinct shape
+    "victima_reach": dict(
+        axes=(("ctlb_kb", (64, 128, 256, 512)),
+              ("workload", SWEEP_WORKLOADS)),
+        base="ndp", cores=4,
+        mechs=("radix", "victima", "ideal"),
+        figure="Victima cache-as-TLB reach sensitivity "
+               "(4 shapes, 24 points)"),
+}
+
+
+# ---------------------------------------------------------------------------
+# design-space-search presets (consumed by repro_torch.sim.search(name))
+# ---------------------------------------------------------------------------
+#: the two committed real-format fixture traces, as "trace:" workload
+#: specs (paths relative to the repo root; the search layer absolutizes
+#: them) — the search objective averages over the figure-suite workload
+#: subset PLUS these, so a config that only wins on synthetics can't
+#: climb the frontier
+SEARCH_FIXTURES: Tuple[str, ...] = (
+    "trace:tests/fixtures/traces/gups_small.champsim.xz",
+    "trace:tests/fixtures/traces/graph_small.lackey.gz",
+)
+
+#: Declarative design spaces for the automated search.  Each entry is
+#: plain data consumed by ``repro_torch.sim._search``: ``knobs`` is an
+#: ordered (name, values) tuple — ``flatten``/``l1_bypass``/``huge``
+#: select the candidate's mechanism STRUCTURE from the registry family,
+#: ``l1_dtlb`` is an (entries, ways) geometry bundle, everything else a
+#: MachineConfig override path — plus the population sizing, the
+#: workload suite the fitness averages over, and the pinned seed that
+#: makes runs hermetic.  Geometry knobs change table shapes (one bucket
+#: plan per distinct shape x flatten level); flag knobs ride the batch
+#: lanes as data.
+SEARCH_SPACES: Dict[str, dict] = {
+    # the standard seeded search: 4x3x2 machine geometries x 2 PWC
+    # latencies x 8 mechanism structures = 384 genomes; >= 200
+    # evaluated across <= 10 generations (1 paper + 56 random +
+    # 6 x 24 offspring = 201).  pwc_latency is a VALUE-ONLY knob —
+    # it rides the batch lanes and adds no buckets
+    "default": dict(
+        knobs=(("pwc_entries", (8, 16, 32, 64)),
+               ("pwc_latency", (2, 4)),
+               ("l1_dtlb", ((64, 4), (128, 8), (256, 8))),
+               ("l2_tlb.entries", (1536, 3072)),
+               ("flatten", ("pl2", "pl3")),
+               ("l1_bypass", (True, False)),
+               ("huge", (False, True))),
+        cores=4,
+        workloads=SWEEP_WORKLOADS + SEARCH_FIXTURES,
+        n_random=56, population=32, generations=6, offspring=24,
+        trace_len=512, chunk=512, preset="smoke", seed=20250808),
+    # mechanism zoo as a genome knob: which related-work design to run
+    # is itself searched, alongside the structures they need (ctlb
+    # reach for victima, a fixed 4-stack memory so co-location
+    # matters).  ``zoo_mech`` overrides the structural triple; paper
+    # default is ``ndpage`` (see _search.PAPER_DEFAULTS).
+    "zoo": dict(
+        knobs=(("pwc_entries", (16, 32)),
+               ("ctlb_kb", (0, 256)),
+               ("num_stacks", (4,)),
+               ("zoo_mech", ("ndpage_search", "victima", "picorel",
+                             "coda", "range_table"))),
+        cores=4,
+        workloads=("rnd", "bc", "xs") + SEARCH_FIXTURES,
+        n_random=12, population=8, generations=1, offspring=6,
+        trace_len=512, chunk=512, preset="smoke", seed=11),
+    # memory-model space: is the banked row-buffer model worth its
+    # bucket, and does it move the structural knobs' frontier?
+    # ``memory_model`` is a genome knob applied via apply_param (the
+    # banked kind keys its own shape bucket; a NEW space rather than a
+    # "default" extension so the committed frontier baseline's genome
+    # schema stays untouched).
+    "memory": dict(
+        knobs=(("pwc_entries", (16, 32)),
+               ("flatten", ("pl2", "pl3")),
+               ("l1_bypass", (True, False)),
+               ("memory_model", ("bounded_linear", "banked"))),
+        cores=4,
+        workloads=("rnd", "bc", "xs") + SEARCH_FIXTURES[:1],
+        n_random=12, population=8, generations=1, offspring=8,
+        trace_len=512, chunk=512, preset="smoke", seed=29),
+    # fast lane: 1 generation over a 2-shape slice
+    "quick": dict(
+        knobs=(("pwc_entries", (16, 32)),
+               ("flatten", ("pl2", "pl3")),
+               ("l1_bypass", (True, False)),
+               ("huge", (False, True))),
+        cores=4,
+        workloads=("rnd", "bc", "xs") + SEARCH_FIXTURES[:1],
+        n_random=10, population=8, generations=1, offspring=6,
+        trace_len=512, chunk=512, preset="smoke", seed=7),
 }

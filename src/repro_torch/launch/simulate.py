@@ -20,8 +20,18 @@ kept, ``memory_model.with_kind``).  ``--workloads`` also takes
 lackey or CSV; ``repro_torch.workloads.ingest``), each replayed up to
 the window.
 
+``--sweep NAME[,NAME...]`` runs named sensitivity sweeps
+(``configs.ndp_sim.SWEEPS``: pwc_size, tlb_size, l1_bypass,
+flatten_level, core_scaling, mem_latency, banked_timing, zoo,
+victima_reach) at ``--preset`` instead of the figure buckets, one
+``simulate_batch_varied`` per shape bucket through the same two kernels,
+and prints each point's speedups over radix and each sweep's points,
+buckets, bucket plans ("compiles") and wall seconds.
+
 On the CPU (plain PyTorch scan):
   python -m repro_torch.launch.simulate --preset smoke --device cpu
+  python -m repro_torch.launch.simulate --preset smoke --device cpu \
+      --sweep l1_bypass
 """
 from __future__ import annotations
 
@@ -34,12 +44,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.ndp_sim import (CORE_COUNTS, PRESETS, WORKLOADS,
-                                         cpu_machine, ndp_machine)
+from repro_torch.configs.ndp_sim import (CORE_COUNTS, PRESETS, SWEEPS,
+                                         WORKLOADS, cpu_machine,
+                                         ndp_machine)
 from repro_torch.kernels import _build
 from repro_torch.kernels import lru_scan as LS
 from repro_torch.kernels import sim_epilogue as SE
-from repro_torch.sim import DEFAULT_MECHS, simulate_batch
+from repro_torch.sim import DEFAULT_MECHS, simulate_batch, sweep
 from repro_torch.sim.memory_model import MEMORY_MODELS, with_kind
 from repro_torch.util.device import resolve_device
 from repro_torch.util.profile import print_profile
@@ -73,6 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="trace each bucket with torch.profiler and print "
                          "the time by operator")
+    ap.add_argument("--sweep", default=None,
+                    help="comma-separated named sweeps, of "
+                         + ",".join(SWEEPS))
     return ap
 
 
@@ -130,6 +144,60 @@ def averages(bucket: Dict) -> Dict[str, float]:
             for m in SHOWN}
 
 
+def _ready(device) -> None:
+    """The card's context and the kernels' builds and loads, so no
+    bucket's wall time holds them."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        _build.build_all(["lru_scan", "sim_epilogue"])
+        LS._lib(), SE._lib()
+
+
+def point_label(axes: Dict, idx) -> str:
+    """``axis=value`` of one grid point (mechanism tuples joined by +)."""
+    return " ".join(
+        f"{n}={'+'.join(v[i]) if isinstance(v[i], tuple) else v[i]}"
+        for (n, v), i in zip(axes.items(), idx))
+
+
+def run_sweeps(args, show_points: bool = True) -> Dict:
+    """Every named sweep of ``args.sweep`` at ``args.preset``, as a dict
+    name -> ``SweepResult``; prints each point's speedups over radix
+    (unless ``show_points`` is False) and each sweep's points, buckets,
+    bucket plans and wall seconds."""
+    device = resolve_device(args.device)
+    names = args.sweep.split(",")
+    for n in names:
+        if n not in SWEEPS:
+            raise ValueError(f"unknown sweep {n!r}: one of {sorted(SWEEPS)}")
+    _ready(device)
+    out = {}
+    for name in names:
+        before, before_ep = LS.launches, SE.launches
+        t0 = time.perf_counter()
+        r = sweep(name, preset=args.preset, trace_len=args.trace_len,
+                  device=device)
+        wall = time.perf_counter() - t0
+        if show_points:
+            for idx in np.ndindex(*r.results.shape):
+                res = r.results[idx]
+                sp = res.speedup_vs()
+                print(f"sweep {name} {point_label(r.axes, idx)}: "
+                      + " ".join(f"{m}={sp[m]:.3f}" for m in res.mechs
+                                 if m != "radix"))
+        st = r.stats
+        print(f"sweep {name}: {st['points']} points, {st['buckets']} "
+              f"buckets, {st['distinct_shapes']} shapes, "
+              f"{st['runner_compiles']} compiles (per bucket "
+              f"{[b['compiles'] for b in st['per_bucket']]}), "
+              f"{st['trace_len']}-entry windows, wall {wall:.3f} s "
+              f"(dispatch {st['wall_s']:.3f} s), lru_scan launches "
+              f"{LS.launches - before}, sim_epilogue launches "
+              f"{SE.launches - before_ep}")
+        out[name] = r
+    return out
+
+
 def run(args) -> List[Dict]:
     """Every requested bucket in the order of the JAX package's figure
     benchmark (cores outer, machines inner); prints as it goes."""
@@ -144,10 +212,7 @@ def run(args) -> List[Dict]:
     for w in workloads:
         parse_workload_spec(w)          # a name or a trace spec, or raise
     window = args.trace_len or preset.trace_len
-    if device.type == "cuda":       # no bucket's wall holds the set-up:
-        torch.cuda.synchronize(device)      # the card's context
-        _build.build_all(["lru_scan", "sim_epilogue"])   # the kernels'
-        LS._lib(), SE._lib()                # builds and loads
+    _ready(device)
     print(f"simulate: preset {preset.name}, {window}-entry windows, seed "
           f"{preset.seed}, chunk {preset.chunk}, device {device}, "
           f"memory {args.memory}, mechanisms {','.join(DEFAULT_MECHS)}")
@@ -178,7 +243,11 @@ def run(args) -> List[Dict]:
 
 
 def main(argv=None) -> None:
-    run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.sweep:
+        run_sweeps(args)
+    else:
+        run(args)
 
 
 if __name__ == "__main__":

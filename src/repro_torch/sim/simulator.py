@@ -45,6 +45,19 @@ never interact, but torch picks a reduction's order by shape, so a
 lane's float sums (cycles) may differ in the last bits between batch
 widths; its integer-valued counters do not.
 
+Bucket plans.  What a batch's (machine shape, walk-fn tuple, chunk)
+fixes — the table shapes, the hierarchy depth, whether there is a
+cache-as-TLB, the banked geometry, which instantiation of each kernel
+runs, and the bytes of walk lines a lane takes a chunk — is derived once
+by :func:`_bucket_plan` and cached for the life of the process, keyed
+the way the JAX package keys its jitted chunk runner.  The JAX package
+compiles one runner per key; on the card a "compile" is a bucket plan,
+since the CUDA kernels are built once per process by ``kernels/_build.py``
+and every plan launches one of their instantiations.
+:func:`runner_cache_info` counts the plans made (the sweep engine's
+"compiles") and :func:`clear_runner_cache` drops them, the watchdog's
+recovery hook.
+
 A trace may be a ``"trace:<path>"`` spec of a real trace, ingested by
 :mod:`repro_torch.workloads.ingest`.  Sharding the batch over several
 cards (``devices > 1``) is not ported yet and raises (ROADMAP module
@@ -53,6 +66,7 @@ item 10).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple
 
@@ -311,6 +325,79 @@ def init_state(mach: "MachineConfig", m: int = M, batch: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# bucket plans: what a (machine shape, walk fns, chunk) key fixes
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Everything a batch's key fixes before its data is seen: the table
+    shapes (``shape.tables``), the hierarchy depth, the cache-as-TLB, the
+    banked geometry (0 banks: bounded-linear memory), the kernel
+    instantiations that run, and the bytes of walk lines one lane takes a
+    chunk."""
+
+    shape: MachineShape
+    walk_fns: Tuple
+    chunk: int
+    m: int
+    n_hier: int
+    has_ctlb: bool
+    banks: int
+    lines_per_row: int
+    scan_kernel: str
+    epilogue_kernel: str
+    lane_lines_bytes: int
+
+    def lines_group(self, lanes: int) -> int:
+        """Chunks of walk lines made at once for ``lanes`` lanes: at most
+        ``LINES_GROUP_BYTES`` of them."""
+        return max(1, LINES_GROUP_BYTES // (lanes * self.lane_lines_bytes))
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_plan(shape: MachineShape, walk_fns: Tuple, chunk: int,
+                 batched: bool = True) -> BucketPlan:
+    """The plan of one key, made once a process (the counterpart of the
+    JAX package's ``_chunk_runner``, keyed the same way; the port has
+    only the batched engine, so ``batched`` is always True here)."""
+    banked = shape.memory[0] == "banked"
+    n_hier = len(shape.hier)
+    has_ctlb = any(n == "ctlb" for n, _, _ in shape.tables)
+    b = "true" if banked else "false"
+    return BucketPlan(
+        shape=shape, walk_fns=walk_fns, chunk=chunk, m=len(walk_fns),
+        n_hier=n_hier, has_ctlb=has_ctlb,
+        banks=shape.memory[1] if banked else 0,
+        lines_per_row=(shape.memory[2] // MM.LINE_BYTES) if banked else 0,
+        scan_kernel=(f"lru_scan_kernel<{n_hier}, "
+                     f"{'true' if has_ctlb else 'false'}, {b}>"),
+        epilogue_kernel=f"sim_epilogue_kernel<{b}>",
+        lane_lines_bytes=(chunk * shape.num_cores * len(walk_fns)
+                          * MAX_PTE * 4))
+
+
+#: plans made before the last clear_runner_cache(), so the count that
+#: runner_cache_info() reports stays monotone across clears
+_CLEARED_MISSES = 0
+
+
+def runner_cache_info():
+    """Stats of the bucket-plan cache: ``misses`` counts the plans made
+    this process — one per distinct (machine shape, walk-fn tuple,
+    chunk, batched) key, monotone across :func:`clear_runner_cache`.  The
+    sweep engine reports them as its "compiles"."""
+    info = _bucket_plan.cache_info()
+    return info._replace(misses=info.misses + _CLEARED_MISSES)
+
+
+def clear_runner_cache() -> None:
+    """Drop every cached bucket plan (the watchdog's recovery hook); the
+    count of plans made survives in :func:`runner_cache_info`."""
+    global _CLEARED_MISSES
+    _CLEARED_MISSES += _bucket_plan.cache_info().misses
+    _bucket_plan.cache_clear()
+
+
+# ---------------------------------------------------------------------------
 # the pieces around the kernels
 # ---------------------------------------------------------------------------
 def _pad_lines(a: torch.Tensor) -> torch.Tensor:
@@ -359,12 +446,14 @@ def _queue(clock: torch.Tensor, mem_accs: torch.Tensor,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class _Bucket:
-    """One batch on the device: the padded inputs on the fused lane layout
-    (T_pad, B*C), the per-lane mechanism tables, the per-sim data params
-    (for the queue), and the kernels' flag words and parameter array.
-    The walk lines of the chunks of one group are kept in ``lines``."""
+    """One batch on the device: its plan, the padded inputs on the fused
+    lane layout (T_pad, B*C), the per-lane mechanism tables, the per-sim
+    data params (for the queue), and the kernels' flag words and
+    parameter array.  The walk lines of the chunks of one group are kept
+    in ``lines``."""
 
     mach: "MachineConfig"
+    plan: BucketPlan
     shape: MachineShape
     walk_fns: Tuple
     b: int
@@ -420,7 +509,6 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
     array (for the instruction counts)."""
     shape = machine_shape(jobs[0].mach)
     wf = _walk_fns(jobs[0].mechs)
-    m = len(specs_for(jobs[0].mechs))
     c = shape.num_cores
     for j in jobs:
         if machine_shape(j.mach) != shape:
@@ -448,6 +536,7 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
         lens.append(vpn.shape[1])
     t_pad = max(lens) + (-max(lens)) % chunk
     b = len(jobs)
+    plan = _bucket_plan(shape, wf, chunk, True)
 
     def pack(arrs, dtype):
         out = np.zeros((t_pad, b, c), dtype)
@@ -478,11 +567,10 @@ def _prepare(jobs: Sequence["SimJob"], length: int | None, chunk: int,
           for k in dps[0]}
     mt_l = {k: torch.repeat_interleave(v, c, dim=0) for k, v in mt.items()}
     dp_l = {k: torch.repeat_interleave(v, c, dim=0) for k, v in dp.items()}
-    group = max(1, LINES_GROUP_BYTES // (chunk * b * c * m * MAX_PTE * 4))
-    bucket = _Bucket(mach=jobs[0].mach, shape=shape, walk_fns=wf, b=b, m=m,
-                     chunk=chunk, lens=lens, xs=xs, mt_l=mt_l, dp=dp,
-                     flags=LS.mech_flags(mt_l), params=SE.lane_params(dp_l),
-                     group=group)
+    bucket = _Bucket(mach=jobs[0].mach, plan=plan, shape=shape, walk_fns=wf,
+                     b=b, m=plan.m, chunk=chunk, lens=lens, xs=xs, mt_l=mt_l,
+                     dp=dp, flags=LS.mech_flags(mt_l),
+                     params=SE.lane_params(dp_l), group=plan.lines_group(b))
     bucket.chunk_lines(0)           # the first group's walk lines
     return bucket, works
 
@@ -507,7 +595,7 @@ def _scan_inputs(bk: _Bucket, state: Dict, i: int) -> Dict:
                 work=work)
     if "bank_row" in state:
         args.update(bank_row=fused(state["bank_row"]),
-                    lines_per_row=bk.mach.memory.lines_per_row)
+                    lines_per_row=bk.plan.lines_per_row)
     return args
 
 
@@ -522,8 +610,8 @@ def _run_chunk(bk: _Bucket, state: Dict, i: int) -> None:
               } if "bank_row" in args else {}
     SE.sim_epilogue(packed, work, args["is4k"], args["valid"], q, bk.flags,
                     bk.params, state["clock"], state["mem_accs"],
-                    state["counters"], n_hier=len(bk.shape.hier),
-                    has_ctlb="ctlb" in args["tables"], **banked)
+                    state["counters"], n_hier=bk.plan.n_hier,
+                    has_ctlb=bk.plan.has_ctlb, **banked)
 
 
 def simulate(mach: "MachineConfig", trace: Dict[str, np.ndarray] | str,

@@ -1,32 +1,50 @@
-"""Recovery event log, deterministic fault injection, and the
-integrity-checked cache store.
+"""Recovery event log, deterministic fault injection, the
+integrity-checked cache store, and the dispatch watchdog.
 
-The part of ``repro.util.resilience`` that the serving path and the
-simulator's trace cache call: :func:`log_event` records every recovery
-decision in a bounded process-wide log; :class:`FaultInjector` replays a
-deterministic fault plan against the instrumented sites, so chaos tests
-can prove that injected faults cost only retries; and
-:func:`write_bytes` / :func:`read_bytes` (with their npz forms) publish
-cache entries atomically (temp file + rename) beside a sha256 sidecar,
-and move an entry that fails its check to ``quarantine/`` so the caller
-recomputes it.  The watchdog belongs to the sweep slice and is not
-ported yet.
+The part of ``repro.util.resilience`` that the serving path, the
+simulator's trace cache and the sweep engine call: :func:`log_event`
+records every recovery decision in a bounded process-wide log;
+:class:`FaultInjector` replays a deterministic fault plan against the
+instrumented sites, so chaos tests can prove that injected faults cost
+only retries; :func:`write_bytes` / :func:`read_bytes` (with their npz
+and json forms) publish cache entries atomically (temp file + rename)
+beside a sha256 sidecar, and move an entry that fails its check to
+``quarantine/`` so the caller recomputes it; and :func:`watchdog_call`
+bounds one simulator dispatch by a wall-clock deadline with a retry.
+
+Fault sites:
+
+  ``dispatch``  the matching simulator dispatch raises
+                :class:`DispatchTimeout`: the watchdog clears the bucket
+                plans and retries once
+  ``evict``     the serving scheduler preempts the matching live
+                sequence mid-decode: pages freed, translation-cache
+                versions bumped, request re-queued for re-prefill
 
 Each fault names its site, an occurrence set (``at``) counted per
 (site, match) pair, and an optional substring ``match`` on the site tag.
 Install a plan process-wide with :func:`inject_faults`; instrumented
 sites consult :func:`fault_injector`.
+
+Watchdog on the card.  A CUDA kernel cannot be cancelled from a thread:
+a dispatch that times out is abandoned, not stopped, and its work stays
+queued on the stream, so the retry runs behind it.  On the card the
+retry therefore helps only against a hang on the host (trace set-up, a
+lock, a stuck build); a hung kernel holds the stream until it ends.
+Injected faults (``timeout_s <= 0``, run inline) are how tests exercise
+the retry.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import io
+import json
 import os
 import tempfile
 import threading
 from collections import deque
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,14 +52,23 @@ import numpy as np
 SIDECAR_SUFFIX = ".sha256"
 #: subdirectory (of the entry's cache dir) corrupted entries move to
 QUARANTINE_DIR = "quarantine"
+#: the instrumented fault sites
+FAULT_SITES = ("dispatch", "evict")
+
+
+class DispatchTimeout(RuntimeError):
+    """A watchdogged dispatch exceeded its deadline (or a fault plan
+    injected one)."""
+
 
 _EVENTS: "deque[Tuple[str, str]]" = deque(maxlen=512)
 _EVENTS_LOCK = threading.Lock()
 
 
 def log_event(kind: str, detail: str) -> None:
-    """Record one recovery decision (evict / fault_injected / ...) in the
-    bounded process-wide log."""
+    """Record one recovery decision (evict / fault_injected / resume /
+    watchdog_timeout / watchdog_retry / ...) in the bounded process-wide
+    log."""
     with _EVENTS_LOCK:
         _EVENTS.append((kind, detail))
 
@@ -60,12 +87,12 @@ class Fault:
     """One planned fault: fire at the given per-(site, match)
     occurrence indices of ``site`` whose tag contains ``match``."""
 
-    site: str                    # evict (the only site ported so far)
+    site: str                    # dispatch|evict
     at: Tuple[int, ...] = (0,)
     match: str = ""
 
     def __post_init__(self):
-        if self.site != "evict":
+        if self.site not in FAULT_SITES:
             raise ValueError(f"unknown fault site {self.site!r}")
 
 
@@ -97,9 +124,12 @@ class FaultInjector:
 
     @classmethod
     def from_plan(cls, name: str) -> "FaultInjector":
-        """A named fault plan (the serving plan of the JAX package's
-        matrix; its cache and dispatch plans are not ported)."""
+        """A named fault plan (the dispatch and serving plans of the JAX
+        package's matrix; its cache plan is not ported)."""
         plans: Dict[str, Tuple[Fault, ...]] = {
+            # first dispatch of a bucket hangs; the watchdog clears the
+            # bucket plans and the retry completes
+            "dispatch_hang": (Fault("dispatch", at=(0,)),),
             # repeated mid-decode evictions: preempt -> re-prefill
             "evict_storm": (Fault("evict", at=(0, 1, 2)),),
         }
@@ -242,3 +272,75 @@ def write_npz(path: str, arrays: Dict) -> bool:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     return write_bytes(path, buf.getvalue())
+
+
+def read_json(path: str):
+    """Verified json read; a corrupt entry is quarantined, None returned."""
+    data = read_bytes(path)
+    if data is None:
+        return None
+    try:
+        return json.loads(data.decode("utf-8"))
+    except Exception as e:
+        quarantine(path, f"json parse failed: {type(e).__name__}: {e}")
+        return None
+
+
+def write_json(path: str, obj, **dump_kw) -> bool:
+    return write_bytes(path, json.dumps(obj, **dump_kw).encode("utf-8"))
+
+
+# ---------------------------------------------------------------------------
+# watchdog
+# ---------------------------------------------------------------------------
+def watchdog_call(fn: Callable[[], object], timeout_s: float, *,
+                  tag: str = "", retries: int = 1,
+                  on_timeout: Optional[Callable[[], None]] = None):
+    """Run ``fn`` under a wall-clock deadline with bounded retries.
+
+    ``timeout_s > 0``: ``fn`` runs on a daemon worker thread; if it has
+    not finished after ``timeout_s`` seconds the attempt counts as
+    :class:`DispatchTimeout` and the thread is abandoned (it cannot be
+    stopped; on the card its kernels stay queued, see the module
+    docstring).  ``timeout_s <= 0``: ``fn`` runs inline and only an
+    injected ``DispatchTimeout`` can fire.
+
+    On timeout, ``on_timeout()`` runs before the retry (the sweep engine
+    clears the bucket plans there).  The last attempt's timeout
+    propagates.
+    """
+    last: Optional[DispatchTimeout] = None
+    for attempt in range(retries + 1):
+        try:
+            if timeout_s and timeout_s > 0:
+                result: list = []
+                error: list = []
+
+                def _run():
+                    try:
+                        result.append(fn())
+                    except BaseException as e:   # noqa: BLE001
+                        error.append(e)
+
+                t = threading.Thread(target=_run, daemon=True,
+                                     name=f"watchdog:{tag}")
+                t.start()
+                t.join(timeout_s)
+                if t.is_alive():
+                    raise DispatchTimeout(
+                        f"{tag or 'dispatch'} exceeded {timeout_s}s "
+                        f"(attempt {attempt + 1})")
+                if error:
+                    raise error[0]
+                return result[0]
+            return fn()
+        except DispatchTimeout as e:
+            last = e
+            log_event("watchdog_timeout", f"{tag} attempt {attempt + 1}: {e}")
+            if attempt >= retries:
+                raise
+            if on_timeout is not None:
+                on_timeout()
+            log_event("watchdog_retry", f"{tag} retrying "
+                                        f"(attempt {attempt + 2})")
+    raise last if last else RuntimeError("unreachable")

@@ -296,8 +296,8 @@ def test_cache_store_faults(tmp_path, monkeypatch):
     with open(path, "wb") as f:                        # torn entry
         f.write(b"PK\x03\x04")
     assert TRES.read_npz(path) is None
-    with pytest.raises(ValueError):
-        TRES.Fault("dispatch")
+    with pytest.raises(ValueError):              # a site the port lacks
+        TRES.Fault("cache_read")
 
 
 def test_parse_workload_spec_equal():
