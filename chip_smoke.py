@@ -11,8 +11,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      pass) against its plain PyTorch version on the card, at the serving
      path's shapes, with its time, the plain version's, a PyTorch library
      yardstick's and the least time the card could take; the split plan
-     (pages a split, splits, blocks) at the serve and B 8 shapes, and
-     every split size held and timed there;
+     (pages a split, splits, blocks) at the serve, costed-mix (page 8)
+     and B 8 shapes, and every split size held and timed there;
   4. full-width internlm2-1.8b (bf16, random weights from a seed) served
      through the port's launcher: 8 requests, 32 new tokens each, every
      attention layer of every step through the paged-attention kernel;
@@ -98,7 +98,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         bucket plan a bucket, a frontier, one launch of each kernel a
         dispatch), with the verdict on the paper's design point, and
         once more under torch.profiler;
- 10. one JSON line describing every kernel, then the final ``ok`` line.
+ 10. translation-costed serving and the fleet:
+     a. the serving cost table (``SERVING_COST``: ndp_machine(4), dlrm,
+        the paper's five mechanisms) derived through the simulator
+        kernels on the card at the smoke preset (exactly 4 launches of
+        each kernel, one bucket plan) and the full one (8 each): the
+        smoke table within 2e-3 cycles of the port's CPU derivation and
+        within rtol 0.05 of ``PINNED_COSTS``, ndpage's walk below
+        radix's, ideal free;
+     b. phase 4's requests served again through the launcher with
+        ``--cost-model sweep``: the same tokens, 24 x steps paged
+        launches, and ``throughput()``'s checks (hits + misses = priced
+        tokens, ndpage >= radix, ideal the upper bound, per-request
+        budgets partition the totals); then the costed serving
+        benchmark's decode-heavy and prefill-heavy mixes at full width
+        with the same checks; the card's wall tokens/s beside the
+        simulated machine's tokens/s per mechanism;
+     c. the fleet at ``SERVING_FLEET`` scale (1,024 slots, 1,536
+        requests), the four runs of the fleet benchmark (shared,
+        unshared, independent, budget) with its gates restated and the
+        surrogate decode on the card; the shared run again on the CPU
+        (identical tokens, stats and meter totals); the CUDA kernels a
+        decode step launches;
+ 11. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -123,8 +145,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import config as C  # noqa: E402
-from repro_torch.configs.ndp_sim import (PRESETS, SWEEPS,  # noqa: E402
-                                         WORKLOADS, cpu_machine,
+from repro_torch.configs.ndp_sim import (PRESETS,  # noqa: E402
+                                         SERVING_COST, SERVING_FLEET,
+                                         SWEEPS, WORKLOADS, cpu_machine,
                                          ndp_machine, zoo_machine)
 from repro_torch.core import block_table as BT  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
@@ -136,10 +159,15 @@ from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.models import init_params, prefill  # noqa: E402
-from repro_torch.serving import ServeEngine, greedy_reference  # noqa: E402
+from repro_torch.serving import (FleetEngine, Request,  # noqa: E402
+                                 ServeEngine, greedy_reference)
+from repro_torch.serving import fleet as FLEET  # noqa: E402
 from repro_torch.sim import _search as SEARCH  # noqa: E402
 from repro_torch.sim import apply_param, run_bucketed, sweep  # noqa: E402
 from repro_torch.sim import simulator as SIM  # noqa: E402
+from repro_torch.sim.cost_model import (PINNED_COSTS,  # noqa: E402
+                                        TranslationCostModel,
+                                        TranslationMeter)
 from repro_torch.sim.mechanisms import (DEFAULT_MECHS,  # noqa: E402
                                         registered_names)
 from repro_torch.train import data as DATA  # noqa: E402
@@ -162,6 +190,12 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 #: bf16 after different max subtractions, so a small output can differ
 #: by several of its own rounding steps
 TIGHT_BF16_ATOL = 5e-3
+#: ... plus this share of |plain| for the costed mixes' short rows (at
+#: most 43 tokens), whose outputs reach 2.19 (seed 6): there the two
+#: versions differ by one bf16 step of the output (7.812e-3 = 2**-7 at
+#: |out| in [1, 2) on the H100), which 2**-7 x |plain| covers.  The same
+#: rows in float32 (mix_f32) hold the kernel's page-8 indexing at TOL
+TIGHT_BF16_RTOL = {"mix_bf16": 2.0 ** -7}
 #: CPU vs card logits, float32, 2 layers at full width: both sum in
 #: float32 in different orders over K = 2048 / 8192
 LOGIT_TOL = 1e-3
@@ -269,6 +303,13 @@ def paged_case(*, b, h, kh, d, page, maxp, n, lengths, dtype, seed,
                       table, lens), window=window)
 
 
+def within_tight(name: str, err, mag) -> bool:
+    """The bf16 cases' second bound: abs error <= TIGHT_BF16_ATOL (+ the
+    case's TIGHT_BF16_RTOL x |plain|) everywhere."""
+    rtol = TIGHT_BF16_RTOL.get(name, 0.0)
+    return bool((err <= TIGHT_BF16_ATOL + rtol * mag).all())
+
+
 def run(fn, case):
     """Call a paged-attention implementation on a case."""
     return fn(*case["args"], window=case["window"])
@@ -347,6 +388,13 @@ def phase_kernel():
                                      maxp=32, n=136,
                                      lengths=[72, 150, 220, 288],
                                      dtype=torch.bfloat16, seed=5)
+    # the costed mixes' shapes (phase 10b, COSTED_ENGINE): max_batch 4,
+    # max_len 96 / page 8, pool of 4 * 12 + 8 pages, lengths a mid-run
+    # step of the two mixes sees (one row ends on a page boundary)
+    mix = dict(b=4, h=16, kh=8, d=128, page=8, maxp=12, n=56,
+               lengths=[6, 19, 40, 43], seed=6)
+    cases["mix_f32"] = paged_case(**mix, dtype=torch.float32)
+    cases["mix_bf16"] = paged_case(**mix, dtype=torch.bfloat16)
     results = {}
     for name, case in cases.items():
         got = run(PA.paged_attention_cuda, case)
@@ -358,8 +406,12 @@ def phase_kernel():
         ok = bool((err <= tol + tol * mag).all())
         tight = ""
         if got.dtype == torch.bfloat16:
-            ok &= float(err.max()) <= TIGHT_BF16_ATOL
-            tight = f"; and max_abs_err <= {TIGHT_BF16_ATOL:g}"
+            ok &= within_tight(name, err, mag)
+            rtol = TIGHT_BF16_RTOL.get(name, 0.0)
+            tight = (f"; and abs_err <= {TIGHT_BF16_ATOL:g}"
+                     + (f" + {rtol:g} x |plain|" if rtol else "")
+                     + f"; |plain| {float(mag.flatten()[err.argmax()]):.3g}"
+                     f" at the max, {float(mag.max()):.3g} at most")
         if name == "empty_row_f32":
             ok &= bool((got[0] == 0).all())
         results[name] = {"max_abs_err": float(err.max()), "tol": tol,
@@ -373,7 +425,7 @@ def phase_kernel():
     for line in ptxas_lines("paged_attention", ("paged_split_kernel",
                                                 "paged_combine_kernel")):
         print(f"  paged_attention ptxas: {line}")
-    for name in ("serve_bf16", "b8_bf16"):
+    for name in ("serve_bf16", "mix_bf16", "b8_bf16"):
         q, kp, _, table, _ = cases[name]["args"]
         pps, n_splits, blocks = PA.split_plan(q.shape[0], kp.shape[2],
                                               table.shape[1])
@@ -384,15 +436,17 @@ def phase_kernel():
     # every split size the kernel takes, against the plain version, and
     # timed: the data behind PAGES_PER_SPLIT (not on the main path, so
     # these launches are not counted)
-    for name in ("serve_bf16", "b8_bf16"):
+    for name in ("serve_bf16", "mix_bf16", "b8_bf16"):
         case = cases[name]
         want = run(ref.paged_attention_ref, case)
         for pps in (1, 2, 4, PA.MAX_PAGES_PER_SPLIT):
             fn = lambda: PA._launch(*case["args"], case["window"],  # noqa
                                     pps)
-            err = float((fn().float() - want.float()).abs().max())
-            check(err <= TIGHT_BF16_ATOL, f"paged_attention {name} at {pps} "
-                                          f"pages a split: max_abs_err {err}")
+            diff = (fn().float() - want.float()).abs()
+            err = float(diff.max())
+            check(within_tight(name, diff, want.float().abs()),
+                  f"paged_attention {name} at {pps} pages a split: "
+                  f"max_abs_err {err}")
             print(f"paged_attention {name} at {pps} pages a split: "
                   f"max_abs_err {err:.3e}, {time_cold_ms(fn, 100):.4f} ms "
                   f"(L2 flushed)")
@@ -454,9 +508,10 @@ def phase_serve():
           f"paged_attention launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"scheduler={eng.sched.stats}")
+    tokens_by_req = {r.req_id: list(r.generated) for r in done}
     del out, eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens_by_req
 
 
 # ---------------------------------------------------------------------------
@@ -1739,6 +1794,397 @@ def phase_sim_search() -> dict:
                 wall_s=wall, parity_max_rel=max(worst, mixed))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: translation-costed serving and the fleet
+# ---------------------------------------------------------------------------
+#: derived costs are rounded to 3 decimals from float sums that agree to
+#: rtol 1e-5 (card vs CPU), so the last digit may flip
+COST_ATOL = 2e-3
+#: the committed table against a fresh derivation: the reference's own
+#: tolerance (tests/test_cost_model.py:48)
+PINNED_RTOL = 0.05
+#: lru_scan and sim_epilogue launches of one derivation at the
+#: SERVING_COST point: 2,048 entries in chunks of 512, 8,000 in 1,024
+COST_LAUNCHES = {"smoke": 4, "full": 8}
+#: the request mixes and engine shape of the JAX package's costed serving
+#: benchmark (benchmarks/serving_translation.py:56-59, :120), restated
+COSTED_MIXES = {
+    "decode_heavy": dict(n_requests=8, prompt=(3, 8), new_tokens=16),
+    "prefill_heavy": dict(n_requests=6, prompt=(24, 40), new_tokens=4),
+}
+#: the benchmark's engine shape (phase 3's mix_bf16 case holds the paged
+#: kernel at it)
+COSTED_ENGINE = dict(max_batch=4, max_len=96, page_size=8)
+#: the meter's per-request budgets partition its totals (the fleet
+#: benchmark's own tolerance, benchmarks/serving_fleet.py:127)
+METER_RTOL, METER_ATOL = 1e-9, 1e-6
+#: surrogate decode steps traced with torch.profiler in 10c
+FLEET_PROFILE_STEPS = 5
+
+
+def hold_costs(got, want, what: str, *, atol: float = 0.0,
+               rtol: float = 0.0) -> float:
+    """``tlb_hit`` and ``org`` equal; ``walk`` and ``pte_line`` within
+    ``atol`` + ``rtol`` x |want|.  Returns the largest difference."""
+    check(got.mechs == want.mechs, f"{what}: mechanisms {got.mechs} != "
+                                   f"{want.mechs}")
+    worst = 0.0
+    for m in want.mechs:
+        g, w = got.cost(m), want.cost(m)
+        check(g.tlb_hit == w.tlb_hit and g.org == w.org,
+              f"{what}: {m} tlb_hit/org {g.tlb_hit}/{g.org} != "
+              f"{w.tlb_hit}/{w.org}")
+        for a, b in ((g.walk, w.walk), (g.pte_line, w.pte_line)):
+            check(abs(a - b) <= atol + rtol * abs(b),
+                  f"{what}: {m} cost {a} vs {b} beyond atol {atol} rtol "
+                  f"{rtol}")
+            worst = max(worst, abs(a - b))
+    return worst
+
+
+def print_cost_tables(tables: dict) -> None:
+    first = next(iter(tables.values()))
+    print(f"cost tables (simulated cycles of {first.machine}), "
+          + " | ".join(tables))
+    for m in first.mechs:
+        print(f"  {m:>9}: " + " | ".join(
+            f"tlb_hit {t.cost(m).tlb_hit:g}, walk {t.cost(m).walk:.3f}, "
+            f"pte_line {t.cost(m).pte_line:.3f}, org {t.cost(m).org}"
+            for t in tables.values()))
+
+
+def phase_cost_table() -> dict:
+    """10a: the SERVING_COST table derived through the simulator kernels
+    on the card, at the smoke preset and the full one."""
+    mach = ndp_machine(int(SERVING_COST["cores"]))
+    SIM.clear_runner_cache()                 # count this phase's plans
+    tables, out = {}, {}
+    for preset in ("smoke", "full"):
+        plans0 = SIM.runner_cache_info().misses
+        LS.launches = SE.launches = 0
+        t0 = time.perf_counter()
+        model = TranslationCostModel.from_sim(
+            mach, preset=preset, use_cache=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (LS.launches, SE.launches)
+        plans = SIM.runner_cache_info().misses - plans0
+        check(model.source == "sweep", f"cost table source {model.source}")
+        check(launches == (COST_LAUNCHES[preset],) * 2,
+              f"{preset} cost table: lru_scan, sim_epilogue launches "
+              f"{launches}, not {COST_LAUNCHES[preset]} each")
+        check(plans == 1, f"{preset} cost table: {plans} bucket plans")
+        print(f"cost table, {preset} preset, on the card: {wall:.3f} s "
+              f"(trace included), lru_scan {launches[0]} and sim_epilogue "
+              f"{launches[1]} launches, {plans} bucket plan")
+        tables[f"card {preset}"] = model
+        out[preset] = dict(launches=launches[0], ep_launches=launches[1],
+                           wall_s=wall)
+    t0 = time.perf_counter()
+    cpu = TranslationCostModel.from_sim(mach, use_cache=False, device="cpu")
+    print(f"cost table, smoke preset, on the CPU: "
+          f"{time.perf_counter() - t0:.3f} s")
+    card = tables["card smoke"]
+    diff = hold_costs(card, cpu, "card vs CPU", atol=COST_ATOL)
+    hold_costs(card, TranslationCostModel.pinned(), "card vs PINNED_COSTS",
+               rtol=PINNED_RTOL)
+    check(card.cost("ndpage").walk < card.cost("radix").walk,
+          "ndpage's walk is not cheaper than radix's")
+    ideal = card.cost("ideal")
+    check((ideal.tlb_hit, ideal.walk, ideal.pte_line) == (0.0, 0.0, 0.0),
+          f"ideal costs {ideal}")
+    tables["CPU smoke"] = cpu
+    print_cost_tables(tables)
+    print(f"cost table card vs CPU: max |diff| {diff:.3g} cycles (atol "
+          f"{COST_ATOL:g}); vs PINNED_COSTS ({PINNED_COSTS['machine']}) "
+          f"within rtol {PINNED_RTOL:g}")
+    return dict(model=card, **out)
+
+
+def meter_conserved(meter) -> bool:
+    """The meter's per-request budgets partition its totals."""
+    budgets = meter.request_budgets()
+    if not budgets:
+        return bool(meter.total.sum() == 0.0)
+    acc = np.sum(list(budgets.values()), axis=0)
+    return bool(np.allclose(acc, meter.total, rtol=METER_RTOL,
+                            atol=METER_ATOL))
+
+
+def check_costed(eng, done, n_requests: int, what: str) -> dict:
+    """The checks of the JAX package's costed serving benchmark, and the
+    meter's own accounting; returns ``throughput()``."""
+    rep = eng.throughput()
+    tps = rep["tokens_per_sec"]
+    check(len(done) == n_requests,
+          f"{what}: {len(done)} of {n_requests} requests finished")
+    check(rep["tcache_hits"] + rep["tcache_misses"] == rep["tokens"],
+          f"{what}: hits {rep['tcache_hits']} + misses "
+          f"{rep['tcache_misses']} != {rep['tokens']} priced tokens")
+    check(tps["ndpage"] >= tps["radix"], f"{what}: ndpage below radix")
+    check(all(tps["ideal"] >= v - 1e-9 for v in tps.values()),
+          f"{what}: ideal is not the upper bound")
+    check(meter_conserved(eng.meter),
+          f"{what}: per-request budgets do not partition the totals")
+    return rep
+
+
+def print_costed(what: str, rep: dict, wall: float, generated: int) -> None:
+    print(f"{what}: {wall:.3f} s wall, {rep['steps']} steps, card "
+          f"{generated / wall:.1f} generated tokens/s; {rep['tokens']} "
+          f"priced tokens, tcache hits {rep['tcache_hits']}, misses "
+          f"{rep['tcache_misses']}; simulated tokens/s of the NDP machine: "
+          + ", ".join(f"{m} {v:.1f}" for m, v in
+                      rep["tokens_per_sec"].items())
+          + "; translation cycles: "
+          + ", ".join(f"{m} {v:.1f}" for m, v in
+                      rep["translation_cycles"].items()))
+
+
+def phase_costed_serve(cost: dict, uncosted: dict) -> dict:
+    """10b: phase 4's requests through the launcher with ``--cost-model
+    sweep``, then the costed serving benchmark's two mixes, at full
+    width on the card."""
+    args = SERVE.build_parser().parse_args(["--cost-model", "sweep"])
+    # the meter's own host time, summed around its calls
+    record_step, meter_s = TranslationMeter.record_step, [0.0]
+
+    def timed_record_step(self, *a, **kw):
+        t0 = time.perf_counter()
+        record_step(self, *a, **kw)
+        meter_s[0] += time.perf_counter() - t0
+
+    TranslationMeter.record_step = timed_record_step
+    PA.launches = 0
+    try:
+        out = SERVE.serve(args)
+    finally:
+        TranslationMeter.record_step = record_step
+    launches = PA.launches
+    cfg, eng, done = out["cfg"], out["engine"], out["done"]
+    steps = eng.sched.stats["steps"]
+    got = {r.req_id: list(r.generated) for r in done}
+    check(got == uncosted, "costed serving changed the generated tokens")
+    check(launches == cfg.num_layers * steps,
+          f"costed paged_attention launches {launches} != "
+          f"{cfg.num_layers} layers x {steps} steps")
+    rep = check_costed(eng, done, args.requests, "costed serve")
+    print(f"costed serve: cost table {out['cost_model'].source} "
+          f"({out['cost_seconds']:.3f} s), tokens equal phase 4's, "
+          f"paged_attention launches {launches} = {cfg.num_layers} x "
+          f"{steps} steps")
+    print_costed("costed serve", rep, out["seconds"],
+                 sum(len(t) for t in got.values()))
+    print(f"costed serve: the meter's host time {meter_s[0]:.4f} s of "
+          f"{out['seconds']:.3f} s ({meter_s[0] / steps * 1e6:.1f} us a "
+          f"step)")
+    del out, eng
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = init_params(cfg, gen, "cuda")
+    mix_launches = {}
+    for mi, (name, mix) in enumerate(COSTED_MIXES.items()):
+        rng = np.random.default_rng(args.seed * 1000 + mi)
+        eng = ServeEngine(cfg, params, **COSTED_ENGINE,
+                          cost_model=cost["model"], device="cuda")
+        lo, hi = mix["prompt"]
+        for i in range(mix["n_requests"]):
+            prompt = rng.integers(1, cfg.vocab_size,
+                                  rng.integers(lo, hi)).astype(np.int32)
+            eng.submit(Request(req_id=i, prompt=prompt,
+                               max_new_tokens=mix["new_tokens"]))
+        PA.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = eng.sched.stats["steps"]
+        check(PA.launches == cfg.num_layers * steps,
+              f"{name}: paged_attention launches {PA.launches} != "
+              f"{cfg.num_layers} x {steps} steps")
+        check(all(len(r.generated) == mix["new_tokens"] for r in done),
+              f"{name}: a request finished without its new tokens")
+        rep = check_costed(eng, done, mix["n_requests"], name)
+        mix_launches[name] = PA.launches
+        print_costed(f"costed {name} (full width)", rep, wall,
+                     sum(len(r.generated) for r in done))
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, mix_launches=mix_launches)
+
+
+def fleet_mix(p: dict, seed: int, shared: bool) -> list:
+    """One run's requests (benchmarks/serving_fleet.py:_mix, restated)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    if shared:
+        prefixes = {g: rng.integers(1, 30_000, p["prefix_len"])
+                    for g in range(p["prefix_groups"])}
+        for i in range(p["num_requests"]):
+            g = i % p["prefix_groups"]
+            tail = rng.integers(1, 30_000, p["tail_tokens"])
+            reqs.append(Request.build(
+                i, np.concatenate([prefixes[g], tail]),
+                max_new_tokens=p["new_tokens"], prefix_id=g,
+                prefix_len=p["prefix_len"]))
+    else:
+        lo, hi = p["independent_prompt"]
+        for i in range(p["num_requests"]):
+            prompt = rng.integers(1, 30_000, rng.integers(lo, hi))
+            reqs.append(Request.build(i, prompt,
+                                      max_new_tokens=p["new_tokens"]))
+    return reqs
+
+
+def fleet_run(p: dict, model, reqs, *, prefix_sharing: bool,
+              translation_budget=None, device="cuda"):
+    eng = FleetEngine(max_batch=p["max_batch"], max_len=p["max_len"],
+                      page_size=p["page_size"], leaf_size=p["leaf_size"],
+                      cost_model=model, prefix_sharing=prefix_sharing,
+                      translation_budget=translation_budget,
+                      budget_mech=p["budget_mech"], device=device)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    done = eng.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rep = eng.throughput()
+    rep["finished"] = done
+    rep["wall_s"] = time.perf_counter() - t0
+    return rep, eng
+
+
+def profile_fleet_decode(p: dict) -> None:
+    """The CUDA kernels, memsets and copies of a surrogate decode step at
+    the fleet's slot count, the host copies in and out included."""
+    decode = FLEET._decode_fn(FLEET.VOCAB, torch.device("cuda"))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(
+        rng.integers(0, 30_000, p["max_batch"]).astype(np.int32))
+    pos = torch.from_numpy(
+        rng.integers(0, p["max_len"], p["max_batch"]).astype(np.int32))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    decode(tokens, pos).cpu()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(FLEET_PROFILE_STEPS):
+            decode(tokens, pos).cpu()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    print(f"fleet decode step on the card (torch.profiler over "
+          f"{FLEET_PROFILE_STEPS} steps of {p['max_batch']} slots): "
+          f"{sum(names.values()) / FLEET_PROFILE_STEPS:.1f} CUDA kernels "
+          f"and copies a step: " + ", ".join(
+              f"{v} x {k[:60]}" for k, v in sorted(
+                  names.items(), key=lambda kv: -kv[1])))
+
+
+def phase_fleet(cost: dict) -> dict:
+    """10c: the four runs of the JAX package's fleet benchmark at the
+    SERVING_FLEET scale (1,024 slots, 1,536 requests), seed 0, decode on
+    the card, with its gates restated; the shared run again with the
+    decode on the CPU."""
+    p = {k: v for k, v in SERVING_FLEET.items() if k != "smoke"}
+    model, seed = cost["model"], 0
+    fns0 = FLEET.decode_trace_count()
+    runs, engines = {}, {}
+    runs["shared"], engines["shared"] = fleet_run(
+        p, model, fleet_mix(p, seed, True), prefix_sharing=True)
+    runs["unshared"], engines["unshared"] = fleet_run(
+        p, model, fleet_mix(p, seed, True), prefix_sharing=False)
+    runs["independent"], engines["independent"] = fleet_run(
+        p, model, fleet_mix(p, seed + 1, False), prefix_sharing=True)
+    runs["budget"], engines["budget"] = fleet_run(
+        p, model, fleet_mix(p, seed, True), prefix_sharing=True,
+        translation_budget=p["translation_budget"])
+    fns = FLEET.decode_trace_count() - fns0
+
+    n = p["num_requests"]
+    target = min(p["max_batch"], n)
+    sh, un, bud = runs["shared"], runs["unshared"], runs["budget"]
+    gen = {name: {r.req_id: list(r.generated) for r in rep["finished"]}
+           for name, rep in runs.items()}
+    tps_sh, tps_un = sh["tokens_per_sec"], un["tokens_per_sec"]
+    cyc_sh, cyc_un = sh["translation_cycles"], un["translation_cycles"]
+    bs = bud["stats"]
+    checks = {
+        "fleet_concurrency": all(runs[r]["peak_running"] >= target
+                                 for r in ("shared", "unshared",
+                                           "independent")),
+        "one_decode_function": fns <= 1,
+        "all_completed": all(len(gen[r]) == n for r in (
+            "shared", "unshared", "independent")),
+        "tokens_exact_on_off": gen["shared"] == gen["unshared"],
+        "ndpage_ge_radix": all(rep["tokens_per_sec"]["ndpage"]
+                               >= rep["tokens_per_sec"]["radix"]
+                               for rep in runs.values()),
+        "ideal_upper_bound": all(rep["tokens_per_sec"]["ideal"] >= v - 1e-9
+                                 for rep in runs.values()
+                                 for v in rep["tokens_per_sec"].values()),
+        "radix_gains_cycles": cyc_sh["radix"] < cyc_un["radix"],
+        "radix_gains_tps": tps_sh["radix"] > tps_un["radix"],
+        "flat_immune": cyc_sh["ndpage"] == cyc_un["ndpage"],
+        "sharing_gap_radix_over_flat": (
+            tps_sh["radix"] / tps_un["radix"]
+            > tps_sh["ndpage"] / tps_un["ndpage"]),
+        "budget_caps_concurrency":
+            bud["peak_running"] < sh["peak_running"],
+        "budget_conserves_requests": bs["completed"] + bs["shed"] == n,
+        "meter_conserved": all(meter_conserved(e.meter)
+                               for e in engines.values()),
+    }
+    meter = engines["shared"].meter
+    speedups = []
+    for mcpt in p["mcpt_grid"]:
+        tps = meter.tokens_per_sec(model_cycles_per_token=mcpt)
+        speedups.append(tps["ndpage"] / tps["radix"])
+    checks["mcpt_speedup_monotone"] = all(
+        a >= b - 1e-9 for a, b in zip(speedups, speedups[1:]))
+    checks["translation_matters_at_low_mcpt"] = speedups[0] > speedups[-1]
+    failed = [k for k, v in checks.items() if not v]
+    check(not failed, f"fleet gates failed: {failed}")
+
+    for name, rep in runs.items():
+        st, tps = rep["stats"], rep["tokens_per_sec"]
+        print(f"fleet {name}: {rep['wall_s']:.3f} s wall, {rep['steps']} "
+              f"steps, peak running {rep['peak_running']}, completed "
+              f"{st['completed']}/{n}, shed {st['shed']}, preempted "
+              f"{st['preempted']}; {rep['tokens']} priced tokens (hits "
+              f"{rep['tcache_hits']}, misses {rep['tcache_misses']}); "
+              f"simulated tokens/s: "
+              + ", ".join(f"{m} {v:.1f}" for m, v in tps.items())
+              + f"; ndpage/radix {tps['ndpage'] / tps['radix']:.4f}")
+    print(f"fleet sharing gap in simulated tokens/s: radix "
+          f"{(tps_sh['radix'] / tps_un['radix'] - 1) * 100:.3f}%, ndpage "
+          f"{(tps_sh['ndpage'] / tps_un['ndpage'] - 1) * 100:.3f}%")
+    print("fleet mcpt sweep (ndpage/radix of the shared run's totals): "
+          + ", ".join(f"{m:g} {s:.4f}" for m, s in
+                      zip(p["mcpt_grid"], speedups)))
+    print(f"fleet gates: all {len(checks)} passed; decode functions built "
+          f"for the four card runs: {fns}")
+
+    cpu, cpu_eng = fleet_run(p, model, fleet_mix(p, seed, True),
+                             prefix_sharing=True, device="cpu")
+    cpu_gen = {r.req_id: list(r.generated) for r in cpu["finished"]}
+    check(cpu_gen == gen["shared"], "fleet card vs CPU: tokens differ")
+    check(cpu_eng.meter.total.tolist() == meter.total.tolist()
+          and cpu["stats"] == sh["stats"],
+          "fleet card vs CPU: meter totals or stats differ")
+    print(f"fleet shared run card vs CPU: tokens, stats and meter totals "
+          f"identical (CPU decode: {cpu['wall_s']:.3f} s wall)")
+    profile_fleet_decode(p)
+    return {name: dict(wall_s=rep["wall_s"], steps=rep["steps"],
+                       peak_running=rep["peak_running"])
+            for name, rep in runs.items()}
+
+
 def banked_keys(banked: dict, kernel: str) -> dict:
     """The banked path's launches and chunk times of one simulator kernel,
     for its row of the kernels line."""
@@ -1787,9 +2233,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
 
+    t0 = time.perf_counter()
     results, timed = phase_kernel()
-    launches = phase_serve()
+    print(f"phase 3 (paged attention): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, serve_tokens = phase_serve()
+    print(f"phase 4 (serve): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_parity()
+    print(f"phase 5 (engine parity): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     flash_timed = phase_flash()
     print(f"phase 6 (flash kernels): {time.perf_counter() - t0:.1f} s")
@@ -1802,6 +2254,17 @@ def main() -> int:
     t0 = time.perf_counter()
     sim = phase_sim()
     print(f"phase 9 (simulator): {time.perf_counter() - t0:.1f} s")
+    t10 = t0 = time.perf_counter()
+    cost = phase_cost_table()
+    print(f"phase 10a (cost table): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    costed = phase_costed_serve(cost, serve_tokens)
+    print(f"phase 10b (costed serving): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_fleet(cost)
+    print(f"phase 10c (fleet): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 10 (costed serving and the fleet): "
+          f"{time.perf_counter() - t10:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches}
@@ -1828,6 +2291,9 @@ def main() -> int:
         "bound_ms": serve_t["bound_ms"],
         "bound_by": serve_t["bound_by"],
         "library_ms": serve_t["library_ms"],
+        # phase 10b: phase 4's requests served translation-costed
+        "costed_serve_launches": costed["launches"],
+        "costed_mix_launches": costed["mix_launches"],
     }] + flash_rows + [{
         "name": "lru_scan",
         "route": "cuda",
@@ -1844,6 +2310,9 @@ def main() -> int:
         **banked_keys(sim["banked"], "lru_scan"),
         # the sweeps and the search (9f, 9g)
         **sweep_search_keys(sim, "lru_scan"),
+        # the cost table's derivation (10a), smoke and full presets
+        "cost_model_launches": cost["smoke"]["launches"],
+        "cost_model_full_launches": cost["full"]["launches"],
     }, {
         "name": "sim_epilogue",
         "route": "cuda",
@@ -1860,6 +2329,8 @@ def main() -> int:
            if k.endswith("ms")},
         **banked_keys(sim["banked"], "sim_epilogue"),
         **sweep_search_keys(sim, "sim_epilogue"),
+        "cost_model_launches": cost["smoke"]["ep_launches"],
+        "cost_model_full_launches": cost["full"]["ep_launches"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,9 @@ Two organizations, mirroring the paper (and ``repro.core.block_table``):
     directory level buys no space worth its extra indirection.
 
 All tables are int32 tensors on the caller's device; host-side allocation
-lives in ``kv_page_manager.PagePool``.  The PTE line counters used by the
-translation cost model belong to the cost-model slice and are not ported
-yet.
+lives in ``kv_page_manager.PagePool``.  The translation cost meter
+counts the PTE lines a rebuild touches with its own numpy line counters
+(``repro_torch.sim.cost_model``), at the granularity set here.
 """
 from __future__ import annotations
 
@@ -22,6 +22,12 @@ import torch
 
 FLAT = "paged_flat"
 RADIX = "paged_radix"
+#: int32 table entries per 64B cache line: the granularity the cost
+#: meter counts touched PTE lines at
+PTE_PER_LINE = 16
+#: 16B (base, limit, target) range descriptors per 64B line: the
+#: segment organization's packing
+RANGES_PER_LINE = 4
 #: pages per radix leaf table; it must divide a table's max_pages
 LEAF_SIZE = 16
 

@@ -26,41 +26,81 @@ from repro_torch.core import block_table as BT
 # host-side allocator (the "OS")
 # ---------------------------------------------------------------------------
 class PagePool:
-    """Free-list allocator over a fixed pool of physical KV pages.
+    """Refcounted free-list allocator over a fixed pool of physical KV
+    pages (a copy of the JAX package's).
 
-    The JAX package's pool is refcounted for the fleet path's prefix
-    sharing; the port has no sharing yet, so a page is either free or
-    held by one sequence.  Freed pages return to the free list in
-    ascending order, as there, so both hand out the same page ids.
+    Pages come out of :meth:`allocate` with refcount 1; prefix-sharing
+    sequences take additional references via :meth:`share` and every
+    holder calls :meth:`release` — the page returns to the free list
+    only when the LAST reference drops, so evicting one sharer can
+    never free a page another live sequence still maps.  Freed pages
+    return to the free list in ascending order, so both packages hand
+    out the same page ids.
+
+    The ``*_array`` variants are the fleet path: one numpy round-trip
+    for a whole batch of pages instead of a per-page Python loop.
     """
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
-        self._live = np.zeros(num_pages, bool)
+        self._ref = np.zeros(num_pages, np.int32)
 
     @property
     def free_pages(self) -> int:
         return len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
 
     def allocate(self, n: int) -> List[int]:
         if n > len(self._free):
             raise MemoryError(
                 f"KV pool exhausted: want {n}, have {len(self._free)}")
         out = [self._free.pop() for _ in range(n)]
-        self._live[out] = True
+        self._ref[out] = 1
         return out
 
+    def share(self, pages: List[int]) -> None:
+        """Take one additional reference on each (already-allocated)
+        page — the prefix-sharing admission path."""
+        self._ref[list(pages)] += 1
+
     def release(self, pages: List[int]) -> None:
-        """Return held pages to the free list; a page that is not held,
-        or is named twice, is a double free."""
-        uniq, count = np.unique(np.asarray(list(pages), np.int64),
-                                return_counts=True)
-        bad = uniq[(count > 1) | ~self._live[uniq]]
-        if bad.size:
+        """Drop one reference per page; pages reaching refcount 0 go
+        back to the free list."""
+        self.release_array(np.asarray(list(pages), np.int64))
+
+    # -- batched (fleet) variants -------------------------------------------
+    def allocate_array(self, n: int) -> np.ndarray:
+        """Allocate ``n`` pages as one int32 array (refcount 1 each)."""
+        if n > len(self._free):
+            raise MemoryError(
+                f"KV pool exhausted: want {n}, have {len(self._free)}")
+        if n == 0:
+            return np.empty(0, np.int32)
+        out = np.asarray(self._free[-n:], np.int32)[::-1].copy()
+        del self._free[-n:]
+        self._ref[out] = 1
+        return out
+
+    def share_array(self, pages: np.ndarray) -> None:
+        np.add.at(self._ref, np.asarray(pages, np.int64), 1)
+
+    def release_array(self, pages: np.ndarray) -> None:
+        """Vectorized :meth:`release`: handles one batch containing the
+        same shared page several times (several retiring sharers).  A
+        page dropped below refcount 0 is a double free."""
+        pages = np.asarray(pages, np.int64)
+        if pages.size == 0:
+            return
+        np.add.at(self._ref, pages, -1)
+        uniq = np.unique(pages)
+        if (self._ref[uniq] < 0).any():
+            bad = uniq[self._ref[uniq] < 0]
             raise ValueError(f"double free of pages {bad.tolist()}")
-        self._live[uniq] = False
-        self._free.extend(int(p) for p in uniq)
+        freed = uniq[self._ref[uniq] == 0]
+        self._free.extend(int(p) for p in freed)
 
 
 class KVPageManager:
@@ -88,12 +128,27 @@ class KVPageManager:
                       "flattens": 0, "table_rebuilds": 0}
 
     # -- sequence lifecycle -------------------------------------------------
-    def add_sequence(self, seq_id: int, prompt_len: int) -> None:
-        """Map ``prompt_len`` tokens for ``seq_id``."""
+    def add_sequence(self, seq_id: int, prompt_len: int,
+                     shared_pages: Optional[List[int]] = None) -> None:
+        """Map ``prompt_len`` tokens for ``seq_id``.  ``shared_pages``
+        (prefix sharing) seeds the first logical pages from an
+        already-live prefix: the pool takes an extra reference on each
+        instead of allocating, so sharers hold the same physical pages
+        and :meth:`free_sequence` of one sharer never frees them out
+        from under another."""
         n = -(-max(prompt_len, 1) // self.page_size)
-        self.pages[seq_id] = self.pool.allocate(n)
+        shared = list(shared_pages or [])[:n]
+        if shared:
+            self.pool.share(shared)
+        try:
+            fresh = self.pool.allocate(n - len(shared))
+        except MemoryError:
+            if shared:                    # unwind the references we took
+                self.pool.release(shared)
+            raise
+        self.pages[seq_id] = shared + fresh
         self.lengths[seq_id] = prompt_len
-        self.stats["allocated_pages"] += n
+        self.stats["allocated_pages"] += n - len(shared)
 
     def append_token(self, seq_id: int) -> None:
         """Grow mapping by one token; allocate a page on boundary cross."""

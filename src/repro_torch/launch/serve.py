@@ -9,6 +9,15 @@ each) with random weights from ``--seed`` in the config's dtype (bf16).
 Reduced run on the CPU (smoke config in float32, plain PyTorch path):
   python -m repro_torch.launch.serve --local-smoke --device cpu
 
+Translation-costed serving: ``--cost-model pinned`` prices every step
+with the committed cost table, ``--cost-model sweep`` derives the table
+through the simulator on the launcher's device (memoized in the port's
+trace cache; ``SIM_TRACE_CACHE=0`` turns the cache off, so the table is
+derived afresh).  The run then prints the SIMULATED machine's tokens/s
+per mechanism beside the card's wall tokens/s:
+  python -m repro_torch.launch.serve --local-smoke --device cpu \
+      --cost-model pinned
+
 Without ``--device cpu`` the launcher needs a card and raises otherwise.
 """
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from repro_torch import config as C
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServeEngine
+from repro_torch.sim.cost_model import TranslationCostModel
 from repro_torch.util.device import resolve_device
 from repro_torch.util.profile import print_profile
 
@@ -48,6 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--local-smoke", action="store_true",
                     help="reduced config in float32 (use with --device cpu)")
+    ap.add_argument("--cost-model", choices=["pinned", "sweep"],
+                    help="price every step's translations under the "
+                         "paper's mechanisms: the committed table, or one "
+                         "derived through the simulator on --device")
     ap.add_argument("--profile", action="store_true",
                     help="trace the run with torch.profiler and print the "
                          "time by operator (use few --requests)")
@@ -64,10 +78,18 @@ def make_requests(n: int, vocab: int, prompt_range, new_tokens: int,
 
 
 def serve(args: argparse.Namespace) -> Dict:
-    """Build the model and engine, serve the requests, and return the
-    engine, the finished requests and the wall-clock seconds of the run
-    (model build excluded)."""
+    """Build the model and engine (and the cost table with
+    ``--cost-model``), serve the requests, and return the engine, the
+    finished requests, the cost model and the wall-clock seconds of the
+    run (model build and cost derivation excluded) and of the cost
+    derivation."""
     device = resolve_device(args.device)
+    cost_model, cost_seconds = None, 0.0
+    if args.cost_model:
+        t0 = time.perf_counter()
+        cost_model = TranslationCostModel.for_machine(
+            source=args.cost_model, device=device)
+        cost_seconds = time.perf_counter() - t0
     cfg = C.get_arch(args.arch)
     shape = FULL
     if args.local_smoke:
@@ -79,7 +101,7 @@ def serve(args: argparse.Namespace) -> Dict:
     eng = ServeEngine(cfg, params, max_batch=shape["max_batch"],
                       max_len=shape["max_len"],
                       page_size=shape["page_size"], table_mode=mode,
-                      device=device)
+                      cost_model=cost_model, device=device)
     for req in make_requests(args.requests, cfg.vocab_size, shape["prompt"],
                              shape["new_tokens"], args.seed):
         eng.submit(req)
@@ -93,7 +115,8 @@ def serve(args: argparse.Namespace) -> Dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     return {"cfg": cfg, "engine": eng, "done": done,
-            "seconds": time.perf_counter() - t0, "profile": prof}
+            "seconds": time.perf_counter() - t0, "profile": prof,
+            "cost_model": cost_model, "cost_seconds": cost_seconds}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
@@ -106,6 +129,21 @@ def main(argv: Optional[List[str]] = None) -> Dict:
           f"{out['seconds']:.3f} s ({tokens / out['seconds']:.1f} tokens/s); "
           f"scheduler={eng.sched.stats}; "
           f"tcache={eng.sched.tcache.hit_rate:.2%}")
+    model = out["cost_model"]
+    if model is not None:
+        rep = eng.throughput()
+        print(f"cost model: {model.source} table of {model.machine} "
+              f"({out['cost_seconds']:.3f} s); simulated machine at "
+              f"{model.freq_ghz} GHz, {model.model_cycles_per_token:g} "
+              f"model cycles/token; {rep['tokens']} priced tokens in "
+              f"{rep['steps']} steps, tcache hits {rep['tcache_hits']}, "
+              f"misses {rep['tcache_misses']}")
+        for m in model.mechs:
+            print(f"  {m:>9}: simulated {rep['tokens_per_sec'][m]:.1f} "
+                  f"tokens/s, {rep['translation_cycles'][m]:.1f} "
+                  f"translation cycles")
+        print(f"  wall clock on {eng.device}: "
+              f"{tokens / out['seconds']:.1f} tokens/s")
     if out["profile"] is not None:
         print_profile(out["profile"], out["seconds"])
     return out

@@ -12,12 +12,18 @@ On the card every attention layer of every step runs the hand-written
 paged-attention kernel.  The greedy argmax is taken on the device, so a
 step copies B token ids to the host, not the (B, vocab) logits.
 
-Translation-costed serving (``cost_model=``) needs the simulator slice's
-cost model and is not ported yet.
+Translation-costed mode: pass ``cost_model`` (a
+:class:`repro_torch.sim.cost_model.TranslationCostModel`) and every
+scheduler step is priced under ALL simulated mechanisms at once — cache
+hits at TLB-hit cost, misses at each mechanism's walk cost plus the
+touched-PTE-line surcharge of the rebuilt row.  ONE decode loop serves
+every mechanism; :meth:`ServeEngine.throughput` then reports the
+SIMULATED machine's tokens/sec per mechanism (numpy host accounting,
+equal to the JAX package's), not the card's wall clock.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,10 +50,6 @@ class ServeEngine:
                  max_len: int = 256, page_size: int = 16,
                  table_mode: Optional[str] = None, cost_model=None,
                  device: DeviceLike = "cuda"):
-        if cost_model is not None:
-            raise NotImplementedError(
-                "translation-costed serving needs the TranslationMeter of "
-                "sim/cost_model.py, which comes with the simulator slice")
         self.device = resolve_device(device)
         _on_device(params, self.device)
         self.cfg = cfg
@@ -55,8 +57,13 @@ class ServeEngine:
         max_pages_total = max_batch * (-(-max_len // page_size)) + 8
         self.kvm = KVPageManager(max_pages_total, page_size, max_batch,
                                  max_len, device=self.device)
+        self.meter = None
+        if cost_model is not None:
+            from repro_torch.sim.cost_model import TranslationMeter
+            self.meter = TranslationMeter(cost_model)
         self.sched = BatchScheduler(self.kvm, max_batch,
-                                    table_mode=table_mode, meter=None)
+                                    table_mode=table_mode,
+                                    meter=self.meter)
         self.max_batch = max_batch
         # the device KV pools must cover every physical page id the host
         # allocator can hand out
@@ -92,6 +99,24 @@ class ServeEngine:
                 continue
             finished.extend(self._engine_step())
         return finished
+
+    def throughput(self) -> Dict:
+        """Per-mechanism serving report (requires ``cost_model``): the
+        simulated tokens/sec, accumulated translation cycles, the
+        PER-STEP budget (mean/max over the meter's retained step
+        window), and the hit/miss tallies — one decode run priced under
+        every mechanism."""
+        if self.meter is None:
+            raise ValueError("ServeEngine was built without a cost_model;"
+                             " pass cost_model= to enable throughput()")
+        m = self.meter
+        return {
+            "tokens_per_sec": m.tokens_per_sec(),
+            "translation_cycles": m.translation_cycles(),
+            "per_step_cycles": m.per_step_cycles(),
+            "tokens": m.tokens, "steps": m.steps,
+            "tcache_hits": m.hits, "tcache_misses": m.misses,
+        }
 
     # -- internals ------------------------------------------------------------
     def _engine_step(self) -> List[Request]:

@@ -9,9 +9,14 @@ sparse/prefix-shared mappings).  Table rows are memoized in the
 TranslationCache (the PWC analogue) keyed by (seq, version); the cache
 owns the version counters (bumped on mapping growth and on invalidate).
 
-Host-side numpy, copied from ``repro.serving._scheduler``.  The
-``meter`` hook (a translation cost meter that prices every step) stays
-``None`` until the port has the cost model of the simulator slice.
+When the engine runs translation-costed (a
+:class:`repro_torch.sim.cost_model.TranslationMeter` is attached), every
+``step_tables`` call also prices the step: a cache hit costs the
+mechanism's TLB-hit cycles, a miss its walk plus the touched-PTE-line
+surcharge of the rebuilt row — for ALL mechanisms at once.  The meter
+only observes: it never changes what is scheduled.
+
+Host-side numpy, copied from ``repro.serving._scheduler``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,12 @@ class Request:
     deadline_steps: Optional[int] = None
     #: preemptions tolerated before the request is shed for good
     max_retries: int = 3
+    #: prefix-sharing identity (fleet path): requests carrying the same
+    #: ``prefix_id`` share their first ``prefix_len`` prompt tokens (a
+    #: common system prompt) and the fleet scheduler maps the
+    #: fully-covered pages of that head to ONE refcounted allocation
+    prefix_id: Optional[int] = None
+    prefix_len: int = 0
     # -- runtime bookkeeping (scheduler-owned) -------------------------------
     retries: int = 0
     submit_tick: int = -1
@@ -50,16 +61,21 @@ class Request:
     @classmethod
     def build(cls, req_id: int, prompt, *, max_new_tokens: int = 32,
               priority: int = 0, deadline_steps: Optional[int] = None,
-              max_retries: int = 3) -> "Request":
+              max_retries: int = 3, prefix_id: Optional[int] = None,
+              prefix_len: int = 0) -> "Request":
         """The public constructor: exactly the caller-owned fields,
         keyword-only.  Runtime bookkeeping (``submit_tick``,
         ``admit_seq``, ``retries``, ``not_before``, ``failed``) belongs
         to the scheduler — callers building requests this way can never
         poke it."""
+        if prefix_id is not None and not (0 <= prefix_len <= len(prompt)):
+            raise ValueError(
+                f"prefix_len {prefix_len} outside prompt of {len(prompt)}")
         return cls(req_id=req_id,
                    prompt=np.asarray(prompt, np.int32),
                    max_new_tokens=max_new_tokens, priority=priority,
-                   deadline_steps=deadline_steps, max_retries=max_retries)
+                   deadline_steps=deadline_steps, max_retries=max_retries,
+                   prefix_id=prefix_id, prefix_len=prefix_len)
 
     @property
     def done(self) -> bool:
@@ -93,8 +109,8 @@ class BatchScheduler:
         self.free_slots = list(range(max_batch - 1, -1, -1))
         self.table_mode = table_mode          # None = occupancy-driven
         self.tcache = TranslationCache(capacity=4 * max_batch)
-        #: optional translation cost meter (None until the port has
-        #: the simulator slice's cost model)
+        #: optional repro_torch.sim.cost_model.TranslationMeter — when
+        #: set, every step's lookups are priced under all mechanisms
         self.meter = meter
         self.stats = {"admitted": 0, "completed": 0, "preempted": 0,
                       "shed": 0, "deadline_dropped": 0, "resumed": 0,

@@ -10,15 +10,19 @@ or banked DRAM with per-bank open rows; the standalone LRU model
 translation mechanisms (:mod:`repro_torch.sim.mechanisms`), evaluated
 together along a mechanism axis — the paper's five by default; the
 sensitivity-sweep engine (:func:`sweep`, :func:`run_bucketed`) and the
-design-space search (:func:`search`), both on the same two kernels.  The
-JAX package's cost model and costed serving are not ported yet (ROADMAP
-module item 6).
+design-space search (:func:`search`), both on the same two kernels; and
+the translation cost model (:class:`TranslationCostModel`, derived
+through the same kernels, and the serving-side
+:class:`TranslationMeter`).
 
 This facade is the public import surface of the simulator layer; the
 sweep and search modules are private (``_sweep`` / ``_search``), and the
 ``repro_torch.sim.sweep`` / ``repro_torch.sim.search`` paths are shims
 that warn on import (``python -m repro_torch.sim.search`` runs the CLI).
 """
+from repro_torch.sim.cost_model import (LookupCost,  # noqa: F401
+                                        TranslationCostModel,
+                                        TranslationMeter)
 from repro_torch.sim.mechanisms import (DEFAULT_MECHS, MechanismSpec,  # noqa: F401
                                         register)
 from repro_torch.sim.memory_model import (MEMORY_MODELS,  # noqa: F401

@@ -171,3 +171,63 @@ def test_translation_cache_matches():
             seen.append(cache.version(sid))
         trace.append((seen, cache.hits, cache.misses, cache.hit_rate))
     assert trace[0] == trace[1]
+
+
+# ---------------------------------------------------------------------------
+# the refcounted pool and prefix-shared sequences
+# ---------------------------------------------------------------------------
+def test_refcounted_pool_matches():
+    """share / release / the *_array variants (repeated pages in one
+    release) keep the same refcounts and free-list order as the JAX
+    pool."""
+    trace = []
+    for mod in (JKVM, KVM):
+        pool, seen = mod.PagePool(12), []
+        a = pool.allocate(3)
+        b = pool.allocate_array(4)
+        pool.share(a[:2])
+        pool.share_array(np.array([b[0], b[0], b[1]]))
+        seen.append([pool.refcount(p) for p in range(12)])
+        pool.release_array(np.array([b[0], b[0], a[0]]))   # repeats
+        seen.append([pool.refcount(p) for p in range(12)])
+        pool.release(a)
+        pool.release_array(b)
+        seen.append([pool.refcount(p) for p in range(12)])
+        seen.append(pool.free_pages)
+        seen.append(pool.allocate_array(6).tolist())
+        seen.append(pool.allocate(2))
+        assert pool.allocate_array(0).shape == (0,)
+        with pytest.raises(MemoryError):
+            pool.allocate_array(12)
+        with pytest.raises(ValueError, match="double free"):
+            pool.release_array(np.array([11, 11]))
+        trace.append(seen)
+    assert trace[0] == trace[1]
+
+
+def _shared_lifecycle(mod, **kw):
+    kvm = mod.KVPageManager(num_pages=10, page_size=4, max_seqs=4,
+                            max_len=32, **kw)
+    out = []
+    kvm.add_sequence(1, prompt_len=12)                  # 3 pages
+    kvm.add_sequence(2, prompt_len=10, shared_pages=kvm.pages[1][:2])
+    out.append([kvm.pool.refcount(p) for p in range(10)])
+    with pytest.raises(MemoryError):                     # unwinds shares
+        kvm.add_sequence(3, prompt_len=40, shared_pages=kvm.pages[1][:2])
+    out.append([kvm.pool.refcount(p) for p in range(10)])
+    kvm.free_sequence(1)                                 # a sharer evicted
+    out.append([kvm.pool.refcount(p) for p in range(10)])
+    out.append(list(kvm.pages[2]))
+    out.append(kvm.pool.free_pages)
+    kvm.free_sequence(2)
+    out += [kvm.pool.free_pages, dict(kvm.stats)]
+    return out
+
+
+def test_shared_pages_survive_a_sharers_eviction():
+    want = _shared_lifecycle(JKVM)
+    got = _shared_lifecycle(KVM, device="cpu")
+    assert got == want
+    # sharer 2 still maps the two shared pages after 1 is freed
+    assert got[2][got[3][0]] == 1 and got[2][got[3][1]] == 1
+    assert got[5] == 10

@@ -19,6 +19,7 @@ from repro_torch.core import block_table as BT
 from repro_torch.launch import serve as SERVE
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import Request, ServeEngine, greedy_reference
+from repro_torch.sim.cost_model import TranslationCostModel
 from repro_torch.util import resilience
 
 JCFG = dataclasses.replace(jsmoke(jget_arch("internlm2-1.8b")),
@@ -155,9 +156,18 @@ def test_slots_and_pages_are_recycled():
     assert eng.kvm.pool.free_pages == eng.kvm.pool.num_pages - 1  # scratch
 
 
-def test_cost_model_waits_for_the_simulator_slice():
-    with pytest.raises(NotImplementedError, match="simulator slice"):
-        ServeEngine(CFG, MODEL, cost_model=object(), device="cpu")
+def test_cost_model_serves_the_five_mechanisms():
+    """``cost_model=`` is ported now: a costed engine serves and
+    ``throughput()`` reports the paper's five mechanisms."""
+    eng = ServeEngine(CFG, MODEL, cost_model=TranslationCostModel.pinned(),
+                      **ENGINE, device="cpu")
+    for i, p in enumerate(_prompts(3, seed=8)):
+        eng.submit(Request.build(i, p, max_new_tokens=3))
+    assert len(eng.run()) == 3
+    rep = eng.throughput()
+    assert tuple(rep["tokens_per_sec"]) == (
+        "radix", "ech", "hugepage", "ndpage", "ideal")
+    assert rep["tcache_hits"] + rep["tcache_misses"] == rep["tokens"] > 0
 
 
 def test_default_device_raises_without_a_card():
