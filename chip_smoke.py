@@ -11,8 +11,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      pass) against its plain PyTorch version on the card, at the serving
      path's shapes, with its time, the plain version's, a PyTorch library
      yardstick's and the least time the card could take; the split plan
-     (pages a split, splits, blocks) at the serve, costed-mix (page 8)
-     and B 8 shapes, and every split size held and timed there;
+     (pages a split, splits, blocks, shared memory) at the serve,
+     costed-mix (page 8) and B 8 shapes, and every split size held and
+     timed there; the same at the dense attention variants' decode
+     shapes (gemma3-1b: D 256, 4 / 1 heads, window 512, lengths on both
+     sides of it, pages 16 and 64, where shared memory bounds the split
+     size; granite-34b: 48 query heads on one KV head; granite-moe: D 64,
+     16 / 8), float32 and bf16, at every split size the card's shared
+     memory allows;
   4. full-width internlm2-1.8b (bf16, random weights from a seed) served
      through the port's launcher: 8 requests, 32 new tokens each, every
      attention layer of every step through the paged-attention kernel;
@@ -27,9 +33,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      backward against autograd of the plain forward) at the training
      shape and at window, non-causal, MQA and ragged cases, and in
      float32 at head_dim 36 from unaligned rows (head_dim padding and
-     4-byte copies); each route timed at its own path's shape with the
-     same four times and the achieved TFLOP/s; the sm90 backward run
-     twice and held bit-identical;
+     4-byte copies); in bf16 at head_dim 256 (the d256 mma.sync kernels)
+     at gemma3-1b's training shape (B 2, S 4,096, 4 / 1 heads, causal,
+     window 512 and none), a ragged windowed and a non-causal case; each
+     route timed at its own path's shape with the same four times and
+     the achieved TFLOP/s (d256 also with the window); the sm90 and d256
+     backwards run twice and held bit-identical;
   7. full-width internlm2-1.8b trained through the port's launcher: 3
      steps of 8 x 4,096 tokens in 4 microbatches, every attention layer
      through the sm90 flash kernels (forward twice a step per layer and
@@ -120,7 +129,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         surrogate decode on the card; the shared run again on the CPU
         (identical tokens, stats and meter totals); the CUDA kernels a
         decode step launches;
- 11. one JSON line describing every kernel, then the final ``ok`` line.
+ 11. the dense attention variants:
+     a. full-width gemma3-1b (26 layers, vocab 262,144, bf16, random
+        weights from a seed) served through the launcher at its
+        window-crossing shape (prompts of 520-640 tokens, max_len 768,
+        page 16), 4 requests in the flat and the radix table mode:
+        paged launches 26 x steps, every request complete, tokens in
+        range and equal across the two modes;
+     b. gemma3 in float32 at 8 layers (both prefix layers, five local,
+        one global), prompts past the window: engine streams equal
+        greedy_reference's in every table mode, card logits vs CPU 1e-3;
+     c. full-width gemma3-1b trained through the launcher at train_4k
+        (8 x 4,096 tokens in 4 microbatches, 3 steps): finite losses,
+        every attention layer through the d256 flash kernels, peak
+        memory;
+     d. phi3-medium-14b and granite-34b (4 layers each at full width)
+        decode 4 requests through the paged kernel; internvl2-76b (2
+        layers at full width) one train forward with 256 stub vision
+        tokens;
+ 12. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -158,7 +185,8 @@ from repro_torch.kernels import sim_epilogue as SE  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
-from repro_torch.models import init_params, prefill  # noqa: E402
+from repro_torch.models import (forward_train, init_params,  # noqa: E402
+                                prefill)
 from repro_torch.serving import (FleetEngine, Request,  # noqa: E402
                                  ServeEngine, greedy_reference)
 from repro_torch.serving import fleet as FLEET  # noqa: E402
@@ -395,6 +423,9 @@ def phase_kernel():
                lengths=[6, 19, 40, 43], seed=6)
     cases["mix_f32"] = paged_case(**mix, dtype=torch.float32)
     cases["mix_bf16"] = paged_case(**mix, dtype=torch.bfloat16)
+    for name, shape in VARIANT_PAGED.items():
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            cases[f"{name}_{tag}"] = paged_case(**shape, dtype=dt)
     results = {}
     for name, case in cases.items():
         got = run(PA.paged_attention_cuda, case)
@@ -425,14 +456,16 @@ def phase_kernel():
     for line in ptxas_lines("paged_attention", ("paged_split_kernel",
                                                 "paged_combine_kernel")):
         print(f"  paged_attention ptxas: {line}")
-    for name in ("serve_bf16", "mix_bf16", "b8_bf16"):
+    variants = [f"{n}_{t}" for n in VARIANT_PAGED for t in ("bf16", "f32")]
+    for name in ("serve_bf16", "mix_bf16", "b8_bf16", *variants):
         q, kp, _, table, _ = cases[name]["args"]
-        pps, n_splits, blocks = PA.split_plan(q.shape[0], kp.shape[2],
-                                              table.shape[1])
+        pps, n_splits, blocks = PA.call_plan(q, kp, table)
         combine = q.shape[0] * q.shape[2] if n_splits > 1 else 0
+        smem = PA.split_smem_bytes(q.shape[2] // kp.shape[2], q.shape[3],
+                                   kp.shape[1], kp.element_size(), pps)
         print(f"paged_attention {name} split plan: {pps} pages a split, "
               f"{n_splits} splits, {blocks} split blocks + {combine} "
-              f"combine blocks")
+              f"combine blocks, {smem} bytes of shared memory a block")
     # every split size the kernel takes, against the plain version, and
     # timed: the data behind PAGES_PER_SPLIT (not on the main path, so
     # these launches are not counted)
@@ -450,6 +483,27 @@ def phase_kernel():
             print(f"paged_attention {name} at {pps} pages a split: "
                   f"max_abs_err {err:.3e}, {time_cold_ms(fn, 100):.4f} ms "
                   f"(L2 flushed)")
+    # the variants' shapes at every split size their shared memory allows
+    # (gemma3 at page 64 in bf16: 3, where the unbounded plan's 4 would
+    # be refused), held as above; float32 to TOL
+    for name in variants:
+        case = cases[name]
+        q, kp, _, table, _ = case["args"]
+        top = PA.max_pages_per_split(q.shape[2] // kp.shape[2], q.shape[3],
+                                     kp.shape[1], kp.element_size())
+        want = run(ref.paged_attention_ref, case)
+        errs = []
+        for pps in range(1, top + 1):
+            got = PA._launch(*case["args"], case["window"], pps)
+            diff = (got.float() - want.float()).abs()
+            mag = want.float().abs()
+            ok = (within_tight(name, diff, mag) if q.dtype == torch.bfloat16
+                  else bool((diff <= TOL[q.dtype] * (1 + mag)).all()))
+            check(ok, f"paged_attention {name} at {pps} pages a split: "
+                      f"max_abs_err {float(diff.max())}")
+            errs.append(f"{float(diff.max()):.3e}")
+        print(f"paged_attention {name} at 1..{top} pages a split: "
+              f"max_abs_err {', '.join(errs)}")
 
     lib = run(library_paged_attention, cases["serve_bf16"])
     want = run(ref.paged_attention_ref, cases["serve_bf16"])
@@ -457,7 +511,8 @@ def phase_kernel():
           f"{float((lib.float() - want.float()).abs().max()):.3e}")
 
     timed = {}
-    for name in ("serve_bf16", "b8_bf16", "b8_f32"):
+    for name in ("serve_bf16", "b8_bf16", "b8_f32", "gemma3_p16_bf16",
+                 "granite34b_bf16"):
         case = cases[name]
         ms = time_cold_ms(lambda: run(PA.paged_attention_cuda, case), 200)
         plain_ms = time_cold_ms(lambda: run(ref.paged_attention_ref, case),
@@ -474,6 +529,26 @@ def phase_kernel():
               f"{timed[name]['attended_tokens']} attended tokens), "
               f"{bound_ms / ms:.1%} of bound")
     return results, timed
+
+
+#: the decode shapes of the dense attention variants (phase 3): gemma3-1b
+#: (D 256, 4 / 1 heads, window 512) at its serve shape (max_batch 4,
+#: max_len 768 / page 16) and at page 64 (the default page, where the
+#: shared memory bounds the split plan), lengths on both sides of the
+#: window; granite-34b (MQA: 48 query heads on one KV head) and
+#: granite-moe (D 64, 16 / 8) at the serve shape's pages
+_GEMMA_LENS = [300, 511, 513, 700]
+_SERVE_LENS = [72, 150, 220, 288]
+VARIANT_PAGED = {
+    "gemma3_p16": dict(b=4, h=4, kh=1, d=256, page=16, maxp=48, n=200,
+                       lengths=_GEMMA_LENS, window=512, seed=7),
+    "gemma3_p64": dict(b=4, h=4, kh=1, d=256, page=64, maxp=12, n=56,
+                       lengths=_GEMMA_LENS, window=512, seed=8),
+    "granite34b": dict(b=4, h=48, kh=1, d=128, page=16, maxp=32, n=136,
+                       lengths=_SERVE_LENS, seed=9),
+    "granite_moe": dict(b=4, h=16, kh=8, d=64, page=16, maxp=32, n=136,
+                        lengths=_SERVE_LENS, seed=10),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -561,12 +636,17 @@ def phase_parity():
 TRAIN_ATTN = dict(b=2, s=4096, h=16, kh=8, d=128, causal=True, window=0)
 #: phase 8's attention call (float32, the simt route's path)
 PARITY_ATTN = dict(TRAIN_ATTN, b=1, s=3072)
+#: gemma3-1b's training attention (phase 11c, the d256 route): a global
+#: layer; its 22 local layers add window=512
+GEMMA_ATTN = dict(b=2, s=4096, h=4, kh=1, d=256, causal=True, window=0)
 #: each route is timed at its own path's shape and dtype
 ROUTE_CASES = {"sm90": (TRAIN_ATTN, torch.bfloat16),
-               "simt": (PARITY_ATTN, torch.float32)}
+               "simt": (PARITY_ATTN, torch.float32),
+               "d256": (GEMMA_ATTN, torch.bfloat16)}
 _CSRC = "src/repro_torch/kernels/csrc"
 FLASH_SOURCES = {"sm90": f"{_CSRC}/flash_attention_sm90.cu",
-                 "simt": f"{_CSRC}/flash_attention.cu"}
+                 "simt": f"{_CSRC}/flash_attention.cu",
+                 "d256": f"{_CSRC}/flash_attention_d256.cu"}
 
 
 def flash_case(*, b, s, h, kh, d, causal, window, dtype, seed,
@@ -682,6 +762,12 @@ def within(got, want, tol: float) -> bool:
     return bool((err <= tol + tol * want.float().abs()).all())
 
 
+def route_launches() -> dict:
+    """(forward, backward) launches so far of the routes counted apart."""
+    return {"sm90": (FA.launches_sm90_fwd, FA.launches_sm90_bwd),
+            "d256": (FA.launches_d256_fwd, FA.launches_d256_bwd)}
+
+
 def phase_flash():
     for direction, design in FA.simt_design().items():
         print(f"flash_attention simt {direction} design: {design}")
@@ -706,20 +792,31 @@ def phase_flash():
     # 64 inside the kernel, rows 4 bytes off 16-byte alignment
     f32_only = {"d36": dict(b=2, s=777, h=6, kh=3, d=36, causal=True,
                             window=100, unaligned=True)}
+    # bf16 only (float32 has no kernel at head_dim 256): the d256 route at
+    # gemma3's training shape, its local (window 512) and global layers,
+    # and at a ragged S with a window and without the causal mask
+    d256_only = {
+        "gemma3_local": dict(GEMMA_ATTN, window=512),
+        "gemma3_global": GEMMA_ATTN,
+        "d256_ragged": dict(GEMMA_ATTN, b=1, s=1000, h=8, kh=2, window=100),
+        "d256_noncausal": dict(GEMMA_ATTN, b=1, s=777, causal=False),
+    }
     results = {}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        cases = shapes if dt == torch.bfloat16 else {**shapes, **f32_only}
+        cases = ({**shapes, **d256_only} if dt == torch.bfloat16
+                 else {**shapes, **f32_only})
         for i, (name, shape) in enumerate(cases.items()):
             case = flash_case(**shape, dtype=dt, seed=10 + i)
             route = FA._route(dt, shape["d"])
-            before = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
+            before = route_launches()
             o, lse = flash_fwd("kernel", case)
             ro, rlse = flash_fwd("plain", case)
             grads = flash_bwd("kernel", case, o, lse)
-            sm90 = (FA.launches_sm90_fwd - before[0],
-                    FA.launches_sm90_bwd - before[1])
-            check(sm90 == ((1, 1) if route == "sm90" else (0, 0)),
-                  f"{name}_{tag}: sm90 launches {sm90} on the {route} route")
+            after = route_launches()
+            got = {r: (after[r][0] - before[r][0], after[r][1] - before[r][1])
+                   for r in after}
+            check(got == {r: (1, 1) if r == route else (0, 0) for r in got},
+                  f"{name}_{tag}: launches {got} on the {route} route")
             want = flash_bwd("plain", case, ro, rlse)
             auto = autograd_of_plain(case)
             torch.cuda.synchronize()
@@ -767,12 +864,12 @@ def time_route(route: str) -> dict:
     want = flash_bwd("plain", case, ro, rlse)
     errs = {"fwd": max_err(o, ro),
             "bwd": max(max_err(g, w) for g, w in zip(grads, want))}
-    if route == "sm90":
+    if route in ("sm90", "d256"):
         again = flash_bwd("kernel", case, o, lse)
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        check(same, "two sm90 backward runs on the same inputs differ")
-        print("flash_attention sm90 backward deterministic: two runs give "
-              "bit-identical dq, dk, dv")
+        check(same, f"two {route} backward runs on the same inputs differ")
+        print(f"flash_attention {route} backward deterministic: two runs "
+              f"give bit-identical dq, dk, dv")
         del again
     del grads, want
     lib_fwd, lib_bwd = library_attention(case)
@@ -805,6 +902,19 @@ def time_route(route: str) -> dict:
               f"({bound_by}; {attended_pairs(case)} attended pairs a head), "
               f"{bound_ms / ms:.1%} of bound, {tflops:.1f} TFLOP/s achieved "
               f"({14 if backward else 4}·D an attended pair)")
+    if route == "d256":     # gemma3's 22 local layers: window 512
+        local = dict(case, window=512)
+        lo, llse = flash_fwd("kernel", local)
+        for direction, fn in (
+                ("fwd", lambda: flash_fwd("kernel", local)),
+                ("bwd", lambda: flash_bwd("kernel", local, lo, llse))):
+            ms = time_cold_ms(fn, 10)
+            bound_ms, bound_by = flash_bound(local, direction == "bwd")
+            timed[direction].update(window_ms=ms, window_bound_ms=bound_ms)
+            print(f"flash_attention d256 {direction} {tag} window 512 timing "
+                  f"(L2 flushed): kernel {ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({bound_by}; {attended_pairs(local)} attended pairs "
+                  f"a head), {bound_ms / ms:.1%} of bound")
     return timed
 
 
@@ -903,6 +1013,233 @@ def phase_train_parity():
     del model, cpu_model
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense attention variants (gemma3-1b served and trained)
+# ---------------------------------------------------------------------------
+GEMMA = "gemma3-1b"
+#: 11b: gemma3 float32 at 8 layers (both prefix layers, one period: five
+#: local, one global), prompts past the window of 512; max_len 768 gives
+#: 48 pages, a whole number of the radix table's 16-entry leaves
+GEMMA_PARITY = dict(layers=8, requests=2, prompt=(520, 544), new_tokens=4,
+                    max_batch=2, max_len=768, page_size=16)
+#: 11d: full widths at reduced depth: (arch, layers); phi3-medium-14b and
+#: granite-34b decode, internvl2-76b one train forward
+VARIANT_DEPTHS = (("phi3-medium-14b", 4), ("granite-34b", 4))
+VLM_DEPTH = 2
+
+
+def phase_gemma_serve() -> dict:
+    """11a: full-width gemma3-1b served through the launcher at its
+    window-crossing shape, in the flat and the radix table mode: every
+    attention layer of every step through the paged kernel, 22 of 26 of
+    them windowed; both modes give the same tokens."""
+    launches, tokens = {}, {}
+    for mode in (BT.FLAT, BT.RADIX):
+        args = SERVE.build_parser().parse_args(
+            ["--arch", GEMMA, "--requests", "4", "--kv-mode", mode])
+        torch.cuda.reset_peak_memory_stats()
+        PA.launches = 0
+        out = SERVE.serve(args)
+        n = PA.launches
+        cfg, eng, done = out["cfg"], out["engine"], out["done"]
+        shape = SERVE.full_shape(cfg)
+        steps = eng.sched.stats["steps"]
+        check(len(done) == args.requests,
+              f"{mode}: served {len(done)} of {args.requests} requests")
+        check(all(len(r.generated) == shape["new_tokens"] for r in done),
+              f"{mode}: a request finished without its new tokens")
+        check(all(0 <= t < cfg.vocab_size for r in done
+                  for t in r.generated),
+              f"{mode}: a generated token lies outside the vocabulary")
+        check(all(len(r.prompt) > cfg.window_size for r in done),
+              "a prompt does not cross the window")
+        check(n == cfg.num_layers * steps and n > 0,
+              f"{mode}: paged_attention launches {n} != {cfg.num_layers} "
+              f"layers x {steps} steps")
+        generated = sum(len(r.generated) for r in done)
+        prompts = sum(len(r.prompt) for r in done)
+        secs = out["seconds"]
+        print(f"serve {cfg.name} {mode} ({cfg.param_count() / 1e9:.2f} B "
+              f"params, {cfg.dtype}, window {cfg.window_size}, max_len "
+              f"{shape['max_len']}): {len(done)} requests, {prompts} prompt "
+              f"+ {generated} generated tokens in {steps} steps, "
+              f"{secs:.3f} s; {generated / secs:.1f} generated tokens/s, "
+              f"{(prompts + generated) / secs:.1f} tokens/s in all; "
+              f"{secs / steps * 1e3:.3f} ms/step; "
+              f"paged_attention launches {n}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches[mode] = n
+        tokens[mode] = {r.req_id: list(r.generated) for r in done}
+        del out, eng
+        torch.cuda.empty_cache()
+    check(tokens[BT.FLAT] == tokens[BT.RADIX],
+          "gemma3 flat and radix tables generated different tokens")
+    print("serve gemma3-1b: flat and radix tables generate the same tokens")
+    return launches
+
+
+def phase_gemma_parity() -> None:
+    """11b: gemma3 in float32 at 8 layers, prompts past the window:
+    ServeEngine's streams equal greedy_reference's in every table mode,
+    and the card's logits agree with the CPU's plain path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = GEMMA_PARITY
+    cfg = dataclasses.replace(C.get_arch(GEMMA), num_layers=p["layers"],
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = init_params(cfg, gen, "cuda")
+    shape = dict(max_batch=p["max_batch"], max_len=p["max_len"],
+                 page_size=p["page_size"], device="cuda")
+
+    def requests():
+        return SERVE.make_requests(p["requests"], cfg.vocab_size,
+                                   p["prompt"], p["new_tokens"], seed=3)
+
+    want = {r.req_id: greedy_reference(
+        cfg, model, r.prompt, p["new_tokens"], kv_mode=BT.FLAT,
+        max_len=p["max_len"], page_size=p["page_size"], device="cuda")
+        for r in requests()}
+    for mode in (None, BT.FLAT, BT.RADIX):
+        eng = ServeEngine(cfg, model, table_mode=mode, **shape)
+        for r in requests():
+            eng.submit(r)
+        got = {r.req_id: r.generated for r in eng.run()}
+        check(got == want, f"gemma3 table_mode {mode}: engine {got} != "
+                           f"greedy_reference {want}")
+        print(f"gemma3 parity table_mode={mode}: {len(got)} token streams "
+              f"equal greedy_reference")
+    prompt = torch.tensor(requests()[0].prompt[None])
+    cpu_model = copy.deepcopy(model).cpu()
+    kw = dict(kv_mode=BT.FLAT, max_len=p["max_len"],
+              page_size=p["page_size"])
+    logits_gpu, _ = prefill(model, cfg, prompt.cuda(), **kw)
+    logits_cpu, _ = prefill(cpu_model, cfg, prompt, **kw)
+    diff = float((logits_gpu.cpu() - logits_cpu).abs().max())
+    check(bool(torch.isfinite(logits_gpu).all()), "non-finite logits")
+    check(diff <= LOGIT_TOL, f"gemma3 card vs CPU logits differ by {diff}")
+    print(f"gemma3 parity ({p['layers']} layers, float32, a "
+          f"{prompt.shape[1]}-token prompt) card kernel path vs CPU plain "
+          f"path: logits {tuple(logits_gpu.shape)} max_abs_diff {diff:.3e} "
+          f"(tol {LOGIT_TOL:g})")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def phase_gemma_train() -> tuple:
+    """11c: full-width gemma3-1b trained through the launcher at
+    train_4k, every attention layer through the d256 flash kernels."""
+    ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = TRAIN.build_parser().parse_args(["--arch", GEMMA,
+                                            "--ckpt-dir", ckpt_dir])
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches_fwd = FA.launches_bwd = 0
+    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    FA.launches_d256_fwd = FA.launches_d256_bwd = 0
+    out = TRAIN.train(args)
+    launches = (FA.launches_fwd, FA.launches_bwd)
+    d256 = (FA.launches_d256_fwd, FA.launches_d256_bwd)
+    cfg, hist, shape = out["cfg"], out["history"], out["shape"]
+    micro = out["microbatches"]
+    check(len(hist) == args.steps, f"trained {len(hist)} of {args.steps} "
+                                   "steps")
+    for m in hist:
+        for key in ("loss", "grad_norm"):
+            check(bool(np.isfinite(m[key])) and m[key] != 0,
+                  f"{key} {m[key]} is not finite and nonzero")
+    layers = cfg.num_layers
+    want = (2 * layers * micro * args.steps, layers * micro * args.steps)
+    check(launches == want == d256,
+          f"flash_attention launches (fwd, bwd) {launches}, d256 {d256}, "
+          f"!= {want}: gemma3's training left the d256 route")
+    tokens = shape.global_batch * shape.seq_len
+    secs = [m["seconds"] for m in hist]
+    later = secs[1:] or secs
+    print(f"train {cfg.name} ({cfg.param_count() / 1e9:.2f} B params, "
+          f"{cfg.dtype}, head_dim {cfg.head_dim}, window {cfg.window_size} "
+          f"in 22 of {layers} layers): {args.steps} steps of "
+          f"{shape.global_batch} x {shape.seq_len} tokens in {micro} "
+          f"microbatches; losses {[round(m['loss'], 4) for m in hist]}, "
+          f"grad_norms {[round(m['grad_norm'], 4) for m in hist]}; s/step "
+          f"{[round(x, 3) for x in secs]} (first includes warm-up); "
+          f"{np.mean(later):.3f} s/step and {tokens / np.mean(later):.1f} "
+          f"tokens/s after the first; flash_attention d256 launches fwd "
+          f"{d256[0]}, bwd {d256[1]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del out
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return d256
+
+
+def phase_variants() -> dict:
+    """11d: phi3-medium-14b and granite-34b decode at full width and
+    reduced depth (every layer of every step through the paged kernel:
+    GQA 40 / 10, MQA 48 / 1); internvl2-76b one train forward at reduced
+    depth with its 256 stub vision tokens (flash sm90)."""
+    out = {}
+    for name, layers in VARIANT_DEPTHS:
+        cfg = dataclasses.replace(C.get_arch(name), num_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        model = init_params(cfg, gen, "cuda")
+        eng = ServeEngine(cfg, model, max_batch=4, max_len=512, page_size=16,
+                          device="cuda")
+        for r in SERVE.make_requests(4, cfg.vocab_size, (64, 128), 8, seed=4):
+            eng.submit(r)
+        PA.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = eng.sched.stats["steps"]
+        check(len(done) == 4 and all(len(r.generated) == 8 for r in done),
+              f"{name}: not every request finished with its tokens")
+        check(all(0 <= t < cfg.vocab_size for r in done
+                  for t in r.generated), f"{name}: a token out of range")
+        check(PA.launches == layers * steps and steps > 0,
+              f"{name}: paged_attention launches {PA.launches} != "
+              f"{layers} x {steps}")
+        print(f"decode {name} (full width, {layers} of "
+              f"{C.get_arch(name).num_layers} layers, "
+              f"{cfg.num_heads} / {cfg.num_kv_heads} heads, "
+              f"{cfg.param_count() / 1e9:.2f} B params here): 4 requests, "
+              f"{steps} steps in {secs:.3f} s, {secs / steps * 1e3:.3f} "
+              f"ms/step; paged_attention launches {PA.launches}")
+        out[name] = PA.launches
+        del model, eng
+        torch.cuda.empty_cache()
+    name = "internvl2-76b"
+    cfg = dataclasses.replace(C.get_arch(name), num_layers=VLM_DEPTH)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = init_params(cfg, gen, "cuda")
+    raw = DATA.add_modality_stubs(
+        DATA.SyntheticLM(cfg.vocab_size, 4096, 1).batch_at(0), cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    FA.launches_sm90_fwd = 0
+    with torch.no_grad():
+        logits, _ = forward_train(model, cfg, batch)
+        loss, _ = loss_fn(model, cfg, batch)
+    want = (1, cfg.vision_tokens + 4096, cfg.vocab_size)
+    check(tuple(logits.shape) == want, f"{name}: logits "
+                                       f"{tuple(logits.shape)} != {want}")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss)),
+          f"{name}: non-finite logits or loss")
+    # two forwards (forward_train, then loss_fn's), VLM_DEPTH layers each
+    check(FA.launches_sm90_fwd == 2 * VLM_DEPTH,
+          f"{name}: sm90 flash launches {FA.launches_sm90_fwd} != "
+          f"{2 * VLM_DEPTH}")
+    print(f"train forward {name} (full width, {VLM_DEPTH} of "
+          f"{C.get_arch(name).num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B params here): "
+          f"{cfg.vision_tokens} stub vision tokens + 4096 tokens, logits "
+          f"{tuple(logits.shape)}, loss {float(loss):.4f}, sm90 flash "
+          f"launches {FA.launches_sm90_fwd}")
+    del model, logits, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2224,8 +2561,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
-                      "flash_attention_sm90", "lru_scan", "sim_epilogue"])
-    PA._lib(), FA._lib(), FA._lib_sm90(), LS._lib(), SE._lib()  # load them
+                      "flash_attention_sm90", "flash_attention_d256",
+                      "lru_scan", "sim_epilogue"])
+    PA._lib(), FA._lib(), LS._lib(), SE._lib()  # load them
+    FA._lib_bf16("sm90"), FA._lib_bf16("d256")
     print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
         print(f"  {name}: {log['seconds']:.2f} s")
@@ -2265,9 +2604,25 @@ def main() -> int:
     print(f"phase 10c (fleet): {time.perf_counter() - t0:.1f} s")
     print(f"phase 10 (costed serving and the fleet): "
           f"{time.perf_counter() - t10:.1f} s")
+    t11 = t0 = time.perf_counter()
+    gemma_serve = phase_gemma_serve()
+    print(f"phase 11a (gemma3-1b serve): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_gemma_parity()
+    print(f"phase 11b (gemma3 parity): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma_train = phase_gemma_train()
+    print(f"phase 11c (gemma3-1b train): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    variants = phase_variants()
+    print(f"phase 11d (phi3, granite, internvl2): "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase 11 (dense attention variants): "
+          f"{time.perf_counter() - t11:.1f} s")
 
     serve_t = timed["serve_bf16"]
-    path_launches = {"sm90": train_launches, "simt": parity_launches}
+    path_launches = {"sm90": train_launches, "simt": parity_launches,
+                     "d256": gemma_train}
     flash_rows = [{
         "name": f"flash_attention_{route}_{direction}",
         "route": "cuda",
@@ -2277,6 +2632,9 @@ def main() -> int:
         **{k: flash_timed[route][direction][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        # d256: gemma3's local layers (window 512) beside its global ones
+        **{k: v for k, v in flash_timed[route][direction].items()
+           if k.startswith("window")},
     } for route in ROUTE_CASES
         for direction, n in zip(("fwd", "bwd"), path_launches[route])]
     print(json.dumps({"kernels": [{
@@ -2294,6 +2652,15 @@ def main() -> int:
         # phase 10b: phase 4's requests served translation-costed
         "costed_serve_launches": costed["launches"],
         "costed_mix_launches": costed["mix_launches"],
+        # phase 11: gemma3-1b served (flat, radix), the 11d decodes, and
+        # the kernel at gemma3's and granite-34b's decode shapes
+        "gemma3_serve_launches": gemma_serve[BT.FLAT],
+        "gemma3_radix_serve_launches": gemma_serve[BT.RADIX],
+        **{f"{n.split('-')[0]}_decode_launches": v
+           for n, v in variants.items()},
+        **{f"{tag}_{k}": timed[f"{tag}_bf16"][k]
+           for tag in ("gemma3_p16", "granite34b")
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }] + flash_rows + [{
         "name": "lru_scan",
         "route": "cuda",

@@ -3,9 +3,10 @@
 Every architecture is described by an :class:`ArchConfig` dataclass and
 registered in ``repro_torch.configs``.  The classes are plain frozen
 dataclasses with no framework dependency, so the port keeps its own copy
-instead of importing the JAX package.  Only the serving and training
-slices' architecture (internlm2-1.8b) is registered so far; the shape
-cells (``SHAPES``) are the JAX package's.
+instead of importing the JAX package.  The dense GQA architectures
+(internlm2-1.8b and the dense attention variants: gemma3-1b,
+phi3-medium-14b, granite-34b, internvl2-76b) are registered so far; the
+shape cells (``SHAPES``) are the JAX package's.
 """
 from __future__ import annotations
 

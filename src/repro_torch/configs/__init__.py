@@ -1,8 +1,13 @@
 """Architecture config registry of the port.
 
 Importing this package registers the port's architectures with
-``repro_torch.config``.  Only internlm2-1.8b (dense GQA, the serving
-slice's model) is registered so far.  ``configs.ndp_sim`` holds the
+``repro_torch.config``: the dense GQA models of the serving and training
+slices (internlm2-1.8b) and of the dense attention variants
+(gemma3-1b: sliding-window layers, prefix layers, tied embeddings,
+head_dim 256; phi3-medium-14b; granite-34b: MQA and a GELU FFN;
+internvl2-76b: stub vision tokens).  ``configs.ndp_sim`` holds the
 simulator's machines, workloads and presets.
 """
-from repro_torch.configs import internlm2_1_8b  # noqa: F401
+from repro_torch.configs import (gemma3_1b, granite_34b,  # noqa: F401
+                                 internlm2_1_8b, internvl2_76b,
+                                 phi3_medium_14b)

@@ -4,9 +4,11 @@ backward.
 The kernels replace the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; the backward
 replaces XLA's autodiff of ``repro.models.attention.blockwise_attention``.
-Two routes, picked by :func:`_route` from the dtype and head_dim, both
+Three routes, picked by :func:`_route` from the dtype and head_dim, all
 on the tensor cores: ``"sm90"`` (``csrc/flash_attention_sm90.cu``: bf16,
-head_dim 64 or 128, TMA loads and ``wgmma`` products) and ``"simt"``
+head_dim 64 or 128, TMA loads and ``wgmma`` products), ``"d256"``
+(``csrc/flash_attention_d256.cu``: bf16, head_dim 256, ``mma.sync``
+products from cp.async tiles) and ``"simt"``
 (``csrc/flash_attention.cu``: float32, head_dim up to 128, every product
 of the forward and backward an ``mma.sync`` in 3xTF32, which keeps
 float32 accuracy; the name is kept from the CUDA-core kernels it
@@ -14,8 +16,9 @@ replaced).  This module checks the operands, allocates the outputs and
 scratch, launches on PyTorch's current stream and counts launches in
 :data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
 backward, which runs a delta pre-pass, the dK/dV and the dQ kernel), the
-totals of both routes, and per route in :data:`launches_sm90_fwd` /
-:data:`launches_sm90_bwd`.  :class:`FlashAttention` ties the two
+totals of all routes, and per route in :data:`launches_sm90_fwd` /
+:data:`launches_sm90_bwd` and :data:`launches_d256_fwd` /
+:data:`launches_d256_bwd`.  :class:`FlashAttention` ties the two
 together for autograd and saves q, k, v, the output and its log-sum-exp:
 the score blocks are never stored, the memory discipline that
 ``jax.checkpoint`` gives the JAX side.  It takes CUDA tensors only;
@@ -26,61 +29,68 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches since the counters were last reset: both routes, then
-#: the sm90 route alone
+#: kernel launches since the counters were last reset: all routes, then
+#: the sm90 and d256 routes alone
 launches_fwd = 0
 launches_bwd = 0
 launches_sm90_fwd = 0
 launches_sm90_bwd = 0
+launches_d256_fwd = 0
+launches_d256_bwd = 0
 
-#: the kernels keep a head's row of the accumulator in registers
+#: the float32 kernels keep a head's row of the accumulator in registers
 MAX_HEAD_DIM = 128
 
-#: head sizes of the sm90 kernels (templates)
+#: head sizes of the sm90 kernels (templates), and of the d256 kernels
 SM90_HEAD_DIMS = (64, 128)
+D256_HEAD_DIM = 256
 #: the sm90 backward's delta / LSE scratch has S rounded up to this
 SM90_STATS_ROWS = 128
 
 _DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
 _lib_handle = None
-_lib_sm90_handle = None
+_bf16_handles: Dict[str, ctypes.CDLL] = {}
 
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"sm90"`` (wgmma) for bf16 with head_dim 64 or 128, ``"simt"``
-    (3xTF32 mma.sync) for float32 with head_dim up to 128; anything else
+    """``"sm90"`` (wgmma) for bf16 with head_dim 64 or 128, ``"d256"``
+    (bf16 mma.sync) for bf16 with head_dim 256, ``"simt"`` (3xTF32
+    mma.sync) for float32 with head_dim up to 128; anything else
     raises."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
+    if dtype == torch.bfloat16 and head_dim == D256_HEAD_DIM:
+        return "d256"
     if dtype == torch.float32 and 0 < head_dim <= MAX_HEAD_DIM:
         return "simt"
     raise ValueError(f"no flash_attention kernel for {dtype} with head_dim "
-                     f"{head_dim}: bf16 takes {SM90_HEAD_DIMS}, float32 up "
-                     f"to {MAX_HEAD_DIM}")
+                     f"{head_dim}: bf16 takes "
+                     f"{SM90_HEAD_DIMS + (D256_HEAD_DIM,)}, float32 up to "
+                     f"{MAX_HEAD_DIM}")
 
 
-def _lib_sm90() -> ctypes.CDLL:
-    global _lib_sm90_handle
-    if _lib_sm90_handle is None:
-        lib = _build.load("flash_attention_sm90")
+def _lib_bf16(route: str) -> ctypes.CDLL:
+    """The library of a bf16 route, ``"sm90"`` or ``"d256"``: both
+    export the same C interface, named ``flash_attention_<route>_*``."""
+    if route not in _bf16_handles:
+        lib = _build.load(f"flash_attention_{route}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [i32] * 7 + [ctypes.c_float, ptr]
-        lib.flash_attention_sm90_fwd_launch.argtypes = ([i32] + [ptr] * 5
-                                                        + tail)
-        lib.flash_attention_sm90_fwd_launch.restype = i32
-        lib.flash_attention_sm90_bwd_launch.argtypes = ([i32] + [ptr] * 10
-                                                        + tail)
-        lib.flash_attention_sm90_bwd_launch.restype = i32
-        lib.flash_attention_sm90_error_string.argtypes = [i32]
-        lib.flash_attention_sm90_error_string.restype = ctypes.c_char_p
-        _lib_sm90_handle = lib
-    return _lib_sm90_handle
+        for what, n_ptrs in (("fwd_launch", 5), ("bwd_launch", 10)):
+            fn = getattr(lib, f"flash_attention_{route}_{what}")
+            fn.argtypes = [i32] + [ptr] * n_ptrs + tail
+            fn.restype = i32
+        err = getattr(lib, f"flash_attention_{route}_error_string")
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
+        _bf16_handles[route] = lib
+    return _bf16_handles[route]
 
 
 def _lib() -> ctypes.CDLL:
@@ -135,25 +145,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[:2] != (b, s) or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
+    _route(q.dtype, d)
     for name, t in more.items():
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}")
 
 
+def _entry(route: str, what: str):
+    """The C function ``what`` (``fwd_launch``, ``bwd_launch``,
+    ``error_string``) of ``route``'s library."""
+    lib = _lib() if route == "simt" else _lib_bf16(route)
+    prefix = "" if route == "simt" else f"_{route}"
+    return getattr(lib, f"flash_attention{prefix}_{what}")
+
+
 def _raise_on(err: int, what: str, route: str) -> None:
     if err != 0:
-        msg = (_lib_sm90().flash_attention_sm90_error_string(err)
-               if route == "sm90" else
-               _lib().flash_attention_error_string(err)).decode()
+        msg = _entry(route, "error_string")(err).decode()
         raise RuntimeError(f"flash_attention {route} {what} kernel launch "
                            f"failed: CUDA error {err} ({msg})")
 
 
 def _dims(q, k, causal: bool, window: int, route: str):
     b, s, h, d = q.shape
-    dtype = () if route == "sm90" else (_DTYPE_TAG[q.dtype],)
+    dtype = (_DTYPE_TAG[q.dtype],) if route == "simt" else ()
     return (b, s, h, k.shape[2], d, int(bool(causal)), int(window),
             1.0 / math.sqrt(d), *dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -164,21 +179,21 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              window: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, S, H, D) in q's dtype, lse (B, H, S) float32)."""
-    global launches_fwd, launches_sm90_fwd
+    global launches_fwd, launches_sm90_fwd, launches_d256_fwd
     _check(q, k, v)
     b, s, h, d = q.shape
     route = _route(q.dtype, d)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    launch = (_lib_sm90().flash_attention_sm90_fwd_launch if route == "sm90"
-              else _lib().flash_attention_fwd_launch)
-    err = launch(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(),
-                 *_dims(q, k, causal, window, route))
+    err = _entry(route, "fwd_launch")(
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), *_dims(q, k, causal, window, route))
     _raise_on(err, "forward", route)
     launches_fwd += 1
     if route == "sm90":
         launches_sm90_fwd += 1
+    elif route == "d256":
+        launches_d256_fwd += 1
     return out, lse
 
 
@@ -188,7 +203,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: int = 0
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) for the cotangent ``do`` of the output ``o``."""
-    global launches_bwd, launches_sm90_bwd
+    global launches_bwd, launches_sm90_bwd, launches_d256_bwd
     _check(q, k, v, o=o, do=do)
     b, s, h, d = q.shape
     if (lse.dtype != torch.float32 or lse.shape != (b, h, s)
@@ -198,23 +213,22 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     route = _route(q.dtype, d)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     ptrs = [t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv)]
-    if route == "sm90":
+    if route == "sm90":     # delta and LSE, S rounded up
         rows = -(-s // SM90_STATS_ROWS) * SM90_STATS_ROWS
-        stats = torch.empty((2, b, h, rows), dtype=torch.float32,
-                            device=q.device)
-        err = _lib_sm90().flash_attention_sm90_bwd_launch(
-            q.device.index, *ptrs, stats.data_ptr(),
-            *_dims(q, k, causal, window, route))
-    else:
-        # delta = rowsum(dO * O), written by the pre-pass
-        delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-        err = _lib().flash_attention_bwd_launch(
-            q.device.index, *ptrs, delta.data_ptr(),
-            *_dims(q, k, causal, window, route))
+        scratch = torch.empty((2, b, h, rows), dtype=torch.float32,
+                              device=q.device)
+    else:                   # delta = rowsum(dO * O), written by a pre-pass
+        scratch = torch.empty((b, h, s), dtype=torch.float32,
+                              device=q.device)
+    err = _entry(route, "bwd_launch")(
+        q.device.index, *ptrs, scratch.data_ptr(),
+        *_dims(q, k, causal, window, route))
     _raise_on(err, "backward", route)
     launches_bwd += 1
     if route == "sm90":
         launches_sm90_bwd += 1
+    elif route == "d256":
+        launches_d256_bwd += 1
     return dq, dk, dv
 
 

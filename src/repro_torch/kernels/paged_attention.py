@@ -29,6 +29,8 @@ MAX_PAGES_PER_SPLIT = 8
 PAGES_PER_SPLIT = 4
 #: split blocks the host aims for: two waves of the H100's 132 SMs
 TARGET_BLOCKS = 2 * 132
+#: dynamic shared memory a block may opt in to on the H100 (227 KB)
+MAX_SMEM_BYTES = 232_448
 
 _DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
 _lib_handle = None
@@ -88,19 +90,55 @@ def _check(q, k_pages, v_pages, block_table, lengths) -> None:
                          "and strides a multiple of 16 bytes")
 
 
-def split_plan(batch: int, kv_heads: int, max_pages: int) -> tuple:
+def split_smem_bytes(group: int, head_dim: int, page: int, itemsize: int,
+                     pages_per_split: int) -> int:
+    """Dynamic shared memory of one split block (``paged_attention.cu``
+    ``launch``): float32 q (G, D), p (G, tokens), m and l (G), rounded
+    up to 16 bytes, then the K and V pages of the split."""
+    tokens = pages_per_split * page
+    float_words = (group * head_dim + group * tokens + 2 * group + 3) & ~3
+    return 4 * float_words + 2 * itemsize * tokens * head_dim
+
+
+def max_pages_per_split(group: int, head_dim: int, page: int,
+                        itemsize: int) -> int:
+    """The most pages a split may own whose block fits the card's shared
+    memory (0 if not even one page does), at most
+    :data:`MAX_PAGES_PER_SPLIT`."""
+    pps = MAX_PAGES_PER_SPLIT
+    while pps and split_smem_bytes(group, head_dim, page, itemsize,
+                                   pps) > MAX_SMEM_BYTES:
+        pps -= 1
+    return pps
+
+
+def split_plan(batch: int, kv_heads: int, max_pages: int,
+               max_pps: int = MAX_PAGES_PER_SPLIT) -> tuple:
     """(pages_per_split, n_splits, blocks of the split pass) for a call.
 
     Only shapes decide it, never ``lengths`` (the host cannot read them
-    without a sync): start from :data:`PAGES_PER_SPLIT` pages and halve
-    while the split pass would launch fewer than :data:`TARGET_BLOCKS`
-    blocks.  With more than one split the combine pass adds B * H
-    blocks."""
-    pps = PAGES_PER_SPLIT
+    without a sync): start from :data:`PAGES_PER_SPLIT` pages, or
+    ``max_pps`` (:func:`max_pages_per_split`: what the block's shared
+    memory allows) if fewer, and halve while the split pass would launch
+    fewer than :data:`TARGET_BLOCKS` blocks.  With more than one split
+    the combine pass adds B * H blocks."""
+    if max_pps < 1:
+        raise ValueError("not even one page a split fits the card's "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory")
+    pps = min(PAGES_PER_SPLIT, max_pps)
     while pps > 1 and batch * kv_heads * -(-max_pages // pps) < TARGET_BLOCKS:
         pps //= 2
     n_splits = -(-max_pages // pps)
     return pps, n_splits, batch * kv_heads * n_splits
+
+
+def call_plan(q: torch.Tensor, k_pages: torch.Tensor,
+              block_table: torch.Tensor) -> tuple:
+    """:func:`split_plan` for the operands of a call."""
+    b, _, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    return split_plan(b, kh, block_table.shape[1], max_pages_per_split(
+        h // kh, d, page, k_pages.element_size()))
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -113,8 +151,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     the kernel does not take and on a refused launch."""
     global launches
     _check(q, k_pages, v_pages, block_table, lengths)
-    pps, _, _ = split_plan(q.shape[0], k_pages.shape[2],
-                           block_table.shape[1])
+    pps, _, _ = call_plan(q, k_pages, block_table)
     out = _launch(q, k_pages, v_pages, block_table, lengths, window, pps)
     launches += 1
     return out

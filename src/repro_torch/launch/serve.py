@@ -5,6 +5,11 @@ Full width on the card, the default:
       [--kv-mode auto|paged_flat|paged_radix] [--requests 8] [--profile]
 serves ``--requests`` requests (prompts of 64-256 tokens, 32 new tokens
 each) with random weights from ``--seed`` in the config's dtype (bf16).
+A config with sliding-window layers gets prompts that cross its window
+(:func:`full_shape`: gemma3-1b's window of 512 with prompts of 520-640
+tokens, max_len 768), so its local layers attend differently from its
+global ones:
+  python -m repro_torch.launch.serve --arch gemma3-1b --requests 4
 
 Reduced run on the CPU (smoke config in float32, plain PyTorch path):
   python -m repro_torch.launch.serve --local-smoke --device cpu
@@ -44,6 +49,17 @@ FULL = dict(max_batch=4, max_len=512, page_size=16, prompt=(64, 256),
             new_tokens=32)
 SMOKE = dict(max_batch=4, max_len=96, page_size=8, prompt=(4, 9),
              new_tokens=8)
+
+
+def full_shape(cfg) -> Dict:
+    """:data:`FULL`, or for a config with a sliding window prompts of 8
+    to 128 tokens past the window and max_len 256 past it (768 for
+    gemma3-1b's 512: 48 pages, a whole number of the radix table's
+    16-entry leaves)."""
+    if not cfg.window_size:
+        return FULL
+    w = cfg.window_size
+    return dict(FULL, max_len=w + 256, prompt=(w + 8, w + 128))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,7 +107,7 @@ def serve(args: argparse.Namespace) -> Dict:
             source=args.cost_model, device=device)
         cost_seconds = time.perf_counter() - t0
     cfg = C.get_arch(args.arch)
-    shape = FULL
+    shape = full_shape(cfg)
     if args.local_smoke:
         cfg = dataclasses.replace(C.smoke_variant(cfg), dtype="float32")
         shape = SMOKE

@@ -9,7 +9,11 @@ from 256 to :data:`GLOBAL_BATCH` (8 sequences, 32,768 tokens a step) in
 ``--microbatches`` 4: one card holds the bf16 weights, float32
 gradients and AdamW moments and one 2-sequence microbatch's activations
 and float32 logits.  Every attention layer runs the CUDA flash
-attention kernels, forward and backward.  ``--profile`` traces every
+attention kernels, forward and backward (gemma3-1b's head_dim 256, 22
+of its 26 layers with a 512-key window, on the d256 route:
+``--arch gemma3-1b``).  A vlm config (internvl2) gets the stub
+frontend's vision embeddings, prepended to the tokens, as the JAX
+launcher does.  ``--profile`` traces every
 step after the first (warm-up) with torch.profiler and prints the time
 by operator and the card's busy share.
 
@@ -35,7 +39,7 @@ import torch
 
 from repro_torch import config as C
 from repro_torch.util.profile import print_profile
-from repro_torch.train.data import SyntheticLM
+from repro_torch.train.data import SyntheticLM, add_modality_stubs
 from repro_torch.train.fault_tolerance import FaultConfig, GuardedTrainer
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import init_train_state, make_train_step
@@ -118,7 +122,8 @@ def train(args: argparse.Namespace) -> Dict:
     try:
         with prof or contextlib.nullcontext():
             while guard.step < args.steps:
-                raw = data.batch_at(guard.step)
+                raw = add_modality_stubs(data.batch_at(guard.step), cfg,
+                                         seed=guard.step)
                 batch = {k: torch.from_numpy(v).to(device)
                          for k, v in raw.items()}
                 t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""GQA attention: the training path and the dense-cache and paged-cache
-decode paths.
+"""GQA attention, causal or sliding-window: the training path and the
+dense-cache and paged-cache decode paths.
 
 Mirrors ``repro.models.attention`` ``full_attention``,
 ``self_attention``, ``attn_apply``, ``attn_decode_dense`` and
@@ -10,9 +10,13 @@ Mirrors ``repro.models.attention`` ``full_attention``,
 the masked softmax of :func:`full_attention`.  KV caches and pools are
 updated in place.  What every layer of one decode step shares (rope
 tables at the step's positions, the translated block table, the page
-and slot receiving the new token) is computed once per step by
-:func:`prepare_decode`: PyTorch runs eagerly, and recomputing it in each
-layer only adds small launches.  The mesh branch of the paged path
+and slot receiving the new token, the dense cache's masks with and
+without the window) is computed once per step by :func:`prepare_decode`:
+PyTorch runs eagerly, and recomputing it in each layer only adds small
+launches.  A sliding-window layer passes ``window`` (the config's
+``window_size``; 0 for a global layer) to every path, as the JAX
+package's ``block_apply_decode`` does; its KV pages outside the window
+stay mapped, as they do there.  The mesh branch of the paged path
 (``_paged_attend_shardmap``) belongs to the parallel slice and is not
 ported yet; MLA and cross-attention wait for their slices too.
 """
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -58,7 +62,9 @@ class DecodeStep:
     Paged modes: ``phys_all`` is the translated (B, max_pages) map (one
     indirection for flat, two for radix, done once per step: every layer
     reads the same map), ``phys_new``/``slot`` where the new K/V goes.
-    Dense mode: ``mask`` over the (B, 1, S_max) cache positions.
+    Dense mode: ``masks[window]`` over the (B, 1, S_max) cache
+    positions, for the global layers (window 0) and, if the config has a
+    window, for its sliding-window layers.
     """
     lengths: torch.Tensor
     cos: torch.Tensor
@@ -67,7 +73,7 @@ class DecodeStep:
     phys_all: Optional[torch.Tensor] = None
     phys_new: Optional[torch.Tensor] = None
     slot: Optional[torch.Tensor] = None
-    mask: Optional[torch.Tensor] = None
+    masks: Optional[Dict[int, torch.Tensor]] = None
 
 
 def prepare_decode(cfg, lengths: torch.Tensor, kv_mode: str, table,
@@ -77,8 +83,11 @@ def prepare_decode(cfg, lengths: torch.Tensor, kv_mode: str, table,
     cos, sin = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
     step = DecodeStep(lengths=lengths, cos=cos, sin=sin, attend=lengths + 1)
     if kv_mode == "dense":
-        kpos = torch.arange(cache_len, device=lengths.device)
-        step.mask = kpos[None, None, :] < step.attend[:, None, None]
+        kpos = torch.arange(cache_len, device=lengths.device)[None, None, :]
+        step.masks = {0: kpos < step.attend[:, None, None]}
+        if cfg.window_size > 0:
+            step.masks[cfg.window_size] = step.masks[0] & (
+                kpos > lengths[:, None, None] - cfg.window_size)
         return step
     step.phys_all = BT.translate_all(table, kv_mode)     # (B, max_pages)
     bidx = torch.arange(lengths.shape[0], device=lengths.device)
@@ -144,8 +153,9 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0
 # GQA layer: train
 # ---------------------------------------------------------------------------
 def attn_apply(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor, cfg) -> torch.Tensor:
-    """Causal GQA self-attention of a decoder layer.  x: (B, S, D);
+               sin: torch.Tensor, cfg, window: int = 0) -> torch.Tensor:
+    """Causal GQA self-attention of a decoder layer, keys older than
+    ``window`` positions masked if ``window`` > 0.  x: (B, S, D);
     ``cos``/``sin``: rope tables at the sequence's positions
     (:func:`rope_tables`, built once for all layers).  Returns y:
     (B, S, D)."""
@@ -154,7 +164,7 @@ def attn_apply(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
     q = apply_rope((x @ attn.wq).reshape(b, s, h, hd), cos, sin)
     k = apply_rope((x @ attn.wk).reshape(b, s, kh, hd), cos, sin)
     v = (x @ attn.wv).reshape(b, s, kh, hd)
-    out = self_attention(q, k, v, causal=True)
+    out = self_attention(q, k, v, causal=True, window=window)
     return out.reshape(b, s, h * hd) @ attn.wo
 
 
@@ -162,11 +172,13 @@ def attn_apply(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
 # GQA layer: dense-cache decode  (cache: (B, S_max, K, D))
 # ---------------------------------------------------------------------------
 def attn_decode_dense(attn: Attention, x: torch.Tensor, cache_k, cache_v,
-                      step: DecodeStep, cfg) -> torch.Tensor:
+                      step: DecodeStep, cfg, window: int = 0
+                      ) -> torch.Tensor:
     """One-token decode against a contiguous KV cache.
 
     x: (B, 1, D).  The new token is written at index ``step.lengths``,
-    in place.  Returns y: (B, 1, D).
+    in place; with ``window`` > 0 only the last ``window`` tokens are
+    attended.  Returns y: (B, 1, D).
     """
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
@@ -174,7 +186,7 @@ def attn_decode_dense(attn: Attention, x: torch.Tensor, cache_k, cache_v,
     idx = (torch.arange(b, device=x.device), step.lengths.long())
     cache_k.index_put_(idx, k[:, 0])
     cache_v.index_put_(idx, v[:, 0])
-    out = _gqa_scores_attend(q, cache_k, cache_v, step.mask,
+    out = _gqa_scores_attend(q, cache_k, cache_v, step.masks[window],
                              1.0 / math.sqrt(hd))
     return out.reshape(b, 1, h * hd) @ attn.wo
 
@@ -183,17 +195,20 @@ def attn_decode_dense(attn: Attention, x: torch.Tensor, cache_k, cache_v,
 # GQA layer: paged-cache decode (the NDPage path)
 # ---------------------------------------------------------------------------
 def attn_decode_paged(attn: Attention, x: torch.Tensor, kp, vp,
-                      step: DecodeStep, cfg) -> torch.Tensor:
+                      step: DecodeStep, cfg, window: int = 0
+                      ) -> torch.Tensor:
     """One-token decode against paged KV pools.
 
     kp/vp: (N_pages, page, K, D) pools, updated in place.  The new
     token's K/V is appended before the attention, which then covers
-    ``step.attend`` tokens through the translated map ``step.phys_all``.
-    Returns y: (B, 1, D).
+    ``step.attend`` tokens (the last ``window`` of them if ``window`` >
+    0) through the translated map ``step.phys_all``.  Returns y:
+    (B, 1, D).
     """
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(attn, x, step, cfg)
     KVM.append_kv(kp, vp, k[:, 0], v[:, 0], step.phys_new, step.slot)
-    out = KOPS.paged_attention(q, kp, vp, step.phys_all, step.attend)
+    out = KOPS.paged_attention(q, kp, vp, step.phys_all, step.attend,
+                               window=window)
     return out.reshape(b, 1, h * hd) @ attn.wo

@@ -96,22 +96,30 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # FFNs
 # ---------------------------------------------------------------------------
 class FFN(nn.Module):
-    """Gated (SwiGLU-style) dense FFN."""
+    """Dense FFN: gated (SwiGLU-style, ``w_up``, ``w_gate``, ``w_down``)
+    or, with ``gated=False``, the GELU MLP (``w_up``, ``w_down``)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
                  device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 gated: bool = True):
         super().__init__()
         self.w_up = frozen(dense_init(generator, d_model, d_ff, dtype,
                                       device))
         self.w_down = frozen(dense_init(generator, d_ff, d_model, dtype,
                                         device))
-        self.w_gate = frozen(dense_init(generator, d_model, d_ff, dtype,
-                                        device))
+        self.gated = gated
+        if gated:
+            self.w_gate = frozen(dense_init(generator, d_model, d_ff, dtype,
+                                            device))
 
 
 def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
     up = x @ ffn.w_up
-    gate = F.silu((x @ ffn.w_gate).float())
-    h = (gate * up).to(x.dtype)              # up promoted to float32
+    if ffn.gated:
+        gate = F.silu((x @ ffn.w_gate).float())
+        h = (gate * up).to(x.dtype)              # up promoted to float32
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return h @ ffn.w_down

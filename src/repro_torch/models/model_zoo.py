@@ -17,7 +17,7 @@ baseline).  A model's weights are built frozen, for decode; the trainer
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,24 +35,26 @@ DEFAULT_PAGE_SIZE = 64
 
 class Model(nn.Module):
     """Embedding, the decode stack, final norm and LM head (weights in
-    the JAX package's ``(d_in, d_out)`` layout)."""
+    the JAX package's ``(d_in, d_out)`` layout).  With
+    ``cfg.tie_embeddings`` there is no LM head: the logits are
+    ``x @ embed.T``, and the embedding takes its gradient from both
+    uses."""
 
     def __init__(self, cfg: C.ArchConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if (cfg.is_encdec or cfg.vision_tokens or cfg.rope_theta <= 0
-                or cfg.tie_embeddings or cfg.prefix_pattern):
+        if cfg.is_encdec or cfg.rope_theta <= 0:
             raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder, vision, non-rope, tied-"
-                "embedding and prefix-layer models are not ported yet "
-                "(ROADMAP module queue item 8)")
+                f"{cfg.name}: encoder-decoder and non-rope models are not "
+                "ported yet (ROADMAP module queue item 8)")
         dt = cfg.torch_dtype
         self.embed = frozen(embed_init(generator, cfg.vocab_size,
                                        cfg.d_model, dt, device))
         self.stack = T.Stack(cfg, device, generator)
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
-        self.lm_head = frozen(dense_init(generator, cfg.d_model,
-                                         cfg.vocab_size, dt, device))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        frozen(dense_init(generator, cfg.d_model,
+                                          cfg.vocab_size, dt, device)))
         self.cfg = cfg
 
 
@@ -61,7 +63,7 @@ def model_device(model: Model) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# init
+# init, and the JAX package's parameter tree
 # ---------------------------------------------------------------------------
 def init_params(cfg: C.ArchConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Model:
@@ -70,12 +72,34 @@ def init_params(cfg: C.ArchConfig, generator: torch.Generator,
     return Model(cfg, resolve_device(device), generator)
 
 
+def _block_leaves(block: T.Block) -> List[Tuple[Tuple[str, str],
+                                                torch.Tensor]]:
+    """(path in the JAX block tree, parameter) of every weight of a
+    block."""
+    ffn = ("w_up", "w_down") + (("w_gate",) if block.ffn.gated else ())
+    return ([(("norm1", "scale"), block.norm1.scale),
+             (("norm2", "scale"), block.norm2.scale)]
+            + [(("mixer", n), getattr(block.mixer, n))
+               for n in ("wq", "wk", "wv", "wo")]
+            + [(("ffn", n), getattr(block.ffn, n)) for n in ffn])
+
+
+def _nest(leaves) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for (outer, inner), value in leaves:
+        out.setdefault(outer, {})[inner] = value
+    return out
+
+
 def params_from_numpy(cfg: C.ArchConfig, tree: Dict[str, Any],
                       device: DeviceLike = "cuda") -> Model:
     """The port's model holding the weights of a JAX ``init_params`` tree
-    given as numpy arrays.  The stacked period axis of ``stack.scan``
-    is split into one module per layer; every weight keeps its
-    ``(d_in, d_out)`` layout, so nothing is transposed."""
+    given as numpy arrays.  ``stack.prefix`` holds one block per prefix
+    layer; ``stack.scan`` holds each ``layer_pattern`` position's blocks
+    stacked over the periods, so layer ``i >= len(prefix)`` is period
+    ``(i - len(prefix)) // len(pattern)`` of ``block_{(i - len(prefix))
+    % len(pattern)}``.  Every weight keeps its ``(d_in, d_out)`` layout,
+    so nothing is transposed."""
     model = Model(cfg, resolve_device(device))
 
     def put(param: torch.Tensor, arr) -> None:
@@ -85,19 +109,20 @@ def params_from_numpy(cfg: C.ArchConfig, tree: Dict[str, Any],
                              f"shape {tuple(param.shape)}")
         param.copy_(src.to(param.dtype))
 
+    n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
     with torch.no_grad():
         put(model.embed, tree["embed"])
         put(model.final_norm.scale, tree["final_norm"]["scale"])
-        put(model.lm_head, tree["lm_head"])
+        if model.lm_head is not None:
+            put(model.lm_head, tree["lm_head"])
         for i, block in enumerate(model.stack.layers):
-            period, j = divmod(i, len(cfg.layer_pattern))
-            bp = tree["stack"]["scan"][f"block_{j}"]
-            put(block.norm1.scale, bp["norm1"]["scale"][period])
-            put(block.norm2.scale, bp["norm2"]["scale"][period])
-            for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(block.mixer, name), bp["mixer"][name][period])
-            for name in ("w_up", "w_down", "w_gate"):
-                put(getattr(block.ffn, name), bp["ffn"][name][period])
+            if i < n_prefix:
+                bp, at = tree["stack"]["prefix"][i], ()
+            else:
+                p, j = divmod(i - n_prefix, period)
+                bp, at = tree["stack"]["scan"][f"block_{j}"], (p,)
+            for (outer, inner), param in _block_leaves(block):
+                put(param, bp[outer][inner][at])
     return model
 
 
@@ -105,8 +130,10 @@ def params_to_numpy(model: Model, *, grads: bool = False
                     ) -> Dict[str, Any]:
     """The reverse of :func:`params_from_numpy`: the model's weights (or,
     with ``grads``, their ``.grad``) as float32 numpy arrays in the JAX
-    ``init_params`` tree, the layers of each ``layer_pattern`` position
-    stacked on the leading period axis of ``stack.scan``."""
+    ``init_params`` tree: the prefix blocks in ``stack.prefix``, the
+    layers of each ``layer_pattern`` position stacked on the leading
+    period axis of ``stack.scan``, no ``lm_head`` with tied
+    embeddings."""
     cfg = model.cfg
 
     def get(param: torch.Tensor) -> np.ndarray:
@@ -115,28 +142,28 @@ def params_to_numpy(model: Model, *, grads: bool = False
             raise ValueError("a parameter has no gradient")
         return t.detach().float().cpu().numpy()
 
-    period = len(cfg.layer_pattern)
+    layers = list(model.stack.layers)
+    n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
+    prefix = [_nest((path, get(p)) for path, p in _block_leaves(b))
+              for b in layers[:n_prefix]]
     scan = {}
-    for j in range(period):
-        blocks = list(model.stack.layers)[j::period]
-        stack = lambda f: np.stack([get(f(b)) for b in blocks])  # noqa: E731
-        scan[f"block_{j}"] = {
-            "norm1": {"scale": stack(lambda b: b.norm1.scale)},
-            "norm2": {"scale": stack(lambda b: b.norm2.scale)},
-            "mixer": {n: stack(lambda b, n=n: getattr(b.mixer, n))
-                      for n in ("wq", "wk", "wv", "wo")},
-            "ffn": {n: stack(lambda b, n=n: getattr(b.ffn, n))
-                    for n in ("w_up", "w_down", "w_gate")},
-        }
-    return {"embed": get(model.embed),
-            "stack": {"prefix": [], "scan": scan},
-            "final_norm": {"scale": get(model.final_norm.scale)},
-            "lm_head": get(model.lm_head)}
+    for j in range(period if cfg.num_periods else 0):
+        blocks = [_block_leaves(b) for b in layers[n_prefix + j::period]]
+        scan[f"block_{j}"] = _nest(
+            (path, np.stack([get(leaves[k][1]) for leaves in blocks]))
+            for k, (path, _) in enumerate(blocks[0]))
+    out = {"embed": get(model.embed),
+           "stack": {"prefix": prefix, "scan": scan},
+           "final_norm": {"scale": get(model.final_norm.scale)}}
+    if model.lm_head is not None:
+        out["lm_head"] = get(model.lm_head)
+    return out
 
 
 def _logits(model: Model, cfg, x: torch.Tensor) -> torch.Tensor:
     x = model.final_norm(x, cfg.rms_norm_eps)
-    return (x @ model.lm_head).float()
+    head = model.embed.T if model.lm_head is None else model.lm_head
+    return (x @ head).float()
 
 
 # ---------------------------------------------------------------------------
@@ -144,10 +171,14 @@ def _logits(model: Model, cfg, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def forward_train(model: Model, cfg: C.ArchConfig,
                   batch: Dict[str, torch.Tensor]):
-    """batch: tokens (B, S) on the model's device.  Returns (logits
-    (B, S, V) float32, aux_loss scalar)."""
+    """batch: tokens (B, S_tok) on the model's device, and with
+    ``cfg.vision_tokens`` the stub frontend's ``vision_embeds`` (B, Tv,
+    D), prepended to the token embeddings.  Returns (logits (B, Tv +
+    S_tok, V) float32, aux_loss scalar)."""
     tokens = batch["tokens"]
     x = model.embed[tokens.long()]
+    if cfg.vision_tokens:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     x, aux = T.stack_apply_train(model.stack, x, positions, cfg)
     return _logits(model, cfg, x), aux

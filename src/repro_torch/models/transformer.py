@@ -3,16 +3,19 @@
 The JAX package scans one period of ``layer_pattern`` over stacked
 parameters (``lax.scan``); PyTorch runs eagerly, so the stack here is an
 ``nn.ModuleList`` with one ``Block`` per layer and training and decode
-are Python loops over it.  With ``cfg.remat`` each training block runs
-under ``torch.utils.checkpoint`` (the JAX side remats each period with
-``jax.checkpoint``; internlm2's period is one block).  Decode state is a
-list with one dict per layer.  KV backends:
+are Python loops over it, the ``prefix_pattern`` blocks first, in
+``cfg.layer_kinds()`` order.  With ``cfg.remat`` each training block
+runs under ``torch.utils.checkpoint`` (the JAX side remats each period
+with ``jax.checkpoint``, and its prefix blocks not at all; the numbers
+are the same).  Decode state is a list with one dict per layer.  KV
+backends:
   dense       contiguous per-layer KV cache (the no-translation baseline)
   paged_flat  NDPage flattened single-level block table (one indirection)
   paged_radix 2-level directory->leaf block table (two indirections)
 
-Only the ``(ATTN, DENSE_FF)`` blocks of dense GQA models (gated FFN) are
-ported; other kinds raise ``NotImplementedError`` naming their ROADMAP
+Only the blocks of dense GQA models are ported: global (``ATTN``) or
+sliding-window (``ATTN_LOCAL``) attention with a dense FFN, gated or
+GELU; other kinds raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
 from __future__ import annotations
@@ -28,8 +31,7 @@ from repro_torch.models import attention as A
 from repro_torch.models.layers import FFN, RMSNorm, ffn_apply, rope_tables
 
 _ROADMAP_ITEM = "ROADMAP module queue item 8, other model families"
-_NOT_PORTED = {C.ATTN_LOCAL: "sliding-window attention",
-               C.ATTN_MLA: "MLA attention", C.MAMBA: "Mamba blocks",
+_NOT_PORTED = {C.ATTN_MLA: "MLA attention", C.MAMBA: "Mamba blocks",
                C.RWKV: "RWKV blocks", C.MOE_FF: "mixture-of-experts FFNs"}
 
 
@@ -38,11 +40,11 @@ def _check_kinds(cfg, mixer_kind: str, ffn_kind: str) -> None:
         if kind in _NOT_PORTED:
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]} "
                                       f"not ported yet ({_ROADMAP_ITEM})")
-    if mixer_kind != C.ATTN or ffn_kind != C.DENSE_FF:
+    if mixer_kind not in (C.ATTN, C.ATTN_LOCAL) or ffn_kind != C.DENSE_FF:
         raise ValueError((mixer_kind, ffn_kind))
-    if cfg.rwkv is not None or not cfg.gated_ffn:
-        raise NotImplementedError(f"{cfg.name}: only gated FFNs are ported "
-                                  f"yet ({_ROADMAP_ITEM})")
+    if cfg.rwkv is not None:
+        raise NotImplementedError(f"{cfg.name}: the RWKV channel mix is not "
+                                  f"ported yet ({_ROADMAP_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +60,10 @@ class Block(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
         self.mixer = A.Attention(cfg, dt, device, generator)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, dt, device, generator)
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, dt, device, generator,
+                       gated=cfg.gated_ffn)
+        #: keys older than this are masked (0: a global layer)
+        self.window = cfg.window_size if mixer_kind == C.ATTN_LOCAL else 0
 
 
 def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
@@ -66,7 +71,7 @@ def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (x', aux); aux is 0 for a dense FFN."""
     h = block.norm1(x, cfg.rms_norm_eps)
-    x = x + A.attn_apply(block.mixer, h, cos, sin, cfg)
+    x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window)
     h2 = block.norm2(x, cfg.rms_norm_eps)
     return x + ffn_apply(block.ffn, h2), torch.zeros((), device=x.device)
 
@@ -91,10 +96,11 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
     """x: (B,1,D).  Updates ``st`` in place; returns x'."""
     h = block.norm1(x, cfg.rms_norm_eps)
     if kv_mode == "dense":
-        y = A.attn_decode_dense(block.mixer, h, st["k"], st["v"], step, cfg)
+        y = A.attn_decode_dense(block.mixer, h, st["k"], st["v"], step, cfg,
+                                block.window)
     else:
         y = A.attn_decode_paged(block.mixer, h, st["kp"], st["vp"], step,
-                                cfg)
+                                cfg, block.window)
     x = x + y
     h2 = block.norm2(x, cfg.rms_norm_eps)
     return x + ffn_apply(block.ffn, h2)

@@ -5,8 +5,9 @@ batches are bit-identical to the JAX package's).
 Every (step, rank) slice of the synthetic stream is derived by
 counter-based hashing, so a checkpoint that stores only the step
 resumes the identical stream, and each data-parallel rank generates
-exactly its slice.  The modality stubs (audio frames, vision
-embeddings) wait for the model families that read them.
+exactly its slice.  :func:`add_modality_stubs` attaches the vision
+frontend's stub embeddings (internvl2); the audio frames wait for the
+encoder-decoder family that reads them.
 """
 from __future__ import annotations
 
@@ -79,3 +80,23 @@ class TokenBinLoader:
         chunk = np.asarray(self._data[off: off + local * (self.seq_len + 1)])
         toks = chunk.reshape(local, self.seq_len + 1)
         return {"tokens": toks[:, :-1], "labels": toks[:, :-1]}
+
+
+def add_modality_stubs(batch: Dict[str, np.ndarray], cfg,
+                       seed: int = 0) -> Dict[str, np.ndarray]:
+    """Attach deterministic frontend-stub embeddings for vlm archs: the
+    JAX package's ``vision_embeds``, (B, vision_tokens, d_model) float32
+    from ``seed``.  Encoder-decoder configs raise (their audio frames
+    are not ported yet)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: audio frames are not ported yet (ROADMAP module "
+            "queue item 8d)")
+    if not cfg.vision_tokens:
+        return batch
+    b = batch["tokens"].shape[0]
+    rng = np.random.default_rng(seed)
+    batch = dict(batch)
+    batch["vision_embeds"] = rng.standard_normal(
+        (b, cfg.vision_tokens, cfg.d_model), dtype=np.float32) * 0.02
+    return batch

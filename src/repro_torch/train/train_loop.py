@@ -49,6 +49,9 @@ def loss_fn(model: Model, cfg, batch: Dict[str, torch.Tensor]
     logits, aux = forward_train(model, cfg, batch)     # (B, S, V) f32
     labels = batch["labels"]
     mask = batch.get("loss_mask")
+    if cfg.vision_tokens:
+        # prepended vision positions produce logits but have no labels
+        logits = logits[:, cfg.vision_tokens:]
     logits = logits[:, :-1]
     targets = labels[:, 1:].long()
     if mask is None:
@@ -67,12 +70,18 @@ def loss_fn(model: Model, cfg, batch: Dict[str, torch.Tensor]
 
 def decayed_names(model: Model):
     """The parameters AdamW decays: those whose leaf in the JAX
-    ``init_params`` tree has ``ndim >= 2``.  Every per-layer parameter
-    there carries the stacked period axis, so the layers' norm scales
-    (1-D here, (periods, d) there) are decayed and only the final
-    norm's scale is not."""
+    ``init_params`` tree has ``ndim >= 2``.  The parameters of the
+    scanned layers carry the stacked period axis there, so their norm
+    scales (1-D here, (periods, d) there) are decayed; the prefix
+    layers' norm scales and the final norm's are not."""
+    n_prefix = len(model.cfg.prefix_pattern)
+
+    def stacked(name: str) -> bool:     # "stack.layers.<i>.<...>"
+        return (name.startswith("stack.")
+                and int(name.split(".")[2]) >= n_prefix)
+
     return {n for n, p in model.named_parameters()
-            if p.ndim + n.startswith("stack.") >= 2}
+            if p.ndim + stacked(n) >= 2}
 
 
 def _microbatches(batch: Dict[str, torch.Tensor], n: int):

@@ -228,12 +228,14 @@ def test_ops_dispatch_cpu_is_differentiable_plain_version():
     assert q.grad is not None and torch.isfinite(q.grad).all()
 
 
-@pytest.mark.parametrize("dtype,d", [("float32", 16), ("bfloat16", 64)],
-                         ids=["simt", "sm90"])
+@pytest.mark.parametrize("dtype,d", [("float32", 16), ("bfloat16", 64),
+                                     ("bfloat16", 256)],
+                         ids=["simt", "sm90", "d256"])
 def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     q, k, v, do = _torch(_inputs(1, 64, 4, 2, d, seed=7), dtype)
     counters = ("launches_fwd", "launches_bwd", "launches_sm90_fwd",
-                "launches_sm90_bwd")
+                "launches_sm90_bwd", "launches_d256_fwd",
+                "launches_d256_bwd")
     before = [getattr(FA, c) for c in counters]
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_fwd_cuda(q, k, v)
@@ -248,17 +250,57 @@ def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 96, "simt"), (torch.float32, 128, "simt"),
-    (torch.bfloat16, 96, ValueError), (torch.bfloat16, 256, ValueError),
-    (torch.float32, 256, ValueError), (torch.float16, 128, ValueError),
+    (torch.bfloat16, 256, "d256"), (torch.bfloat16, 96, ValueError),
+    (torch.bfloat16, 192, ValueError), (torch.float32, 256, ValueError),
+    (torch.float16, 128, ValueError), (torch.float16, 256, ValueError),
 ])
 def test_route(dtype, d, route):
-    """bf16 with head_dim 64 / 128 takes the wgmma kernels, float32 up to
-    128 the 3xTF32 mma.sync ones; nothing else has a kernel."""
+    """bf16 with head_dim 64 / 128 takes the wgmma kernels, bf16 at 256
+    the d256 mma.sync ones, float32 up to 128 the 3xTF32 mma.sync ones;
+    nothing else has a kernel."""
     if route is ValueError:
         with pytest.raises(ValueError, match="no flash_attention kernel"):
             FA._route(dtype, d)
     else:
         assert FA._route(dtype, d) == route
+
+
+# gemma3-1b's attention at small S: head_dim 256, 4 query heads on 1 KV
+# head, causal with and without a window (its local and global layers)
+D256_CASES = [(1, 128, 4, 1, 256, True, 16), (2, 64, 4, 1, 256, True, 0),
+              (1, 96, 2, 1, 256, False, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", D256_CASES,
+                         ids=["window", "global", "noncausal"])
+def test_head_dim_256_matches_pallas(b, s, h, kh, d, causal, window, dtype):
+    """The plain version (the d256 kernel's oracle on the card) takes
+    head_dim 256, with the window, against the Pallas kernel."""
+    arrays = _inputs(b, s, h, kh, d, seed=11)[:3]
+    got, lse = ref.flash_attention_ref(*_torch(arrays, dtype), causal=causal,
+                                       window=window, return_lse=True)
+    assert got.shape == (b, s, h, d) and lse.shape == (b, h, s)
+    want = flash_attention_pallas(*_jax(arrays, dtype), causal=causal,
+                                  window=window, bq=32, bk=32,
+                                  interpret=True)
+    _close(got, want, FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_gradients_match_jax(dtype):
+    """The backward's plain version at head_dim 256 with the window
+    against jax.vjp of blockwise_attention."""
+    b, s, h, kh, d, causal, window = D256_CASES[0]
+    arrays = _inputs(b, s, h, kh, d, seed=12)
+    want = _jax_grads(arrays, dtype, causal, window)
+    q, k, v, do = _torch(arrays, dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    got = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL[dtype])
 
 
 def _chip_smoke():

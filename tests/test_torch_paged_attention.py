@@ -205,3 +205,70 @@ def test_split_k_matches_pallas_and_plain(name, pps, inputs, window, radix,
 def test_split_plan_from_shapes(b, kh, maxp, plan):
     """The split size depends on the table width and B * KH only."""
     assert PA.split_plan(b, kh, maxp) == plan
+
+
+#: the decode shapes of the dense attention variants: gemma3-1b (D 256,
+#: 4 query heads on 1 KV head, window 512: here 40 over 6 pages of 16 and
+#: 3 pages of 64, lengths on both sides of it), granite-34b (MQA, 48
+#: query heads on 1 KV head) and granite-moe (D 64, 16 / 8)
+VARIANT_CASES = [
+    ("gemma3_page16", (3, 4, 1, 256, 16, 6), [40, 41, 90], 40),
+    ("gemma3_page64", (3, 4, 1, 256, 64, 3), [39, 100, 150], 40),
+    ("granite34b", (2, 48, 1, 128, 8, 4), [5, 29], 0),
+    ("granite_moe", (2, 16, 8, 64, 16, 4), [17, 64], 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,lens,window", VARIANT_CASES,
+                         ids=[c[0] for c in VARIANT_CASES])
+def test_variant_shapes_match_pallas(name, shape, lens, window, dtype):
+    """The plain version and its split-K form at every split size the
+    card's shared memory allows, against the Pallas kernel."""
+    b, h, kh, d, page, maxp = shape
+    jx, tx = _both(_paged_inputs(b, h, kh, d, page, maxp, seed=40,
+                                 lens=lens), dtype)
+    want = paged_attention_pallas(*jx, window=window, interpret=True)
+    _assert_close(ref.paged_attention_ref(*tx, window=window), want, dtype)
+    item = tx[1].element_size()
+    top = PA.max_pages_per_split(h // kh, d, page, item)
+    assert top >= 1
+    for pps in range(1, min(top, maxp) + 1):
+        got = ref.paged_attention_split_ref(*tx, window=window,
+                                            pages_per_split=pps)
+        _assert_close(got, want, dtype)
+
+
+def test_split_plan_fits_shared_memory():
+    """No plan the wrapper picks needs more shared memory than the card
+    allows, at every shape the engine can build; at gemma3's D 256 with
+    page 64 in bf16 the unbounded plan (4 pages, 264 KB) would not."""
+    assert PA.split_smem_bytes(4, 256, 64, 2, 4) > PA.MAX_SMEM_BYTES
+    assert PA.max_pages_per_split(4, 256, 64, 2) == 3
+    for group in (1, 2, 4, 8, 16, 48):
+        for d in (64, 128, 256):
+            for page in (8, 16, 32, 64):
+                for item in (2, 4):
+                    top = PA.max_pages_per_split(group, d, page, item)
+                    assert 1 <= top <= PA.MAX_PAGES_PER_SPLIT
+                    for b, kh, maxp in ((1, 1, 1), (4, 1, 44), (8, 8, 64),
+                                        (2, 4, 3)):
+                        pps, n, blocks = PA.split_plan(b, kh, maxp, top)
+                        assert 1 <= pps <= top
+                        assert n == -(-maxp // pps)
+                        assert PA.split_smem_bytes(group, d, page, item,
+                                                   pps) <= PA.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        PA.split_plan(1, 1, 4, PA.max_pages_per_split(4, 256, 256, 4))
+
+
+def test_call_plan_at_gemma3_serve_shape():
+    """gemma3-1b's serve shape (max_batch 4, max_len 768 / page 16): one
+    page a split, 48 splits; the same with page 64 stays within memory."""
+    q = torch.zeros(4, 1, 4, 256, dtype=torch.bfloat16)
+    table = torch.zeros(4, 48, dtype=torch.int32)
+    assert PA.call_plan(q, torch.zeros(1, 16, 1, 256, dtype=torch.bfloat16),
+                        table) == (1, 48, 192)
+    pps, _, _ = PA.call_plan(
+        q, torch.zeros(1, 64, 1, 256, dtype=torch.bfloat16), table[:, :12])
+    assert PA.split_smem_bytes(4, 256, 64, 2, pps) <= PA.MAX_SMEM_BYTES
