@@ -5,8 +5,9 @@ registered in ``repro_torch.configs``.  The classes are plain frozen
 dataclasses with no framework dependency, so the port keeps its own copy
 instead of importing the JAX package.  The dense GQA architectures
 (internlm2-1.8b and the dense attention variants: gemma3-1b,
-phi3-medium-14b, granite-34b, internvl2-76b) are registered so far; the
-shape cells (``SHAPES``) are the JAX package's.
+phi3-medium-14b, granite-34b, internvl2-76b), the mixture-of-experts
+granite-moe-1b-a400m and deepseek-v2-236b (MLA and MoE) are registered
+so far; the shape cells (``SHAPES``) are the JAX package's.
 """
 from __future__ import annotations
 
@@ -130,15 +131,44 @@ class ArchConfig:
         return out
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention stack
-        (embedding + blocks + head)."""
+        """Analytic parameter count (embedding + blocks + head) of the
+        kinds the port runs, the JAX package's formula (MLA's two norm
+        scales are not counted there either)."""
         d = self.d_model
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        attn = (d * self.num_heads * self.head_dim
-                + 2 * d * self.num_kv_heads * self.head_dim
-                + self.num_heads * self.head_dim * d)
-        ffn = (3 if self.gated_ffn else 2) * d * self.d_ff
-        return total + self.num_layers * (attn + ffn + 2 * d)
+        for mixer, ffn in self.layer_kinds():
+            total += self._mixer_params(mixer) + self._ffn_params(ffn)
+            total += 2 * d  # two norms
+        return total
+
+    def _expert_params(self) -> int:
+        dff = self.moe.expert_d_ff or self.d_ff
+        return (3 if self.gated_ffn else 2) * self.d_model * dff
+
+    def _ffn_params(self, kind: str) -> int:
+        d = self.d_model
+        if kind == MOE_FF:
+            m = self.moe
+            return ((m.num_experts + m.num_shared_experts)
+                    * self._expert_params() + d * m.num_experts)
+        if kind == DENSE_FF:
+            return (3 if self.gated_ffn else 2) * d * self.d_ff
+        raise ValueError(f"unknown ffn kind {kind}")
+
+    def _mixer_params(self, kind: str) -> int:
+        d, h = self.d_model, self.num_heads
+        if kind in (ATTN, ATTN_LOCAL):
+            return (2 * d * h * self.head_dim
+                    + 2 * d * self.num_kv_heads * self.head_dim)
+        if kind == ATTN_MLA:
+            m = self.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            return (d * m.q_lora_rank + m.q_lora_rank * h * qk
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * h * (m.qk_nope_head_dim
+                                            + m.v_head_dim)
+                    + h * m.v_head_dim * d)
+        raise ValueError(f"unknown mixer kind {kind}")
 
 
 # ---------------------------------------------------------------------------

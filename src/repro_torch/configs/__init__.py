@@ -5,9 +5,13 @@ Importing this package registers the port's architectures with
 slices (internlm2-1.8b) and of the dense attention variants
 (gemma3-1b: sliding-window layers, prefix layers, tied embeddings,
 head_dim 256; phi3-medium-14b; granite-34b: MQA and a GELU FFN;
-internvl2-76b: stub vision tokens).  ``configs.ndp_sim`` holds the
-simulator's machines, workloads and presets.
+internvl2-76b: stub vision tokens) and of the mixture-of-experts slice
+(granite-moe-1b-a400m: 32 experts, top 8; deepseek-v2-236b: MLA, a
+dense prefix layer, then 160 routed experts with 2 shared).
+``configs.ndp_sim`` holds the simulator's machines, workloads and
+presets.
 """
-from repro_torch.configs import (gemma3_1b, granite_34b,  # noqa: F401
-                                 internlm2_1_8b, internvl2_76b,
-                                 phi3_medium_14b)
+from repro_torch.configs import (deepseek_v2_236b,  # noqa: F401
+                                 gemma3_1b, granite_34b,
+                                 granite_moe_1b_a400m, internlm2_1_8b,
+                                 internvl2_76b, phi3_medium_14b)

@@ -1,11 +1,14 @@
-// Flash attention in bf16 at head_dim 256, forward and backward, for
-// Hopper (sm_90a), hand-written CUDA C++: the "d256" route of
-// kernels/flash_attention.py.
+// Flash attention in bf16 at head_dim 192 and 256, forward and backward,
+// for Hopper (sm_90a), hand-written CUDA C++: the "d192" and "d256"
+// routes of kernels/flash_attention.py, one template on D instantiated at
+// both.
 //
 // Replaces the Pallas TPU kernel `_kernel` launched by
 // `flash_attention_pallas` (src/repro/kernels/flash_attention.py:28-69)
-// for bf16 with head_dim 256 (gemma3-1b): GQA self-attention (query head
-// h reads kv head h / G) over q (B, S, H, 256) and k/v (B, S, KH, 256),
+// for bf16 with head_dim 256 (gemma3-1b) and 192 (deepseek-v2's MLA:
+// 128 + 64 query / key columns, v padded from 128): GQA self-attention
+// (query head h reads kv head h / G) over q (B, S, H, D) and k/v (B, S,
+// KH, D),
 // causal and/or sliding-window masked, online softmax in float32, p
 // rounded to bf16 after the tile's running max before the PV product, 0
 // for a row with no attendable key, and LSE = m + log(l) (B, H, S)
@@ -15,19 +18,21 @@
 // to flash_attention.cu.
 //
 // Bound.  At gemma3's training shape (B 2, S 4096, 4 / 1 heads, causal,
-// 22 of 26 layers with a 512-key window) attention does 4 D operations
-// per attended (query, key) pair and head forward for 4 D bytes of q
-// and o a row: far above the H100's 295 operations a byte, so it is
-// bound by the tensor cores' 989 TFLOP/s (bf16).
+// 22 of 26 layers with a 512-key window) and deepseek-v2's (B 1, S 4096,
+// 128 / 128 heads of 192, causal) attention does 4 D operations per
+// attended (query, key) pair and head forward for 4 D bytes of q and o a
+// row: far above the H100's 295 operations a byte, so it is bound by the
+// tensor cores' 989 TFLOP/s (bf16).
 //
 // Design.  This route is the simple one: every product is an
 // `mma.sync.m16n8k16` (bf16 in, float32 accumulate) from shared memory,
 // tiles double-buffered by cp.async.  At D 256 a warp's 16 x 256 float32
-// accumulator is 128 registers a thread, so a warp owns 16 rows and all
-// of D, and nothing else lives in registers for long: the Q, K and V
-// fragments are loaded from shared memory at each product.  Row strides
-// are 264 bf16 (132 words, 4 mod 32), so every fragment load of a warp
-// hits distinct banks.  The accumulator of S = Q K^T (16 x 16 as two
+// accumulator is 128 registers a thread (96 at D 192), so a warp owns 16
+// rows and all of D, and nothing else lives in registers for long: the
+// Q, K and V fragments are loaded from shared memory at each product.
+// Row strides are D + 8 bf16 (132 words at D 256, 100 at D 192: 4 mod
+// 32 both), so every fragment load of a warp hits distinct banks, and
+// rows stay 16-byte aligned for cp.async (528 and 400 bytes).  The accumulator of S = Q K^T (16 x 16 as two
 // m16n8 tiles) is the A fragment of the next product as it stands (P,
 // rounded to bf16), so P and dS never pass through shared memory on
 // their way into a product.
@@ -44,7 +49,9 @@
 //          window's end).  In a pair one warp forms S^T = K Q^T, P^T and
 //          dV += P^T dO, the other dP^T = V dO^T, dS^T = P^T (dP^T -
 //          delta) and dK += dS^T Q, P^T passing through shared memory:
-//          128 accumulators a thread each, one block an SM.
+//          D / 2 accumulators a thread each, one block an SM.  The pair
+//          splits the work by product, not by D: each warp holds all D
+//          columns of its own sum.
 //   dQ:    one block of 8 warps per (64-row q tile, h, b), streaming
 //          16-key K / V tiles from the window's first; one warp of a
 //          pair forms S and P, the other dP, they swap them, and each
@@ -60,10 +67,15 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 256;             // the only head_dim of this route
-constexpr int LD = D + 8;          // row stride of a shared tile, in bf16
-constexpr int NT = D / 8;          // m16n8 tiles across D
-constexpr int KT = D / 16;         // k16 steps across D
+// The head dims of the template: a shared tile's row stride (in bf16),
+// m16n8 tiles across D and k16 steps across D
+template <int D>
+struct Dims {
+  static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
+  static constexpr int LD = D + 8;
+  static constexpr int NT = D / 8;
+  static constexpr int KT = D / 16;
+};
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -115,6 +127,7 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 // Fragments from shared tiles of row stride LD; g = lane / 4, t = lane % 4.
 // A (16 x 16) = x[r0 .. r0 + 16)[c0 .. c0 + 16), row-major
+template <int LD>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
                                        int r0, int c0, int g, int t) {
   const bf16* p = x + (r0 + g) * LD + c0 + 2 * t;
@@ -124,6 +137,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
   a[3] = pair_at(p + 8 * LD + 8);
 }
 // B (16 x 8) = x[n0 .. n0 + 8)[c0 .. c0 + 16)^T: x's rows are B's columns
+template <int LD>
 __device__ __forceinline__ void load_b_t(uint32_t (&b)[2], const bf16* x,
                                          int n0, int c0, int g, int t) {
   const bf16* p = x + (n0 + g) * LD + c0 + 2 * t;
@@ -131,6 +145,7 @@ __device__ __forceinline__ void load_b_t(uint32_t (&b)[2], const bf16* x,
   b[1] = pair_at(p + 8);
 }
 // B (16 x 8) = x[r0 .. r0 + 16)[n0 .. n0 + 8): x's rows are B's k rows
+template <int LD>
 __device__ __forceinline__ void load_b_n(uint32_t (&b)[2], const bf16* x,
                                          int r0, int n0, int g, int t) {
   const bf16* p = x + (r0 + 2 * t) * LD + n0 + g;
@@ -149,24 +164,26 @@ __device__ __forceinline__ void a_from_acc(uint32_t (&a)[4],
 }
 
 // c (16 x 16) = x[r0 .. r0 + 16) y[0 .. 16)^T over D: x, y row-major tiles
+template <int D>
 __device__ __forceinline__ void product_t(float (&c)[2][4], const bf16* x,
                                           const bf16* y, int r0, int g,
                                           int t) {
+  constexpr int LD = Dims<D>::LD;
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
+  for (int kk = 0; kk < Dims<D>::KT; ++kk) {
     uint32_t a[4];
-    load_a(a, x, r0, 16 * kk, g, t);
+    load_a<LD>(a, x, r0, 16 * kk, g, t);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       uint32_t b[2];
-      load_b_t(b, y, 8 * j, 16 * kk, g, t);
+      load_b_t<LD>(b, y, 8 * j, 16 * kk, g, t);
       mma(c[j], a, b);
     }
   }
 }
 // acc (16 x 8 NA) += w x[0 .. 16)[8 n0 .. 8 (n0 + NA)), w (16 x 16) the
 // accumulators of a product_t
-template <int NA>
+template <int NA, int LD>
 __device__ __forceinline__ void accumulate(float (&acc)[NA][4],
                                            const float (&w)[2][4],
                                            const bf16* x, int n0, int g,
@@ -176,7 +193,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[NA][4],
 #pragma unroll
   for (int n = 0; n < NA; ++n) {
     uint32_t b[2];
-    load_b_n(b, x, 0, 8 * (n0 + n), g, t);
+    load_b_n<LD>(b, x, 0, 8 * (n0 + n), g, t);
     mma(acc[n], a, b);
   }
 }
@@ -207,10 +224,11 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Rows [r0, r0 + R) of one head of x (rows `rs` elements apart from
 // `base`) into dst (R x LD), 16 bytes a copy; zeros past S
-template <int R, int T>
+template <int R, int T, int D>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* x,
                                            long long base, long long rs,
                                            int r0, int S) {
+  constexpr int LD = Dims<D>::LD;
   constexpr int PER_ROW = D / 8;  // 16-byte pieces of a row
 #pragma unroll 4
   for (int c = threadIdx.x; c < R * PER_ROW; c += T) {
@@ -234,11 +252,13 @@ __device__ __forceinline__ void stage_stats(float* dst, const float* x,
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
+template <int D>
 __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
     float* __restrict__ lse, int S, int H, int KH, int causal, int window,
     float scale) {
+  constexpr int LD = Dims<D>::LD, NT = Dims<D>::NT, KT = Dims<D>::KT;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * FWD_ROWS;  // last tile first
   const int kvh = h / (H / KH);
@@ -264,12 +284,12 @@ __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_kernel(
   auto stage = [&](int i, int buf) {
     const int kt0 = lo + i * FWD_STEP;
     bf16* k_s = st + buf * STAGE;
-    stage_rows<FWD_STEP, FWD_THREADS>(k_s, k, k_base, k_ss, kt0, S);
-    stage_rows<FWD_STEP, FWD_THREADS>(k_s + FWD_STEP * LD, v, k_base, k_ss,
-                                      kt0, S);
+    stage_rows<FWD_STEP, FWD_THREADS, D>(k_s, k, k_base, k_ss, kt0, S);
+    stage_rows<FWD_STEP, FWD_THREADS, D>(k_s + FWD_STEP * LD, v, k_base,
+                                         k_ss, kt0, S);
   };
 
-  stage_rows<FWD_ROWS, FWD_THREADS>(q_s, q, q_base, q_ss, q0, S);
+  stage_rows<FWD_ROWS, FWD_THREADS, D>(q_s, q, q_base, q_ss, q0, S);
   cp_async_commit();
   if (steps > 0) stage(0, 0);
   cp_async_commit();
@@ -298,11 +318,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_kernel(
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
         uint32_t a[4];
-        load_a(a, q_s, qr, 16 * kk, g, t);
+        load_a<LD>(a, q_s, qr, 16 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < FWD_STEP / 8; ++j) {
           uint32_t bb[2];
-          load_b_t(bb, k_s, 8 * j, 16 * kk, g, t);
+          load_b_t<LD>(bb, k_s, 8 * j, 16 * kk, g, t);
           mma(c[j], a, bb);
         }
       }
@@ -353,7 +373,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_kernel(
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           uint32_t bb[2];
-          load_b_n(bb, v_s + 16 * kk * LD, 0, 8 * n, g, t);
+          load_b_n<LD>(bb, v_s + 16 * kk * LD, 0, 8 * n, g, t);
           mma(acc[n], a, bb);
         }
       }
@@ -399,22 +419,27 @@ __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_kernel(
 // backward
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO * O) into (B, H, S): one warp per (b, s, h) row, a
-// lane's 8 values one 16-byte load of each
+// lane's 8 values one 16-byte load of each (lanes past D / 8 add 0)
+template <int D>
 __global__ void __launch_bounds__(256) delta_kernel(
     const bf16* __restrict__ o, const bf16* __restrict__ dout,
     float* __restrict__ delta, int S, int H, long long rows) {
+  static_assert(D <= 256, "a warp covers at most 256 columns");
   const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  const int4 ov = *reinterpret_cast<const int4*>(o + r * D + lane * 8);
-  const int4 dv = *reinterpret_cast<const int4*>(dout + r * D + lane * 8);
-  const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-  const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
   float part = 0.f;
+  if (lane < D / 8) {
+    const int4 ov = *reinterpret_cast<const int4*>(o + r * D + lane * 8);
+    const int4 dv = *reinterpret_cast<const int4*>(dout + r * D + lane * 8);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 a = __bfloat1622float2(op[i]), c = __bfloat1622float2(dp[i]);
-    part += a.x * c.x + a.y * c.y;
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(op[i]);
+      const float2 c = __bfloat1622float2(dp[i]);
+      part += a.x * c.x + a.y * c.y;
+    }
   }
   for (int off = 16; off > 0; off >>= 1)
     part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -427,12 +452,14 @@ __global__ void __launch_bounds__(256) delta_kernel(
 
 // dK and dV: one block per (kv head, b, 64-key tile), the k tiles with
 // the most queries first (tile 0 under the causal mask).
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS, 1) dkdv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ lse,
     const float* __restrict__ delta, const bf16* __restrict__ dout,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int KH,
     int causal, int window, float scale) {
+  constexpr int LD = Dims<D>::LD, NT = Dims<D>::NT;
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * BWD_ROWS;
   const int G = H / KH;
@@ -471,21 +498,21 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dkdv_kernel(
     bf16 *q_t, *do_t;
     float* l_t;
     tiles(buf, q_t, do_t, l_t);
-    stage_rows<BWD_STEP, BWD_THREADS>(q_t, q, q_base, q_ss, q0, S);
-    stage_rows<BWD_STEP, BWD_THREADS>(do_t, dout, q_base, q_ss, q0, S);
+    stage_rows<BWD_STEP, BWD_THREADS, D>(q_t, q, q_base, q_ss, q0, S);
+    stage_rows<BWD_STEP, BWD_THREADS, D>(do_t, dout, q_base, q_ss, q0, S);
     stage_stats(l_t, lse, s_base, q0, S, BWD_STEP, 0);
     stage_stats(l_t + BWD_STEP, delta, s_base, q0, S, BWD_STEP, 32);
   };
 
-  float acc[NT][4];  // dV (role 0) or dK (role 1): 16 keys x 256
+  float acc[NT][4];  // dV (role 0) or dK (role 1): 16 keys x D
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   if (steps > 0) {
-    stage_rows<BWD_ROWS, BWD_THREADS>(k_s, k, k_base, k_ss, k0, S);
-    stage_rows<BWD_ROWS, BWD_THREADS>(v_s, v, k_base, k_ss, k0, S);
+    stage_rows<BWD_ROWS, BWD_THREADS, D>(k_s, k, k_base, k_ss, k0, S);
+    stage_rows<BWD_ROWS, BWD_THREADS, D>(v_s, v, k_base, k_ss, k0, S);
     stage(0, 0);
   }
   cp_async_commit();
@@ -505,9 +532,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dkdv_kernel(
     // S^T (role 0) or dP^T (role 1): 16 keys x 16 queries
     float c[2][4] = {};
     if (role == 0)
-      product_t(c, k_s, q_t, kr, g, t);
+      product_t<D>(c, k_s, q_t, kr, g, t);
     else
-      product_t(c, v_s, do_t, kr, g, t);
+      product_t<D>(c, v_s, do_t, kr, g, t);
     if (role == 0) {  // P^T = exp(S^T scale - lse), 0 off the mask
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -531,7 +558,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dkdv_kernel(
         }
     }
     // dV += P^T dO (role 0), dK += dS^T Q (role 1): k = the 16 queries
-    accumulate<NT>(acc, c, role == 0 ? do_t : q_t, 0, g, t);
+    accumulate<NT, LD>(acc, c, role == 0 ? do_t : q_t, 0, g, t);
     __syncthreads();  // buffer `buf` and x_s are free again
   }
 
@@ -551,13 +578,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dkdv_kernel(
 
 // dQ: one block per (h, b, 64-row q tile), the q tiles with the most
 // keys first.
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS, 1) dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ lse,
     const float* __restrict__ delta, const bf16* __restrict__ dout,
     bf16* __restrict__ dq, int S, int H, int KH, int causal, int window,
     float scale) {
-  constexpr int HALF = NT / 2;  // n tiles of dQ a warp accumulates
+  constexpr int LD = Dims<D>::LD;
+  constexpr int HALF = Dims<D>::NT / 2;  // n tiles of dQ a warp accumulates
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BWD_ROWS;  // last tile first
   const int kvh = h / (H / KH);
@@ -585,20 +614,20 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dq_kernel(
   auto stage = [&](int i, int buf) {
     const int kt0 = lo + i * BWD_STEP;
     bf16* k_t = st + buf * STAGE;
-    stage_rows<BWD_STEP, BWD_THREADS>(k_t, k, k_base, k_ss, kt0, S);
-    stage_rows<BWD_STEP, BWD_THREADS>(k_t + BWD_STEP * LD, v, k_base, k_ss,
-                                      kt0, S);
+    stage_rows<BWD_STEP, BWD_THREADS, D>(k_t, k, k_base, k_ss, kt0, S);
+    stage_rows<BWD_STEP, BWD_THREADS, D>(k_t + BWD_STEP * LD, v, k_base,
+                                         k_ss, kt0, S);
   };
 
-  float acc[HALF][4];  // dQ, columns [128 role, 128 (role + 1))
+  float acc[HALF][4];  // dQ, columns [D / 2 role, D / 2 (role + 1))
 #pragma unroll
   for (int n = 0; n < HALF; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   if (steps > 0) {
-    stage_rows<BWD_ROWS, BWD_THREADS>(q_s, q, q_base, q_ss, q0, S);
-    stage_rows<BWD_ROWS, BWD_THREADS>(do_s, dout, q_base, q_ss, q0, S);
+    stage_rows<BWD_ROWS, BWD_THREADS, D>(q_s, q, q_base, q_ss, q0, S);
+    stage_rows<BWD_ROWS, BWD_THREADS, D>(do_s, dout, q_base, q_ss, q0, S);
     stage_stats(l_s, lse, s_base, q0, S, BWD_ROWS, 0);
     stage_stats(l_s + BWD_ROWS, delta, s_base, q0, S, BWD_ROWS, BWD_ROWS);
     stage(0, 0);
@@ -620,9 +649,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dq_kernel(
     // S (role 0) or dP (role 1), 16 queries x 16 keys
     float c[2][4] = {};
     if (role == 0)
-      product_t(c, q_s, k_t, qr, g, t);
+      product_t<D>(c, q_s, k_t, qr, g, t);
     else
-      product_t(c, do_s, v_t, qr, g, t);
+      product_t<D>(c, do_s, v_t, qr, g, t);
     if (role == 0) {  // P = exp(S scale - lse), 0 off the mask
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -649,7 +678,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dq_kernel(
         c[j][e] = p * (dp - l_s[BWD_ROWS + r]);
       }
     // dQ += dS K on this warp's half of the columns: k = the 16 keys
-    accumulate<HALF>(acc, c, k_t, HALF * role, g, t);
+    accumulate<HALF, LD>(acc, c, k_t, HALF * role, g, t);
     __syncthreads();  // buffer `buf` and x_s are free again
   }
 
@@ -666,11 +695,17 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) dq_kernel(
 }
 
 // Dynamic shared memory of each kernel, in bytes.
-constexpr size_t FWD_SMEM = 2 * (FWD_ROWS * LD + 2 * 2 * FWD_STEP * LD);
-constexpr size_t DKDV_SMEM = 2 * 2 * BWD_ROWS * LD + 4 * 4 * 32 * 8 +
-                             2 * (2 * BWD_STEP * LD * 2 + 2 * BWD_STEP * 4);
-constexpr size_t DQ_SMEM = 2 * (2 * BWD_ROWS * LD + 2 * 2 * BWD_STEP * LD) +
-                           4 * (2 * BWD_ROWS + 2 * 4 * 32 * 8);
+template <int D>
+struct Smem {
+  static constexpr int LD = Dims<D>::LD;
+  static constexpr size_t FWD = 2 * (FWD_ROWS * LD + 2 * 2 * FWD_STEP * LD);
+  static constexpr size_t DKDV = 2 * 2 * BWD_ROWS * LD + 4 * 4 * 32 * 8 +
+                                 2 * (2 * BWD_STEP * LD * 2 +
+                                      2 * BWD_STEP * 4);
+  static constexpr size_t DQ =
+      2 * (2 * BWD_ROWS * LD + 2 * 2 * BWD_STEP * LD) +
+      4 * (2 * BWD_ROWS + 2 * 4 * 32 * 8);
+};
 
 // Above 48 KB a kernel must opt in; past the card's limit this fails and
 // the error goes back to the wrapper.
@@ -686,7 +721,8 @@ bool aligned16(const void* p) {
 }
 
 bool bad_shape(int B, int S, int H, int KH, int head_dim) {
-  return B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || head_dim != D;
+  return B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 ||
+         (head_dim != 192 && head_dim != 256);
 }
 
 // Runs `body` with `device` current and hands the caller's device back.
@@ -705,15 +741,52 @@ int on_device(int device, F body) {
   return (int)err;
 }
 
+template <int D>
+cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                       float* lse, int B, int S, int H, int KH, int causal,
+                       int window, float scale, cudaStream_t s) {
+  cudaError_t err = allow_smem(fwd_kernel<D>, Smem<D>::FWD);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + FWD_ROWS - 1) / FWD_ROWS;
+  fwd_kernel<D><<<dim3(H, B, tiles), FWD_THREADS, Smem<D>::FWD, s>>>(
+      q, k, v, o, lse, S, H, KH, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v,
+                       const bf16* o, const float* lse, const bf16* dout,
+                       bf16* dq, bf16* dk, bf16* dv, float* delta, int B,
+                       int S, int H, int KH, int causal, int window,
+                       float scale, cudaStream_t s) {
+  cudaError_t err = allow_smem(dkdv_kernel<D>, Smem<D>::DKDV);
+  if (err == cudaSuccess) err = allow_smem(dq_kernel<D>, Smem<D>::DQ);
+  if (err != cudaSuccess) return err;
+  const long long rows = (long long)B * S * H;
+  delta_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(o, dout, delta,
+                                                              S, H, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + BWD_ROWS - 1) / BWD_ROWS;
+  dkdv_kernel<D><<<dim3(KH, B, tiles), BWD_THREADS, Smem<D>::DKDV, s>>>(
+      q, k, v, lse, delta, dout, dk, dv, S, H, KH, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<D><<<dim3(H, B, tiles), BWD_THREADS, Smem<D>::DQ, s>>>(
+      q, k, v, lse, delta, dout, dq, S, H, KH, causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Both launch on `stream`, allocate nothing and do not synchronise.
-// Every tensor is contiguous and 16-byte aligned: bf16 q, o, dout, dq
-// (B, S, H, 256) and k, v, dk, dv (B, S, KH, 256); float32 lse and the
-// scratch delta (B, H, S).  causal: 0 or 1; window: 0 = none.  Return
-// cudaGetLastError() (or the error that stopped the launch).
+// head_dim is 192 or 256.  Every tensor is contiguous and 16-byte
+// aligned: bf16 q, o, dout, dq (B, S, H, head_dim) and k, v, dk, dv (B,
+// S, KH, head_dim); float32 lse and the scratch delta (B, H, S).  causal:
+// 0 or 1; window: 0 = none.  Return cudaGetLastError() (or the error
+// that stopped the launch).
 int flash_attention_d256_fwd_launch(int device, const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int S, int H, int KH, int head_dim,
@@ -723,15 +796,15 @@ int flash_attention_d256_fwd_launch(int device, const void* q, const void* k,
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+  bf16* out = static_cast<bf16*>(o);
+  float* l = static_cast<float*>(lse);
   return on_device(device, [&]() {
-    cudaError_t err = allow_smem(fwd_kernel, FWD_SMEM);
-    if (err != cudaSuccess) return err;
-    const int tiles = (S + FWD_ROWS - 1) / FWD_ROWS;
-    fwd_kernel<<<dim3(H, B, tiles), FWD_THREADS, FWD_SMEM, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), S, H, KH, causal, window, scale);
-    return cudaGetLastError();
+    return head_dim == 192
+               ? launch_fwd<192>(c(q), c(k), c(v), out, l, B, S, H, KH,
+                                 causal, window, scale, s)
+               : launch_fwd<256>(c(q), c(k), c(v), out, l, B, S, H, KH,
+                                 causal, window, scale, s);
   });
 }
 
@@ -748,26 +821,17 @@ int flash_attention_d256_bwd_launch(int device, const void* q, const void* k,
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto m = [](void* p) { return static_cast<bf16*>(p); };
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
   return on_device(device, [&]() {
-    cudaError_t err = allow_smem(dkdv_kernel, DKDV_SMEM);
-    if (err == cudaSuccess) err = allow_smem(dq_kernel, DQ_SMEM);
-    if (err != cudaSuccess) return err;
-    const long long rows = (long long)B * S * H;
-    delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-        c(o), c(dout), static_cast<float*>(delta), S, H, rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int tiles = (S + BWD_ROWS - 1) / BWD_ROWS;
-    dkdv_kernel<<<dim3(KH, B, tiles), BWD_THREADS, DKDV_SMEM, s>>>(
-        c(q), c(k), c(v), f(lse), f(delta), c(dout), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), S, H, KH, causal, window, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dq_kernel<<<dim3(H, B, tiles), BWD_THREADS, DQ_SMEM, s>>>(
-        c(q), c(k), c(v), f(lse), f(delta), c(dout), static_cast<bf16*>(dq), S,
-        H, KH, causal, window, scale);
-    return cudaGetLastError();
+    return head_dim == 192
+               ? launch_bwd<192>(c(q), c(k), c(v), c(o), l, c(dout), m(dq),
+                                 m(dk), m(dv), dl, B, S, H, KH, causal,
+                                 window, scale, s)
+               : launch_bwd<256>(c(q), c(k), c(v), c(o), l, c(dout), m(dq),
+                                 m(dk), m(dv), dl, B, S, H, KH, causal,
+                                 window, scale, s);
   });
 }
 

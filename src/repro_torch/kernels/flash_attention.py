@@ -4,11 +4,12 @@ backward.
 The kernels replace the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``; the backward
 replaces XLA's autodiff of ``repro.models.attention.blockwise_attention``.
-Three routes, picked by :func:`_route` from the dtype and head_dim, all
+Four routes, picked by :func:`_route` from the dtype and head_dim, all
 on the tensor cores: ``"sm90"`` (``csrc/flash_attention_sm90.cu``: bf16,
-head_dim 64 or 128, TMA loads and ``wgmma`` products), ``"d256"``
-(``csrc/flash_attention_d256.cu``: bf16, head_dim 256, ``mma.sync``
-products from cp.async tiles) and ``"simt"``
+head_dim 64 or 128, TMA loads and ``wgmma`` products), ``"d256"`` and
+``"d192"`` (``csrc/flash_attention_d256.cu``, one template on head_dim
+instantiated at 256 and 192: bf16, ``mma.sync`` products from cp.async
+tiles) and ``"simt"``
 (``csrc/flash_attention.cu``: float32, head_dim up to 128, every product
 of the forward and backward an ``mma.sync`` in 3xTF32, which keeps
 float32 accuracy; the name is kept from the CUDA-core kernels it
@@ -17,8 +18,9 @@ scratch, launches on PyTorch's current stream and counts launches in
 :data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
 backward, which runs a delta pre-pass, the dK/dV and the dQ kernel), the
 totals of all routes, and per route in :data:`launches_sm90_fwd` /
-:data:`launches_sm90_bwd` and :data:`launches_d256_fwd` /
-:data:`launches_d256_bwd`.  :class:`FlashAttention` ties the two
+:data:`launches_sm90_bwd`, :data:`launches_d256_fwd` /
+:data:`launches_d256_bwd` and :data:`launches_d192_fwd` /
+:data:`launches_d192_bwd`.  :class:`FlashAttention` ties the two
 together for autograd and saves q, k, v, the output and its log-sum-exp:
 the score blocks are never stored, the memory discipline that
 ``jax.checkpoint`` gives the JAX side.  It takes CUDA tensors only;
@@ -36,20 +38,27 @@ import torch
 from repro_torch.kernels import _build
 
 #: kernel launches since the counters were last reset: all routes, then
-#: the sm90 and d256 routes alone
+#: the sm90, d256 and d192 routes alone
 launches_fwd = 0
 launches_bwd = 0
 launches_sm90_fwd = 0
 launches_sm90_bwd = 0
 launches_d256_fwd = 0
 launches_d256_bwd = 0
+launches_d192_fwd = 0
+launches_d192_bwd = 0
 
 #: the float32 kernels keep a head's row of the accumulator in registers
 MAX_HEAD_DIM = 128
 
-#: head sizes of the sm90 kernels (templates), and of the d256 kernels
+#: head sizes of the sm90 kernels (templates); the d256 and d192 routes
+#: are the two instantiations of one template
 SM90_HEAD_DIMS = (64, 128)
 D256_HEAD_DIM = 256
+D192_HEAD_DIM = 192
+#: the library of each bf16 route; its C functions are named
+#: ``flash_attention_<library suffix>_*``
+_BF16_LIBRARY = {"sm90": "sm90", "d256": "d256", "d192": "d256"}
 #: the sm90 backward's delta / LSE scratch has S rounded up to this
 SM90_STATS_ROWS = 128
 
@@ -60,37 +69,41 @@ _bf16_handles: Dict[str, ctypes.CDLL] = {}
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
     """``"sm90"`` (wgmma) for bf16 with head_dim 64 or 128, ``"d256"``
-    (bf16 mma.sync) for bf16 with head_dim 256, ``"simt"`` (3xTF32
-    mma.sync) for float32 with head_dim up to 128; anything else
-    raises."""
+    and ``"d192"`` (bf16 mma.sync) for bf16 with head_dim 256 and 192,
+    ``"simt"`` (3xTF32 mma.sync) for float32 with head_dim up to 128;
+    anything else raises."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
     if dtype == torch.bfloat16 and head_dim == D256_HEAD_DIM:
         return "d256"
+    if dtype == torch.bfloat16 and head_dim == D192_HEAD_DIM:
+        return "d192"
     if dtype == torch.float32 and 0 < head_dim <= MAX_HEAD_DIM:
         return "simt"
     raise ValueError(f"no flash_attention kernel for {dtype} with head_dim "
                      f"{head_dim}: bf16 takes "
-                     f"{SM90_HEAD_DIMS + (D256_HEAD_DIM,)}, float32 up to "
-                     f"{MAX_HEAD_DIM}")
+                     f"{SM90_HEAD_DIMS + (D192_HEAD_DIM, D256_HEAD_DIM)}, "
+                     f"float32 up to {MAX_HEAD_DIM}")
 
 
 def _lib_bf16(route: str) -> ctypes.CDLL:
-    """The library of a bf16 route, ``"sm90"`` or ``"d256"``: both
-    export the same C interface, named ``flash_attention_<route>_*``."""
-    if route not in _bf16_handles:
-        lib = _build.load(f"flash_attention_{route}")
+    """The library of a bf16 route, ``"sm90"``, ``"d256"`` or
+    ``"d192"`` (the d256 library): each exports the same C interface,
+    named ``flash_attention_<library>_*``."""
+    name = _BF16_LIBRARY[route]
+    if name not in _bf16_handles:
+        lib = _build.load(f"flash_attention_{name}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [i32] * 7 + [ctypes.c_float, ptr]
         for what, n_ptrs in (("fwd_launch", 5), ("bwd_launch", 10)):
-            fn = getattr(lib, f"flash_attention_{route}_{what}")
+            fn = getattr(lib, f"flash_attention_{name}_{what}")
             fn.argtypes = [i32] + [ptr] * n_ptrs + tail
             fn.restype = i32
-        err = getattr(lib, f"flash_attention_{route}_error_string")
+        err = getattr(lib, f"flash_attention_{name}_error_string")
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
-        _bf16_handles[route] = lib
-    return _bf16_handles[route]
+        _bf16_handles[name] = lib
+    return _bf16_handles[name]
 
 
 def _lib() -> ctypes.CDLL:
@@ -155,7 +168,7 @@ def _entry(route: str, what: str):
     """The C function ``what`` (``fwd_launch``, ``bwd_launch``,
     ``error_string``) of ``route``'s library."""
     lib = _lib() if route == "simt" else _lib_bf16(route)
-    prefix = "" if route == "simt" else f"_{route}"
+    prefix = "" if route == "simt" else f"_{_BF16_LIBRARY[route]}"
     return getattr(lib, f"flash_attention{prefix}_{what}")
 
 
@@ -179,7 +192,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              window: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, S, H, D) in q's dtype, lse (B, H, S) float32)."""
-    global launches_fwd, launches_sm90_fwd, launches_d256_fwd
+    global launches_fwd, launches_sm90_fwd, launches_d256_fwd, \
+        launches_d192_fwd
     _check(q, k, v)
     b, s, h, d = q.shape
     route = _route(q.dtype, d)
@@ -194,6 +208,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         launches_sm90_fwd += 1
     elif route == "d256":
         launches_d256_fwd += 1
+    elif route == "d192":
+        launches_d192_fwd += 1
     return out, lse
 
 
@@ -203,7 +219,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              causal: bool = True, window: int = 0
                              ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) for the cotangent ``do`` of the output ``o``."""
-    global launches_bwd, launches_sm90_bwd, launches_d256_bwd
+    global launches_bwd, launches_sm90_bwd, launches_d256_bwd, \
+        launches_d192_bwd
     _check(q, k, v, o=o, do=do)
     b, s, h, d = q.shape
     if (lse.dtype != torch.float32 or lse.shape != (b, h, s)
@@ -229,6 +246,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         launches_sm90_bwd += 1
     elif route == "d256":
         launches_d256_bwd += 1
+    elif route == "d192":
+        launches_d192_bwd += 1
     return dq, dk, dv
 
 

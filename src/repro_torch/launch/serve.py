@@ -10,9 +10,17 @@ A config with sliding-window layers gets prompts that cross its window
 tokens, max_len 768), so its local layers attend differently from its
 global ones:
   python -m repro_torch.launch.serve --arch gemma3-1b --requests 4
+The mixture-of-experts configs serve the same way: granite-moe-1b-a400m
+at full width (every expert's weights read in every step, the JAX
+package's dense dispatch), deepseek-v2-236b through its MLA latent cache
+(no KV pool; 236 B parameters do not fit one card at full depth, so at
+full width only with its depth cut, as ``chip_smoke.py`` phase 12d
+does):
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
 
 Reduced run on the CPU (smoke config in float32, plain PyTorch path):
-  python -m repro_torch.launch.serve --local-smoke --device cpu
+  python -m repro_torch.launch.serve --local-smoke --device cpu \
+      [--arch granite-moe-1b-a400m | deepseek-v2-236b]
 
 Translation-costed serving: ``--cost-model pinned`` prices every step
 with the committed cost table, ``--cost-model sweep`` derives the table

@@ -11,15 +11,17 @@ gradients and AdamW moments and one 2-sequence microbatch's activations
 and float32 logits.  Every attention layer runs the CUDA flash
 attention kernels, forward and backward (gemma3-1b's head_dim 256, 22
 of its 26 layers with a 512-key window, on the d256 route:
-``--arch gemma3-1b``).  A vlm config (internvl2) gets the stub
-frontend's vision embeddings, prepended to the tokens, as the JAX
-launcher does.  ``--profile`` traces every
-step after the first (warm-up) with torch.profiler and prints the time
-by operator and the card's busy share.
+``--arch gemma3-1b``; granite-moe-1b-a400m's routed experts with the
+MoE aux loss in the loss: ``--arch granite-moe-1b-a400m``).  A vlm
+config (internvl2) gets the stub frontend's vision embeddings,
+prepended to the tokens, as the JAX launcher does.  ``--profile``
+traces every step after the first (warm-up) with torch.profiler and
+prints the time by operator and the card's busy share.
 
 Reduced run on the CPU (smoke config in float32 at 64 tokens, plain
 PyTorch path), as the JAX launcher's ``--local-smoke``:
-  python -m repro_torch.launch.train --local-smoke --device cpu
+  python -m repro_torch.launch.train --local-smoke --device cpu \
+      [--arch granite-moe-1b-a400m | deepseek-v2-236b]
 
 Without ``--device cpu`` the launcher needs a card and raises otherwise.
 The multi-host flags of the JAX launcher (``--coordinator``,

@@ -1,39 +1,53 @@
-"""GQA attention, causal or sliding-window: the training path and the
-dense-cache and paged-cache decode paths.
+"""GQA attention, causal or sliding-window, and DeepSeek's multi-head
+latent attention (MLA): the training path and the dense-cache and
+paged-cache decode paths.
 
 Mirrors ``repro.models.attention`` ``full_attention``,
-``self_attention``, ``attn_apply``, ``attn_decode_dense`` and
-``attn_decode_paged``.  Training attention above
-:data:`BLOCKWISE_THRESHOLD` tokens goes to ``kernels.ops.flash_attention``
-(the CUDA flash kernels on the card, where the JAX package runs its jnp
-``blockwise_attention`` under ``jax.checkpoint``); shorter sequences take
-the masked softmax of :func:`full_attention`.  KV caches and pools are
+``self_attention``, ``attn_apply``, ``attn_decode_dense``,
+``attn_decode_paged``, ``mla_apply`` and ``mla_decode``.  Training
+attention above :data:`BLOCKWISE_THRESHOLD` tokens goes to
+``kernels.ops.flash_attention`` (the CUDA flash kernels on the card,
+where the JAX package runs its jnp ``blockwise_attention`` under
+``jax.checkpoint``); shorter sequences take the masked softmax of
+:func:`full_attention`.  KV caches and pools are
 updated in place.  What every layer of one decode step shares (rope
-tables at the step's positions, the translated block table, the page
-and slot receiving the new token, the dense cache's masks with and
-without the window) is computed once per step by :func:`prepare_decode`:
+tables at the step's positions, one pair for each rotated width, the
+translated block table, the page and slot receiving the new token, the
+dense caches' masks with and without the window) is computed once per
+step by :func:`prepare_decode`:
 PyTorch runs eagerly, and recomputing it in each layer only adds small
 launches.  A sliding-window layer passes ``window`` (the config's
 ``window_size``; 0 for a global layer) to every path, as the JAX
 package's ``block_apply_decode`` does; its KV pages outside the window
-stay mapped, as they do there.  The mesh branch of the paged path
-(``_paged_attend_shardmap``) belongs to the parallel slice and is not
-ported yet; MLA and cross-attention wait for their slices too.
+stay mapped, as they do there.
+
+MLA rotates only its ``qk_rope_head_dim`` columns, so its rope tables
+are built at that width (the JAX package's ``apply_rope`` takes its
+frequencies from the width of the tensor it rotates).  Its training
+path joins the 128 + 64 query and key columns into one head of 192, pads
+v to it and runs :func:`self_attention` (above the threshold the flash
+kernel at head_dim 192); its decode is the absorbed-matrix attention
+over a dense latent cache, whatever the KV mode: an MLA layer has no KV
+pool.  The mesh branch of the paged path (``_paged_attend_shardmap``)
+belongs to the parallel slice and is not ported yet; cross-attention
+waits for its slice too.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
+from repro_torch import config as C
 from repro_torch.core import block_table as BT
 from repro_torch.core import kv_page_manager as KVM
 from repro_torch.kernels import ops as KOPS
-from repro_torch.models.layers import (apply_rope, dense_init, frozen,
-                                       rope_tables)
+from repro_torch.models.layers import (RMSNorm, apply_rope, dense_init,
+                                       frozen, rope_tables)
 
 BLOCKWISE_THRESHOLD = 2048
 NEG_INF = -1e30
@@ -53,41 +67,93 @@ class Attention(nn.Module):
         self.wo = frozen(dense_init(generator, h * hd, d, dtype, device))
 
 
+class MLA(nn.Module):
+    """Multi-head latent attention: the query down/up projections with
+    their norm, the joint KV down projection (latent + rope key), its
+    norm, the per-head key and value up projections and the output,
+    ``(d_in, d_out)`` layout."""
+
+    def __init__(self, cfg, dtype: torch.dtype, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.num_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+        def dense(d_in, d_out):
+            return frozen(dense_init(generator, d_in, d_out, dtype, device))
+
+        self.w_dq = dense(d, m.q_lora_rank)
+        self.q_norm = RMSNorm(m.q_lora_rank, dtype, device)
+        self.w_uq = dense(m.q_lora_rank, h * qk)
+        self.w_dkv = dense(d, m.kv_lora_rank + m.qk_rope_head_dim)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, dtype, device)
+        self.w_uk = dense(m.kv_lora_rank, h * m.qk_nope_head_dim)
+        self.w_uv = dense(m.kv_lora_rank, h * m.v_head_dim)
+        self.wo = dense(h * m.v_head_dim, d)
+
+
+def rope_width(cfg, mixer_kind: str) -> int:
+    """The width a layer of ``mixer_kind`` rotates: the head for GQA,
+    ``qk_rope_head_dim`` for MLA."""
+    return (cfg.mla.qk_rope_head_dim if mixer_kind == C.ATTN_MLA
+            else cfg.head_dim)
+
+
+def rope_widths(cfg) -> Set[int]:
+    return {rope_width(cfg, mk) for mk, _ in cfg.layer_kinds()}
+
+
 @dataclass
 class DecodeStep:
     """The per-step operands every attention layer shares.
 
     lengths: (B,) tokens already cached; the new token goes at index
     ``lengths`` and attention covers ``attend = lengths + 1`` tokens.
+    ``rope[width]``: (cos, sin) at the step's positions for each width
+    a layer rotates (:func:`rope_widths`).
     Paged modes: ``phys_all`` is the translated (B, max_pages) map (one
     indirection for flat, two for radix, done once per step: every layer
     reads the same map), ``phys_new``/``slot`` where the new K/V goes.
     Dense mode: ``masks[window]`` over the (B, 1, S_max) cache
     positions, for the global layers (window 0) and, if the config has a
-    window, for its sliding-window layers.
+    window, for its sliding-window layers.  MLA layers: ``latent_mask``
+    (B, 1, 1, S_max) over their latent cache, in every mode.
     """
     lengths: torch.Tensor
-    cos: torch.Tensor
-    sin: torch.Tensor
+    rope: Dict[int, Tuple[torch.Tensor, torch.Tensor]]
     attend: torch.Tensor
     phys_all: Optional[torch.Tensor] = None
     phys_new: Optional[torch.Tensor] = None
     slot: Optional[torch.Tensor] = None
     masks: Optional[Dict[int, torch.Tensor]] = None
+    latent_mask: Optional[torch.Tensor] = None
 
 
 def prepare_decode(cfg, lengths: torch.Tensor, kv_mode: str, table,
-                   cache_len: int, page_size: int) -> DecodeStep:
-    """``cache_len``: dense cache slots per sequence; ``page_size``: KV
-    page size of the pools (paged modes)."""
-    cos, sin = rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
-    step = DecodeStep(lengths=lengths, cos=cos, sin=sin, attend=lengths + 1)
+                   cache_len: int, page_size: int, latent_len: int = 0
+                   ) -> DecodeStep:
+    """``cache_len``: dense cache slots per sequence and ``page_size``:
+    KV page size of the pools (0 when no layer has a dense cache or a
+    pool); ``latent_len``: MLA latent cache slots per sequence (0
+    without MLA layers)."""
+    rope = {w: rope_tables(lengths[:, None], w, cfg.rope_theta)
+            for w in rope_widths(cfg)}
+    step = DecodeStep(lengths=lengths, rope=rope, attend=lengths + 1)
+    if latent_len:
+        kpos = torch.arange(latent_len, device=lengths.device)
+        step.latent_mask = (kpos[None, None, None, :]
+                            < step.attend[:, None, None, None])
     if kv_mode == "dense":
-        kpos = torch.arange(cache_len, device=lengths.device)[None, None, :]
-        step.masks = {0: kpos < step.attend[:, None, None]}
-        if cfg.window_size > 0:
-            step.masks[cfg.window_size] = step.masks[0] & (
-                kpos > lengths[:, None, None] - cfg.window_size)
+        if cache_len:
+            kpos = torch.arange(cache_len,
+                                device=lengths.device)[None, None, :]
+            step.masks = {0: kpos < step.attend[:, None, None]}
+            if cfg.window_size > 0:
+                step.masks[cfg.window_size] = step.masks[0] & (
+                    kpos > lengths[:, None, None] - cfg.window_size)
+        return step
+    if not page_size:
         return step
     step.phys_all = BT.translate_all(table, kv_mode)     # (B, max_pages)
     bidx = torch.arange(lengths.shape[0], device=lengths.device)
@@ -104,7 +170,7 @@ def _project_qkv(attn: Attention, x: torch.Tensor, step: DecodeStep, cfg):
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qk = torch.cat([x @ attn.wq, x @ attn.wk], dim=-1).reshape(b, 1, h + kh,
                                                                 hd)
-    qk = apply_rope(qk, step.cos, step.sin)
+    qk = apply_rope(qk, *step.rope[hd])
     v = (x @ attn.wv).reshape(b, 1, kh, hd)
     return qk[:, :, :h], qk[:, :, h:], v
 
@@ -212,3 +278,84 @@ def attn_decode_paged(attn: Attention, x: torch.Tensor, kp, vp,
     out = KOPS.paged_attention(q, kp, vp, step.phys_all, step.attend,
                                window=window)
     return out.reshape(b, 1, h * hd) @ attn.wo
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+def _mla_q(mla: MLA, x: torch.Tensor, cos, sin, cfg):
+    """(q_nope, q_rope rotated): (B, S, H, nope) and (B, S, H, rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = mla.q_norm(x @ mla.w_dq, cfg.rms_norm_eps)
+    q = (cq @ mla.w_uq).reshape(b, s, cfg.num_heads,
+                                m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_latent(mla: MLA, x: torch.Tensor, cos, sin, cfg):
+    """(c_kv normed (B, S, kv_lora), k_rope rotated (B, S, rope))."""
+    m = cfg.mla
+    c_kv, k_rope = (x @ mla.w_dkv).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_kv = mla.kv_norm(c_kv, cfg.rms_norm_eps)
+    return c_kv, apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+
+def mla_apply(mla: MLA, x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor, cfg) -> torch.Tensor:
+    """MLA train: expand the latent to per-head K/V and attend causally.
+    x: (B, S, D); ``cos``/``sin``: rope tables at ``qk_rope_head_dim``.
+    The rope columns join the others in one head of ``nope + rope``
+    (192 at full width), v is padded to it with zeros and the output
+    sliced back; the scale is 1/sqrt(nope + rope), the JAX package's
+    (its ``out_scale`` is 1)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(mla, x, cos, sin, cfg)
+    c_kv, k_rope = _mla_latent(mla, x, cos, sin, cfg)
+    k_nope = (c_kv @ mla.w_uk).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ mla.w_uv).reshape(b, s, h, m.v_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    pad = q_full.shape[-1] - m.v_head_dim
+    out = self_attention(q_full, k_full, F.pad(v, (0, max(pad, 0))),
+                         causal=True)
+    out = out[..., :m.v_head_dim]
+    return out.reshape(b, s, h * m.v_head_dim) @ mla.wo
+
+
+def mla_decode(mla: MLA, x: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_kr: torch.Tensor, step: DecodeStep, cfg
+               ) -> torch.Tensor:
+    """Absorbed-matrix MLA decode in the latent space.  x: (B, 1, D);
+    cache_ckv (B, S_max, kv_lora) and cache_kr (B, S_max, rope) take the
+    new token at ``step.lengths``, in place.  Scores and context in
+    float32, scaled by 1/sqrt(nope + rope); cast to the model dtype
+    before ``wo``.  Returns y: (B, 1, D)."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    cos, sin = step.rope[m.qk_rope_head_dim]
+    q_nope, q_rope = _mla_q(mla, x, cos, sin, cfg)
+    c_kv, k_rope = _mla_latent(mla, x, cos, sin, cfg)
+    idx = (torch.arange(b, device=x.device), step.lengths.long())
+    cache_ckv.index_put_(idx, c_kv[:, 0])
+    cache_kr.index_put_(idx, k_rope[:, 0])
+    # absorb W_uk into q: q_lat (B, 1, H, kv_lora)
+    w_uk = mla.w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope.float(), w_uk.float())
+    ckv = cache_ckv.float()
+    scores = (torch.einsum("bshc,btc->bhst", q_lat, ckv)
+              + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                             cache_kr.float())
+              ) / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = scores.masked_fill(~step.latent_mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhst,btc->bshc", w, ckv)
+    w_uv = mla.w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bshc,chv->bshv", ctx, w_uv.float())
+    return out.reshape(b, 1, h * m.v_head_dim).to(x.dtype) @ mla.wo

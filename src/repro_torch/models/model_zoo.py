@@ -46,7 +46,7 @@ class Model(nn.Module):
         if cfg.is_encdec or cfg.rope_theta <= 0:
             raise NotImplementedError(
                 f"{cfg.name}: encoder-decoder and non-rope models are not "
-                "ported yet (ROADMAP module queue item 8)")
+                "ported yet (ROADMAP module queue item 8d)")
         dt = cfg.torch_dtype
         self.embed = frozen(embed_init(generator, cfg.vocab_size,
                                        cfg.d_model, dt, device))
@@ -72,23 +72,30 @@ def init_params(cfg: C.ArchConfig, generator: torch.Generator,
     return Model(cfg, resolve_device(device), generator)
 
 
-def _block_leaves(block: T.Block) -> List[Tuple[Tuple[str, str],
+def _block_leaves(block: T.Block) -> List[Tuple[Tuple[str, ...],
                                                 torch.Tensor]]:
     """(path in the JAX block tree, parameter) of every weight of a
-    block."""
-    ffn = ("w_up", "w_down") + (("w_gate",) if block.ffn.gated else ())
-    return ([(("norm1", "scale"), block.norm1.scale),
-             (("norm2", "scale"), block.norm2.scale)]
-            + [(("mixer", n), getattr(block.mixer, n))
-               for n in ("wq", "wk", "wv", "wo")]
-            + [(("ffn", n), getattr(block.ffn, n)) for n in ffn])
+    block: the block's modules are named as the JAX tree's subtrees
+    (``norm1.scale``, ``mixer.q_norm.scale``, ``ffn.shared.w_up``, ...),
+    so a parameter's dotted name is its path."""
+    return [(tuple(name.split(".")), p)
+            for name, p in block.named_parameters()]
 
 
 def _nest(leaves) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
-    for (outer, inner), value in leaves:
-        out.setdefault(outer, {})[inner] = value
+    for path, value in leaves:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
     return out
+
+
+def _leaf(tree: Dict[str, Any], path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def params_from_numpy(cfg: C.ArchConfig, tree: Dict[str, Any],
@@ -99,7 +106,10 @@ def params_from_numpy(cfg: C.ArchConfig, tree: Dict[str, Any],
     stacked over the periods, so layer ``i >= len(prefix)`` is period
     ``(i - len(prefix)) // len(pattern)`` of ``block_{(i - len(prefix))
     % len(pattern)}``.  Every weight keeps its ``(d_in, d_out)`` layout,
-    so nothing is transposed."""
+    so nothing is transposed; an MoE's expert weights are ``(E, d_in,
+    d_out)`` there and here, its router float32, its shared experts the
+    ``ffn.shared`` subtree, and MLA's norms the ``mixer.q_norm`` and
+    ``mixer.kv_norm`` subtrees."""
     model = Model(cfg, resolve_device(device))
 
     def put(param: torch.Tensor, arr) -> None:
@@ -121,8 +131,8 @@ def params_from_numpy(cfg: C.ArchConfig, tree: Dict[str, Any],
             else:
                 p, j = divmod(i - n_prefix, period)
                 bp, at = tree["stack"]["scan"][f"block_{j}"], (p,)
-            for (outer, inner), param in _block_leaves(block):
-                put(param, bp[outer][inner][at])
+            for path, param in _block_leaves(block):
+                put(param, _leaf(bp, path)[at])
     return model
 
 

@@ -4,19 +4,22 @@ The JAX package scans one period of ``layer_pattern`` over stacked
 parameters (``lax.scan``); PyTorch runs eagerly, so the stack here is an
 ``nn.ModuleList`` with one ``Block`` per layer and training and decode
 are Python loops over it, the ``prefix_pattern`` blocks first, in
-``cfg.layer_kinds()`` order.  With ``cfg.remat`` each training block
-runs under ``torch.utils.checkpoint`` (the JAX side remats each period
-with ``jax.checkpoint``, and its prefix blocks not at all; the numbers
-are the same).  Decode state is a list with one dict per layer.  KV
-backends:
+``cfg.layer_kinds()`` order.  Training sums the MoE layers' aux losses
+over the stack, as the JAX package's ``stack_apply_train`` does.  With
+``cfg.remat`` each training block runs under ``torch.utils.checkpoint``
+(the JAX side remats each period with ``jax.checkpoint``, and its
+prefix blocks not at all; the numbers are the same).  Decode state is a
+list with one dict per layer.  KV backends of a GQA layer:
   dense       contiguous per-layer KV cache (the no-translation baseline)
   paged_flat  NDPage flattened single-level block table (one indirection)
   paged_radix 2-level directory->leaf block table (two indirections)
+An MLA layer holds its dense latent cache (``ckv``, ``kr``) in every
+mode, as the JAX package's ``block_init_state`` does.
 
-Only the blocks of dense GQA models are ported: global (``ATTN``) or
-sliding-window (``ATTN_LOCAL``) attention with a dense FFN, gated or
-GELU; other kinds raise ``NotImplementedError`` naming their ROADMAP
-item.
+Ported blocks: global (``ATTN``), sliding-window (``ATTN_LOCAL``) or
+latent (``ATTN_MLA``) attention, with a dense FFN (gated or GELU) or a
+routed mixture of experts (``MOE_FF``); Mamba and RWKV blocks raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,23 +31,29 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import config as C
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import FFN, RMSNorm, ffn_apply, rope_tables
 
-_ROADMAP_ITEM = "ROADMAP module queue item 8, other model families"
-_NOT_PORTED = {C.ATTN_MLA: "MLA attention", C.MAMBA: "Mamba blocks",
-               C.RWKV: "RWKV blocks", C.MOE_FF: "mixture-of-experts FFNs"}
+_NOT_PORTED = {C.MAMBA: ("Mamba blocks", "8c"),
+               C.RWKV: ("RWKV blocks", "8f")}
+_ATTENTION = (C.ATTN, C.ATTN_LOCAL, C.ATTN_MLA)
+
+
+def _roadmap(item: str) -> str:
+    return f"ROADMAP module queue item {item}, other model families"
 
 
 def _check_kinds(cfg, mixer_kind: str, ffn_kind: str) -> None:
-    for kind in (mixer_kind, ffn_kind):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]} "
-                                      f"not ported yet ({_ROADMAP_ITEM})")
-    if mixer_kind not in (C.ATTN, C.ATTN_LOCAL) or ffn_kind != C.DENSE_FF:
+    if mixer_kind in _NOT_PORTED:
+        what, item = _NOT_PORTED[mixer_kind]
+        raise NotImplementedError(f"{cfg.name}: {what} not ported yet "
+                                  f"({_roadmap(item)})")
+    if mixer_kind not in _ATTENTION or ffn_kind not in (C.DENSE_FF,
+                                                        C.MOE_FF):
         raise ValueError((mixer_kind, ffn_kind))
     if cfg.rwkv is not None:
         raise NotImplementedError(f"{cfg.name}: the RWKV channel mix is not "
-                                  f"ported yet ({_ROADMAP_ITEM})")
+                                  f"ported yet ({_roadmap('8f')})")
 
 
 # ---------------------------------------------------------------------------
@@ -59,27 +68,51 @@ class Block(nn.Module):
         dt = cfg.torch_dtype
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
-        self.mixer = A.Attention(cfg, dt, device, generator)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, dt, device, generator,
-                       gated=cfg.gated_ffn)
+        self.mla = mixer_kind == C.ATTN_MLA
+        self.mixer = (A.MLA(cfg, dt, device, generator) if self.mla
+                      else A.Attention(cfg, dt, device, generator))
+        self.moe = ffn_kind == C.MOE_FF
+        self.ffn = (MOE.MoE(cfg, dt, device, generator) if self.moe
+                    else FFN(cfg.d_model, cfg.d_ff, dt, device, generator,
+                             gated=cfg.gated_ffn))
         #: keys older than this are masked (0: a global layer)
         self.window = cfg.window_size if mixer_kind == C.ATTN_LOCAL else 0
+        #: the width of the rope tables the mixer takes
+        self.rope_width = A.rope_width(cfg, mixer_kind)
+
+
+def _ffn(block: Block, h: torch.Tensor, cfg
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, aux): aux is the MoE's load-balance loss, 0 for a dense FFN."""
+    if block.moe:
+        return MOE.moe_apply(block.ffn, h, cfg)
+    return ffn_apply(block.ffn, h), torch.zeros((), device=h.device)
 
 
 def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
                       sin: torch.Tensor, cfg
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D).  Returns (x', aux); aux is 0 for a dense FFN."""
+    """x: (B, S, D); ``cos``/``sin`` at the block's ``rope_width``.
+    Returns (x', aux)."""
     h = block.norm1(x, cfg.rms_norm_eps)
-    x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window)
-    h2 = block.norm2(x, cfg.rms_norm_eps)
-    return x + ffn_apply(block.ffn, h2), torch.zeros((), device=x.device)
+    if block.mla:
+        x = x + A.mla_apply(block.mixer, h, cos, sin, cfg)
+    else:
+        x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window)
+    y, aux = _ffn(block, block.norm2(x, cfg.rms_norm_eps), cfg)
+    return x + y, aux
 
 
-def block_init_state(cfg, batch: int, max_len: int, kv_mode: str,
-                     page_size: int, pages_per_layer: int,
+def block_init_state(cfg, mixer_kind: str, batch: int, max_len: int,
+                     kv_mode: str, page_size: int, pages_per_layer: int,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     dt = cfg.torch_dtype
+    if mixer_kind == C.ATTN_MLA:
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                   dtype=dt, device=device),
+                "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dt, device=device)}
     k, hd = cfg.num_kv_heads, cfg.head_dim
     if kv_mode == "dense":
         shape = (batch, max_len, k, hd)
@@ -95,15 +128,16 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
                        kv_mode: str) -> torch.Tensor:
     """x: (B,1,D).  Updates ``st`` in place; returns x'."""
     h = block.norm1(x, cfg.rms_norm_eps)
-    if kv_mode == "dense":
+    if block.mla:
+        y = A.mla_decode(block.mixer, h, st["ckv"], st["kr"], step, cfg)
+    elif kv_mode == "dense":
         y = A.attn_decode_dense(block.mixer, h, st["k"], st["v"], step, cfg,
                                 block.window)
     else:
         y = A.attn_decode_paged(block.mixer, h, st["kp"], st["vp"], step,
                                 cfg, block.window)
     x = x + y
-    h2 = block.norm2(x, cfg.rms_norm_eps)
-    return x + ffn_apply(block.ffn, h2)
+    return x + _ffn(block, block.norm2(x, cfg.rms_norm_eps), cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +159,14 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
                       positions: torch.Tensor, cfg
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); positions: (B|1, S).  Returns (x, aux_sum).  The
-    rope tables are built once for all layers (inside a checkpointed
-    block they would be rebuilt in the backward's recompute)."""
-    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope tables are built once for all layers, one pair for each width a
+    layer rotates (inside a checkpointed block they would be rebuilt in
+    the backward's recompute)."""
+    rope = {w: rope_tables(positions, w, cfg.rope_theta)
+            for w in A.rope_widths(cfg)}
     aux = torch.zeros((), device=x.device)
     for block in stack.layers:
+        cos, sin = rope[block.rope_width]
         if cfg.remat:
             x, a = checkpoint(block_apply_train, block, x, cos, sin, cfg,
                               use_reentrant=False)
@@ -142,21 +179,27 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
 def stack_init_state(cfg, batch: int, max_len: int, kv_mode: str,
                      page_size: int, pages_per_layer: int,
                      device: torch.device) -> List[Dict[str, Any]]:
-    return [block_init_state(cfg, batch, max_len, kv_mode, page_size,
+    return [block_init_state(cfg, mk, batch, max_len, kv_mode, page_size,
                              pages_per_layer, device)
-            for _ in range(cfg.num_layers)]
+            for mk, _ in cfg.layer_kinds()]
 
 
 def stack_apply_decode(stack: Stack, state: List[Dict[str, Any]],
                        x: torch.Tensor, lengths: torch.Tensor, cfg, *,
                        kv_mode: str, table=None) -> torch.Tensor:
     """x: (B,1,D).  Updates the per-layer states in place; returns x.
-    The operands all layers share are prepared once for the step."""
-    first = state[0]
+    The operands all layers share are prepared once for the step; the
+    cache length, page size and latent length come from the first layer
+    that holds such a cache (an MLA layer has no KV cache or pool)."""
+
+    def dim1(key: str) -> int:
+        return next((st[key].shape[1] for st in state if key in st), 0)
+
     step = A.prepare_decode(
         cfg, lengths, kv_mode, table,
-        cache_len=first["k"].shape[1] if kv_mode == "dense" else 0,
-        page_size=first["kp"].shape[1] if kv_mode != "dense" else 0)
+        cache_len=dim1("k") if kv_mode == "dense" else 0,
+        page_size=dim1("kp") if kv_mode != "dense" else 0,
+        latent_len=dim1("ckv"))
     for block, st in zip(stack.layers, state):
         x = block_apply_decode(block, st, x, step, cfg, kv_mode)
     return x

@@ -11,8 +11,11 @@ update is computed in float32 and cast to the parameter's dtype.
 Parameters and their moments are dictionaries keyed by parameter name.
 The update writes the parameters and moments in place (the JAX update
 returns new arrays; in place saves a copy of every tensor at full width)
-and runs over groups of at most :data:`GROUP_ELEMENTS` elements, so its
-float32 temporaries stay a few GB however large the model.
+and runs over groups of at most :data:`GROUP_ELEMENTS` elements, a
+tensor larger than that (deepseek-v2's 1.26 G-element expert weights) in
+flat pieces, so its float32 temporaries stay a few GB however large the
+model or any one weight.  The global norm takes each gradient's float32
+norm without a float32 copy of the gradients.
 """
 from __future__ import annotations
 
@@ -62,21 +65,37 @@ def adamw_init(params: Dict[str, torch.Tensor]) -> Dict[str, object]:
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32."""
-    norms = torch._foreach_norm([t.float() if t.dtype != torch.float32
-                                 else t for t in tensors])
+    norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
     return torch.sqrt(sum(torch.square(n) for n in norms))
 
 
+Piece = Tuple[str, int, int]     # (name, first flat element, end)
+
+
 def _groups(names: List[str], params: Dict[str, torch.Tensor]
-            ) -> List[List[str]]:
-    groups, cur, size = [], [], 0
+            ) -> List[List[Piece]]:
+    """Pieces of at most GROUP_ELEMENTS elements in groups of at most as
+    many, in ``names`` order."""
+    groups: List[List[Piece]] = []
+    cur: List[Piece] = []
+    size = 0
     for n in names:
-        if cur and size + params[n].numel() > GROUP_ELEMENTS:
-            groups.append(cur)
-            cur, size = [], 0
-        cur.append(n)
-        size += params[n].numel()
+        numel = params[n].numel()
+        for a in range(0, max(numel, 1), GROUP_ELEMENTS):
+            piece = (n, a, min(a + GROUP_ELEMENTS, numel))
+            if cur and size + piece[2] - a > GROUP_ELEMENTS:
+                groups.append(cur)
+                cur, size = [], 0
+            cur.append(piece)
+            size += piece[2] - a
     return groups + ([cur] if cur else [])
+
+
+def _views(tensors: Dict[str, torch.Tensor], group: List[Piece]
+           ) -> List[torch.Tensor]:
+    """Each piece's elements of its tensor, as views, so writes reach
+    the tensor (``view`` raises on a non-contiguous one)."""
+    return [tensors[n].view(-1)[a:e] for n, a, e in group]
 
 
 @torch.no_grad()
@@ -101,10 +120,8 @@ def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
     b2c = float(1 - _f32(cfg.b2) ** _f32(step))
     mu_all, nu_all = opt_state["mu"], opt_state["nu"]
     for group in _groups(names, params):
-        ps = [params[n] for n in group]
-        mu = [mu_all[n] for n in group]
-        nu = [nu_all[n] for n in group]
-        g = [grads[n].float() for n in group]
+        ps, mu, nu = (_views(t, group) for t in (params, mu_all, nu_all))
+        g = [v.float() for v in _views(grads, group)]
         torch._foreach_mul_(g, scale)
         torch._foreach_mul_(mu, cfg.b1)
         torch._foreach_add_(mu, g, alpha=1 - cfg.b1)
@@ -119,8 +136,9 @@ def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
         torch._foreach_div_(delta, denom)
         del denom
         p32 = [p.float() for p in ps]
-        decayed = [i for i, (n, p) in enumerate(zip(group, ps))
-                   if (p.ndim >= 2 if decay is None else n in decay)]
+        decayed = [i for i, (n, _, _) in enumerate(group)
+                   if (params[n].ndim >= 2 if decay is None
+                       else n in decay)]
         if decayed and cfg.weight_decay:
             torch._foreach_add_([delta[i] for i in decayed],
                                 [p32[i] for i in decayed],

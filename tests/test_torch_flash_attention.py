@@ -229,13 +229,14 @@ def test_ops_dispatch_cpu_is_differentiable_plain_version():
 
 
 @pytest.mark.parametrize("dtype,d", [("float32", 16), ("bfloat16", 64),
-                                     ("bfloat16", 256)],
-                         ids=["simt", "sm90", "d256"])
+                                     ("bfloat16", 256), ("bfloat16", 192)],
+                         ids=["simt", "sm90", "d256", "d192"])
 def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     q, k, v, do = _torch(_inputs(1, 64, 4, 2, d, seed=7), dtype)
     counters = ("launches_fwd", "launches_bwd", "launches_sm90_fwd",
                 "launches_sm90_bwd", "launches_d256_fwd",
-                "launches_d256_bwd")
+                "launches_d256_bwd", "launches_d192_fwd",
+                "launches_d192_bwd")
     before = [getattr(FA, c) for c in counters]
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_fwd_cuda(q, k, v)
@@ -251,13 +252,15 @@ def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 96, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 256, "d256"), (torch.bfloat16, 96, ValueError),
-    (torch.bfloat16, 192, ValueError), (torch.float32, 256, ValueError),
+    (torch.bfloat16, 192, "d192"), (torch.float32, 256, ValueError),
     (torch.float16, 128, ValueError), (torch.float16, 256, ValueError),
+    (torch.float32, 192, ValueError), (torch.bfloat16, 320, ValueError),
 ])
 def test_route(dtype, d, route):
     """bf16 with head_dim 64 / 128 takes the wgmma kernels, bf16 at 256
-    the d256 mma.sync ones, float32 up to 128 the 3xTF32 mma.sync ones;
-    nothing else has a kernel."""
+    and 192 the d256 template's mma.sync ones (d192: deepseek-v2's MLA
+    head), float32 up to 128 the 3xTF32 mma.sync ones; nothing else has a
+    kernel (float32 above 128 stays unported)."""
     if route is ValueError:
         with pytest.raises(ValueError, match="no flash_attention kernel"):
             FA._route(dtype, d)
@@ -293,6 +296,48 @@ def test_head_dim_256_gradients_match_jax(dtype):
     against jax.vjp of blockwise_attention."""
     b, s, h, kh, d, causal, window = D256_CASES[0]
     arrays = _inputs(b, s, h, kh, d, seed=12)
+    want = _jax_grads(arrays, dtype, causal, window)
+    q, k, v, do = _torch(arrays, dtype)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    got = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_TOL[dtype])
+
+
+# deepseek-v2's MLA attention at small S: head_dim 192 (128 + 64), as
+# many key heads as query heads, causal; and the kernel's other masks
+D192_CASES = [(1, 128, 4, 4, 192, True, 0), (1, 96, 4, 2, 192, True, 16),
+              (2, 64, 2, 2, 192, False, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", D192_CASES,
+                         ids=["mla", "window", "noncausal"])
+def test_head_dim_192_matches_pallas(b, s, h, kh, d, causal, window, dtype):
+    """The plain version (the d192 kernel's oracle on the card) takes
+    head_dim 192 against the Pallas kernel in interpret mode, with the
+    MLA layout's zero-padded v columns (v is 128 wide there)."""
+    q, k, v = _inputs(b, s, h, kh, d, seed=13)[:3]
+    v[..., 128:] = 0.0
+    arrays = (q, k, v)
+    got, lse = ref.flash_attention_ref(*_torch(arrays, dtype), causal=causal,
+                                       window=window, return_lse=True)
+    assert got.shape == (b, s, h, d) and lse.shape == (b, h, s)
+    want = flash_attention_pallas(*_jax(arrays, dtype), causal=causal,
+                                  window=window, bq=32, bk=32,
+                                  interpret=True)
+    _close(got, want, FWD_TOL[dtype])
+    assert float(got[..., 128:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_192_gradients_match_jax(dtype):
+    """The backward's plain version at head_dim 192 against jax.vjp of
+    blockwise_attention."""
+    b, s, h, kh, d, causal, window = D192_CASES[0]
+    arrays = _inputs(b, s, h, kh, d, seed=14)
     want = _jax_grads(arrays, dtype, causal, window)
     q, k, v, do = _torch(arrays, dtype)
     out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,

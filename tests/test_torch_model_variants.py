@@ -3,14 +3,18 @@ the same weights (``params_from_numpy`` of the JAX ``init_params``
 tree): gemma3-1b (sliding-window layers in a 5:1 interleave after two
 prefix layers, tied embeddings, head_dim 256 at full width),
 phi3-medium-14b (GQA 40/10), granite-34b (MQA, the GELU FFN) and
-internvl2-76b (stub vision tokens prepended).
+internvl2-76b (stub vision tokens prepended); and the mixture-of-experts
+configs, granite-moe-1b-a400m (every FFN routed, tied embeddings) and
+deepseek-v2-236b (MLA in every layer with its latent decode cache, a
+dense prefix layer, then routed experts with a shared one).
 
 Smoke width (``smoke_variant``: window 8, 4 vision tokens), float32,
 live calls of ``repro`` on both sides.  Logits, losses and gradients are
 held to rtol = atol = 1e-4 (both sides sum in float32 in other orders,
 through several layers and the vocabulary projection); generated tokens,
 lengths and page tables exactly.  Decode runs past the smoke window, so
-the local layers attend to fewer tokens than the global ones.
+the local layers attend to fewer tokens than the global ones.  The MoE
+aux loss is held with the logits.
 """
 import dataclasses
 import functools
@@ -28,6 +32,8 @@ from repro.models import init_decode_state as jinit_state
 from repro.models import init_params as jinit_params
 from repro.models import layers as JL
 from repro.models import prefill as jprefill
+from repro.serving import Request as JRequest
+from repro.serving import ServeEngine as JServeEngine
 from repro.train import data as jdata
 from repro.train import optimizer as jopt
 from repro.train import train_loop as jtl
@@ -39,6 +45,7 @@ from repro_torch.models import (decode_step, forward_train,
                                 init_decode_state, init_params,
                                 params_from_numpy, params_to_numpy, prefill)
 from repro_torch.models import layers as L
+from repro_torch.serving import Request, ServeEngine
 from repro_torch.train import data as D
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import (TrainState, decayed_names,
@@ -46,7 +53,9 @@ from repro_torch.train.train_loop import (TrainState, decayed_names,
                                           trainable)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["gemma3-1b", "phi3-medium-14b", "granite-34b", "internvl2-76b"]
+ARCHS = ["gemma3-1b", "phi3-medium-14b", "granite-34b", "internvl2-76b",
+         "granite-moe-1b-a400m", "deepseek-v2-236b"]
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
 KV_MODES = ["dense", BT.FLAT, BT.RADIX]
 #: AdamW's eps is 1e-6 here, not 1e-8: with tied embeddings every
 #: vocabulary row takes a gradient through the logits, some as small as
@@ -153,7 +162,8 @@ def test_forward_train_matches(name):
                                    cfg.vocab_size)
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
                                **TOL)
-    assert float(aux) == float(jaux) == 0.0
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+    assert (float(aux) > 0) == (cfg.moe is not None)
 
 
 def _tables(table, mode):
@@ -168,7 +178,8 @@ def _tables(table, mode):
 def test_decode_steps_match(name, kv_mode):
     """10 teacher-forced steps then 6 greedy ones, past the window of 8:
     logits every step, the greedy tokens, lengths, tables and the KV of
-    a local and a global layer."""
+    a local and a global layer (an MLA layer's latent cache, in every
+    mode)."""
     jcfg, cfg, jparams, _, model = _setup(name)
     b, max_len, page = 3, 32, 4
     jst = jinit_state(jcfg, b, max_len, kv_mode, page)
@@ -195,9 +206,11 @@ def test_decode_steps_match(name, kv_mode):
         for got, want in zip(_tables(st["table"], kv_mode),
                              _tables(jst["table"], kv_mode)):
             np.testing.assert_array_equal(got, want)
-    names = ("k", "v") if kv_mode == "dense" else ("kp", "vp")
+    kinds = cfg.layer_kinds()
     n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
     for layer in sorted({0, cfg.num_layers - 1}):
+        names = (("ckv", "kr") if kinds[layer][0] == C.ATTN_MLA
+                 else ("k", "v") if kv_mode == "dense" else ("kp", "vp"))
         if layer < n_prefix:
             jl_st = jst["stack"]["prefix"][layer]
             at = ()
@@ -240,10 +253,12 @@ def test_window_changes_the_answer():
     assert float((a - b).abs().max()) > 1e-3
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "internvl2-76b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "internvl2-76b"]
+                         + MOE_ARCHS)
 def test_loss_and_gradients_match(name):
     """One loss and its gradient: the tied embedding gets both of its
-    uses' parts, the vision positions carry no labels."""
+    uses' parts, the vision positions carry no labels, the MoE aux loss
+    reaches the router."""
     jcfg, cfg, jparams, tree, _ = _setup(name)
     model = trainable(params_from_numpy(cfg, tree, "cpu"))
     tb, jb = _batches(cfg, jcfg, b=2, s=16)
@@ -257,7 +272,8 @@ def test_loss_and_gradients_match(name):
     _assert_tree_close(params_to_numpy(model, grads=True), jgrads, TOL)
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "internvl2-76b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "internvl2-76b"]
+                         + MOE_ARCHS)
 def test_train_step_matches(name):
     """Two steps with 2 microbatches (stub embeddings split with the
     tokens): metrics, then the weights.  Weight decay 0.1 at lr 1e-2 moves
@@ -275,7 +291,7 @@ def test_train_step_matches(name):
         tb, jb = _batches(cfg, jcfg, b=4, s=16, step=i)
         state, m = step(state, tb)
         jstate, jm = jstep(jstate, jb)
-        for key in ("loss", "xent", "grad_norm", "lr"):
+        for key in ("loss", "xent", "aux", "grad_norm", "lr"):
             np.testing.assert_allclose(m[key], float(jm[key]), **TOL,
                                        err_msg=f"step {i} {key}")
     _assert_tree_close(params_to_numpy(state.params), jstate.params, TOL)
@@ -306,6 +322,84 @@ def test_blockwise_branch_with_window():
         jparams, jcfg, jb)
     np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
     _assert_tree_close(params_to_numpy(model, grads=True), jgrads, TOL)
+
+
+def test_blockwise_branch_through_mla_and_moe():
+    """S = 3072 > BLOCKWISE_THRESHOLD on deepseek-v2: both MLA layers run
+    flash attention at head_dim 24 (nope 16 + rope 8; the plain version
+    here), the JAX package jax.checkpoint(blockwise_attention), and the
+    MoE routes 6 groups of 512 at capacity-factor routing; loss, aux and
+    gradients."""
+    jcfg, cfg, jparams, tree, _ = _setup("deepseek-v2-236b")
+    model = trainable(params_from_numpy(cfg, tree, "cpu"))
+    tb, jb = _batches(cfg, jcfg, b=1, s=3072)
+    loss, parts = loss_fn(model, cfg, tb)
+    loss.backward()
+    (jloss, jparts), jgrads = jax.value_and_grad(jtl.loss_fn, has_aux=True)(
+        jparams, jcfg, jb)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    np.testing.assert_allclose(float(parts["aux"]), float(jparts["aux"]),
+                               **TOL)
+    _assert_tree_close(params_to_numpy(model, grads=True), jgrads, TOL)
+
+
+@pytest.mark.parametrize("table_mode", [None, BT.FLAT, BT.RADIX])
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_engine_matches_jax_engine(name, table_mode):
+    """ServeEngine on the MoE configs against the JAX package's engine:
+    the same token streams, scheduler stats and translation-cache hits
+    and misses (deepseek-v2's MLA layers have no KV pool; the block
+    table is built and translated all the same)."""
+    jcfg, cfg, jparams, _, model = _setup(name)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, rng.integers(3, 8))
+               .astype(np.int32) for _ in range(4)]
+    shape = dict(max_batch=3, max_len=48, page_size=8, table_mode=table_mode)
+    out = []
+    for eng, req in ((JServeEngine(jcfg, jparams, **shape), JRequest),
+                     (ServeEngine(cfg, model, **shape, device="cpu"),
+                      Request)):
+        for i, p in enumerate(prompts):
+            eng.submit(req(req_id=i, prompt=p, max_new_tokens=5))
+        done = eng.run(max_steps=500)
+        tc = eng.sched.tcache
+        out.append(({r.req_id: list(r.generated) for r in done},
+                    dict(eng.sched.stats), tc.hits, tc.misses))
+    assert len(out[1][0]) == 4
+    assert out[1] == out[0]
+
+
+def test_moe_and_mla_layouts():
+    """What the MoE slice adds, as the port builds it: deepseek-v2's
+    dense MLA prefix layer then MLA + MoE layers with a shared expert,
+    the latent cache in every KV mode (no pool), granite-moe's routed
+    FFN in every layer; the 3-D expert weights and the float32 router
+    decayed, as ``ndim >= 2`` of the JAX tree has them."""
+    _, dcfg, _, dtree, deepseek = _setup("deepseek-v2-236b")
+    assert [(b.mla, b.moe) for b in deepseek.stack.layers] == [
+        (True, False), (True, True), (True, True)]
+    assert len(dtree["stack"]["prefix"]) == 1
+    assert set(dtree["stack"]["scan"]["block_0"]["ffn"]) == {
+        "router", "w_up", "w_gate", "w_down", "shared"}
+    for mode in KV_MODES:
+        st = init_decode_state(dcfg, 2, 16, mode, 4, device="cpu")
+        assert all(set(layer) == {"ckv", "kr"} for layer in st["stack"])
+        assert ("table" in st) == (mode != "dense")
+    full = C.get_arch("deepseek-v2-236b")
+    assert full.num_layers == 60 and full.layer_kinds()[0] == (
+        C.ATTN_MLA, C.DENSE_FF)
+    _, gcfg, _, _, granite = _setup("granite-moe-1b-a400m")
+    assert all(b.moe and not b.mla for b in granite.stack.layers)
+    assert granite.lm_head is None
+    names = decayed_names(granite)
+    assert {"stack.layers.0.ffn.router", "stack.layers.0.ffn.w_up",
+            "stack.layers.1.ffn.w_down"} <= names
+    layer0 = dict(granite.stack.layers[0].ffn.named_parameters())
+    assert layer0["router"].dtype == torch.float32
+    assert layer0["w_up"].shape == (4, 64, 32)
+    dnames = decayed_names(deepseek)
+    assert "stack.layers.0.mixer.q_norm.scale" not in dnames
+    assert "stack.layers.1.mixer.kv_norm.scale" in dnames
 
 
 def test_modality_stubs_match_and_refuse_audio():
@@ -344,7 +438,7 @@ def test_serve_shape_crosses_the_window():
     assert LS.full_shape(C.get_arch("internlm2-1.8b")) is LS.FULL
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "granite-34b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-34b"] + MOE_ARCHS)
 def test_serve_launcher_local_smoke(name, capsys):
     out = LS.main(["--local-smoke", "--device", "cpu", "--arch", name,
                    "--requests", "3"])

@@ -32,6 +32,7 @@ from repro_torch.util.profile import print_profile
 from repro_torch.models import (forward_train, params_from_numpy,
                                 params_to_numpy)
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import optimizer
 from repro_torch.train import data as D
 from repro_torch.train.fault_tolerance import FaultConfig, GuardedTrainer
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
@@ -167,6 +168,37 @@ def test_adamw_decay_skips_vectors_and_keeps_bf16():
                              state)
     assert float(new["w"][0, 0]) < 1.0 and float(new["b"][0]) == 1.0
     assert new["w"].dtype == torch.bfloat16
+
+
+def test_adamw_pieces_match_the_jax_update(monkeypatch):
+    """Tensors larger than a group are updated in flat pieces (as the
+    expert weights of deepseek-v2 are): with groups of 7 elements every
+    tensor here is cut, and the update still equals the JAX one."""
+    monkeypatch.setattr(optimizer, "GROUP_ELEMENTS", 7)
+    rng = np.random.default_rng(1)
+    shapes = {"e": (3, 4, 5), "b": (6,), "w": (4, 4)}
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = {k: (rng.standard_normal(s) * 3).astype(np.float32)
+             for k, s in shapes.items()}
+    assert [[n for n, _, _ in g] for g in optimizer._groups(
+        list(shapes), {k: torch.tensor(v) for k, v in params.items()})][:3] \
+        == [["e"]] * 3
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jparams, jstate, jm = jopt.adamw_update(
+        JOPT, jparams, {k: jnp.asarray(v) for k, v in grads.items()},
+        jopt.adamw_init(jparams))
+    tparams = {k: torch.tensor(v) for k, v in params.items()}
+    tparams, tstate, tm = adamw_update(
+        OPT, tparams, {k: torch.tensor(v) for k, v in grads.items()},
+        adamw_init(tparams))
+    for k in shapes:
+        np.testing.assert_allclose(tparams[k].numpy(),
+                                   np.asarray(jparams[k]), **OPT_TOL)
+        np.testing.assert_allclose(tstate["nu"][k].numpy(),
+                                   np.asarray(jstate["nu"][k]), **OPT_TOL)
+    np.testing.assert_allclose(tm["grad_norm"], float(jm["grad_norm"]),
+                               **OPT_TOL)
 
 
 def test_schedule_matches():
