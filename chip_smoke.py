@@ -27,24 +27,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      card's logits agree with the CPU's plain path;
   6. the design of the float32 kernels (forward and backward, 3xTF32
      tensor-core products) and the ptxas report of each (a forward that
-     spills fails); the flash-attention kernels of both routes (bf16:
-     the sm90 wgmma kernels; float32: the simt 3xTF32 mma.sync kernels),
-     forward and backward, against their plain versions (and the
-     backward against autograd of the plain forward) at the training
-     shape and at window, non-causal, MQA and ragged cases, and in
-     float32 at head_dim 36 from unaligned rows (head_dim padding and
-     4-byte copies); in bf16 at head_dim 256 (the d256 mma.sync kernels)
-     at gemma3-1b's training shape (B 2, S 4,096, 4 / 1 heads, causal,
-     window 512 and none), a ragged windowed and a non-causal case; in
-     bf16 at head_dim 192 (the d192 instantiation of the same template)
-     at deepseek-v2's sequence length (S 4,096, 16 / 16 heads, causal), a
-     non-causal S 777 and a GQA windowed case, and the d256 template's
-     ptxas lines at both head dims; each route timed at its own path's
-     shape with the same four times and the achieved TFLOP/s (d256 also
-     with the window; d192 at deepseek-v2's B 1, S 4,096, 128 / 128
-     heads of 192); the sm90, d256 and d192 backwards run twice and held
-     bit-identical, and the d256 and d192 backwards split by kernel
-     (torch.profiler);
+     spills fails); the ptxas lines of every d256 / d192 kernel (TMA and
+     wgmma, both head dims, and the reduction of the split dK/dV
+     partials: one that spills, or that ptxas did not report, fails); the
+     flash-attention kernels of both routes (bf16: the sm90 wgmma
+     kernels; float32: the simt 3xTF32 mma.sync kernels), forward and
+     backward, against their plain versions (and the backward against
+     autograd of the plain forward) at the training shape and at window,
+     non-causal, MQA and ragged cases, and in float32 at head_dim 36 from
+     unaligned rows (head_dim padding and 4-byte copies); in bf16 at
+     head_dim 256 (the d256 kernels) at gemma3-1b's training shape (B 2,
+     S 4,096, 4 / 1 heads, causal, window 512 and none), a ragged
+     windowed case (8 / 2 heads: a 3-way dK/dV split over G = 4 heads),
+     MQA (8 / 1 heads), G = 3 (6 / 2 heads, ragged, window 100) and a
+     non-causal case; in bf16 at head_dim 192 (the d192 instantiation of
+     the same template) at deepseek-v2's sequence length (S 4,096, 16 /
+     16 heads, causal), a non-causal S 777 and a GQA windowed case; each
+     route timed at its own path's shape with the same four times and
+     the achieved TFLOP/s (d256 also with the window; d192 at
+     deepseek-v2's B 1, S 4,096, 128 / 128 heads of 192; the d256
+     backward also with its dK/dV work split 1, 2 and 4 ways); the sm90,
+     d256 and d192 backwards run twice and held bit-identical, and the
+     d256 and d192 backwards split by kernel (torch.profiler; each of its
+     kernels must have run);
   7. full-width internlm2-1.8b trained through the port's launcher: 3
      steps of 8 x 4,096 tokens in 4 microbatches, every attention layer
      through the sm90 flash kernels (forward twice a step per layer and
@@ -148,7 +153,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      c. full-width gemma3-1b trained through the launcher at train_4k
         (8 x 4,096 tokens in 4 microbatches, 3 steps): finite losses,
         every attention layer through the d256 flash kernels, peak
-        memory;
+        memory, and a fourth step under torch.profiler (time by
+        operator);
      d. phi3-medium-14b and granite-34b (4 layers each at full width)
         decode 4 requests through the paged kernel; internvl2-76b (2
         layers at full width) one train forward with 256 stub vision
@@ -267,19 +273,20 @@ LOGIT_TOL = 1e-3
 #: MQA case) whose rounding scales with the largest terms, not with the
 #: element, so the error is held against the tensor's scale.  Seen on
 #: the H100: float32 up to 5.4e-6 of it (MQA), bf16 up to 6.2e-3 on
-#: sm90 (MQA) and 7.7e-3 on d256 (dS rounded to bf16 for the dQ and dK
-#: products; d192 up to 5.3e-3).  Against autograd of the plain forward,
-#: which rounds to bf16 at other places, bf16 keeps the bf16 2e-2 (7.7e-3
-#: seen)
+#: sm90 (MQA) and, on the d256 / d192 wgmma kernels, up to 6.9e-3 (d256,
+#: MQA) and 6.0e-3 (d192) (dS rounded to bf16 for the dQ and dK products,
+#: as on sm90; the mma.sync kernels they replaced: 7.7e-3 and 5.3e-3).
+#: Against autograd of the plain forward, which rounds to bf16 at other
+#: places, bf16 keeps the bf16 2e-2 (7.7e-3 seen)
 FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 FLASH_AUTOGRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 #: bf16 forward held a second time to a max abs error: the kernel rounds
-#: p to bf16 after a 64-key (d256 / d192: 32-key) tile's running max, the
-#: plain version after a 512-key block's, so the outputs can differ by a
-#: bf16 step.  Seen on the H100: 3.9e-3 on the sm90 and d256 cases, and
-#: 7.8e-3 = 2^-7 on d192 at S 4,096 with 16 heads (one step at |out| in
-#: [1, 2)).  The float32 cases (2e-5) are the ones that catch a dropped
-#: key tile
+#: p to bf16 after a 64-key (sm90 forward: 128-key) tile's running max,
+#: the plain version after a 512-key block's, so the outputs can differ by
+#: a bf16 step.  Seen on the H100: 3.9e-3 on most sm90, d256 and d192
+#: cases, and 7.8e-3 = 2^-7 (one step at |out| in [1, 2)) on d256 with G =
+#: 3 (S 1,000, window 100) and on the mma.sync d192 kernel at S 4,096.  The
+#: float32 cases (2e-5) are the ones that catch a dropped key tile
 FLASH_TIGHT_BF16 = 1e-2
 #: training parity, float32, TF32 off, 2 layers at full width, 3,072
 #: tokens: loss abs difference, and each selected gradient's max abs
@@ -689,6 +696,28 @@ ROUTE_CASES = {"sm90": (TRAIN_ATTN, torch.bfloat16),
                "simt": (PARITY_ATTN, torch.float32),
                "d256": (GEMMA_ATTN, torch.bfloat16),
                "d192": (DEEPSEEK_ATTN, torch.bfloat16)}
+#: bf16 only (float32 has no kernel at head_dim 256): the d256 route at
+#: gemma3's training shape, its local (window 512) and global layers, at a
+#: ragged S with a window (G = 4 query heads over a 3-way dK/dV split:
+#: chunks cross heads), with one KV head for 8 query heads (MQA), with G =
+#: 3 and without the causal mask
+D256_CASES = {
+    "gemma3_local": dict(GEMMA_ATTN, window=512),
+    "gemma3_global": GEMMA_ATTN,
+    "d256_ragged": dict(GEMMA_ATTN, b=1, s=1000, h=8, kh=2, window=100),
+    "d256_mqa": dict(GEMMA_ATTN, b=1, s=2048, h=8, kh=1),
+    "d256_g3": dict(GEMMA_ATTN, b=1, s=1000, h=6, kh=2, window=100),
+    "d256_noncausal": dict(GEMMA_ATTN, b=1, s=777, causal=False),
+}
+#: bf16 only (float32 has no kernel above head_dim 128): the d192 route at
+#: deepseek-v2's sequence length with 16 of its heads, at an odd S without
+#: the causal mask, and with GQA and a window (the kernel takes both; MLA
+#: uses neither)
+D192_CASES = {
+    "d192_s4096": dict(DEEPSEEK_ATTN, h=16, kh=16),
+    "d192_noncausal": dict(DEEPSEEK_ATTN, s=777, h=16, kh=16, causal=False),
+    "d192_ragged": dict(DEEPSEEK_ATTN, s=1000, h=8, kh=2, window=100),
+}
 _CSRC = "src/repro_torch/kernels/csrc"
 FLASH_SOURCES = {"sm90": f"{_CSRC}/flash_attention_sm90.cu",
                  "simt": f"{_CSRC}/flash_attention.cu",
@@ -828,9 +857,7 @@ def phase_flash():
               for n in re.findall(r"(\d+) bytes spill", line)]
     check(bool(spills) and not any(spills), "the float32 forward spills "
           "registers, or ptxas reported nothing for it")
-    for line in ptxas_lines("flash_attention_d256", (
-            "fwd_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel")):
-        print(f"  flash_attention_d256 ptxas: {line}")
+    check_d256_ptxas()
     ragged = dict(b=1, s=1000, h=8, kh=2, d=64, causal=True, window=0)
     shapes = {
         "train": TRAIN_ATTN,
@@ -843,28 +870,9 @@ def phase_flash():
     # 64 inside the kernel, rows 4 bytes off 16-byte alignment
     f32_only = {"d36": dict(b=2, s=777, h=6, kh=3, d=36, causal=True,
                             window=100, unaligned=True)}
-    # bf16 only (float32 has no kernel at head_dim 256): the d256 route at
-    # gemma3's training shape, its local (window 512) and global layers,
-    # and at a ragged S with a window and without the causal mask
-    d256_only = {
-        "gemma3_local": dict(GEMMA_ATTN, window=512),
-        "gemma3_global": GEMMA_ATTN,
-        "d256_ragged": dict(GEMMA_ATTN, b=1, s=1000, h=8, kh=2, window=100),
-        "d256_noncausal": dict(GEMMA_ATTN, b=1, s=777, causal=False),
-    }
-    # bf16 only (float32 has no kernel above head_dim 128): the d192 route
-    # at deepseek-v2's sequence length with 16 of its heads, at an odd S
-    # without the causal mask, and with GQA and a window (the kernel takes
-    # both; MLA uses neither)
-    d192_only = {
-        "d192_s4096": dict(DEEPSEEK_ATTN, h=16, kh=16),
-        "d192_noncausal": dict(DEEPSEEK_ATTN, s=777, h=16, kh=16,
-                               causal=False),
-        "d192_ragged": dict(DEEPSEEK_ATTN, s=1000, h=8, kh=2, window=100),
-    }
     results = {}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        cases = ({**shapes, **d256_only, **d192_only}
+        cases = ({**shapes, **D256_CASES, **D192_CASES}
                  if dt == torch.bfloat16 else {**shapes, **f32_only})
         for i, (name, shape) in enumerate(cases.items()):
             case = flash_case(**shape, dtype=dt, seed=10 + i)
@@ -909,6 +917,30 @@ def phase_flash():
     timed = {route: time_route(route) for route in ROUTE_CASES}
     torch.cuda.empty_cache()
     return timed
+
+
+#: the kernels of flash_attention_d256.cu, each at both head dims but the
+#: reduction of the split dK/dV partials
+D256_KERNELS = tuple(f"{k}<{d}>" for d in (256, 192) for k in (
+    "fwd_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel")) + (
+    "dkdv_reduce_kernel",)
+
+
+def check_d256_ptxas() -> None:
+    """Prints the ptxas register and spill lines of every d256 / d192
+    kernel and fails if one spills or ptxas reported nothing for it."""
+    lines = ptxas_lines("flash_attention_d256", (
+        "fwd_kernel", "delta_kernel", "dkdv_reduce_kernel", "dkdv_kernel",
+        "dq_kernel"))
+    for line in lines:
+        print(f"  flash_attention_d256 ptxas: {line}")
+    for kernel in D256_KERNELS:
+        spills = [int(n) for line in lines
+                  if line.startswith(f"{kernel}:")
+                  for n in re.findall(r"(\d+) bytes spill", line)]
+        check(bool(spills) and not any(spills),
+              f"flash_attention_d256 {kernel} spills registers, or ptxas "
+              f"reported nothing for it")
 
 
 def time_route(route: str) -> dict:
@@ -980,10 +1012,17 @@ def time_route(route: str) -> dict:
               f"{bound_ms / ms:.1%} of bound, {tflops:.1f} TFLOP/s achieved "
               f"({14 if backward else 4}·D an attended pair)")
     if route in ("d256", "d192"):
-        backward_split(route, lambda: flash_bwd("kernel", case, o, lse))
+        q = case["q"]
+        backward_split(route, lambda: flash_bwd("kernel", case, o, lse),
+                       FA.d256_bwd_plan(*q.shape[:3], case["k"].shape[2],
+                                        q.shape[3], causal=case["causal"],
+                                        window=case["window"])["splits"])
     if route == "d256":     # gemma3's 22 local layers: window 512
         local = dict(case, window=512)
         lo, llse = flash_fwd("kernel", local)
+        for layer, c, out, ls in (("global", case, o, lse),
+                                  ("window 512", local, lo, llse)):
+            split_sweep(layer, c, out, ls)
         for direction, fn in (
                 ("fwd", lambda: flash_fwd("kernel", local)),
                 ("bwd", lambda: flash_bwd("kernel", local, lo, llse))):
@@ -997,10 +1036,32 @@ def time_route(route: str) -> dict:
     return timed
 
 
-def backward_split(route: str, bwd, calls: int = 3) -> None:
-    """Where an mma.sync route's backward spends its time: each kernel's
-    device time over ``calls`` backward calls (torch.profiler, L2 warm),
-    printed, not gated."""
+def split_sweep(tag: str, case, o, lse) -> None:
+    """The d256 backward's time (L2 flushed) with its dK/dV work split 1,
+    2 and 4 ways, the plan's choice marked: the measurement behind
+    ``d256_bwd_plan``'s rule, printed, not gated."""
+    q, k = case["q"], case["k"]
+    b, s, h, d = q.shape
+    plan = FA.d256_bwd_plan(b, s, h, k.shape[2], d, causal=case["causal"],
+                            window=case["window"])
+    times = []
+    for n in (1, 2, 4):
+        forced = dict(plan, splits=n, partials=(
+            (2, n, b, s, k.shape[2], d) if n > 1 else None))
+        with mock.patch.object(FA, "d256_bwd_plan",
+                               lambda *a, forced=forced, **kw: forced):
+            ms = time_cold_ms(lambda: flash_bwd("kernel", case, o, lse), 10)
+        times.append(f"{n}{'*' if n == plan['splits'] else ''}: {ms:.4f}")
+    print(f"flash_attention d256 bwd {tag}, dK/dV split n ways (* the "
+          f"plan's), ms (L2 flushed): {', '.join(times)}")
+
+
+def backward_split(route: str, bwd, splits: int, calls: int = 3) -> None:
+    """Where the d256 / d192 backward spends its time: each kernel's device
+    time over ``calls`` backward calls (torch.profiler, L2 warm), printed,
+    not gated.  Four kernels: the delta pre-pass, dK/dV, the reduction of
+    the split dK/dV partials (where the plan splits, as at gemma3's shape)
+    and dQ; fails if one of them did not run."""
     bwd()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -1016,7 +1077,13 @@ def backward_split(route: str, bwd, calls: int = 3) -> None:
                       for k, ms in sorted(kernels.items(),
                                           key=lambda kv: -kv[1]))
     print(f"flash_attention {route} backward by kernel (torch.profiler, "
-          f"{calls} calls, L2 warm): {total:.4f} ms a call: {parts}")
+          f"{calls} calls, L2 warm; dK/dV split {splits} ways): {total:.4f} "
+          f"ms a call: {parts}")
+    ran = ("delta_kernel<", "dkdv_kernel<", "dq_kernel<") + (
+        ("dkdv_reduce_kernel",) if splits > 1 else ())
+    for name in ran:
+        check(any(name in k for k in kernels),
+              f"the {route} backward ran no {name.rstrip('<')}")
 
 
 # ---------------------------------------------------------------------------
@@ -1231,7 +1298,8 @@ def phase_gemma_parity() -> None:
 
 def phase_gemma_train() -> tuple:
     """11c: full-width gemma3-1b trained through the launcher at
-    train_4k, every attention layer through the d256 flash kernels."""
+    train_4k, every attention layer through the d256 flash kernels; one
+    more step traced by torch.profiler."""
     ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     args = TRAIN.build_parser().parse_args(["--arch", GEMMA,
@@ -1270,7 +1338,23 @@ def phase_gemma_train() -> tuple:
           f"tokens/s after the first; flash_attention d256 launches fwd "
           f"{d256[0]}, bwd {d256[1]}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del out
+    # one more step traced: where the step's time goes (not gated)
+    step = make_train_step(cfg, AdamWConfig(total_steps=args.steps), micro)
+    raw = DATA.SyntheticLM(cfg.vocab_size, shape.seq_len,
+                           shape.global_batch).batch_at(args.steps)
+    raw = DATA.add_modality_stubs(raw, cfg, seed=args.steps)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(out["state"], batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    print(f"train {cfg.name}: a fourth step under torch.profiler, "
+          f"{traced:.3f} s:")
+    print_profile(prof, traced)
+    del out, step, batch, prof
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return d256

@@ -1,719 +1,744 @@
 // Flash attention in bf16 at head_dim 192 and 256, forward and backward,
-// for Hopper (sm_90a), hand-written CUDA C++: the "d192" and "d256"
-// routes of kernels/flash_attention.py, one template on D instantiated at
-// both.
+// for Hopper (sm_90a): TMA tile loads through mbarrier rings, wgmma
+// products on the tensor cores, warp-specialised blocks.  Hand-written
+// CUDA C++ with PTX inline: the "d192" and "d256" routes of
+// kernels/flash_attention.py, one template on D instantiated at both.
 //
 // Replaces the Pallas TPU kernel `_kernel` launched by
 // `flash_attention_pallas` (src/repro/kernels/flash_attention.py:28-69)
 // for bf16 with head_dim 256 (gemma3-1b) and 192 (deepseek-v2's MLA:
 // 128 + 64 query / key columns, v padded from 128): GQA self-attention
 // (query head h reads kv head h / G) over q (B, S, H, D) and k/v (B, S,
-// KH, D),
-// causal and/or sliding-window masked, online softmax in float32, p
-// rounded to bf16 after the tile's running max before the PV product, 0
+// KH, D), causal and/or sliding-window masked, online softmax in float32,
+// p rounded to bf16 after the tile's running max before the PV product, 0
 // for a row with no attendable key, and LSE = m + log(l) (B, H, S)
 // float32 out.  Its backward replaces XLA's autodiff of
 // `blockwise_attention` (src/repro/models/attention.py) in the JAX
 // package.  Head dims 64 and 128 go to flash_attention_sm90.cu, float32
-// to flash_attention.cu.
+// to flash_attention.cu; both Hopper files share sm90_common.cuh (TMA,
+// mbarrier, wgmma descriptors and products, setmaxnreg, masks, the delta
+// pre-pass, tensor maps).
 //
 // Bound.  At gemma3's training shape (B 2, S 4096, 4 / 1 heads, causal,
 // 22 of 26 layers with a 512-key window) and deepseek-v2's (B 1, S 4096,
 // 128 / 128 heads of 192, causal) attention does 4 D operations per
-// attended (query, key) pair and head forward for 4 D bytes of q and o a
-// row: far above the H100's 295 operations a byte, so it is bound by the
-// tensor cores' 989 TFLOP/s (bf16).
+// attended (query, key) pair and head forward (10 D backward) for 4 D
+// bytes of q and o a row: far above the H100's 295 operations a byte, so
+// it is bound by the tensor cores' 989 TFLOP/s (bf16).
 //
-// Design.  This route is the simple one: every product is an
-// `mma.sync.m16n8k16` (bf16 in, float32 accumulate) from shared memory,
-// tiles double-buffered by cp.async.  At D 256 a warp's 16 x 256 float32
-// accumulator is 128 registers a thread (96 at D 192), so a warp owns 16
-// rows and all of D, and nothing else lives in registers for long: the
-// Q, K and V fragments are loaded from shared memory at each product.
-// Row strides are D + 8 bf16 (132 words at D 256, 100 at D 192: 4 mod
-// 32 both), so every fragment load of a warp hits distinct banks, and
-// rows stay 16-byte aligned for cp.async (528 and 400 bytes).  The accumulator of S = Q K^T (16 x 16 as two
-// m16n8 tiles) is the A fragment of the next product as it stands (P,
-// rounded to bf16), so P and dS never pass through shared memory on
-// their way into a product.
-//   fwd:   one block of 4 warps per (64-row q tile, h, b), the q tiles
-//          with the most keys first; 32-key K / V tiles.  A warp skips
-//          the tiles its rows cannot reach, and the block starts at the
-//          window's first tile (what makes a 512-key local layer cheap
-//          at S 4096); the mask is evaluated per element only on tiles
-//          the diagonal, the window's edge or S cuts.
-//   delta: delta = rowsum(dO * O) into (B, H, S) float32 scratch.
-//   dK/dV: one block of 8 warps (4 pairs, 16 keys a pair) per (kv head,
-//          b, 64-key tile), looping over the G query heads and the
-//          16-query tiles that reach its keys (from the diagonal to the
-//          window's end).  In a pair one warp forms S^T = K Q^T, P^T and
-//          dV += P^T dO, the other dP^T = V dO^T, dS^T = P^T (dP^T -
-//          delta) and dK += dS^T Q, P^T passing through shared memory:
-//          D / 2 accumulators a thread each, one block an SM.  The pair
-//          splits the work by product, not by D: each warp holds all D
-//          columns of its own sum.
-//   dQ:    one block of 8 warps per (64-row q tile, h, b), streaming
-//          16-key K / V tiles from the window's first; one warp of a
-//          pair forms S and P, the other dP, they swap them, and each
-//          adds dS K to half of dQ's columns.
-// Nothing is accumulated across blocks (no atomics): deterministic.  The
-// backward runs 7 tile products where the bound counts 5 (dQ recomputes
-// S and dP); wgmma, TMA and the single-pass backward are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design.  A row of D bf16 is D / 64 panels of 128 bytes (3 or 4), each
+// loaded by TMA with the 128-byte swizzle and zeros past S.  A block is
+// one producer warpgroup (registers dropped to 24) and two consumer
+// warpgroups (240 registers) that keep their float32 accumulators in
+// registers for the whole loop; every tile is 64 rows, staged in 2-deep
+// full / empty mbarrier rings.  A 64 x D float32 accumulator is D / 2
+// registers a thread (128 at D 256), so a warpgroup holds one of them:
+// products of N = D run as wgmma of 128 columns (two panels) and, at D
+// 192, one of 64.  S-type products (K = D) are 12 or 16 wgmma k steps
+// from shared memory; products with P or dS take them from registers
+// (the float32 fragment of one product is the bf16 A fragment of the
+// next) and read the other operand MN-major through the transpose bit.
+//   fwd:   one block per (128-row q tile, h, b), the q tiles with the
+//          most keys first; each consumer owns 64 query rows and O; 64-key
+//          K / V stages from the window's first tile; a consumer skips a
+//          tile none of its rows reaches; the mask is evaluated only on
+//          diagonal, window-edge and ragged tiles.  Shared memory 768 D
+//          bytes: 192 KB at D 256, 144 KB at 192.
+//   delta: delta = rowsum(dO * O) and LSE * log2(e), (B, H, S padded).
+//   dK/dV: one block per (64-key tile, kv head, split, b), the tiles with
+//          the most queries first.  The two consumers split the work by
+//          product: one forms S^T = K Q^T and P^T and adds P^T dO to dV,
+//          the other forms dP^T = V dO^T, dS^T = P^T (dP^T - delta) with
+//          P^T handed over through a 16 KB float32 tile, and adds dS^T Q
+//          to dK.  Q / dO / stats stages of 64 query rows of one head.
+//          Where the longest block's steps are more than twice an SM's
+//          share of all of them (gemma3's causal global layer: 128 blocks
+//          on 132 SMs, the first walking 256 steps), the wrapper splits
+//          each block's (head, query tile) steps into `splits` contiguous
+//          chunks (kernels/flash_attention.py:d256_bwd_plan), each writing
+//          float32 partial dK / dV, and a reduction pass sums them in
+//          split order and casts to bf16.  210 KB at D 256.
+//   dQ:    the tiles with the most keys first, 64-key K / V stages.  At D
+//          192 one block per (128-row q tile, h, b): each consumer owns 64
+//          rows and forms S, P, dP, dS and all of dQ (96 + 32 + 32 + 16
+//          registers), as the sm90 kernel; 192 KB.  At D 256, where that
+//          leaves no room (128 registers of dQ, and 256 KB of Q, dO and
+//          K / V stages), one block per (64-row q tile, h, b): one consumer
+//          forms S and P, the other dP; dP goes to the first through a
+//          float32 tile, dS comes back as its bf16 fragment, and each adds
+//          dS K to two of dQ's four panels.  217 KB.
+// Hand-overs between the consumers go through mbarriers, whose waits trap
+// after about 10 s, so a lost arrival fails the launch instead of hanging
+// the card.  Nothing is accumulated across blocks by atomics and every sum
+// has a fixed order: deterministic.  The backward runs 7 tile products
+// where the bound counts 5 (dQ recomputes S and dP); the single-pass form
+// needs dQ atomics and is later work.
+#include "sm90_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int TILE = 64;   // rows of every tile: queries or keys
+// q rows of a dQ block: 128 where a consumer can hold S, dP and all of dQ
+// for 64 rows and the block's tiles fit (D 192), else 64 (D 256)
+template <int D> constexpr int DQ_ROWS = D == 192 ? 2 * TILE : TILE;
 
-// The head dims of the template: a shared tile's row stride (in bf16),
-// m16n8 tiles across D and k16 steps across D
+// N accumulators of `a` from element `off`, as an array of their own
+template <int N, int M>
+__device__ __forceinline__ auto part(float (&a)[M], int off) -> float (&)[N] {
+  return *reinterpret_cast<float(*)[N]>(a + off);
+}
+
+// s (64 x 64) = rows [r0, r0 + 64) of `a` (K-major, `rows` rows) times the
+// 64 rows of `b` (K-major) transposed, over D: D / 16 wgmma k steps
 template <int D>
-struct Dims {
-  static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
-  static constexpr int LD = D + 8;
-  static constexpr int NT = D / 8;
-  static constexpr int KT = D / 16;
-};
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr int FWD_THREADS = 128;   // 4 warps, 16 query rows each
-constexpr int FWD_ROWS = 64;       // query rows a forward block owns
-constexpr int FWD_STEP = 32;       // keys of a K / V tile
-constexpr int BWD_THREADS = 256;   // 4 pairs of warps, 16 rows a pair
-constexpr int BWD_ROWS = 64;       // keys (dK/dV) or queries (dQ) a block
-constexpr int BWD_STEP = 16;       // rows of the tile streamed per step
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+__device__ __forceinline__ void mma_scores(float (&s)[32], const bf16* a,
+                                           int rows, int r0, const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_k(a, rows, r0, kk), desc_k(b, TILE, 0, kk), kk > 0);
 }
 
-__device__ __forceinline__ bool attendable(int qp, int kp, int S, int causal,
-                                           int window) {
-  if (qp >= S || kp >= S) return false;
-  if (causal && kp > qp) return false;
-  if (window > 0 && kp <= qp - window) return false;
-  return true;
+// acc (64 x 64 NP) += a (registers: a 64 x 64 bf16 fragment) times panels
+// [p0, p0 + NP) of a 64-row tile read MN-major: 128 columns a wgmma, and
+// 64 for an odd NP
+template <int NP>
+__device__ __forceinline__ void mma_panels(float (&acc)[32 * NP],
+                                           const uint32_t (&a)[16],
+                                           const bf16* tile, int p0) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < NP / 2; ++c)
+      wgmma_rs(part<64>(acc, 64 * c), &a[4 * kk],
+               desc_mn(tile + (p0 + 2 * c) * TILE * PANEL, TILE, kk));
+    if constexpr (NP % 2 == 1)
+      wgmma_rs(part<32>(acc, 64 * (NP / 2)), &a[4 * kk],
+               desc_mn(tile + (p0 + NP - 1) * TILE * PANEL, TILE, kk));
+  }
 }
 
-// c += a b on one 16 x 8 x 16 tile: bf16 operands, float32 sums
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pair_at(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// two bf16 values as one operand register, the first in the low half
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// Fragments from shared tiles of row stride LD; g = lane / 4, t = lane % 4.
-// A (16 x 16) = x[r0 .. r0 + 16)[c0 .. c0 + 16), row-major
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
-                                       int r0, int c0, int g, int t) {
-  const bf16* p = x + (r0 + g) * LD + c0 + 2 * t;
-  a[0] = pair_at(p);
-  a[1] = pair_at(p + 8 * LD);
-  a[2] = pair_at(p + 8);
-  a[3] = pair_at(p + 8 * LD + 8);
-}
-// B (16 x 8) = x[n0 .. n0 + 8)[c0 .. c0 + 16)^T: x's rows are B's columns
-template <int LD>
-__device__ __forceinline__ void load_b_t(uint32_t (&b)[2], const bf16* x,
-                                         int n0, int c0, int g, int t) {
-  const bf16* p = x + (n0 + g) * LD + c0 + 2 * t;
-  b[0] = pair_at(p);
-  b[1] = pair_at(p + 8);
-}
-// B (16 x 8) = x[r0 .. r0 + 16)[n0 .. n0 + 8): x's rows are B's k rows
-template <int LD>
-__device__ __forceinline__ void load_b_n(uint32_t (&b)[2], const bf16* x,
-                                         int r0, int n0, int g, int t) {
-  const bf16* p = x + (r0 + 2 * t) * LD + n0 + g;
-  b[0] = pack(p[0], p[LD]);
-  b[1] = pack(p[8 * LD], p[9 * LD]);
-}
-// The accumulators of a 16 x 16 product (two m16n8 tiles: columns 0-7 in
-// c0, 8-15 in c1) as the A fragment of the next, rounded to bf16
-__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4],
-                                           const float (&c0)[4],
-                                           const float (&c1)[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
-}
-
-// c (16 x 16) = x[r0 .. r0 + 16) y[0 .. 16)^T over D: x, y row-major tiles
+// Rows r_lo, r_lo + 8 of a 64 x D float32 fragment as float32 into rows
+// of a (B, S, heads, D) tensor at `base` (a partial dK or dV)
 template <int D>
-__device__ __forceinline__ void product_t(float (&c)[2][4], const bf16* x,
-                                          const bf16* y, int r0, int g,
-                                          int t) {
-  constexpr int LD = Dims<D>::LD;
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&acc)[D / 2],
+                                               long long base,
+                                               long long row_ss, int r_lo,
+                                               int S, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < Dims<D>::KT; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, x, r0, 16 * kk, g, t);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t b[2];
-      load_b_t<LD>(b, y, 8 * j, 16 * kk, g, t);
-      mma(c[j], a, b);
-    }
-  }
-}
-// acc (16 x 8 NA) += w x[0 .. 16)[8 n0 .. 8 (n0 + NA)), w (16 x 16) the
-// accumulators of a product_t
-template <int NA, int LD>
-__device__ __forceinline__ void accumulate(float (&acc)[NA][4],
-                                           const float (&w)[2][4],
-                                           const bf16* x, int n0, int g,
-                                           int t) {
-  uint32_t a[4];
-  a_from_acc(a, w[0], w[1]);
-#pragma unroll
-  for (int n = 0; n < NA; ++n) {
-    uint32_t b[2];
-    load_b_n<LD>(b, x, 0, 8 * (n0 + n), g, t);
-    mma(acc[n], a, b);
+  for (int j = 0; j < D / 2; j += 2) {
+    const int row = r_lo + 8 * frag_half(j);
+    if (row < S)
+      *reinterpret_cast<float2*>(out + base + row * row_ss +
+                                 frag_col(j, lane)) =
+          make_float2(acc[j], acc[j + 1]);
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// cp.async that writes zeros when `in` is false (rows past S)
-__device__ __forceinline__ void cp_async16(void* smem, const void* g,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(g), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* g,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(g), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Rows [r0, r0 + R) of one head of x (rows `rs` elements apart from
-// `base`) into dst (R x LD), 16 bytes a copy; zeros past S
-template <int R, int T, int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* x,
-                                           long long base, long long rs,
-                                           int r0, int S) {
-  constexpr int LD = Dims<D>::LD;
-  constexpr int PER_ROW = D / 8;  // 16-byte pieces of a row
-#pragma unroll 4
-  for (int c = threadIdx.x; c < R * PER_ROW; c += T) {
-    const int r = c / PER_ROW, col = (c % PER_ROW) * 8;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * LD + col,
-               x + base + (long long)(in ? r0 + r : 0) * rs + col, in);
-  }
-}
-// n values of a (B, H, S) row statistic from position r0; 0 past S
-__device__ __forceinline__ void stage_stats(float* dst, const float* x,
-                                            long long base, int r0, int S,
-                                            int n, int first_thread) {
-  const int i = threadIdx.x - first_thread;
-  if (i >= 0 && i < n) {
-    const bool in = r0 + i < S;
-    cp_async4(dst + i, x + base + (in ? r0 + i : 0), in);
-  }
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int n,
+                                              const int* counts) {
+  for (int i = 0; i < n; ++i) mbar_init(&bars[i], counts[i]);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward: one block per (128-row q tile, h, b)
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(FWD_THREADS, 2) fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o,
-    float* __restrict__ lse, int S, int H, int KH, int causal, int window,
-    float scale) {
-  constexpr int LD = Dims<D>::LD, NT = Dims<D>::NT, KT = Dims<D>::KT;
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+               float* __restrict__ lse, int S, int H, int KH, int causal,
+               int window, float scale) {
+  constexpr int BQ = 2 * TILE, QT = BQ * D, KT = TILE * D;
+  bf16* q_s = smem_base();
+  bf16* kv_s = q_s + QT;  // stage st: K at kv_s + 2 st KT, V after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv_s + 2 * STAGES * KT);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * FWD_ROWS;  // last tile first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // last tile first
   const int kvh = h / (H / KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qr = warp * 16;  // the warp's first query row in the tile
-  const int w0 = q0 + qr;    // and its position
-  // scores and the running max m in log2 units: P = exp2f(s - m)
-  const float scale2 = scale * LOG2E;
-  const long long q_ss = (long long)H * D, k_ss = (long long)KH * D;
-  const long long q_base = (long long)b * S * q_ss + (long long)h * D;
-  const long long k_base = (long long)b * S * k_ss + (long long)kvh * D;
+  int lo;
+  const int n = key_tiles(q0, BQ, TILE, S, causal, window, lo);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // FWD_ROWS x LD: Q, then O
-  bf16* st = q_s + FWD_ROWS * LD;                 // 2 stages of K, V
-  constexpr int STAGE = 2 * FWD_STEP * LD;
+  if (threadIdx.x == 0) {
+    const int counts[7] = {1, 1, 1, 1, 1, 256, 256};
+    init_barriers(q_full, 7, counts);
+  }
+  __syncthreads();
 
-  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(S, q0 + FWD_ROWS) : S;
-  lo = lo / FWD_STEP * FWD_STEP;
-  const int steps = max(0, (hi - lo + FWD_STEP - 1) / FWD_STEP);
-  auto stage = [&](int i, int buf) {
-    const int kt0 = lo + i * FWD_STEP;
-    bf16* k_s = st + buf * STAGE;
-    stage_rows<FWD_STEP, FWD_THREADS, D>(k_s, k, k_base, k_ss, kt0, S);
-    stage_rows<FWD_STEP, FWD_THREADS, D>(k_s + FWD_STEP * LD, v, k_base,
-                                         k_ss, kt0, S);
-  };
-
-  stage_rows<FWD_ROWS, FWD_THREADS, D>(q_s, q, q_base, q_ss, q0, S);
-  cp_async_commit();
-  if (steps > 0) stage(0, 0);
-  cp_async_commit();
-
-  // keys [w_lo, w_hi) can reach one of the warp's rows
-  const int w_lo = window > 0 ? w0 - window + 1 : 0;
-  const int w_hi = causal ? min(S, w0 + 16) : S;
-  float acc[NT][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int i = 0; i < steps; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < steps) stage(i + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();  // step i's K and V (and Q) have landed
-    __syncthreads();
-    const int kt0 = lo + i * FWD_STEP;
-    if (kt0 < w_hi && kt0 + FWD_STEP > w_lo) {
-      const bf16* k_s = st + buf * STAGE;
-      const bf16* v_s = k_s + FWD_STEP * LD;
-      // S: rows g, g + 8 of the warp; keys 8 j + 2 t, + 1 of the tile
-      float c[FWD_STEP / 8][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t a[4];
-        load_a<LD>(a, q_s, qr, 16 * kk, g, t);
-#pragma unroll
-        for (int j = 0; j < FWD_STEP / 8; ++j) {
-          uint32_t bb[2];
-          load_b_t<LD>(bb, k_s, 8 * j, 16 * kk, g, t);
-          mma(c[j], a, bb);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < FWD_STEP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[j][e] *= scale2;
-      // the mask cuts this tile: the diagonal, the window's edge or S
-      if ((causal && kt0 + FWD_STEP - 1 > w0) ||
-          (window > 0 && kt0 <= w0 + 15 - window) || kt0 + FWD_STEP > S) {
-#pragma unroll
-        for (int j = 0; j < FWD_STEP / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!attendable(w0 + g + (e >> 1) * 8,
-                            kt0 + 8 * j + 2 * t + (e & 1), S, causal, window))
-              c[j][e] = NEG_INF;
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < FWD_STEP / 8; ++j)
-          mx = fmaxf(mx, fmaxf(c[j][2 * r], c[j][2 * r + 1]));
-        const float m_new = fmaxf(m[r], quad_max(mx));
-        alpha[r] = m[r] > NEG_INF / 2 ? exp2f(m[r] - m_new) : 0.f;
-        m[r] = m_new;
-        l[r] *= alpha[r];  // this lane's part of the row sum
-      }
-#pragma unroll
-      for (int j = 0; j < FWD_STEP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float s = c[j][e];
-          c[j][e] = s > NEG_INF / 2 ? exp2f(s - m[e >> 1]) : 0.f;  // P
-          l[e >> 1] += c[j][e];
-        }
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-      // O += P V, 16 keys a product, P rounded to bf16
-#pragma unroll
-      for (int kk = 0; kk < FWD_STEP / 16; ++kk) {
-        uint32_t a[4];
-        a_from_acc(a, c[2 * kk], c[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          uint32_t bb[2];
-          load_b_n<LD>(bb, v_s + 16 * kk * LD, 0, 8 * n, g, t);
-          mma(acc[n], a, bb);
-        }
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, QT * 2);
+      tma_tile<D>(q_s, &tq, q_full, h, q0, b, BQ);
+      for (int it = 0; it < n; ++it) {
+        const int st = it % STAGES, k0 = lo + it * TILE;
+        if (it >= STAGES) mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+        bf16* ks = kv_s + 2 * st * KT;
+        mbar_expect_tx(&k_full[st], KT * 2);
+        tma_tile<D>(ks, &tk, &k_full[st], kvh, k0, b, TILE);
+        mbar_expect_tx(&v_full[st], KT * 2);
+        tma_tile<D>(ks + KT, &tv, &v_full[st], kvh, k0, b, TILE);
       }
     }
-    __syncthreads();  // buffer `buf` is free again
-  }
-  if (steps == 0) {  // Q must have landed before its rows are reused
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-  }
+  } else {  // consumers: rows qw0 .. qw0 + 63
+    regs_inc<240>();
+    const int cw = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+    const int qw0 = q0 + TILE * cw;
+    const int r_lo = qw0 + 16 * (t / 32) + lane / 4;  // and r_lo + 8
+    // keys [w_lo, w_hi) reach one of this warpgroup's rows
+    const int w_lo = window > 0 ? qw0 - window + 1 : 0;
+    const int w_hi = causal ? min(S, qw0 + TILE) : S;
+    const float sl2 = scale * LOG2E;
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  // O = acc / max(l, 1e-30) into the warp's own rows of q_s, then out in
-  // 16-byte rows
-  float lc[2];
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n; ++it) {
+      const int st = it % STAGES, k0 = lo + it * TILE;
+      const uint32_t par = (it / STAGES) & 1;
+      const bf16* ks = kv_s + 2 * st * KT;
+      const bf16* vs = ks + KT;
+      mbar_wait(&k_full[st], par);
+      if (k0 >= w_hi || k0 + TILE <= w_lo) {  // no row of ours reaches it
+        mbar_wait(&v_full[st], par);
+        mbar_arrive(&empty[st]);
+        continue;
+      }
+
+      float s[32];
+      wgmma_fence();
+      mma_scores<D>(s, q_s, BQ, TILE * cw, ks);
+      wgmma_commit();
+      wgmma_wait(s);
+
+      const bool mask = needs_mask(qw0, TILE, k0, TILE, S, causal, window);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-  bf16* o_s = q_s + qr * LD;
+      for (int j = 0; j < 32; ++j) {
+        float x = s[j] * sl2;
+        if (mask && !attendable(r_lo + 8 * frag_half(j),
+                                k0 + frag_col(j, lane), S, causal, window))
+          x = -INFINITY;
+        s[j] = x;
+        mx[frag_half(j)] = fmaxf(mx[frag_half(j)], x);
+      }
+      float mu[2], alpha[2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+      for (int hf = 0; hf < 2; ++hf) {
+        const float m_new = fmaxf(m[hf], quad_max(mx[hf]));
+        mu[hf] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[hf] = exp2f(m[hf] - mu[hf]);
+        m[hf] = m_new;
+        l[hf] *= alpha[hf];
+      }
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(o_s + (g + 8 * r) * LD + 8 * n + 2 * t) =
-          pack_f32(acc[n][2 * r] / lc[r], acc[n][2 * r + 1] / lc[r]);
-  if (t == 0) {  // lse = m + log(l), m back in natural units
+      for (int j = 0; j < 32; ++j) {
+        const float p = exp2f(s[j] - mu[frag_half(j)]);
+        l[frag_half(j)] += p;
+        s[j] = p;
+      }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = w0 + g + 8 * r;
-      const float mn = m[r] > NEG_INF / 2 ? m[r] * LN2 : NEG_INF;
-      if (row < S) lse[((long long)b * H + h) * S + row] = mn + logf(lc[r]);
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[frag_half(j)];
+      uint32_t pa[16];
+      to_a_frag(s, pa);
+
+      mbar_wait(&v_full[st], par);
+      wgmma_fence();
+      mma_panels<D / 64>(acc, pa, vs, 0);
+      wgmma_commit();
+      wgmma_wait(acc);
+      mbar_arrive(&empty[st]);
     }
-  }
-  __syncwarp();
-  constexpr int PER_ROW = D / 8;
-  for (int i = lane; i < 16 * PER_ROW; i += 32) {
-    const int r = i / PER_ROW, col = (i % PER_ROW) * 8;
-    if (w0 + r >= S) break;
-    *reinterpret_cast<int4*>(o + q_base + (long long)(w0 + r) * q_ss + col) =
-        *reinterpret_cast<const int4*>(o_s + r * LD + col);
+
+    float inv[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float lc = fmaxf(quad_sum(l[hf]), 1e-30f);
+      inv[hf] = 1.f / lc;
+      const int row = r_lo + 8 * hf;
+      if (row < S && lane % 4 == 0)
+        lse[((long long)b * H + h) * S + row] =
+            (m[hf] == -INFINITY ? NEG_INF : m[hf] / LOG2E) + logf(lc);
+    }
+    store_rows<D>(o, acc, ((long long)b * S * H + h) * D, (long long)H * D,
+                  r_lo, S, lane, inv);
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward, dK and dV: one block per (64-key tile, kv head, split, b)
 // ---------------------------------------------------------------------------
-// delta = rowsum(dO * O) into (B, H, S): one warp per (b, s, h) row, a
-// lane's 8 values one 16-byte load of each (lanes past D / 8 add 0)
 template <int D>
-__global__ void __launch_bounds__(256) delta_kernel(
-    const bf16* __restrict__ o, const bf16* __restrict__ dout,
-    float* __restrict__ delta, int S, int H, long long rows) {
-  static_assert(D <= 256, "a warp covers at most 256 columns");
-  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  float part = 0.f;
-  if (lane < D / 8) {
-    const int4 ov = *reinterpret_cast<const int4*>(o + r * D + lane * 8);
-    const int4 dv = *reinterpret_cast<const int4*>(dout + r * D + lane * 8);
-    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(op[i]);
-      const float2 c = __bfloat1622float2(dp[i]);
-      part += a.x * c.x + a.y * c.y;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_xor_sync(0xffffffffu, part, off);
-  if (lane == 0) {
-    const long long bb = r / ((long long)S * H);
-    const int rem = (int)(r - bb * S * H), s = rem / H, h = rem - s * H;
-    delta[(bb * H + h) * S + s] = part;
-  }
-}
+__global__ void __launch_bounds__(THREADS, 1)
+    dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const float* __restrict__ delta,
+                const float* __restrict__ lse2, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, float* __restrict__ part, int S,
+                int Spad, int H, int KH, int splits, int causal, int window,
+                float scale) {
+  constexpr int T = TILE * D;
+  bf16* k_s = smem_base();
+  bf16* v_s = k_s + T;
+  bf16* qd_s = v_s + T;  // stage st: Q at qd_s + 2 st T, dO after it
+  float* p_x = reinterpret_cast<float*>(qd_s + 2 * STAGES * T);  // P^T
+  float* stats = p_x + 32 * 128;  // stage st: lse2 of its rows, then delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + 2 * STAGES * TILE);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* x_full = empty + STAGES;  // P^T written
+  uint64_t* x_empty = x_full + 1;     // P^T read
 
-// dK and dV: one block per (kv head, b, 64-key tile), the k tiles with
-// the most queries first (tile 0 under the causal mask).
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1) dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ lse,
-    const float* __restrict__ delta, const bf16* __restrict__ dout,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int KH,
-    int causal, int window, float scale) {
-  constexpr int LD = Dims<D>::LD, NT = Dims<D>::NT;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * BWD_ROWS;
+  const int kvh = blockIdx.x / splits, c = blockIdx.x % splits;
+  const int b = blockIdx.y, k0 = blockIdx.z * TILE;
   const int G = H / KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp & 3, role = warp >> 2;  // role 0: dV, 1: dK
-  const int kr = pair * 16;  // the pair's first key row in the tile
-  const long long q_ss = (long long)H * D, k_ss = (long long)KH * D;
-  const long long k_base = (long long)b * S * k_ss + (long long)kvh * D;
+  int lo;
+  const int nq = query_tiles(k0, TILE, TILE, S, causal, window, lo);
+  // this split's chunk [it0, it1) of the G x nq (head, q tile) steps
+  const int n = G * nq, per = (n + splits - 1) / splits;
+  const int it0 = min(n, c * per), it1 = min(n, it0 + per);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);        // BWD_ROWS x LD
-  bf16* v_s = k_s + BWD_ROWS * LD;                      // BWD_ROWS x LD
-  float* x_s = reinterpret_cast<float*>(v_s + BWD_ROWS * LD);  // 4 x 32 x 8
-  unsigned char* st = reinterpret_cast<unsigned char*>(x_s + 4 * 32 * 8);
-  // a stage: q (STEP x LD), dO (STEP x LD) bf16; lse, delta (STEP) float
-  constexpr int STAGE_BYTES = 2 * BWD_STEP * LD * 2 + 2 * BWD_STEP * 4;
-
-  int lo = causal ? k0 : 0;
-  const int hi = window > 0 ? min(S, k0 + BWD_ROWS - 1 + window) : S;
-  lo = lo / BWD_STEP * BWD_STEP;
-  const int per_head = max(0, (hi - lo + BWD_STEP - 1) / BWD_STEP);
-  const int steps = G * per_head;
-
-  auto tiles = [&](int buf, bf16*& q_t, bf16*& do_t, float*& l_t) {
-    unsigned char* base = st + buf * STAGE_BYTES;
-    q_t = reinterpret_cast<bf16*>(base);
-    do_t = q_t + BWD_STEP * LD;
-    l_t = reinterpret_cast<float*>(do_t + BWD_STEP * LD);
-  };
-  auto stage = [&](int i, int buf) {
-    const int h = kvh * G + i / per_head;
-    const int q0 = lo + (i % per_head) * BWD_STEP;
-    const long long q_base = (long long)b * S * q_ss + (long long)h * D;
-    const long long s_base = ((long long)b * H + h) * S;
-    bf16 *q_t, *do_t;
-    float* l_t;
-    tiles(buf, q_t, do_t, l_t);
-    stage_rows<BWD_STEP, BWD_THREADS, D>(q_t, q, q_base, q_ss, q0, S);
-    stage_rows<BWD_STEP, BWD_THREADS, D>(do_t, dout, q_base, q_ss, q0, S);
-    stage_stats(l_t, lse, s_base, q0, S, BWD_STEP, 0);
-    stage_stats(l_t + BWD_STEP, delta, s_base, q0, S, BWD_STEP, 32);
-  };
-
-  float acc[NT][4];  // dV (role 0) or dK (role 1): 16 keys x D
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  if (steps > 0) {
-    stage_rows<BWD_ROWS, BWD_THREADS, D>(k_s, k, k_base, k_ss, k0, S);
-    stage_rows<BWD_ROWS, BWD_THREADS, D>(v_s, v, k_base, k_ss, k0, S);
-    stage(0, 0);
+  if (threadIdx.x == 0) {
+    const int counts[7] = {1, 1, 1, 256, 256, 128, 128};
+    init_barriers(kv_full, 7, counts);
   }
-  cp_async_commit();
-  float* x = x_s + (pair * 32 + lane) * 8;
-  for (int i = 0; i < steps; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < steps) stage(i + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();  // step i's tiles (and K, V) have landed
-    __syncthreads();
+  __syncthreads();
 
-    bf16 *q_t, *do_t;
-    float* l_t;
-    tiles(buf, q_t, do_t, l_t);
-    const int q0 = lo + (i % per_head) * BWD_STEP;
-
-    // S^T (role 0) or dP^T (role 1): 16 keys x 16 queries
-    float c[2][4] = {};
-    if (role == 0)
-      product_t<D>(c, k_s, q_t, kr, g, t);
-    else
-      product_t<D>(c, v_s, do_t, kr, g, t);
-    if (role == 0) {  // P^T = exp(S^T scale - lse), 0 off the mask
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + kr + g + (e >> 1) * 8;
-          const int qi = 8 * j + 2 * t + (e & 1);
-          const bool ok = attendable(q0 + qi, key, S, causal, window);
-          c[j][e] = ok ? expf(c[j][e] * scale - l_t[qi]) : 0.f;
-          x[4 * j + e] = c[j][e];
-        }
-    }
-    __syncthreads();  // P^T is in x_s
-    if (role == 1) {  // dS^T = P^T (dP^T - delta)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);
-          c[j][e] = x[4 * j + e] * (c[j][e] - l_t[BWD_STEP + qi]);
-        }
-    }
-    // dV += P^T dO (role 0), dK += dS^T Q (role 1): k = the 16 queries
-    accumulate<NT, LD>(acc, c, role == 0 ? do_t : q_t, 0, g, t);
-    __syncthreads();  // buffer `buf` and x_s are free again
-  }
-
-  bf16* out = role == 0 ? dv : dk;
-  const float f = role == 0 ? 1.f : scale;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + kr + g + 8 * r;
-    if (row >= S) continue;
-    bf16* dst = out + k_base + (long long)row * k_ss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_f32(acc[n][2 * r] * f, acc[n][2 * r + 1] * f);
-  }
-}
-
-// dQ: one block per (h, b, 64-row q tile), the q tiles with the most
-// keys first.
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1) dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ lse,
-    const float* __restrict__ delta, const bf16* __restrict__ dout,
-    bf16* __restrict__ dq, int S, int H, int KH, int causal, int window,
-    float scale) {
-  constexpr int LD = Dims<D>::LD;
-  constexpr int HALF = Dims<D>::NT / 2;  // n tiles of dQ a warp accumulates
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BWD_ROWS;  // last tile first
-  const int kvh = h / (H / KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp & 3, role = warp >> 2;  // role 0: S and P, 1: dP
-  const int qr = pair * 16;  // the pair's first query row in the tile
-  const long long q_ss = (long long)H * D, k_ss = (long long)KH * D;
-  const long long q_base = (long long)b * S * q_ss + (long long)h * D;
-  const long long k_base = (long long)b * S * k_ss + (long long)kvh * D;
-  const long long s_base = ((long long)b * H + h) * S;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);     // BWD_ROWS x LD
-  bf16* do_s = q_s + BWD_ROWS * LD;                  // BWD_ROWS x LD
-  bf16* st = do_s + BWD_ROWS * LD;                   // 2 stages of K, V
-  constexpr int STAGE = 2 * BWD_STEP * LD;
-  float* l_s = reinterpret_cast<float*>(st + 2 * STAGE);  // lse, delta
-  float* x_s = l_s + 2 * BWD_ROWS;  // P, dP of each pair: 2 x 4 x 32 x 8
-
-  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(S, q0 + BWD_ROWS) : S;
-  lo = lo / BWD_STEP * BWD_STEP;
-  const int steps = max(0, (hi - lo + BWD_STEP - 1) / BWD_STEP);
-  auto stage = [&](int i, int buf) {
-    const int kt0 = lo + i * BWD_STEP;
-    bf16* k_t = st + buf * STAGE;
-    stage_rows<BWD_STEP, BWD_THREADS, D>(k_t, k, k_base, k_ss, kt0, S);
-    stage_rows<BWD_STEP, BWD_THREADS, D>(k_t + BWD_STEP * LD, v, k_base,
-                                         k_ss, kt0, S);
-  };
-
-  float acc[HALF][4];  // dQ, columns [D / 2 role, D / 2 (role + 1))
-#pragma unroll
-  for (int n = 0; n < HALF; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  if (steps > 0) {
-    stage_rows<BWD_ROWS, BWD_THREADS, D>(q_s, q, q_base, q_ss, q0, S);
-    stage_rows<BWD_ROWS, BWD_THREADS, D>(do_s, dout, q_base, q_ss, q0, S);
-    stage_stats(l_s, lse, s_base, q0, S, BWD_ROWS, 0);
-    stage_stats(l_s + BWD_ROWS, delta, s_base, q0, S, BWD_ROWS, BWD_ROWS);
-    stage(0, 0);
-  }
-  cp_async_commit();
-  float* mine = x_s + ((role * 4 + pair) * 32 + lane) * 8;
-  const float* theirs = x_s + (((1 - role) * 4 + pair) * 32 + lane) * 8;
-  for (int i = 0; i < steps; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < steps) stage(i + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();  // step i's tiles (and Q, dO, stats) have landed
-    __syncthreads();
-
-    const bf16* k_t = st + buf * STAGE;
-    const bf16* v_t = k_t + BWD_STEP * LD;
-    const int kt0 = lo + i * BWD_STEP;
-
-    // S (role 0) or dP (role 1), 16 queries x 16 keys
-    float c[2][4] = {};
-    if (role == 0)
-      product_t<D>(c, q_s, k_t, qr, g, t);
-    else
-      product_t<D>(c, do_s, v_t, qr, g, t);
-    if (role == 0) {  // P = exp(S scale - lse), 0 off the mask
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = qr + g + (e >> 1) * 8;
-          const int key = kt0 + 8 * j + 2 * t + (e & 1);
-          const bool ok = attendable(q0 + r, key, S, causal, window);
-          c[j][e] = ok ? expf(c[j][e] * scale - l_s[r]) : 0.f;
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[4 * j + e] = c[j][e];
-    __syncthreads();  // P and dP are in x_s
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // dS = P (dP - delta)
-        const int r = qr + g + (e >> 1) * 8;
-        const float p = role == 0 ? c[j][e] : theirs[4 * j + e];
-        const float dp = role == 0 ? theirs[4 * j + e] : c[j][e];
-        c[j][e] = p * (dp - l_s[BWD_ROWS + r]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 0 && it1 > it0) {
+      mbar_expect_tx(kv_full, 2 * T * 2);
+      tma_tile<D>(k_s, &tk, kv_full, kvh, k0, b, TILE);
+      tma_tile<D>(v_s, &tv, kv_full, kvh, k0, b, TILE);
+      for (int it = it0; it < it1; ++it) {
+        const int i = it - it0, st = i % STAGES, h = kvh * G + it / nq;
+        const int q0 = lo + (it % nq) * TILE;
+        if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
+        bf16* qs = qd_s + 2 * st * T;
+        float* sts = stats + 2 * st * TILE;
+        const long long srow = ((long long)b * H + h) * Spad + q0;
+        mbar_expect_tx(&full[st], 2 * T * 2 + 2 * TILE * 4);
+        tma_tile<D>(qs, &tq, &full[st], h, q0, b, TILE);
+        tma_tile<D>(qs + T, &tdo, &full[st], h, q0, b, TILE);
+        bulk_load(sts, lse2 + srow, TILE * 4, &full[st]);
+        bulk_load(sts + TILE, delta + srow, TILE * 4, &full[st]);
       }
-    // dQ += dS K on this warp's half of the columns: k = the 16 keys
-    accumulate<HALF, LD>(acc, c, k_t, HALF * role, g, t);
-    __syncthreads();  // buffer `buf` and x_s are free again
-  }
+    }
+  } else {  // consumers: keys k0 .. k0 + 63; cw 0 holds dV, cw 1 dK
+    regs_inc<240>();
+    const int cw = wg - 1, t = threadIdx.x % 128, lane = t % 32;
+    const int r_lo = k0 + 16 * (t / 32) + lane / 4;  // and r_lo + 8
+    const float sl2 = scale * LOG2E;
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
 
+    if (it1 > it0) mbar_wait(kv_full, 0);
+    for (int it = it0; it < it1; ++it) {
+      const int i = it - it0, st = i % STAGES;
+      const int q0 = lo + (it % nq) * TILE;
+      const bf16* qs = qd_s + 2 * st * T;
+      const bf16* dos = qs + T;
+      const float* l2s = stats + 2 * st * TILE;
+      const float* dls = l2s + TILE;
+
+      float x[32];  // cw 0: S^T = K Q^T, then P^T; cw 1: dP^T = V dO^T
+      mbar_wait(&full[st], (i / STAGES) & 1);
+      wgmma_fence();
+      mma_scores<D>(x, cw == 0 ? k_s : v_s, TILE, 0, cw == 0 ? qs : dos);
+      wgmma_commit();
+      wgmma_wait(x);
+
+      if (cw == 0) {
+        const bool mask = needs_mask(q0, TILE, k0, TILE, S, causal, window);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + qr + g + 8 * r;
-    if (row >= S) continue;
-    bf16* dst = dq + q_base + (long long)row * q_ss + 8 * HALF * role + 2 * t;
+        for (int j = 0; j < 32; ++j) {
+          const int col = frag_col(j, lane);
+          float p = exp2f(x[j] * sl2 - l2s[col]);
+          if (mask && !attendable(q0 + col, r_lo + 8 * frag_half(j), S,
+                                  causal, window))
+            p = 0.f;
+          x[j] = p;
+        }
+        if (i > 0) mbar_wait(x_empty, (i - 1) & 1);
 #pragma unroll
-    for (int n = 0; n < HALF; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_f32(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+        for (int j = 0; j < 32; ++j) p_x[j * 128 + t] = x[j];
+        mbar_arrive(x_full);
+      } else {  // dS^T = P^T (dP^T - delta)
+        mbar_wait(x_full, i & 1);
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          x[j] = p_x[j * 128 + t] * (x[j] - dls[frag_col(j, lane)]);
+        mbar_arrive(x_empty);
+      }
+      uint32_t a[16];
+      to_a_frag(x, a);
+      wgmma_fence();  // dV += P^T dO (cw 0), dK += dS^T Q (cw 1)
+      mma_panels<D / 64>(acc, a, cw == 0 ? dos : qs, 0);
+      wgmma_commit();
+      wgmma_wait(acc);
+      mbar_arrive(&empty[st]);
+    }
+
+    const long long row_ss = (long long)KH * D;
+    if (splits == 1) {
+      const long long base = ((long long)b * S * KH + kvh) * D;
+      const float f = cw == 0 ? 1.f : scale, mul[2] = {f, f};
+      store_rows<D>(cw == 0 ? dv : dk, acc, base, row_ss, r_lo, S, lane,
+                    mul);
+    } else {  // partials (2, splits, B, S, KH, D): dK first, then dV
+      const long long base =
+          ((((long long)(1 - cw) * splits + c) * gridDim.y + b) * S * KH +
+           kvh) * D;
+      store_rows_f32<D>(part, acc, base, row_ss, r_lo, S, lane);
+    }
   }
 }
 
-// Dynamic shared memory of each kernel, in bytes.
-template <int D>
-struct Smem {
-  static constexpr int LD = Dims<D>::LD;
-  static constexpr size_t FWD = 2 * (FWD_ROWS * LD + 2 * 2 * FWD_STEP * LD);
-  static constexpr size_t DKDV = 2 * 2 * BWD_ROWS * LD + 4 * 4 * 32 * 8 +
-                                 2 * (2 * BWD_STEP * LD * 2 +
-                                      2 * BWD_STEP * 4);
-  static constexpr size_t DQ =
-      2 * (2 * BWD_ROWS * LD + 2 * 2 * BWD_STEP * LD) +
-      4 * (2 * BWD_ROWS + 2 * 4 * 32 * 8);
-};
+// dK = scale x (the sum of the dK partials over the splits, in split
+// order), dV = the sum of the dV partials, cast to bf16; four elements a
+// thread, `n4` = B S KH D / 4
+__global__ void dkdv_reduce_kernel(const float4* __restrict__ part,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv, long long n4,
+                                   int splits, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 sk = part[i], sv = part[(long long)splits * n4 + i];
+  for (int c = 1; c < splits; ++c) {
+    const float4 xk = part[c * n4 + i];
+    const float4 xv = part[(splits + c) * n4 + i];
+    sk.x += xk.x; sk.y += xk.y; sk.z += xk.z; sk.w += xk.w;
+    sv.x += xv.x; sv.y += xv.y; sv.z += xv.z; sv.w += xv.w;
+  }
+  *reinterpret_cast<uint2*>(dk + 4 * i) =
+      make_uint2(pack_bf16(sk.x * scale, sk.y * scale),
+                 pack_bf16(sk.z * scale, sk.w * scale));
+  *reinterpret_cast<uint2*>(dv + 4 * i) =
+      make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+}
 
-// Above 48 KB a kernel must opt in; past the card's limit this fails and
-// the error goes back to the wrapper.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// ---------------------------------------------------------------------------
+// backward, dQ: one block per (128-row q tile, h, b) at D 192, per
+// (64-row q tile, h, b) at D 256
+// ---------------------------------------------------------------------------
+// Consumer ROLE 0 forms S and P, takes dP, forms dS and hands it over;
+// ROLE 1 forms dP and takes dS.  Each adds dS K to dQ's panels
+// [p0, p0 + NP): ROLE 0 the first D / 128, ROLE 1 the rest.
+template <int D, int ROLE>
+__device__ __forceinline__ void dq_consumer(
+    const bf16* q_s, const bf16* do_s, const bf16* kv_s, float* dp_x,
+    uint32_t* ds_x, uint64_t* q_full, uint64_t* full, uint64_t* empty,
+    uint64_t* bars, const float* __restrict__ delta,
+    const float* __restrict__ lse2, bf16* __restrict__ dq, int n, int lo,
+    int q0, int h, int b, int S, int Spad, int H, int causal, int window,
+    float scale) {
+  constexpr int T = TILE * D;
+  constexpr int P0 = ROLE == 0 ? 0 : D / 128;
+  constexpr int NP = ROLE == 0 ? D / 128 : D / 64 - D / 128;
+  uint64_t* dp_full = bars;      // dP written
+  uint64_t* dp_empty = bars + 1; // dP read
+  uint64_t* ds_full = bars + 2;  // dS written
+  uint64_t* ds_empty = bars + 3; // dS read
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r_lo = q0 + 16 * (t / 32) + lane / 4;  // and r_lo + 8
+  const float sl2 = scale * LOG2E;
+  float l2r[2] = {0.f, 0.f}, dlr[2] = {0.f, 0.f};
+  if (ROLE == 0) {
+    const long long srow = ((long long)b * H + h) * Spad;
+    l2r[0] = lse2[srow + r_lo];
+    l2r[1] = lse2[srow + r_lo + 8];
+    dlr[0] = delta[srow + r_lo];
+    dlr[1] = delta[srow + r_lo + 8];
+  }
+  float acc[32 * NP];
+#pragma unroll
+  for (int j = 0; j < 32 * NP; ++j) acc[j] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES, k0 = lo + it * TILE;
+    const bf16* ks = kv_s + 2 * st * T;
+    const bf16* vs = ks + T;
+
+    float x[32];  // ROLE 0: S = Q K^T, then P, then dS; ROLE 1: dP = dO V^T
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    wgmma_fence();
+    mma_scores<D>(x, ROLE == 0 ? q_s : do_s, TILE, 0, ROLE == 0 ? ks : vs);
+    wgmma_commit();
+    wgmma_wait(x);
+
+    uint32_t a[16];
+    if (ROLE == 0) {
+      const bool mask = needs_mask(q0, TILE, k0, TILE, S, causal, window);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int hf = frag_half(j);
+        float p = exp2f(x[j] * sl2 - l2r[hf]);
+        if (mask && !attendable(r_lo + 8 * hf, k0 + frag_col(j, lane), S,
+                                causal, window))
+          p = 0.f;
+        x[j] = p;
+      }
+      mbar_wait(dp_full, it & 1);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)  // dS = P (dP - delta)
+        x[j] *= dp_x[j * 128 + t] - dlr[frag_half(j)];
+      mbar_arrive(dp_empty);
+      to_a_frag(x, a);
+      if (it > 0) mbar_wait(ds_empty, (it - 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ds_x[i * 128 + t] = a[i];
+      mbar_arrive(ds_full);
+    } else {
+      if (it > 0) mbar_wait(dp_empty, (it - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) dp_x[j * 128 + t] = x[j];
+      mbar_arrive(dp_full);
+      mbar_wait(ds_full, it & 1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = ds_x[i * 128 + t];
+      mbar_arrive(ds_empty);
+    }
+    wgmma_fence();  // dQ[:, panels] += dS K[:, panels]
+    mma_panels<NP>(acc, a, ks, P0);
+    wgmma_commit();
+    wgmma_wait(acc);
+    mbar_arrive(&empty[st]);
+  }
+
+  const float sc[2] = {scale, scale};
+  store_rows<64 * NP>(dq, acc, ((long long)b * S * H + h) * D + 64 * P0,
+                      (long long)H * D, r_lo, S, lane, sc);
+}
+
+// dQ where a 64 x D float32 accumulator leaves room for S and dP (D 192:
+// 96 registers): consumer cw owns rows [q0 + 64 cw, + 64) of a 128-row q
+// tile, forms S, P, dP, dS and all of dQ for them, and skips a key tile
+// none of its rows reaches
+template <int D>
+__device__ __forceinline__ void dq_own_rows(
+    const bf16* q_s, const bf16* do_s, const bf16* kv_s, uint64_t* q_full,
+    uint64_t* full, uint64_t* empty, const float* __restrict__ delta,
+    const float* __restrict__ lse2, bf16* __restrict__ dq, int n, int lo,
+    int q0, int cw, int h, int b, int S, int Spad, int H, int causal,
+    int window, float scale) {
+  constexpr int T = TILE * D, BQ = 2 * TILE;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int qw0 = q0 + TILE * cw;
+  const int r_lo = qw0 + 16 * (t / 32) + lane / 4;  // and r_lo + 8
+  const int w_lo = window > 0 ? qw0 - window + 1 : 0;
+  const int w_hi = causal ? min(S, qw0 + TILE) : S;
+  const float sl2 = scale * LOG2E;
+  const long long srow = ((long long)b * H + h) * Spad;
+  const float l2r[2] = {lse2[srow + r_lo], lse2[srow + r_lo + 8]};
+  const float dlr[2] = {delta[srow + r_lo], delta[srow + r_lo + 8]};
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES, k0 = lo + it * TILE;
+    const bf16* ks = kv_s + 2 * st * T;
+    const bf16* vs = ks + T;
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    if (k0 >= w_hi || k0 + TILE <= w_lo) {  // no row of ours reaches it
+      mbar_arrive(&empty[st]);
+      continue;
+    }
+    float s[32], dp[32];
+    wgmma_fence();
+    mma_scores<D>(s, q_s, BQ, TILE * cw, ks);   // S = Q K^T
+    mma_scores<D>(dp, do_s, BQ, TILE * cw, vs); // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait(s);
+    wgmma_wait(dp);
+    const bool mask = needs_mask(qw0, TILE, k0, TILE, S, causal, window);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int hf = frag_half(j);
+      float p = exp2f(s[j] * sl2 - l2r[hf]);
+      if (mask && !attendable(r_lo + 8 * hf, k0 + frag_col(j, lane), S,
+                              causal, window))
+        p = 0.f;
+      dp[j] = p * (dp[j] - dlr[hf]);  // dS
+    }
+    uint32_t a[16];
+    to_a_frag(dp, a);
+    wgmma_fence();  // dQ += dS K
+    mma_panels<D / 64>(acc, a, ks, 0);
+    wgmma_commit();
+    wgmma_wait(acc);
+    mbar_arrive(&empty[st]);
+  }
+  const float sc[2] = {scale, scale};
+  store_rows<D>(dq, acc, ((long long)b * S * H + h) * D, (long long)H * D,
+                r_lo, S, lane, sc);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const float* __restrict__ delta,
+              const float* __restrict__ lse2, bf16* __restrict__ dq, int S,
+              int Spad, int H, int KH, int causal, int window, float scale) {
+  constexpr int T = TILE * D, BQ = DQ_ROWS<D>;
+  bf16* q_s = smem_base();
+  bf16* do_s = q_s + BQ * D;
+  bf16* kv_s = do_s + BQ * D;  // stage st: K at kv_s + 2 st T, V after it
+  float* dp_x = reinterpret_cast<float*>(kv_s + 2 * STAGES * T);
+  uint32_t* ds_x = reinterpret_cast<uint32_t*>(dp_x + 32 * 128);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(  // hand-over at 64 rows
+      BQ == TILE ? static_cast<void*>(ds_x + 16 * 128)
+                 : static_cast<void*>(dp_x));
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* bars = empty + STAGES;  // the four hand-over barriers
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // last tile first
+  const int kvh = h / (H / KH);
+  int lo;
+  const int n = key_tiles(q0, BQ, TILE, S, causal, window, lo);
+
+  if (threadIdx.x == 0) {
+    const int counts[9] = {1, 1, 1, 256, 256, 128, 128, 128, 128};
+    init_barriers(q_full, 9, counts);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * BQ * D * 2);
+      tma_tile<D>(q_s, &tq, q_full, h, q0, b, BQ);
+      tma_tile<D>(do_s, &tdo, q_full, h, q0, b, BQ);
+      for (int it = 0; it < n; ++it) {
+        const int st = it % STAGES, k0 = lo + it * TILE;
+        if (it >= STAGES) mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+        bf16* ks = kv_s + 2 * st * T;
+        mbar_expect_tx(&full[st], 2 * T * 2);
+        tma_tile<D>(ks, &tk, &full[st], kvh, k0, b, TILE);
+        tma_tile<D>(ks + T, &tv, &full[st], kvh, k0, b, TILE);
+      }
+    }
+  } else {
+    regs_inc<240>();
+    if constexpr (BQ != TILE)
+      dq_own_rows<D>(q_s, do_s, kv_s, q_full, full, empty, delta, lse2, dq, n,
+                 lo, q0, wg - 1, h, b, S, Spad, H, causal, window, scale);
+    else if (wg == 1)
+      dq_consumer<D, 0>(q_s, do_s, kv_s, dp_x, ds_x, q_full, full, empty,
+                        bars, delta, lse2, dq, n, lo, q0, h, b, S, Spad, H,
+                        causal, window, scale);
+    else
+      dq_consumer<D, 1>(q_s, do_s, kv_s, dp_x, ds_x, q_full, full, empty,
+                        bars, delta, lse2, dq, n, lo, q0, h, b, S, Spad, H,
+                        causal, window, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+// Dynamic shared memory of each kernel in bytes: the bf16 tiles, the
+// hand-over tiles, the stats, up to 16 barriers and 1,024 bytes to align
+// the start.
+constexpr size_t EXTRA = 1024 + 16 * 8;
+template <int D> constexpr size_t fwd_smem() {
+  return (size_t)(2 * TILE * D + 2 * STAGES * TILE * D) * 2 + EXTRA;
+}
+template <int D> constexpr size_t dkdv_smem() {
+  return (size_t)(2 * TILE * D + 2 * STAGES * TILE * D) * 2 + 32 * 128 * 4 +
+         2 * STAGES * TILE * 4 + EXTRA;
+}
+template <int D> constexpr size_t dq_smem() {
+  return (size_t)(2 * DQ_ROWS<D> * D + 2 * STAGES * TILE * D) * 2 +
+         (DQ_ROWS<D> == TILE ? (32 + 16) * 128 * 4 : 0) + EXTRA;
+}
+static_assert(fwd_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448 &&
+                  dq_smem<256>() <= 232448 && dq_smem<192>() <= 232448,
+              "a block's shared memory is at most 227 KB");
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int S, int H, int KH, int causal,
+                       int window, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q, B, S, H, D, 2 * TILE);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, KH, D, TILE);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, KH, D, TILE);
+  if (err == cudaSuccess) err = allow_smem(fwd_kernel<D>, fwd_smem<D>());
+  if (err != cudaSuccess) return err;
+  fwd_kernel<D><<<dim3(H, B, (S + 2 * TILE - 1) / (2 * TILE)), THREADS,
+                  fwd_smem<D>(), stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), S, H, KH,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* lse, const void* dout,
+                       void* dq, void* dk, void* dv, void* stats, void* part,
+                       int B, int S, int H, int KH, int causal, int window,
+                       float scale, int splits, cudaStream_t stream) {
+  const int Spad = padded(S);
+  const long long rows = (long long)B * H * Spad;
+  float* delta = static_cast<float*>(stats);
+  float* lse2 = delta + rows;
+  CUtensorMap tq, tdo, tk, tv, tq_dq, tdo_dq;
+  cudaError_t err = make_map(&tq, q, B, S, H, D, TILE);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, B, S, H, D, TILE);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, KH, D, TILE);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, KH, D, TILE);
+  if (err == cudaSuccess) err = make_map(&tq_dq, q, B, S, H, D, DQ_ROWS<D>);
+  if (err == cudaSuccess)
+    err = make_map(&tdo_dq, dout, B, S, H, D, DQ_ROWS<D>);
+  if (err == cudaSuccess) err = allow_smem(dkdv_kernel<D>, dkdv_smem<D>());
+  if (err == cudaSuccess) err = allow_smem(dq_kernel<D>, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+
+  const int tiles = (S + TILE - 1) / TILE;
+  delta_kernel<D><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), delta, lse2, S, Spad, H, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkdv_kernel<D><<<dim3(KH * splits, B, tiles), THREADS, dkdv_smem<D>(),
+                   stream>>>(tq, tdo, tk, tv, delta, lse2,
+                             static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                             static_cast<float*>(part), S, Spad, H, KH,
+                             splits, causal, window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (splits > 1) {
+    const long long n4 = (long long)B * S * KH * D / 4;
+    dkdv_reduce_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float4*>(part), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), n4, splits, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  dq_kernel<D><<<dim3(H, B, (S + DQ_ROWS<D> - 1) / DQ_ROWS<D>), THREADS,
+                 dq_smem<D>(), stream>>>(
+      tq_dq, tdo_dq, tk, tv, delta, lse2, static_cast<bf16*>(dq), S, Spad, H,
+      KH, causal, window, scale);
+  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
@@ -725,58 +750,6 @@ bool bad_shape(int B, int S, int H, int KH, int head_dim) {
          (head_dim != 192 && head_dim != 256);
 }
 
-// Runs `body` with `device` current and hands the caller's device back.
-template <typename F>
-int on_device(int device, F body) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  err = body();
-  if (prev != device) {
-    const cudaError_t restored = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = restored;
-  }
-  return (int)err;
-}
-
-template <int D>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                       float* lse, int B, int S, int H, int KH, int causal,
-                       int window, float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(fwd_kernel<D>, Smem<D>::FWD);
-  if (err != cudaSuccess) return err;
-  const int tiles = (S + FWD_ROWS - 1) / FWD_ROWS;
-  fwd_kernel<D><<<dim3(H, B, tiles), FWD_THREADS, Smem<D>::FWD, s>>>(
-      q, k, v, o, lse, S, H, KH, causal, window, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* o, const float* lse, const bf16* dout,
-                       bf16* dq, bf16* dk, bf16* dv, float* delta, int B,
-                       int S, int H, int KH, int causal, int window,
-                       float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(dkdv_kernel<D>, Smem<D>::DKDV);
-  if (err == cudaSuccess) err = allow_smem(dq_kernel<D>, Smem<D>::DQ);
-  if (err != cudaSuccess) return err;
-  const long long rows = (long long)B * S * H;
-  delta_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(o, dout, delta,
-                                                              S, H, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int tiles = (S + BWD_ROWS - 1) / BWD_ROWS;
-  dkdv_kernel<D><<<dim3(KH, B, tiles), BWD_THREADS, Smem<D>::DKDV, s>>>(
-      q, k, v, lse, delta, dout, dk, dv, S, H, KH, causal, window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3(H, B, tiles), BWD_THREADS, Smem<D>::DQ, s>>>(
-      q, k, v, lse, delta, dout, dq, S, H, KH, causal, window, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -784,9 +757,12 @@ extern "C" {
 // Both launch on `stream`, allocate nothing and do not synchronise.
 // head_dim is 192 or 256.  Every tensor is contiguous and 16-byte
 // aligned: bf16 q, o, dout, dq (B, S, H, head_dim) and k, v, dk, dv (B,
-// S, KH, head_dim); float32 lse and the scratch delta (B, H, S).  causal:
-// 0 or 1; window: 0 = none.  Return cudaGetLastError() (or the error
-// that stopped the launch).
+// S, KH, head_dim); float32 lse (B, H, S).  `stats` is float32 scratch of
+// 2 x B x H x (S rounded up to 128) elements; with `splits` > 1 the dK/dV
+// kernel splits each key tile's work `splits` ways into `partials`,
+// float32 scratch of 2 x splits x B x S x KH x head_dim elements (else
+// unused).  causal: 0 or 1; window: 0 = none.  Return cudaGetLastError()
+// (or the error that stopped the launch).
 int flash_attention_d256_fwd_launch(int device, const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int S, int H, int KH, int head_dim,
@@ -796,42 +772,39 @@ int flash_attention_d256_fwd_launch(int device, const void* q, const void* k,
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
-  bf16* out = static_cast<bf16*>(o);
-  float* l = static_cast<float*>(lse);
   return on_device(device, [&]() {
     return head_dim == 192
-               ? launch_fwd<192>(c(q), c(k), c(v), out, l, B, S, H, KH,
-                                 causal, window, scale, s)
-               : launch_fwd<256>(c(q), c(k), c(v), out, l, B, S, H, KH,
-                                 causal, window, scale, s);
+               ? launch_fwd<192>(q, k, v, o, lse, B, S, H, KH, causal,
+                                 window, scale, s)
+               : launch_fwd<256>(q, k, v, o, lse, B, S, H, KH, causal,
+                                 window, scale, s);
   });
 }
 
 int flash_attention_d256_bwd_launch(int device, const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* lse, const void* dout,
-                                    void* dq, void* dk, void* dv, void* delta,
-                                    int B, int S, int H, int KH, int head_dim,
-                                    int causal, int window, float scale,
+                                    void* dq, void* dk, void* dv, void* stats,
+                                    void* partials, int B, int S, int H,
+                                    int KH, int head_dim, int causal,
+                                    int window, float scale, int splits,
                                     void* stream) {
-  if (bad_shape(B, S, H, KH, head_dim)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, H, KH, head_dim) || splits < 1 ||
+      (splits > 1 && partials == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o) ||
-      !aligned16(dout) || !aligned16(dq) || !aligned16(dk) || !aligned16(dv))
+      !aligned16(dout) || !aligned16(dq) || !aligned16(dk) ||
+      !aligned16(dv) || !aligned16(stats) || !aligned16(partials))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
-  const auto m = [](void* p) { return static_cast<bf16*>(p); };
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
   return on_device(device, [&]() {
     return head_dim == 192
-               ? launch_bwd<192>(c(q), c(k), c(v), c(o), l, c(dout), m(dq),
-                                 m(dk), m(dv), dl, B, S, H, KH, causal,
-                                 window, scale, s)
-               : launch_bwd<256>(c(q), c(k), c(v), c(o), l, c(dout), m(dq),
-                                 m(dk), m(dv), dl, B, S, H, KH, causal,
-                                 window, scale, s);
+               ? launch_bwd<192>(q, k, v, o, lse, dout, dq, dk, dv, stats,
+                                 partials, B, S, H, KH, causal, window,
+                                 scale, splits, s)
+               : launch_bwd<256>(q, k, v, o, lse, dout, dq, dk, dv, stats,
+                                 partials, B, S, H, KH, causal, window,
+                                 scale, splits, s);
   });
 }
 

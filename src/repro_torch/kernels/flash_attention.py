@@ -8,15 +8,17 @@ Four routes, picked by :func:`_route` from the dtype and head_dim, all
 on the tensor cores: ``"sm90"`` (``csrc/flash_attention_sm90.cu``: bf16,
 head_dim 64 or 128, TMA loads and ``wgmma`` products), ``"d256"`` and
 ``"d192"`` (``csrc/flash_attention_d256.cu``, one template on head_dim
-instantiated at 256 and 192: bf16, ``mma.sync`` products from cp.async
-tiles) and ``"simt"``
+instantiated at 256 and 192: bf16, TMA loads and ``wgmma`` products,
+sharing ``csrc/sm90_common.cuh`` with the sm90 route) and ``"simt"``
 (``csrc/flash_attention.cu``: float32, head_dim up to 128, every product
 of the forward and backward an ``mma.sync`` in 3xTF32, which keeps
 float32 accuracy; the name is kept from the CUDA-core kernels it
 replaced).  This module checks the operands, allocates the outputs and
 scratch, launches on PyTorch's current stream and counts launches in
 :data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
-backward, which runs a delta pre-pass, the dK/dV and the dQ kernel), the
+backward, which runs a delta pre-pass, the dK/dV kernel, on the d256 /
+d192 routes the reduction of its partials where
+:func:`d256_bwd_plan` splits it, and the dQ kernel), the
 totals of all routes, and per route in :data:`launches_sm90_fwd` /
 :data:`launches_sm90_bwd`, :data:`launches_d256_fwd` /
 :data:`launches_d256_bwd` and :data:`launches_d192_fwd` /
@@ -59,8 +61,14 @@ D192_HEAD_DIM = 192
 #: the library of each bf16 route; its C functions are named
 #: ``flash_attention_<library suffix>_*``
 _BF16_LIBRARY = {"sm90": "sm90", "d256": "d256", "d192": "d256"}
-#: the sm90 backward's delta / LSE scratch has S rounded up to this
+#: the bf16 backwards' delta / LSE scratch has S rounded up to this
 SM90_STATS_ROWS = 128
+#: rows of the d256 / d192 backward's key and query tiles
+D256_TILE = 64
+#: streaming multiprocessors of the H100, one d256 / d192 dK/dV block each
+H100_SMS = 132
+#: the most ways a key tile's dK/dV work is split
+D256_MAX_SPLITS = 4
 
 _DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
 _lib_handle = None
@@ -68,8 +76,8 @@ _bf16_handles: Dict[str, ctypes.CDLL] = {}
 
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"sm90"`` (wgmma) for bf16 with head_dim 64 or 128, ``"d256"``
-    and ``"d192"`` (bf16 mma.sync) for bf16 with head_dim 256 and 192,
+    """``"sm90"`` for bf16 with head_dim 64 or 128, ``"d256"`` and
+    ``"d192"`` for bf16 with head_dim 256 and 192 (all three wgmma),
     ``"simt"`` (3xTF32 mma.sync) for float32 with head_dim up to 128;
     anything else raises."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
@@ -89,15 +97,20 @@ def _route(dtype: torch.dtype, head_dim: int) -> str:
 def _lib_bf16(route: str) -> ctypes.CDLL:
     """The library of a bf16 route, ``"sm90"``, ``"d256"`` or
     ``"d192"`` (the d256 library): each exports the same C interface,
-    named ``flash_attention_<library>_*``."""
+    named ``flash_attention_<library>_*``, but for the d256 backward's
+    partials pointer and split count."""
     name = _BF16_LIBRARY[route]
     if name not in _bf16_handles:
         lib = _build.load(f"flash_attention_{name}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        tail = [i32] * 7 + [ctypes.c_float, ptr]
-        for what, n_ptrs in (("fwd_launch", 5), ("bwd_launch", 10)):
+        tail = [i32] * 7 + [ctypes.c_float]
+        bwd = [ptr] * 10 + tail
+        if name == "d256":      # the split dK/dV partials and their count
+            bwd = [ptr] * 11 + tail + [i32]
+        for what, args in (("fwd_launch", [ptr] * 5 + tail),
+                           ("bwd_launch", bwd)):
             fn = getattr(lib, f"flash_attention_{name}_{what}")
-            fn.argtypes = [i32] + [ptr] * n_ptrs + tail
+            fn.argtypes = [i32] + args + [ptr]
             fn.restype = i32
         err = getattr(lib, f"flash_attention_{name}_error_string")
         err.argtypes = [i32]
@@ -179,12 +192,47 @@ def _raise_on(err: int, what: str, route: str) -> None:
                            f"failed: CUDA error {err} ({msg})")
 
 
-def _dims(q, k, causal: bool, window: int, route: str):
+def _dims(q, k, causal: bool, window: int, *more: int):
+    """The launch's integer tail: shape, masks, scale, then ``more``
+    (simt: the dtype tag; the d256 backward: its split count) and the
+    stream."""
     b, s, h, d = q.shape
-    dtype = (_DTYPE_TAG[q.dtype],) if route == "simt" else ()
     return (b, s, h, k.shape[2], d, int(bool(causal)), int(window),
-            1.0 / math.sqrt(d), *dtype,
+            1.0 / math.sqrt(d), *more,
             torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def d256_bwd_plan(b: int, s: int, h: int, kh: int, d: int, *,
+                  causal: bool = True, window: int = 0) -> dict:
+    """The d256 / d192 backward's launch and scratch plan for q (b, s, h,
+    d) and k, v (b, s, kh, d) under the mask.
+
+    The dK/dV kernel runs a block per (64-key tile, kv head, b), each
+    walking the (query head, 64-row query tile) steps that reach its keys:
+    G = h / kh heads times the tiles from its own (causal) or the first to
+    the window's end.  Blocks take an SM each, longest first, so the
+    kernel lasts about as long as the longest block or an SM's share of
+    all steps, whichever is more.  Where the longest block walks more than
+    twice that share (a causal mask over few blocks: gemma3-1b's global
+    layer), each block's steps are cut into ``splits`` contiguous chunks,
+    one block each (at most :data:`D256_MAX_SPLITS`; G need not divide
+    them), writing float32 partial dK and dV that a reduction pass sums in
+    split order.  Returns ``splits``, the shape of the ``stats`` scratch
+    (delta and LSE x log2(e), S rounded up to :data:`SM90_STATS_ROWS`) and
+    of the ``partials`` scratch (dK's, then dV's), None when ``splits`` is
+    1.
+    """
+    t = D256_TILE
+    steps = []
+    for k0 in range(0, s, t):
+        lo = k0 if causal else 0
+        hi = min(s, k0 + t - 1 + window) if window > 0 else s
+        steps.append(h // kh * -(-(hi - lo) // t))
+    share = b * kh * sum(steps) / H100_SMS
+    splits = min(D256_MAX_SPLITS, max(1, math.ceil(max(steps) / (2 * share))))
+    rows = -(-s // SM90_STATS_ROWS) * SM90_STATS_ROWS
+    return {"splits": splits, "stats": (2, b, h, rows),
+            "partials": (2, splits, b, s, kh, d) if splits > 1 else None}
 
 
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -201,7 +249,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _entry(route, "fwd_launch")(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), *_dims(q, k, causal, window, route))
+        out.data_ptr(), lse.data_ptr(),
+        *_dims(q, k, causal, window,
+               *((_DTYPE_TAG[q.dtype],) if route == "simt" else ())))
     _raise_on(err, "forward", route)
     launches_fwd += 1
     if route == "sm90":
@@ -229,17 +279,25 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"on {q.device}")
     route = _route(q.dtype, d)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ptrs = [t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv)]
-    if route == "sm90":     # delta and LSE, S rounded up
+    f32 = dict(dtype=torch.float32, device=q.device)
+    more: tuple = ()
+    if route == "sm90":     # delta and LSE x log2(e), S rounded up
         rows = -(-s // SM90_STATS_ROWS) * SM90_STATS_ROWS
-        scratch = torch.empty((2, b, h, rows), dtype=torch.float32,
-                              device=q.device)
-    else:                   # delta = rowsum(dO * O), written by a pre-pass
-        scratch = torch.empty((b, h, s), dtype=torch.float32,
-                              device=q.device)
+        scratch = [torch.empty((2, b, h, rows), **f32)]
+    elif route == "simt":   # delta = rowsum(dO * O), written by a pre-pass
+        scratch = [torch.empty((b, h, s), **f32)]
+        more = (_DTYPE_TAG[q.dtype],)
+    else:                   # the same stats, and the split dK/dV partials
+        plan = d256_bwd_plan(b, s, h, k.shape[2], d, causal=causal,
+                             window=window)
+        scratch = [torch.empty(plan["stats"], **f32), None]
+        if plan["partials"] is not None:
+            scratch[1] = torch.empty(plan["partials"], **f32)
+        more = (plan["splits"],)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (q, k, v, o, lse, do, dq, dk, dv, *scratch)]
     err = _entry(route, "bwd_launch")(
-        q.device.index, *ptrs, scratch.data_ptr(),
-        *_dims(q, k, causal, window, route))
+        q.device.index, *ptrs, *_dims(q, k, causal, window, *more))
     _raise_on(err, "backward", route)
     launches_bwd += 1
     if route == "sm90":

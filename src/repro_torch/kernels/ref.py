@@ -302,6 +302,66 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             torch.cat(dvs, dim=1).to(v.dtype))
 
 
+def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor, *,
+                                  causal: bool = True, window: int = 0,
+                                  splits: int = 1, tile: int = 64):
+    """:func:`flash_attention_bwd_ref` with dK and dV summed under the
+    split plan of the d256 / d192 dK/dV kernel (``splits`` from
+    ``kernels.flash_attention.d256_bwd_plan``).
+
+    Each ``tile``-key tile is reached by the (query head, ``tile``-query
+    tile) steps from its own tile (causal) or the first (to the window's
+    end); head-major, they are cut into ``splits`` contiguous chunks of
+    ceil(steps / splits).  Each chunk's float32 partial dK (unscaled) and
+    dV goes to a (2, splits, B, S, KH, D) tensor, and the partials are
+    summed in chunk order, dK then scaled by 1 / sqrt(D).  dQ is the
+    unsplit sum.  All in float32; results in the inputs' dtypes.
+    """
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s, kh, g, d).float()
+    dog = do.reshape(b, s, kh, g, d).float()
+    delta = (dog * o.reshape(b, s, kh, g, d).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)                           # (b,kh,g,s)
+    pos = torch.arange(s, device=q.device)
+    valid = _flash_mask(pos, pos, causal, window)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    p = torch.exp(sc - lse.reshape(b, kh, g, s)[..., None])
+    p = p.masked_fill(~valid, 0.0)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    ds = p * (dp - delta[..., None])
+    parts = torch.zeros((2, splits, b, s, kh, d), device=q.device)
+    for k0 in range(0, s, tile):
+        lo = k0 if causal else 0
+        hi = min(s, k0 + tile - 1 + window) if window > 0 else s
+        nq = -(-(hi - lo) // tile)
+        n = g * nq
+        per = -(-n // splits)
+        keys = slice(k0, k0 + tile)
+        for c in range(splits):
+            sel = torch.zeros((g, s), dtype=torch.bool, device=q.device)
+            for it in range(min(n, c * per), min(n, c * per + per)):
+                q0 = lo + (it % nq) * tile
+                sel[it // nq, q0:q0 + tile] = True
+            sel = sel[None, None, :, :, None]
+            parts[0, c, :, keys] = torch.einsum(
+                "bkgst,bskgd->btkd", ds[..., keys] * sel, qg)
+            parts[1, c, :, keys] = torch.einsum(
+                "bkgst,bskgd->btkd",
+                (p[..., keys] * sel).to(v.dtype).float(), dog)
+    total = parts[:, 0]
+    for c in range(1, splits):
+        total = total + parts[:, c]
+    dq = torch.einsum("bkgst,btkd->bkgsd", ds, k.float()) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return (dq.to(q.dtype), (total[0] * scale).to(k.dtype),
+            total[1].to(v.dtype))
+
+
 # ---------------------------------------------------------------------------
 # the simulator's LRU hit-extraction scan
 # ---------------------------------------------------------------------------

@@ -257,8 +257,8 @@ def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     (torch.float32, 192, ValueError), (torch.bfloat16, 320, ValueError),
 ])
 def test_route(dtype, d, route):
-    """bf16 with head_dim 64 / 128 takes the wgmma kernels, bf16 at 256
-    and 192 the d256 template's mma.sync ones (d192: deepseek-v2's MLA
+    """bf16 with head_dim 64 / 128 takes the sm90 wgmma kernels, bf16 at
+    256 and 192 the d256 template's wgmma ones (d192: deepseek-v2's MLA
     head), float32 up to 128 the 3xTF32 mma.sync ones; nothing else has a
     kernel (float32 above 128 stays unported)."""
     if route is ValueError:
@@ -386,3 +386,109 @@ def test_chip_smoke_pairs_and_bound_match_brute_force(causal, window):
         assert by == ("bytes" if t_bytes >= t_ops else "operations")
         assert cs.kernel_flops(case, backward) == \
             (14 if backward else 4) * d * b * h * pairs
+
+
+# the d256 / d192 backward's dK/dV split plan: (b, s, h, kh, d, causal,
+# window) -> splits, at gemma3's and deepseek-v2's training shapes and every
+# phase-6 d256 and d192 case of chip_smoke.py.  gemma3's global layer: 128
+# key-tile blocks, the first walking 4 x 64 = 256 steps against an SM's
+# share of 126, so 2 ways; its window-512 layers walk at most 4 x 10 steps
+# each, so none; deepseek-v2 (G = 1, 8,192 blocks): none; h 8 / kh 2 with
+# a window: G = 4 heads over 3 splits, chunks crossing heads
+D256_PLANS = {
+    "gemma3_global": ((2, 4096, 4, 1, 256, True, 0), 2),
+    "gemma3_local": ((2, 4096, 4, 1, 256, True, 512), 1),
+    "deepseek": ((1, 4096, 128, 128, 192, True, 0), 1),
+    "d256_ragged": ((1, 1000, 8, 2, 256, True, 100), 3),
+    "d256_mqa": ((1, 2048, 8, 1, 256, True, 0), 4),
+    "d256_g3": ((1, 1000, 6, 2, 256, True, 100), 3),
+    "d256_noncausal": ((1, 777, 4, 1, 256, False, 0), 4),
+    "d192_s4096": ((1, 4096, 16, 16, 192, True, 0), 1),
+    "d192_noncausal": ((1, 777, 16, 16, 192, False, 0), 1),
+    "d192_ragged": ((1, 1000, 8, 2, 192, True, 100), 3),
+}
+
+
+def _tile_steps(s, g, causal, window, tile=64):
+    """(query head, query tile) steps of each key tile, from the mask: a
+    query tile counts if some query in it attends some key of the tile,
+    i.e. the differences q - k over the two tiles meet the allowed ones
+    (0 .. window - 1 under both masks; >= 0 causal; <= window - 1)."""
+    out = []
+    for k0 in range(0, s, tile):
+        k1 = min(s, k0 + tile) - 1
+        n = 0
+        for q0 in range(0, s, tile):
+            q1 = min(s, q0 + tile) - 1
+            lo, hi = q0 - k1, q1 - k0
+            if causal:
+                lo = max(lo, 0)
+            if window > 0:
+                hi = min(hi, window - 1)
+            n += lo <= hi
+        out.append(g * n)
+    return out
+
+
+@pytest.mark.parametrize("name", list(D256_PLANS))
+def test_d256_bwd_plan(name):
+    """The split count, the stats and partial dK/dV scratch shapes; no
+    partials where no block walks more than twice an SM's share of the
+    steps (deepseek-v2, gemma3's windowed layers)."""
+    (b, s, h, kh, d, causal, window), splits = D256_PLANS[name]
+    plan = FA.d256_bwd_plan(b, s, h, kh, d, causal=causal, window=window)
+    assert plan["splits"] == splits
+    assert plan["stats"] == (2, b, h, -(-s // 128) * 128)
+    if splits == 1:
+        assert plan["partials"] is None
+    else:
+        assert plan["partials"] == (2, splits, b, s, kh, d)
+    steps = _tile_steps(s, h // kh, causal, window)
+    share = b * kh * sum(steps) / FA.H100_SMS
+    want = 1
+    while want < FA.D256_MAX_SPLITS and max(steps) > 2 * share * want:
+        want += 1
+    assert splits == want
+
+
+def test_d256_bwd_plan_covers_chip_smoke_cases():
+    """Every d256 / d192 case phase 6 runs has its plan held above, one
+    of them with a split that does not divide G."""
+    cs = _chip_smoke()
+    cases = {**cs.D256_CASES, **cs.D192_CASES,
+             "deepseek": cs.DEEPSEEK_ATTN}
+    for name, c in cases.items():
+        assert D256_PLANS[name][0] == tuple(
+            c[k] for k in ("b", "s", "h", "kh", "d", "causal", "window"))
+    assert any(sp > 1 and (sh[2] // sh[3]) % sp
+               for sh, sp in D256_PLANS.values())
+
+
+def test_d256_partials_of_gemma3_take_32_mib():
+    plan = FA.d256_bwd_plan(2, 4096, 4, 1, 256)
+    assert 4 * int(np.prod(plan["partials"])) == 32 << 20
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("b,s,h,kh,causal,window", [
+    (1, 200, 6, 2, True, 70),     # G = 3, ragged, window
+    (2, 160, 4, 1, True, 0),      # gemma3's global layer's layout
+    (1, 150, 2, 2, False, 0),     # G = 1, no mask
+], ids=["g3_window", "mqa", "noncausal"])
+def test_split_reduce_equals_unsplit_backward(b, s, h, kh, causal, window,
+                                              splits):
+    """The plain form of the dK/dV split and its fixed-order reduction
+    gives the unsplit plain backward, float32, to 1e-6 of each tensor's
+    largest element."""
+    arrays = _inputs(b, s, h, kh, 16, seed=15)
+    q, k, v, do = _torch(arrays, "float32")
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       window=window)
+    got = ref.flash_attention_bwd_split_ref(q, k, v, out, lse, do,
+                                            causal=causal, window=window,
+                                            splits=splits, tile=32)
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-6 * float(w.abs().max()), err
