@@ -17,7 +17,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      shapes (gemma3-1b: D 256, 4 / 1 heads, window 512, lengths on both
      sides of it, pages 16 and 64, where shared memory bounds the split
      size; granite-34b: 48 query heads on one KV head; granite-moe: D 64,
-     16 / 8), float32 and bf16, at every split size the card's shared
+     16 / 8; jamba-1.5-large: 64 / 8 heads of 128 at phase 13c's engine
+     shape), float32 and bf16, at every split size the card's shared
      memory allows;
   4. full-width internlm2-1.8b (bf16, random weights from a seed) served
      through the port's launcher: 8 requests, 32 new tokens each, every
@@ -179,7 +180,34 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         bf16 gradients and float32 AdamW moments, both layers through
         the d192 flash kernels (12 + 6 launches), peak memory, and a
         fourth step under torch.profiler (time by operator);
- 13. one JSON line describing every kernel, then the final ``ok`` line.
+ 13. Mamba and the jamba hybrid:
+     a. the selective-scan kernels (``csrc/selective_scan.cu``), forward
+        and backward, against their plain versions: jamba's training
+        shape (B 1, S 4,096, d_inner 16,384, N 16, bf16 x), float32 and
+        bf16, N 16 and 4, B 1 and 2, S 4,096 (16 chunks) and a ragged
+        200, a D not a whole 128-channel block; the forward (and its
+        chunk states) allclose 2e-5, the backward's five gradients to
+        2e-5 of their largest element against ``selective_scan_bwd_ref``
+        and against autograd of the plain forward (a bf16 dx beyond one
+        bf16 rounding step), two backwards bit-identical; ptxas
+        registers and spills; both timed at jamba's shape (L2 flushed)
+        beside the plain versions and the least time (bytes, or the exps
+        at the SFU's rate);
+     b. jamba at smoke width in float32 (8 layers): engine streams equal
+        greedy_reference's in every table mode with slots reused (4
+        requests on 2), logits card vs CPU 1e-3, the first train step's
+        loss card vs CPU 1e-4 (through the scan kernels at N 4);
+     c. the serve cut at full width (the period's first 4 layers: three
+        Mamba, one attention, all 16 experts; 23.02 B parameters, bf16,
+        random weights from a seed): 4 requests of 64-128 prompt and 16
+        new tokens, flat and radix tables, paged launches 1 x steps, the
+        same tokens in both modes, ms/step, tokens/s, peak memory;
+     d. the train cut at full width (mamba+ff, attn+moe with 4 of 16
+        experts; 4.66 B parameters): 3 steps of one 4,096-token sequence
+        with bf16 gradients and float32 AdamW moments, selective-scan
+        launches 6 + 3 and sm90 flash launches 6 + 3, peak memory, and a
+        fourth step under torch.profiler (time by operator);
+ 14. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -215,6 +243,7 @@ from repro_torch.kernels import ops as KOPS  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import lru_scan as LS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import selective_scan as SS  # noqa: E402
 from repro_torch.kernels import sim_epilogue as SE  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
@@ -559,7 +588,7 @@ def phase_kernel():
 
     timed = {}
     for name in ("serve_bf16", "b8_bf16", "b8_f32", "gemma3_p16_bf16",
-                 "granite34b_bf16"):
+                 "granite34b_bf16", "jamba_bf16"):
         case = cases[name]
         ms = time_cold_ms(lambda: run(PA.paged_attention_cuda, case), 200)
         plain_ms = time_cold_ms(lambda: run(ref.paged_attention_ref, case),
@@ -595,6 +624,10 @@ VARIANT_PAGED = {
                        lengths=_SERVE_LENS, seed=9),
     "granite_moe": dict(b=4, h=16, kh=8, d=64, page=16, maxp=32, n=136,
                         lengths=_SERVE_LENS, seed=10),
+    # jamba-1.5-large's attention layer at phase 13c's engine shape
+    # (max_batch 4, max_len 256 / page 16, pool of 4 * 16 + 8 pages)
+    "jamba": dict(b=4, h=64, kh=8, d=128, page=16, maxp=16, n=72,
+                  lengths=[70, 101, 129, 143], seed=11),
 }
 
 
@@ -691,6 +724,9 @@ GEMMA_ATTN = dict(b=2, s=4096, h=4, kh=1, d=256, causal=True, window=0)
 #: key, one 4,096-token sequence
 DEEPSEEK_ATTN = dict(b=1, s=4096, h=128, kh=128, d=192, causal=True,
                      window=0)
+#: jamba-1.5-large's training attention (phase 13d, the sm90 route): 64
+#: query heads over 8 KV heads of 128 (G = 8), one 4,096-token sequence
+JAMBA_ATTN = dict(b=1, s=4096, h=64, kh=8, d=128, causal=True, window=0)
 #: each route is timed at its own path's shape and dtype
 ROUTE_CASES = {"sm90": (TRAIN_ATTN, torch.bfloat16),
                "simt": (PARITY_ATTN, torch.float32),
@@ -872,7 +908,8 @@ def phase_flash():
                             window=100, unaligned=True)}
     results = {}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        cases = ({**shapes, **D256_CASES, **D192_CASES}
+        cases = ({**shapes, **D256_CASES, **D192_CASES,
+                  "jamba_train": JAMBA_ATTN}
                  if dt == torch.bfloat16 else {**shapes, **f32_only})
         for i, (name, shape) in enumerate(cases.items()):
             case = flash_case(**shape, dtype=dt, seed=10 + i)
@@ -1815,6 +1852,420 @@ def phase_deepseek() -> dict:
     del state
     torch.cuda.empty_cache()
     return {"launches": d192, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Mamba and the jamba hybrid (the selective-scan kernel)
+# ---------------------------------------------------------------------------
+JAMBA = "jamba-1.5-large-398b"
+#: 13a: the selective-scan kernel's cases (B, S, D, N, x dtype): jamba's
+#: training shape (B 1, S 4,096 = 16 chunks, d_inner 16,384, N 16, bf16),
+#: then float32 / bf16, N 16 / 4, B 1 / 2, S 4,096 and a ragged 200 (not
+#: a whole forward tile, backward sub-chunk or chunk), a D not a whole
+#: 128-channel block
+SCAN_CASES = {
+    "jamba_bf16": (1, 4096, 16384, 16, torch.bfloat16),
+    "b2_n16_f32": (2, 4096, 2048, 16, torch.float32),
+    "b2_n4_bf16": (2, 4096, 512, 4, torch.bfloat16),
+    "ragged_n4_f32": (2, 200, 1000, 4, torch.float32),
+    "ragged_n16_bf16": (1, 200, 4096, 16, torch.bfloat16),
+}
+#: the scan kernel against its plain version: the forward allclose at the
+#: float32 2e-5 (atol = rtol), the backward's five gradients to 2e-5 of
+#: their largest element (sums over 16,384 channels and 4,096 steps in
+#: other orders), against selective_scan_bwd_ref and against autograd of
+#: the plain forward
+SCAN_TOL = 2e-5
+#: ... but a bf16 dx may differ by this many bf16 steps of its element
+#: (one step is at most 2**-7 of it: 8 significant bits): both sides
+#: round a float32 value to bf16 at the end, and a float32 difference of
+#: a few ulps flips the rounding of an element near a rounding boundary.
+#: Seen on the H100 (jamba's shape): 8,279 of 67.1 M elements apart,
+#: 2.20e-3 of scale raw (e.g. 2.140625 against 2.125: the step at |dx| in
+#: [2, 4) is 2**-6); beyond one step 0.  The raw error and the count of
+#: elements apart are printed beside the residue
+SCAN_BF16_DX_STEPS = 1
+#: special-function unit results an SM takes a clock (expf is one ex2):
+#: NVIDIA's arithmetic-instruction throughput table, compute capability
+#: 9.0
+SFU_PER_CLOCK = 16
+H100_SMS = 132
+#: 13b: smoke width in float32, 4 requests on 2 slots (slots reused)
+JAMBA_PARITY = dict(MOE_PARITY, requests=4)
+#: 13c: the serve cut: the first 4 layers of the period at full width
+#: (mamba+ff, mamba+moe, mamba+ff, attn+moe: every block kind, all 16
+#: experts), 23.02 B parameters; 4 requests of 64-128 prompt and 16 new
+#: tokens
+JAMBA_SERVE_LAYERS = 4
+JAMBA_SERVE = DEEPSEEK_SERVE
+#: 13d: the train cut: layers 2 and 3 of the period (mamba+ff, attn+moe)
+#: with 4 of the 16 experts (top 2 kept), 4.66 B parameters; 3 steps of
+#: one 4,096-token sequence
+JAMBA_TRAIN_EXPERTS = 4
+
+
+def jamba_cut(what: str):
+    """The serve cut or the train cut of jamba-1.5-large (depth cuts of
+    one period; num_periods stays 1)."""
+    from repro_torch.configs.jamba_1_5_large_398b import PATTERN
+    full = C.get_arch(JAMBA)
+    if what == "serve":
+        return dataclasses.replace(full, num_layers=JAMBA_SERVE_LAYERS,
+                                   layer_pattern=PATTERN[:4])
+    return dataclasses.replace(
+        full, num_layers=2, layer_pattern=PATTERN[2:4],
+        moe=dataclasses.replace(full.moe, num_experts=JAMBA_TRAIN_EXPERTS))
+
+
+def scan_inputs(b, s, d, n, dtype, seed):
+    """Scan operands at a Mamba layer's scale on the card: dt in [1e-3,
+    0.1] (its init's range), a = -(1..N) jittered, x, b, c, dy normal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    a = -(torch.arange(1, n + 1, device="cuda", dtype=torch.float32)[None]
+          * (0.5 + torch.rand((d, n), generator=gen, device="cuda")))
+    return {"x": randn(b, s, d).to(dtype),
+            "dt": 1e-3 + 0.099 * torch.rand((b, s, d), generator=gen,
+                                             device="cuda"),
+            "b": randn(b, s, n), "c": randn(b, s, n), "a": a.contiguous(),
+            "dy": randn(b, s, d)}
+
+
+def scan_args(t):
+    return [t[k] for k in ("x", "dt", "b", "c", "a")]
+
+
+def bf16_step(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 rounding step at each element of ``w`` (8 significant
+    bits: 2**(e - 8) for |w| in [2**(e - 1), 2**e))."""
+    _, e = torch.frexp(w.float())
+    return torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
+
+
+def scan_bwd_errs(got, want, x_dtype) -> tuple:
+    """(each gradient's max |got - want| over its largest |want|, with a
+    bf16 dx's error beyond :data:`SCAN_BF16_DX_STEPS` bf16 steps of its
+    element instead; for a bf16 dx its raw error of scale and the count
+    of elements that differ, else None)."""
+    out, raw = {}, None
+    for name, g, w in zip(("dx", "ddt", "db", "dc", "da"), got, want):
+        err = (g.float() - w.float()).abs()
+        scale = float(w.float().abs().max())
+        if name == "dx" and x_dtype == torch.bfloat16:
+            raw = (float(err.max()) / scale, int((err > 0).sum()))
+            err = (err - SCAN_BF16_DX_STEPS * bf16_step(w)).clamp_min(0)
+        out[name] = float(err.max()) / scale
+    return out, raw
+
+
+def autograd_of_plain_scan(t):
+    leaves = [v.detach().clone().requires_grad_(True) for v in scan_args(t)]
+    y = ref.selective_scan_ref(*leaves)
+    grads = torch.autograd.grad(y, leaves, t["dy"])
+    del y, leaves
+    return grads
+
+
+def scan_bound(b, s, d, n, x_bytes: int, backward: bool):
+    """(ms, "bytes" or "operations"): the least time of the forward or
+    the backward.  Bytes: each input read once and each output written
+    once (forward: x, dt, b, c, a in, y and the chunk states out;
+    backward: those inputs, the states and dy in, dx, d(dt), db, dc, da
+    out).  Operations: the B S D N exps of exp(dt a), at the SFU's rate
+    at the card's top SM clock."""
+    elems, states = b * s * d, b * SS.geometry(s, d)[0] * d * n
+    small = 4 * (2 * b * s * n + d * n)
+    if backward:
+        nbytes = (elems * (2 * x_bytes + 4 + 4 + 4) + 4 * states
+                  + 2 * small)
+    else:
+        nbytes = elems * (x_bytes + 4 + 4) + 4 * states + small
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    exp_ms = b * s * d * n / (H100_SMS * SFU_PER_CLOCK
+                              * float(clock) * 1e6) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= exp_ms else (exp_ms,
+                                                          "operations")
+
+
+def phase_scan_kernel() -> dict:
+    """13a: the selective-scan kernels, forward and backward, against
+    their plain versions on the card, and timed at jamba's shape."""
+    for line in ptxas_lines("selective_scan", ("scan_fwd_kernel",
+                                               "scan_bwd_kernel",
+                                               "scan_bwd_reduce_kernel")):
+        print(f"  selective_scan ptxas: {line}")
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for name, (b, s, d, n, dtype) in SCAN_CASES.items():
+        t = scan_inputs(b, s, d, n, dtype, seed=len(name))
+        y, hs = SS.forward(*scan_args(t))
+        want_y, want_hs = ref.selective_scan_ref(*scan_args(t),
+                                                 return_states=True)
+        fwd_ok = (hs.shape == want_hs.shape and within(y, want_y, SCAN_TOL)
+                  and within(hs, want_hs, SCAN_TOL))
+        y_err, hs_err = max_err(y, want_y), max_err(hs, want_hs)
+        del want_y, want_hs
+        got = SS.backward(*scan_args(t), hs, t["dy"])
+        again = SS.backward(*scan_args(t), hs, t["dy"])
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        del again
+        vs_ref, raw_ref = scan_bwd_errs(got, ref.selective_scan_bwd_ref(
+            *scan_args(t), hs, t["dy"]), dtype)
+        vs_auto, raw_auto = scan_bwd_errs(got, autograd_of_plain_scan(t),
+                                          dtype)
+        bwd_worst = max(*vs_ref.values(), *vs_auto.values())
+        ok = fwd_ok and same and bwd_worst <= SCAN_TOL
+        errs["fwd"] = max(errs["fwd"], y_err)
+        errs["bwd"] = max(errs["bwd"], bwd_worst)
+        print(f"selective_scan {name} (B {b}, S {s}, D {d}, N {n}, x "
+              f"{str(dtype)[6:]}): forward y max_abs_err {y_err:.3e}, chunk "
+              f"states {hs_err:.3e} (allclose {SCAN_TOL:g}); backward of "
+              f"scale vs bwd_ref "
+              + ", ".join(f"{k} {v:.2e}" for k, v in vs_ref.items())
+              + "; vs autograd of the plain forward "
+              + ", ".join(f"{k} {v:.2e}" for k, v in vs_auto.items())
+              + f" ({SCAN_TOL:g}"
+              + (f", dx beyond {SCAN_BF16_DX_STEPS} bf16 step; dx raw of "
+                 f"scale {raw_ref[0]:.2e} vs bwd_ref with {raw_ref[1]} "
+                 f"elements apart, {raw_auto[0]:.2e} vs autograd with "
+                 f"{raw_auto[1]} apart" if raw_ref else "")
+              + f"); two backwards {'bit-identical' if same else 'DIFFER'}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"selective_scan {name} disagrees with its plain version")
+        del t, y, hs, got
+        torch.cuda.empty_cache()
+
+    b, s, d, n, dtype = SCAN_CASES["jamba_bf16"]
+    t = scan_inputs(b, s, d, n, dtype, seed=0)
+    _, hs = SS.forward(*scan_args(t))
+    timed = {}
+    for direction, fn, plain in (
+            ("fwd", lambda: SS.forward(*scan_args(t)),
+             lambda: ref.selective_scan_ref(*scan_args(t))),
+            ("bwd", lambda: SS.backward(*scan_args(t), hs, t["dy"]),
+             lambda: ref.selective_scan_bwd_ref(*scan_args(t), hs,
+                                                t["dy"]))):
+        ms = time_cold_ms(fn, 10)
+        plain_ms = time_plain_ms(plain)
+        bound_ms, bound_by = scan_bound(b, s, d, n, 2, direction == "bwd")
+        timed[direction] = dict(max_abs_err=errs[direction], ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
+        print(f"selective_scan {direction} timing at jamba's shape (B {b}, "
+              f"S {s}, D {d}, N {n}, bf16 x; L2 flushed): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}), {bound_ms / ms:.1%} of bound; no PyTorch "
+              f"call computes the scan (library: none)")
+    del t, hs
+    torch.cuda.empty_cache()
+    return timed
+
+
+def phase_jamba_parity() -> dict:
+    """13b: jamba at smoke width in float32 (8 layers, N 4): the engine's
+    streams equal greedy_reference's in every table mode with slots
+    reused, the card's logits and first train step's loss agree with the
+    CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = JAMBA_PARITY
+    cfg = dataclasses.replace(C.smoke_variant(C.get_arch(JAMBA)),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    model = init_params(cfg, gen, "cuda")
+    shape = dict(max_batch=p["max_batch"], max_len=p["max_len"],
+                 page_size=p["page_size"], device="cuda")
+
+    def requests():
+        return SERVE.make_requests(p["requests"], cfg.vocab_size,
+                                   p["prompt"], p["new_tokens"], seed=6)
+
+    want = {r.req_id: greedy_reference(
+        cfg, model, r.prompt, p["new_tokens"], kv_mode=BT.FLAT,
+        max_len=p["max_len"], page_size=p["page_size"], device="cuda")
+        for r in requests()}
+    for mode in (None, BT.FLAT, BT.RADIX):
+        eng = ServeEngine(cfg, model, table_mode=mode, **shape)
+        for r in requests():
+            eng.submit(r)
+        got = {r.req_id: r.generated for r in eng.run()}
+        check(eng.sched.stats["admitted"] > p["max_batch"],
+              "jamba parity: no slot was reused")
+        check(got == want, f"{JAMBA} table_mode {mode}: engine {got} != "
+                           f"greedy_reference {want}")
+    print(f"{JAMBA} parity (smoke width, float32, {p['requests']} requests "
+          f"on {p['max_batch']} slots): engine streams equal "
+          f"greedy_reference in table modes auto, flat, radix")
+    cpu_model = copy.deepcopy(model).cpu()
+    prompt = torch.tensor(requests()[0].prompt[None])
+    kw = dict(kv_mode=BT.FLAT, max_len=p["max_len"],
+              page_size=p["page_size"])
+    logits_gpu, _ = prefill(model, cfg, prompt.cuda(), **kw)
+    logits_cpu, _ = prefill(cpu_model, cfg, prompt, **kw)
+    diff = float((logits_gpu.cpu() - logits_cpu).abs().max())
+    check(bool(torch.isfinite(logits_gpu).all()), "non-finite logits")
+    check(diff <= LOGIT_TOL, f"{JAMBA} card vs CPU logits differ by {diff}")
+    raw = DATA.SyntheticLM(cfg.vocab_size, 64, 4).batch_at(0)
+    losses = {}
+    SS.launches_fwd = SS.launches_bwd = 0
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        state = TrainState(trainable(m), adamw_init(
+            dict(m.named_parameters())), 0)
+        step = make_train_step(cfg, AdamWConfig(total_steps=3), 2)
+        _, metrics = step(state, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in raw.items()})
+        losses[dev] = (metrics["loss"], metrics["aux"])
+    mamba_layers = sum(b.mamba for b in model.stack.layers)
+    scan = (SS.launches_fwd, SS.launches_bwd)
+    check(scan == (2 * mamba_layers, 2 * mamba_layers),
+          f"smoke train step: selective_scan launches {scan}, want one "
+          f"each per Mamba layer and microbatch")
+    loss_diff = abs(losses["cuda"][0] - losses["cpu"][0])
+    check(bool(np.isfinite(losses["cuda"][0])), "non-finite loss")
+    check(loss_diff <= TRAIN_LOSS_TOL, f"{JAMBA} card vs CPU first-step "
+                                       f"loss differ by {loss_diff}")
+    print(f"{JAMBA} parity card vs CPU: prefill logits "
+          f"{tuple(logits_gpu.shape)} max_abs_diff {diff:.3e} (tol "
+          f"{LOGIT_TOL:g}); first train step loss card "
+          f"{losses['cuda'][0]:.6f} CPU {losses['cpu'][0]:.6f}, diff "
+          f"{loss_diff:.3e} (tol {TRAIN_LOSS_TOL:g}), aux card "
+          f"{losses['cuda'][1]:.6f} CPU {losses['cpu'][1]:.6f}; "
+          f"selective_scan launches fwd {scan[0]}, bwd {scan[1]} (N 4)")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return {"logits": diff, "loss": loss_diff}
+
+
+def phase_jamba_serve() -> dict:
+    """13c: the serve cut at full width in bf16 served through the
+    engine in the flat and the radix table mode: the attention layer of
+    every step through the paged kernel (1 x steps launches), the Mamba
+    layers' single-step update in plain torch, the same tokens in both
+    modes."""
+    cfg = jamba_cut("serve")
+    p = JAMBA_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    print(f"{JAMBA} serve cut ({cfg.num_layers} of "
+          f"{C.get_arch(JAMBA).num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B params): random weights in "
+          f"{time.perf_counter() - t0:.1f} s")
+    attn_layers = sum(not b.mamba for b in model.stack.layers)
+    launches, tokens = {}, {}
+    for mode in (BT.FLAT, BT.RADIX):
+        eng = ServeEngine(cfg, model, max_batch=p["max_batch"],
+                          max_len=p["max_len"], page_size=p["page_size"],
+                          table_mode=mode, device="cuda")
+        for r in SERVE.make_requests(p["requests"], cfg.vocab_size,
+                                     p["prompt"], p["new_tokens"], seed=0):
+            eng.submit(r)
+        PA.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n, steps = PA.launches, eng.sched.stats["steps"]
+        serve_checks(cfg, done, p["requests"], p["new_tokens"],
+                     f"{JAMBA} {mode}")
+        check(n == attn_layers * steps and n > 0,
+              f"{mode}: paged_attention launches {n} != {attn_layers} "
+              f"attention layer(s) x {steps} steps")
+        generated = sum(len(r.generated) for r in done)
+        prompts = sum(len(r.prompt) for r in done)
+        print(f"serve {JAMBA} {mode} (full width, {cfg.num_layers} layers: "
+              f"{cfg.num_layers - attn_layers} Mamba, {attn_layers} "
+              f"attention; {cfg.moe.num_experts} experts top "
+              f"{cfg.moe.num_experts_per_tok}; {cfg.param_count() / 1e9:.2f}"
+              f" B params, bf16): {len(done)} requests, {prompts} prompt + "
+              f"{generated} generated tokens in {steps} steps, {secs:.3f} s;"
+              f" {generated / secs:.1f} generated tokens/s, "
+              f"{(prompts + generated) / secs:.1f} tokens/s in all; "
+              f"{secs / steps * 1e3:.3f} ms/step; paged_attention launches "
+              f"{n}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches[mode] = n
+        tokens[mode] = {r.req_id: list(r.generated) for r in done}
+        del eng
+    check(tokens[BT.FLAT] == tokens[BT.RADIX],
+          f"{JAMBA} flat and radix tables generated different tokens")
+    print(f"serve {JAMBA}: flat and radix tables generate the same tokens")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_jamba_train() -> dict:
+    """13d: the train cut at full width: 3 steps of one 4,096-token
+    sequence, bf16 gradients and float32 AdamW moments, the Mamba layer
+    through the selective-scan kernels and the attention layer through
+    the sm90 flash kernels (forward twice a step with the recompute of
+    activation checkpointing, backward once)."""
+    cfg = jamba_cut("train")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, 0, "cuda")
+    step = make_train_step(cfg, AdamWConfig(total_steps=3), 1)
+    SS.launches_fwd = SS.launches_bwd = 0
+    FA.launches_fwd = FA.launches_bwd = 0
+    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    hist = []
+    for i in range(3):
+        raw = DATA.SyntheticLM(cfg.vocab_size, 4096, 1).batch_at(i)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        metrics["seconds"] = time.perf_counter() - t0
+        hist.append(metrics)
+    scan = (SS.launches_fwd, SS.launches_bwd)
+    sm90 = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
+    for m in hist:
+        for key in ("loss", "grad_norm", "aux"):
+            check(bool(np.isfinite(m[key])) and m[key] != 0,
+                  f"{key} {m[key]} is not finite and nonzero")
+    check(scan == (6, 3), f"selective_scan launches (fwd, bwd) {scan} != "
+                          f"(6, 3)")
+    check(sm90 == (FA.launches_fwd, FA.launches_bwd) == (6, 3),
+          f"sm90 flash_attention launches (fwd, bwd) {sm90} != (6, 3)")
+    secs = [m["seconds"] for m in hist]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    raw = DATA.SyntheticLM(cfg.vocab_size, 4096, 1).batch_at(3)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    print(f"train {JAMBA}: a fourth step under torch.profiler, "
+          f"{traced:.3f} s:")
+    print_profile(prof, traced)
+    print(f"train {JAMBA} (full width, 2 layers: mamba+ff, attn+moe with "
+          f"{cfg.moe.num_experts} of 16 experts, top "
+          f"{cfg.moe.num_experts_per_tok}; {cfg.param_count() / 1e9:.2f} B "
+          f"params, bf16 gradients, float32 AdamW moments): 3 steps of 1 x "
+          f"4096 tokens; losses {[round(m['loss'], 4) for m in hist]}, aux "
+          f"{[round(m['aux'], 4) for m in hist]}, grad_norms "
+          f"{[round(m['grad_norm'], 4) for m in hist]}; s/step "
+          f"{[round(x, 3) for x in secs]} (first includes warm-up); "
+          f"{np.mean(secs[1:]):.3f} s/step and "
+          f"{4096 / np.mean(secs[1:]):.1f} tokens/s after the first; "
+          f"selective_scan launches fwd {scan[0]}, bwd {scan[1]}; "
+          f"flash_attention sm90 launches fwd {sm90[0]}, bwd {sm90[1]}; "
+          f"peak memory {peak:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return {"scan": scan, "sm90": sm90, "peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -3137,8 +3588,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
                       "flash_attention_sm90", "flash_attention_d256",
-                      "lru_scan", "sim_epilogue"])
-    PA._lib(), FA._lib(), LS._lib(), SE._lib()  # load them
+                      "lru_scan", "sim_epilogue", "selective_scan"])
+    PA._lib(), FA._lib(), LS._lib(), SE._lib(), SS._lib()  # load them
     FA._lib_bf16("sm90"), FA._lib_bf16("d256")    # d192 is d256's library
     print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
@@ -3209,6 +3660,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     print(f"phase 12 (mixture of experts and MLA): "
           f"{time.perf_counter() - t12:.1f} s")
+    t13 = t0 = time.perf_counter()
+    scan_timed = phase_scan_kernel()
+    print(f"phase 13a (selective-scan kernels): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_jamba_parity()
+    print(f"phase 13b (jamba parity): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    jamba_serve = phase_jamba_serve()
+    print(f"phase 13c ({JAMBA} serve cut): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    jamba_train = phase_jamba_train()
+    print(f"phase 13d ({JAMBA} train cut): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 13 (Mamba and the jamba hybrid): "
+          f"{time.perf_counter() - t13:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches,
@@ -3225,8 +3691,10 @@ def main() -> int:
         # d256: gemma3's local layers (window 512) beside its global ones
         **{k: v for k, v in flash_timed[route][direction].items()
            if k.startswith("window")},
-        # sm90: granite-moe's training (12c) beside internlm2's
-        **({"granite_moe_train_launches": moe_train[direction == "bwd"]}
+        # sm90: granite-moe's (12c) and jamba's (13d) training beside
+        # internlm2's
+        **({"granite_moe_train_launches": moe_train[direction == "bwd"],
+            "jamba_train_launches": jamba_train["sm90"][direction == "bwd"]}
            if route == "sm90" else {}),
     } for route in ROUTE_CASES
         for direction, n in zip(("fwd", "bwd"), path_launches[route])]
@@ -3254,10 +3722,22 @@ def main() -> int:
         # phase 12a: granite-moe-1b-a400m served (flat, radix)
         "granite_moe_serve_launches": moe_serve[BT.FLAT],
         "granite_moe_radix_serve_launches": moe_serve[BT.RADIX],
+        # phase 13c: jamba-1.5-large's serve cut (flat, radix)
+        "jamba_serve_launches": jamba_serve[BT.FLAT],
+        "jamba_radix_serve_launches": jamba_serve[BT.RADIX],
         **{f"{tag}_{k}": timed[f"{tag}_bf16"][k]
-           for tag in ("gemma3_p16", "granite34b")
+           for tag in ("gemma3_p16", "granite34b", "jamba")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }] + flash_rows + [{
+        "name": f"selective_scan_{direction}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/mamba.py:96",
+        # phase 13d: jamba's train cut (forward twice a step with the
+        # recompute of activation checkpointing)
+        "launches": jamba_train["scan"][direction == "bwd"],
+        **scan_timed[direction],
+    } for direction in ("fwd", "bwd")] + [{
         "name": "lru_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lru_scan.cu",

@@ -6,8 +6,9 @@ dataclasses with no framework dependency, so the port keeps its own copy
 instead of importing the JAX package.  The dense GQA architectures
 (internlm2-1.8b and the dense attention variants: gemma3-1b,
 phi3-medium-14b, granite-34b, internvl2-76b), the mixture-of-experts
-granite-moe-1b-a400m and deepseek-v2-236b (MLA and MoE) are registered
-so far; the shape cells (``SHAPES``) are the JAX package's.
+granite-moe-1b-a400m and deepseek-v2-236b (MLA and MoE) and the hybrid
+jamba-1.5-large-398b (Mamba, attention and MoE) are registered so far;
+the shape cells (``SHAPES``) are the JAX package's.
 """
 from __future__ import annotations
 
@@ -168,6 +169,17 @@ class ArchConfig:
                     + m.kv_lora_rank * h * (m.qk_nope_head_dim
                                             + m.v_head_dim)
                     + h * m.v_head_dim * d)
+        if kind == MAMBA:
+            mc = self.mamba
+            d_in = mc.expand * d
+            dt_rank = mc.dt_rank or -(-d // 16)
+            return (d * 2 * d_in                       # in_proj (x and z)
+                    + d_in * mc.d_conv                 # conv1d
+                    + d_in * (dt_rank + 2 * mc.d_state)  # x_proj
+                    + dt_rank * d_in                   # dt_proj
+                    + d_in * mc.d_state                # A_log
+                    + d_in                             # D
+                    + d_in * d)                        # out_proj
         raise ValueError(f"unknown mixer kind {kind}")
 
 

@@ -7,11 +7,14 @@ slices (internlm2-1.8b) and of the dense attention variants
 head_dim 256; phi3-medium-14b; granite-34b: MQA and a GELU FFN;
 internvl2-76b: stub vision tokens) and of the mixture-of-experts slice
 (granite-moe-1b-a400m: 32 experts, top 8; deepseek-v2-236b: MLA, a
-dense prefix layer, then 160 routed experts with 2 shared).
+dense prefix layer, then 160 routed experts with 2 shared) and of the
+hybrid slice (jamba-1.5-large-398b: Mamba layers with one attention
+layer in eight, 16 experts top 2 on every other layer).
 ``configs.ndp_sim`` holds the simulator's machines, workloads and
 presets.
 """
 from repro_torch.configs import (deepseek_v2_236b,  # noqa: F401
                                  gemma3_1b, granite_34b,
                                  granite_moe_1b_a400m, internlm2_1_8b,
-                                 internvl2_76b, phi3_medium_14b)
+                                 internvl2_76b, jamba_1_5_large_398b,
+                                 phi3_medium_14b)

@@ -12,6 +12,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.selective_scan import SelectiveScan
+from repro_torch.kernels.selective_scan import check as _scan_check
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -39,3 +41,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Differentiable selective scan: y (B, S, D) float32 from x (B, S,
+    D), dt (B, S, D), b, c (B, S, N) and a (D, N) (see
+    kernels/selective_scan.py).  On the card the forward and the
+    backward are CUDA kernels; on the CPU autograd differentiates the
+    plain version."""
+    if x.device.type == "cuda":
+        return SelectiveScan.apply(x, dt, b, c, a)
+    if x.device.type == "cpu":
+        _scan_check(x, dt, b, c, a)
+        return ref.selective_scan_ref(x, dt, b, c, a)
+    raise ValueError(f"no selective_scan for device {x.device}")

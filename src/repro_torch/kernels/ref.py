@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the
 card-side oracle in ``chip_smoke.py``): paged decode attention, the
-flash attention forward and backward of the training path, and the
-simulator's LRU scan and timing epilogue."""
+flash attention forward and backward of the training path, Mamba's
+selective scan forward and backward, and the simulator's LRU scan and
+timing epilogue."""
 from __future__ import annotations
 
 import math
@@ -699,3 +700,126 @@ def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
     else:
         mem_n = count(pte_mem, (0, -1)) + count(data_mem)
     return cnt, step_cyc.sum(dim=0), mem_n
+
+
+# ---------------------------------------------------------------------------
+# Mamba's selective scan
+# ---------------------------------------------------------------------------
+#: steps between the states the forward keeps for the backward (the JAX
+#: package's ``chunked_scan`` chunk, ``src/repro/models/scan_utils.py``)
+SCAN_CHUNK = 256
+#: channels of one block of the backward kernel: dB and dC are summed
+#: over a block's channels first, then over the blocks in order
+SCAN_CHANNEL_BLOCK = 128
+
+
+def _scan_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+               b_t: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """One step of the recurrence in the JAX ``step``'s operation order
+    (``src/repro/models/mamba.py:97-101``)."""
+    da = torch.exp(dt_t[..., None] * a)                     # (B, D, N)
+    dbx = (dt_t * x_t.float())[..., None] * b_t[:, None, :]
+    return da * h + dbx
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, *,
+                       return_states: bool = False):
+    """Mamba's selective scan, a step at a time: the specification of
+    ``csrc/selective_scan.cu``'s forward.
+
+    x: (B, S, D) in the model dtype; dt: (B, S, D) float32; b, c: (B, S,
+    N) float32; a: (D, N) float32.  From ``h = 0``, per step ``h =
+    exp(dt a) h + (dt x) b`` and ``y = sum_n h c``.  Returns y (B, S, D)
+    float32 and, with ``return_states``, the states the forward kernel
+    keeps for the backward: h at the start of every
+    :data:`SCAN_CHUNK`-step chunk, (B, ceil(S / chunk), D, N) float32
+    (the first is 0), outside the autograd graph.  On the CPU autograd
+    differentiates y (the JAX package differentiates its ``lax.scan``
+    the same way)."""
+    bsz, s, d = x.shape
+    h = torch.zeros((bsz, d, a.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys, states = [], []
+    for t in range(s):
+        if return_states and t % SCAN_CHUNK == 0:
+            states.append(h.detach())
+        h = _scan_step(h, x[:, t], dt[:, t], b[:, t], a)
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    y = torch.stack(ys, dim=1)
+    return (y, torch.stack(states, dim=1)) if return_states else y
+
+
+def _channel_block_sums(v: torch.Tensor) -> torch.Tensor:
+    """(B, D, N) -> (B, blocks, N): sums over each block of
+    :data:`SCAN_CHANNEL_BLOCK` channels (the last one ragged)."""
+    bsz, d, n = v.shape
+    blocks = -(-d // SCAN_CHANNEL_BLOCK)
+    pad = blocks * SCAN_CHANNEL_BLOCK - d
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    return v.reshape(bsz, blocks, SCAN_CHANNEL_BLOCK, n).sum(dim=2)
+
+
+@torch.no_grad()
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           b: torch.Tensor, c: torch.Tensor,
+                           a: torch.Tensor, hs: torch.Tensor,
+                           dy: torch.Tensor):
+    """The backward of :func:`selective_scan_ref` as the kernel computes
+    it, from the chunk states ``hs`` that :func:`selective_scan_ref`
+    returns with ``return_states`` and dy (B, S, D) float32.
+
+    The chunks run in reverse; each chunk's states are recomputed from
+    its stored state (the kernel recomputes a sub-chunk at a time, from
+    states it keeps every few steps: the same operations, so the same
+    numbers), then the reverse recurrence runs over the chunk with
+    ``g_t = dy_t c_t + exp(dt_{t+1} a) g_{t+1}`` (the gradient of h_t):
+
+        dx_t    = dt_t sum_n g_t b_t
+        d(dt)_t = sum_n g_t h_{t-1} exp(dt_t a) a + x_t sum_n g_t b_t
+        db_t    = sum_d g_t dt_t x_t        dc_t = sum_d dy_t h_t
+        da      = sum_{b, t} g_t h_{t-1} exp(dt_t a) dt_t
+
+    db and dc are summed over each block of :data:`SCAN_CHANNEL_BLOCK`
+    channels, then over the blocks in order; da over time for each batch
+    row, then over the rows in order.  Returns (dx in x's dtype, d(dt),
+    db, dc, da), float32 but dx."""
+    bsz, s, d = x.shape
+    n = a.shape[1]
+    blocks = -(-d // SCAN_CHANNEL_BLOCK)
+    dx = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
+    ddt = torch.empty_like(dx)
+    db_part = torch.zeros((blocks, bsz, s, n), dtype=torch.float32,
+                          device=x.device)
+    dc_part = torch.zeros_like(db_part)
+    da_part = torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
+    carry = torch.zeros((bsz, d, n), dtype=torch.float32, device=x.device)
+    for ci in reversed(range(hs.shape[1])):
+        t0, t1 = ci * SCAN_CHUNK, min(s, (ci + 1) * SCAN_CHUNK)
+        states = [hs[:, ci]]
+        for t in range(t0, t1):
+            states.append(_scan_step(states[-1], x[:, t], dt[:, t], b[:, t],
+                                     a))
+        for t in reversed(range(t0, t1)):
+            h_t, h_prev = states[t - t0 + 1], states[t - t0]
+            dt_t, x_t, dy_t = dt[:, t], x[:, t].float(), dy[:, t]
+            da = torch.exp(dt_t[..., None] * a)
+            g = dy_t[..., None] * c[:, t, None, :] + carry
+            dc_part[:, :, t] = _channel_block_sums(
+                dy_t[..., None] * h_t).transpose(0, 1)
+            db_part[:, :, t] = _channel_block_sums(
+                g * (dt_t * x_t)[..., None]).transpose(0, 1)
+            sgb = (g * b[:, t, None, :]).sum(-1)
+            t1_ = g * h_prev * da
+            da_part += t1_ * dt_t[..., None]
+            carry = da * g
+            dx[:, t] = dt_t * sgb
+            ddt[:, t] = (t1_ * a).sum(-1) + x_t * sgb
+    db, dc = db_part[0].clone(), dc_part[0].clone()
+    for k in range(1, blocks):
+        db += db_part[k]
+        dc += dc_part[k]
+    da_sum = da_part[0].clone()
+    for r in range(1, bsz):
+        da_sum += da_part[r]
+    return dx.to(x.dtype), ddt, db, dc, da_sum

@@ -17,10 +17,14 @@ package's dense dispatch), deepseek-v2-236b through its MLA latent cache
 full width only with its depth cut, as ``chip_smoke.py`` phase 12d
 does):
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+jamba-1.5-large-398b's Mamba layers decode with the single-step update
+and its attention layers through the paged kernel; at 398 B parameters
+it too runs on one card only with its depth cut (``chip_smoke.py`` phase
+13c serves the period's first 4 layers).
 
 Reduced run on the CPU (smoke config in float32, plain PyTorch path):
   python -m repro_torch.launch.serve --local-smoke --device cpu \
-      [--arch granite-moe-1b-a400m | deepseek-v2-236b]
+      [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b]
 
 Translation-costed serving: ``--cost-model pinned`` prices every step
 with the committed cost table, ``--cost-model sweep`` derives the table

@@ -101,7 +101,10 @@ def rope_width(cfg, mixer_kind: str) -> int:
 
 
 def rope_widths(cfg) -> Set[int]:
-    return {rope_width(cfg, mk) for mk, _ in cfg.layer_kinds()}
+    """The widths the config's attention layers rotate (a Mamba layer
+    takes no rope)."""
+    return {rope_width(cfg, mk) for mk, _ in cfg.layer_kinds()
+            if mk != C.MAMBA}
 
 
 @dataclass

@@ -14,12 +14,14 @@ list with one dict per layer.  KV backends of a GQA layer:
   paged_flat  NDPage flattened single-level block table (one indirection)
   paged_radix 2-level directory->leaf block table (two indirections)
 An MLA layer holds its dense latent cache (``ckv``, ``kr``) in every
-mode, as the JAX package's ``block_init_state`` does.
+mode, as the JAX package's ``block_init_state`` does; a Mamba layer its
+recurrent state (``conv``, ``ssm``, float32), which
+:func:`reset_recurrent_state` zeroes for one batch slot.
 
 Ported blocks: global (``ATTN``), sliding-window (``ATTN_LOCAL``) or
-latent (``ATTN_MLA``) attention, with a dense FFN (gated or GELU) or a
-routed mixture of experts (``MOE_FF``); Mamba and RWKV blocks raise
-``NotImplementedError`` naming their ROADMAP item.
+latent (``ATTN_MLA``) attention and Mamba (``MAMBA``, no rope), with a
+dense FFN (gated or GELU) or a routed mixture of experts (``MOE_FF``);
+RWKV blocks raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,12 +33,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import config as C
 from repro_torch.models import attention as A
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import FFN, RMSNorm, ffn_apply, rope_tables
 
-_NOT_PORTED = {C.MAMBA: ("Mamba blocks", "8c"),
-               C.RWKV: ("RWKV blocks", "8f")}
-_ATTENTION = (C.ATTN, C.ATTN_LOCAL, C.ATTN_MLA)
+_NOT_PORTED = {C.RWKV: ("RWKV blocks", "8f")}
+_MIXERS = (C.ATTN, C.ATTN_LOCAL, C.ATTN_MLA, C.MAMBA)
+#: the keys of a layer's decode state that carry a sequence's recurrent
+#: state (a Mamba layer's), reset when a slot takes a new sequence
+RECURRENT_STATE = ("conv", "ssm")
 
 
 def _roadmap(item: str) -> str:
@@ -48,9 +53,11 @@ def _check_kinds(cfg, mixer_kind: str, ffn_kind: str) -> None:
         what, item = _NOT_PORTED[mixer_kind]
         raise NotImplementedError(f"{cfg.name}: {what} not ported yet "
                                   f"({_roadmap(item)})")
-    if mixer_kind not in _ATTENTION or ffn_kind not in (C.DENSE_FF,
-                                                        C.MOE_FF):
+    if mixer_kind not in _MIXERS or ffn_kind not in (C.DENSE_FF,
+                                                     C.MOE_FF):
         raise ValueError((mixer_kind, ffn_kind))
+    if mixer_kind == C.MAMBA and cfg.mamba is None:
+        raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.mamba")
     if cfg.rwkv is not None:
         raise NotImplementedError(f"{cfg.name}: the RWKV channel mix is not "
                                   f"ported yet ({_roadmap('8f')})")
@@ -69,16 +76,21 @@ class Block(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
         self.mla = mixer_kind == C.ATTN_MLA
-        self.mixer = (A.MLA(cfg, dt, device, generator) if self.mla
-                      else A.Attention(cfg, dt, device, generator))
+        self.mamba = mixer_kind == C.MAMBA
+        if self.mamba:
+            self.mixer = M.Mamba(cfg, dt, device, generator)
+        elif self.mla:
+            self.mixer = A.MLA(cfg, dt, device, generator)
+        else:
+            self.mixer = A.Attention(cfg, dt, device, generator)
         self.moe = ffn_kind == C.MOE_FF
         self.ffn = (MOE.MoE(cfg, dt, device, generator) if self.moe
                     else FFN(cfg.d_model, cfg.d_ff, dt, device, generator,
                              gated=cfg.gated_ffn))
         #: keys older than this are masked (0: a global layer)
         self.window = cfg.window_size if mixer_kind == C.ATTN_LOCAL else 0
-        #: the width of the rope tables the mixer takes
-        self.rope_width = A.rope_width(cfg, mixer_kind)
+        #: the width of the rope tables the mixer takes (0: none)
+        self.rope_width = 0 if self.mamba else A.rope_width(cfg, mixer_kind)
 
 
 def _ffn(block: Block, h: torch.Tensor, cfg
@@ -92,10 +104,12 @@ def _ffn(block: Block, h: torch.Tensor, cfg
 def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
                       sin: torch.Tensor, cfg
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D); ``cos``/``sin`` at the block's ``rope_width``.
-    Returns (x', aux)."""
+    """x: (B, S, D); ``cos``/``sin`` at the block's ``rope_width``
+    (None for a Mamba block).  Returns (x', aux)."""
     h = block.norm1(x, cfg.rms_norm_eps)
-    if block.mla:
+    if block.mamba:
+        x = x + M.mamba_apply(block.mixer, h, cfg)
+    elif block.mla:
         x = x + A.mla_apply(block.mixer, h, cos, sin, cfg)
     else:
         x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window)
@@ -107,6 +121,8 @@ def block_init_state(cfg, mixer_kind: str, batch: int, max_len: int,
                      kv_mode: str, page_size: int, pages_per_layer: int,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     dt = cfg.torch_dtype
+    if mixer_kind == C.MAMBA:
+        return M.mamba_init_state(cfg, batch, device)
     if mixer_kind == C.ATTN_MLA:
         m = cfg.mla
         return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
@@ -128,7 +144,9 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
                        kv_mode: str) -> torch.Tensor:
     """x: (B,1,D).  Updates ``st`` in place; returns x'."""
     h = block.norm1(x, cfg.rms_norm_eps)
-    if block.mla:
+    if block.mamba:
+        y = M.mamba_decode(block.mixer, h, st, cfg)
+    elif block.mla:
         y = A.mla_decode(block.mixer, h, st["ckv"], st["kr"], step, cfg)
     elif kv_mode == "dense":
         y = A.attn_decode_dense(block.mixer, h, st["k"], st["v"], step, cfg,
@@ -166,7 +184,7 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
             for w in A.rope_widths(cfg)}
     aux = torch.zeros((), device=x.device)
     for block in stack.layers:
-        cos, sin = rope[block.rope_width]
+        cos, sin = rope.get(block.rope_width, (None, None))
         if cfg.remat:
             x, a = checkpoint(block_apply_train, block, x, cos, sin, cfg,
                               use_reentrant=False)
@@ -184,13 +202,24 @@ def stack_init_state(cfg, batch: int, max_len: int, kv_mode: str,
             for mk, _ in cfg.layer_kinds()]
 
 
+def reset_recurrent_state(state: List[Dict[str, Any]], slot: int) -> None:
+    """Zero batch row ``slot`` of every layer's recurrent state, for a
+    new sequence in that slot (a KV cache is read only up to the
+    sequence's length, so it needs no reset)."""
+    for st in state:
+        for key in RECURRENT_STATE:
+            if key in st:
+                st[key][slot].zero_()
+
+
 def stack_apply_decode(stack: Stack, state: List[Dict[str, Any]],
                        x: torch.Tensor, lengths: torch.Tensor, cfg, *,
                        kv_mode: str, table=None) -> torch.Tensor:
     """x: (B,1,D).  Updates the per-layer states in place; returns x.
     The operands all layers share are prepared once for the step; the
     cache length, page size and latent length come from the first layer
-    that holds such a cache (an MLA layer has no KV cache or pool)."""
+    that holds such a cache (an MLA or a Mamba layer has no KV cache or
+    pool)."""
 
     def dim1(key: str) -> int:
         return next((st[key].shape[1] for st in state if key in st), 0)

@@ -12,6 +12,14 @@ On the card every attention layer of every step runs the hand-written
 paged-attention kernel.  The greedy argmax is taken on the device, so a
 step copies B token ids to the host, not the (B, vocab) logits.
 
+A slot's recurrent state (a Mamba layer's ``conv`` and ``ssm``) is
+zeroed when the slot admits a request.  The JAX engine does not reset
+it: the state of the slot's previous request, advanced further while
+the slot idled, carries into the next one, so a hybrid model's streams
+there differ from ``greedy_reference`` once a slot is reused, and a
+resumed request's re-prefill is not exact.  Here they equal it (the KV
+caches need no reset: they are read only up to the sequence's length).
+
 Translation-costed mode: pass ``cost_model`` (a
 :class:`repro_torch.sim.cost_model.TranslationCostModel`) and every
 scheduler step is priced under ALL simulated mechanisms at once — cache
@@ -32,6 +40,7 @@ from repro_torch.core import block_table as BT
 from repro_torch.core.kv_page_manager import KVPageManager
 from repro_torch.models import decode_step, init_decode_state, prefill
 from repro_torch.models.model_zoo import Model, model_device
+from repro_torch.models.transformer import reset_recurrent_state
 from repro_torch.serving._scheduler import BatchScheduler, Request
 from repro_torch.util import resilience
 from repro_torch.util.device import DeviceLike, resolve_device
@@ -90,6 +99,7 @@ class ServeEngine:
         for _ in range(max_steps):
             self.sched.tick()
             for slot, req in self.sched.admit():
+                reset_recurrent_state(self.state["stack"], slot)
                 self._slot_prompt[slot] = req.effective_prompt()
                 self._prompt_pos[slot] = 0
                 self._next_token[slot] = int(self._slot_prompt[slot][0])

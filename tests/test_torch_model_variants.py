@@ -6,7 +6,10 @@ phi3-medium-14b (GQA 40/10), granite-34b (MQA, the GELU FFN) and
 internvl2-76b (stub vision tokens prepended); and the mixture-of-experts
 configs, granite-moe-1b-a400m (every FFN routed, tied embeddings) and
 deepseek-v2-236b (MLA in every layer with its latent decode cache, a
-dense prefix layer, then routed experts with a shared one).
+dense prefix layer, then routed experts with a shared one); and the
+hybrid jamba-1.5-large-398b (Mamba layers with their recurrent decode
+state, one attention layer in eight, routed experts on every other
+layer; ``tests/test_torch_mamba.py`` holds its Mamba block and engine).
 
 Smoke width (``smoke_variant``: window 8, 4 vision tokens), float32,
 live calls of ``repro`` on both sides.  Logits, losses and gradients are
@@ -54,7 +57,7 @@ from repro_torch.train.train_loop import (TrainState, decayed_names,
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["gemma3-1b", "phi3-medium-14b", "granite-34b", "internvl2-76b",
-         "granite-moe-1b-a400m", "deepseek-v2-236b"]
+         "granite-moe-1b-a400m", "deepseek-v2-236b", "jamba-1.5-large-398b"]
 MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
 KV_MODES = ["dense", BT.FLAT, BT.RADIX]
 #: AdamW's eps is 1e-6 here, not 1e-8: with tied embeddings every
@@ -64,6 +67,14 @@ KV_MODES = ["dense", BT.FLAT, BT.RADIX]
 #: into an update difference above 1e-4.  Both sides use the same eps
 OPT = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50, eps=1e-6)
 JOPT = jopt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50, eps=1e-6)
+#: ... and 1e-4 for jamba: through its eight Mamba / attention layers one
+#: embedding element's second-step gradient crosses zero (2.4e-7 here,
+#: 9.9e-8 in the JAX package: 8.5e-7 of the gradient's largest element,
+#: float32 summation noise), and at eps 1e-6 Adam's normalisation turns
+#: that into a weight difference of 6.1e-4.  At 1e-4 the same noise moves
+#: the weight by under 1e-5, and a wrong gradient of any element still
+#: moves it past 1e-4
+EPS = {"jamba-1.5-large-398b": 1e-4}
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,7 +190,8 @@ def test_decode_steps_match(name, kv_mode):
     """10 teacher-forced steps then 6 greedy ones, past the window of 8:
     logits every step, the greedy tokens, lengths, tables and the KV of
     a local and a global layer (an MLA layer's latent cache, in every
-    mode)."""
+    mode; a Mamba layer's recurrent state, and the first layer with a
+    KV cache)."""
     jcfg, cfg, jparams, _, model = _setup(name)
     b, max_len, page = 3, 32, 4
     jst = jinit_state(jcfg, b, max_len, kv_mode, page)
@@ -208,8 +220,10 @@ def test_decode_steps_match(name, kv_mode):
             np.testing.assert_array_equal(got, want)
     kinds = cfg.layer_kinds()
     n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
-    for layer in sorted({0, cfg.num_layers - 1}):
+    first_kv = next(i for i, (mk, _) in enumerate(kinds) if mk != C.MAMBA)
+    for layer in sorted({0, first_kv, cfg.num_layers - 1}):
         names = (("ckv", "kr") if kinds[layer][0] == C.ATTN_MLA
+                 else ("conv", "ssm") if kinds[layer][0] == C.MAMBA
                  else ("k", "v") if kv_mode == "dense" else ("kp", "vp"))
         if layer < n_prefix:
             jl_st = jst["stack"]["prefix"][layer]
@@ -254,7 +268,7 @@ def test_window_changes_the_answer():
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "internvl2-76b"]
-                         + MOE_ARCHS)
+                         + MOE_ARCHS + ["jamba-1.5-large-398b"])
 def test_loss_and_gradients_match(name):
     """One loss and its gradient: the tied embedding gets both of its
     uses' parts, the vision positions carry no labels, the MoE aux loss
@@ -273,7 +287,7 @@ def test_loss_and_gradients_match(name):
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "internvl2-76b"]
-                         + MOE_ARCHS)
+                         + MOE_ARCHS + ["jamba-1.5-large-398b"])
 def test_train_step_matches(name):
     """Two steps with 2 microbatches (stub embeddings split with the
     tokens): metrics, then the weights.  Weight decay 0.1 at lr 1e-2 moves
@@ -285,8 +299,9 @@ def test_train_step_matches(name):
     state = TrainState(model, adamw_init(dict(model.named_parameters())), 0)
     jstate = jtl.TrainState(params=jparams, opt=jopt.adamw_init(jparams),
                             rng=jax.random.PRNGKey(0))
-    step = make_train_step(cfg, OPT, 2)
-    jstep = jax.jit(jtl.make_train_step(jcfg, JOPT, 2))
+    eps = EPS.get(name, OPT.eps)
+    step = make_train_step(cfg, OPT._replace(eps=eps), 2)
+    jstep = jax.jit(jtl.make_train_step(jcfg, JOPT._replace(eps=eps), 2))
     for i in range(2):
         tb, jb = _batches(cfg, jcfg, b=4, s=16, step=i)
         state, m = step(state, tb)
@@ -438,7 +453,8 @@ def test_serve_shape_crosses_the_window():
     assert LS.full_shape(C.get_arch("internlm2-1.8b")) is LS.FULL
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "granite-34b"] + MOE_ARCHS)
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-34b"] + MOE_ARCHS
+                         + ["jamba-1.5-large-398b"])
 def test_serve_launcher_local_smoke(name, capsys):
     out = LS.main(["--local-smoke", "--device", "cpu", "--arch", name,
                    "--requests", "3"])
