@@ -184,15 +184,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      a. the selective-scan kernels (``csrc/selective_scan.cu``), forward
         and backward, against their plain versions: jamba's training
         shape (B 1, S 4,096, d_inner 16,384, N 16, bf16 x), float32 and
-        bf16, N 16 and 4, B 1 and 2, S 4,096 (16 chunks) and a ragged
-        200, a D not a whole 128-channel block; the forward (and its
-        chunk states) allclose 2e-5, the backward's five gradients to
-        2e-5 of their largest element against ``selective_scan_bwd_ref``
+        bf16, N 16 and 4, B 1, 2 and 3, S 4,096 (16 chunks) and a
+        ragged 200, 600 or 203, a D not a whole channel block; the
+        forward (and its chunk states) allclose 2e-5, the backward's
+        five gradients to 2e-5 of their largest element against
+        ``selective_scan_bwd_ref``
         and against autograd of the plain forward (a bf16 dx beyond one
         bf16 rounding step), two backwards bit-identical; ptxas
-        registers and spills; both timed at jamba's shape (L2 flushed)
-        beside the plain versions and the least time (bytes, or the exps
-        at the SFU's rate);
+        registers and spills, and each kernel's resident blocks an SM;
+        both timed at jamba's shape (L2 flushed) beside the plain
+        versions and the least time (bytes, or the exps at the SFU's
+        rate);
      b. jamba at smoke width in float32 (8 layers): engine streams equal
         greedy_reference's in every table mode with slots reused (4
         requests on 2), logits card vs CPU 1e-3, the first train step's
@@ -1860,15 +1862,18 @@ def phase_deepseek() -> dict:
 JAMBA = "jamba-1.5-large-398b"
 #: 13a: the selective-scan kernel's cases (B, S, D, N, x dtype): jamba's
 #: training shape (B 1, S 4,096 = 16 chunks, d_inner 16,384, N 16, bf16),
-#: then float32 / bf16, N 16 / 4, B 1 / 2, S 4,096 and a ragged 200 (not
-#: a whole forward tile, backward sub-chunk or chunk), a D not a whole
-#: 128-channel block
+#: then float32 / bf16, N 16 / 4, B 1 / 2 / 3, S 4,096, a ragged 200
+#: or 600 (not a whole 16-step forward tile or 256-step chunk) and 203
+#: (not a whole 8-step backward sub-chunk either), a D not a whole
+#: 128-channel backward block or 32-channel forward block
 SCAN_CASES = {
     "jamba_bf16": (1, 4096, 16384, 16, torch.bfloat16),
     "b2_n16_f32": (2, 4096, 2048, 16, torch.float32),
     "b2_n4_bf16": (2, 4096, 512, 4, torch.bfloat16),
     "ragged_n4_f32": (2, 200, 1000, 4, torch.float32),
     "ragged_n16_bf16": (1, 200, 4096, 16, torch.bfloat16),
+    "ragged_b3_n16_f32": (3, 600, 1000, 16, torch.float32),
+    "ragged_s203_n16_f32": (2, 203, 1000, 16, torch.float32),
 }
 #: the scan kernel against its plain version: the forward allclose at the
 #: float32 2e-5 (atol = rtol), the backward's five gradients to 2e-5 of
@@ -1880,8 +1885,9 @@ SCAN_TOL = 2e-5
 #: (one step is at most 2**-7 of it: 8 significant bits): both sides
 #: round a float32 value to bf16 at the end, and a float32 difference of
 #: a few ulps flips the rounding of an element near a rounding boundary.
-#: Seen on the H100 (jamba's shape): 8,279 of 67.1 M elements apart,
-#: 2.20e-3 of scale raw (e.g. 2.140625 against 2.125: the step at |dx| in
+#: Seen on the H100 (jamba's shape, the kernel's exps by ex2.approx):
+#: 17,203 of 67.1 M elements one step apart against the plain backward
+#: (17,222 against autograd), 2.20e-3 of scale raw (the step at |dx| in
 #: [2, 4) is 2**-6); beyond one step 0.  The raw error and the count of
 #: elements apart are printed beside the residue
 SCAN_BF16_DX_STEPS = 1
@@ -1948,8 +1954,9 @@ def bf16_step(w: torch.Tensor) -> torch.Tensor:
 def scan_bwd_errs(got, want, x_dtype) -> tuple:
     """(each gradient's max |got - want| over its largest |want|, with a
     bf16 dx's error beyond :data:`SCAN_BF16_DX_STEPS` bf16 steps of its
-    element instead; for a bf16 dx its raw error of scale and the count
-    of elements that differ, else None)."""
+    element instead, and a gradient that is 0 throughout, as da is at S
+    1, by its largest |got|; for a bf16 dx its raw error of scale and the
+    count of elements that differ, else None)."""
     out, raw = {}, None
     for name, g, w in zip(("dx", "ddt", "db", "dc", "da"), got, want):
         err = (g.float() - w.float()).abs()
@@ -1957,7 +1964,7 @@ def scan_bwd_errs(got, want, x_dtype) -> tuple:
         if name == "dx" and x_dtype == torch.bfloat16:
             raw = (float(err.max()) / scale, int((err > 0).sum()))
             err = (err - SCAN_BF16_DX_STEPS * bf16_step(w)).clamp_min(0)
-        out[name] = float(err.max()) / scale
+        out[name] = float(err.max()) / (scale or 1.0)
     return out, raw
 
 
@@ -2001,6 +2008,15 @@ def phase_scan_kernel() -> dict:
                                                "scan_bwd_kernel",
                                                "scan_bwd_reduce_kernel")):
         print(f"  selective_scan ptxas: {line}")
+    b, s, d, n, dtype = SCAN_CASES["jamba_bf16"]
+    for direction, o in SS.occupancy(n, dtype).items():
+        warps = b * d * (n // 4) / 32 / H100_SMS   # 4 states a lane
+        print(f"selective_scan {direction} (N {n}, bf16 x): "
+              f"{o['threads']} threads a block, {o['registers']} "
+              f"registers, {o['local_bytes']} local bytes a thread, "
+              f"{o['blocks_per_sm']} blocks an SM resident "
+              f"({o['blocks_per_sm'] * o['threads'] // 32} warps); jamba's "
+              f"B {b}, D {d} gives {warps:.1f} warps an SM")
     errs = {"fwd": 0.0, "bwd": 0.0}
     for name, (b, s, d, n, dtype) in SCAN_CASES.items():
         t = scan_inputs(b, s, d, n, dtype, seed=len(name))
@@ -2041,6 +2057,26 @@ def phase_scan_kernel() -> dict:
         check(ok, f"selective_scan {name} disagrees with its plain version")
         del t, y, hs, got
         torch.cuda.empty_cache()
+
+    # b and c as mamba_apply hands them over at B S == 1: views of one
+    # projection row, 4 bytes past a 16-byte boundary (the backward
+    # reads them as float4s, so its wrapper copies them)
+    t = scan_inputs(1, 1, 1000, 16, torch.float32, seed=7)
+    proj = torch.randn((1, 1, 33), device="cuda")
+    t["b"], t["c"] = proj[..., 1:17], proj[..., 17:]
+    y, hs = SS.forward(*scan_args(t))
+    got = SS.backward(*scan_args(t), hs, t["dy"])
+    vs_ref, _ = scan_bwd_errs(got, ref.selective_scan_bwd_ref(
+        *scan_args(t), hs, t["dy"]), torch.float32)
+    ok = (t["b"].data_ptr() % 16 != 0
+          and within(y, ref.selective_scan_ref(*scan_args(t)), SCAN_TOL)
+          and max(vs_ref.values()) <= SCAN_TOL)
+    print(f"selective_scan b, c off a 16-byte boundary (B 1, S 1, D 1000, "
+          f"N 16): backward of scale vs bwd_ref "
+          + ", ".join(f"{k} {v:.2e}" for k, v in vs_ref.items())
+          + f" {'ok' if ok else 'FAIL'}")
+    check(ok, "selective_scan disagrees on b, c off a 16-byte boundary")
+    del t, proj, y, hs, got
 
     b, s, d, n, dtype = SCAN_CASES["jamba_bf16"]
     t = scan_inputs(b, s, d, n, dtype, seed=0)

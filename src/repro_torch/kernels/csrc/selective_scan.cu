@@ -17,32 +17,57 @@
 // Bound.  Per (step, channel) the forward reads x and dt and writes y
 // and takes N exps: at jamba's B 1, S 4,096, D 16,384, N 16 that is 0.67
 // GB (0.20 ms at 3.35 TB/s) and 1.07 G exps (0.26 ms at the SFU's 16 a
-// clock an SM).  Each channel is a chain of S dependent steps, and a
-// thread a channel gives only B x D / 32 = 512 warps, about 4 an SM:
-// the kernel is bound by latency before either.
+// clock an SM).  The backward must move 1.1 GB (0.33 ms).  Each (row,
+// channel, state) is a chain of S dependent steps, independent of the
+// other states but for the sums over n (y, dx, d(dt)) and over channels
+// (db, dc): B D N = 262,144 chains at jamba's shape.
 //
-// Forward: a thread a (batch row, channel) with its N states and its row
-// of a in registers; a block of 128 channels of one row.  A tile of 16
-// steps at a time: b_t and c_t, which all channels of the row share,
-// are staged through shared memory, x_t and dt_t loaded into registers
-// (coalesced across channels) before the tile's steps run.  The state at
-// the start of every 256-step chunk is written out for the backward
-// (B, ceil(S / 256), D, N).
+// Mapping: the states across lanes.  A channel's N states are spread
+// over L = N / P lanes of one warp, P = 4 states a lane (N 16: 4 lanes
+// a channel, 8 channels a warp), so B 1, D 16,384 is 2,048 warps, 15.5
+// an SM, each lane with 4 independent chains.  The exps of a step do not
+// depend on h, so a lane's 4 chains and the unrolled steps of a tile
+// keep the SFU fed.  exp(dt a) is ex2.approx of dt (a log2 e).  A sum
+// over a channel's lanes, a step at a time, would cost log2 L shuffles a
+// value; instead L steps' values are summed at once by a transposing
+// butterfly (`Fold`): each level sends the half of the values a lane
+// gives up to its partner and adds the half it keeps, so after log2 L
+// levels lane q holds step q's sum, for L - 1 shuffles over L steps.
 //
-// Backward: the same mapping, the chunks in reverse.  A chunk's states
-// are recomputed from its stored state: first the state at the start of
-// each 8-step sub-chunk, kept in a global scratch (thread-private rows,
-// B x 32 x D x N floats); then, a sub-chunk at a time in reverse, its 9
-// states into shared memory (each thread its own column) and the
-// reverse recurrence over them with g (the gradient of h) carried in
-// registers.  dx and d(dt) are written per element; da accumulates in
-// registers over the row's steps.  db and dc are sums over all D
-// channels: a warp sums its 32 channels' 2N values with a transposing
-// butterfly (2N - 1 shuffles for 2N = 32; lane l ends holding one
-// value's sum), the block adds its 4 warps in order and writes one
-// partial per (block, row, step); a second kernel adds the blocks'
-// partials, and the rows' da, in order.  No atomics: two backwards are
-// bit-identical.
+// Forward: blocks of 128 threads (32 channels of one row at N 16; 108
+// registers, 4 blocks and 16 warps an SM).  A tile of 16 steps at a time
+// is staged through shared memory: b_t and c_t (shared by the row's
+// channels), and (dt_t, dt_t x_t) per channel (shared by its lanes),
+// loaded coalesced across channels into registers one tile ahead.  Lane
+// q of a channel writes y of step q of each group of L steps: L rows of
+// 8 channels, whole 32-byte sectors.  The state at the start of every
+// 256-step chunk is written out for the backward, (B, ceil(S / 256), D,
+// N).  A lane a state (16 lanes a channel at N 16) was the other
+// mapping; a probe on the card chose 4 states a lane (PERF.md has both
+// times).
+//
+// Backward: blocks of 128 channels of one row (512 threads at N 16, 128
+// registers, one block an SM), the chunks in reverse.  Each chunk is
+// walked twice from its stored state, 8-step sub-chunks at a time: pass
+// 0 runs it forward and keeps the state before every sub-chunk in a
+// thread-private global scratch, sub_h (B, 32, D, N): 33.5 MB at jamba's
+// B 1, mostly L2-resident; pass 1 takes the sub-chunks in reverse,
+// recomputes each one's 9 states into registers from its stored state,
+// and runs the reverse recurrence of g (the gradient of h) over them,
+// carried in registers.  The exps are taken again in the reverse steps
+// rather than kept: registers, not the SFU, bound this kernel.  dx and
+// d(dt) sum over n with the same transposing butterfly (two values a
+// step); da accumulates in registers over the row's steps.  db and dc
+// are sums over all D channels: a warp folds its 8 channels' 2N values
+// (each lane ends holding one value's sum), the block adds its 16 warps
+// in order through shared memory and writes one partial per (block,
+// row, step), (blocks, B, S, 2N) floats: 67 MB at jamba's shape; a second
+// kernel adds the blocks' partials, and the rows' da, in order.  No
+// atomics: two backwards are bit-identical.  Each warp stages its own
+// channels (a __syncwarp, no block barrier), a sub-chunk's inputs and
+// start state loaded into registers one sub-chunk ahead; the block meets
+// at a barrier once every 4 sub-chunks, for the sums of db and dc (160
+// KB of shared memory at N 16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,13 +75,17 @@
 
 namespace {
 
-constexpr int CHUNK = 256;      // steps between the forward's stored states
-constexpr int THREADS = 128;    // channels of a block (ref.SCAN_CHANNEL_BLOCK)
-constexpr int WARPS = THREADS / 32;
-constexpr int FWD_TILE = 16;    // steps the forward stages at once
-constexpr int SUB = 8;          // steps of a backward sub-chunk
+constexpr int CHUNK = 256;       // steps between the forward's stored states
+constexpr int FWD_THREADS = 128;
+constexpr int FWD_TILE = 16;     // steps the forward stages at once
+constexpr int BWD_CHANNELS = 128;  // channels of a backward block
+constexpr int SUB = 8;           // steps of a backward sub-chunk
 constexpr int NSUB = CHUNK / SUB;
+constexpr int GROUP = 4;         // sub-chunks between the backward's barriers
+constexpr int P = 4;             // states a lane, forward and backward
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -67,99 +96,17 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-template <int N, typename XT>
-__global__ void __launch_bounds__(THREADS)
-    scan_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ bm, const float* __restrict__ cm,
-                    const float* __restrict__ a_in, float* __restrict__ y,
-                    float* __restrict__ hs, int S, int D) {
-  __shared__ float sb[FWD_TILE][N];
-  __shared__ float sc[FWD_TILE][N];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = d < D;
-  const int nc = (S + CHUNK - 1) / CHUNK;
-  const size_t row = (size_t)b * S;   // the row's first step
-  float a[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? a_in[(size_t)d * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  for (int t0 = 0; t0 < S; t0 += FWD_TILE) {
-    if (t0 % CHUNK == 0 && live) {
-      float* dst = hs + (((size_t)b * nc + t0 / CHUNK) * D + d) * N;
-#pragma unroll
-      for (int n = 0; n < N; ++n) dst[n] = h[n];
-    }
-    const int len = min(FWD_TILE, S - t0);
-    __syncthreads();   // the previous tile's b and c are consumed
-    for (int i = threadIdx.x; i < FWD_TILE * N; i += THREADS) {
-      const int k = i / N;
-      const size_t at = (row + t0 + k) * N + i % N;
-      (&sb[0][0])[i] = k < len ? bm[at] : 0.f;
-      (&sc[0][0])[i] = k < len ? cm[at] : 0.f;
-    }
-    float xv[FWD_TILE], dv[FWD_TILE];
-#pragma unroll
-    for (int k = 0; k < FWD_TILE; ++k) {
-      const bool in = live && k < len;
-      const size_t at = (row + t0 + k) * D + d;
-      xv[k] = in ? to_f32(x[at]) : 0.f;
-      dv[k] = in ? dt[at] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FWD_TILE; ++k) {
-      if (k < len) {
-        const float dtx = dv[k] * xv[k];
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = expf(dv[k] * a[n]) * h[n] + dtx * sb[k][n];
-          acc += h[n] * sc[k][n];
-        }
-        if (live) y[(row + t0 + k) * D + d] = acc;
-      }
-    }
-  }
+// 2^v on the SFU (ex2.approx.ftz: one instruction; a result below
+// 2^-126 is flushed to 0).
+__device__ __forceinline__ float exp2_fast(float v) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+#else
+  return exp2f(v);
+#endif
 }
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-// A warp's sum of each of V values (a power of two up to 32) over its 32
-// lanes.  Each halving level sends the half of the values a lane gives
-// up to its partner and adds the half it keeps; after log2(V) levels
-// lane l holds one value's partial in v[0], and plain butterfly levels
-// finish the sum.  On exit v[0] of lane l is the sum of value
-// l >> (5 - log2 V).
-template <int C, int O>
-struct Halve {
-  template <int V>
-  static __device__ __forceinline__ void run(float (&v)[V], int lane) {
-    const bool upper = (lane & O) != 0;
-#pragma unroll
-    for (int i = 0; i < C / 2; ++i) {
-      const float send = upper ? v[i] : v[i + C / 2];
-      const float keep = upper ? v[i + C / 2] : v[i];
-      v[i] = keep + __shfl_xor_sync(FULL, send, O);
-    }
-    Halve<C / 2, O / 2>::run(v, lane);
-  }
-};
-
-template <int O>
-struct Halve<1, O> {
-  template <int V>
-  static __device__ __forceinline__ void run(float (&v)[V], int) {
-#pragma unroll
-    for (int o = O; o >= 1; o >>= 1) v[0] += __shfl_xor_sync(FULL, v[0], o);
-  }
-};
 
 template <int V>
 struct Log2 {
@@ -170,158 +117,408 @@ struct Log2<1> {
   static constexpr int value = 0;
 };
 
-// The staging buffers of one sub-chunk: b and c of the row, x, dt and dy
-// of the block's channels (a column each).
+// A lane's P = 4 states: 4 consecutive floats, 16-byte aligned.
+__device__ __forceinline__ void load_p(const float* src, float (&out)[P]) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+}
+
+__device__ __forceinline__ void store_p(float* dst, const float (&in)[P]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(in[0], in[1], in[2], in[3]);
+}
+
+// Sums the first C values of v over the lanes that differ in lane bits
+// O, O/2, ... (LEVELS of them), transposing: while a lane holds more than
+// one value, each level sends the half it gives up to its partner (lane
+// ^ O) and adds the half it keeps, the lane with bit O set keeping the
+// upper half; once one value is left, plain butterfly levels finish the
+// sum.  On exit v[0 .. C >> levels) holds the sums of the values whose
+// index's top bits are the lane's bits O, O/2, ... in that order.
+template <int C, int O, int LEVELS>
+struct Fold {
+  template <int V>
+  static __device__ __forceinline__ void run(float (&v)[V], int lane) {
+    if constexpr (LEVELS > 0) {
+      if constexpr (C > 1) {
+        const bool upper = (lane & O) != 0;
+#pragma unroll
+        for (int i = 0; i < C / 2; ++i) {
+          const float send = upper ? v[i] : v[i + C / 2];
+          const float keep = upper ? v[i + C / 2] : v[i];
+          v[i] = keep + __shfl_xor_sync(FULL, send, O);
+        }
+        Fold<C / 2, O / 2, LEVELS - 1>::run(v, lane);
+      } else {
+        v[0] += __shfl_xor_sync(FULL, v[0], O);
+        Fold<1, O / 2, LEVELS - 1>::run(v, lane);
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
 template <int N>
-struct Stage {
-  float b[SUB][N];
-  float c[SUB][N];
-  float x[SUB][THREADS];
-  float dt[SUB][THREADS];
-  float dy[SUB][THREADS];
-  float wsum[WARPS][SUB][2 * N];
+struct FwdShape {
+  static constexpr int L = N / P;              // lanes a channel
+  static constexpr int C = FWD_THREADS / L;    // channels a block
+  static constexpr int VPT = FWD_TILE * C / FWD_THREADS;  // (step, channel)
+  static constexpr int BPT =                    // b (and c) values
+      (FWD_TILE * N + FWD_THREADS - 1) / FWD_THREADS;
 };
 
 template <int N, typename XT>
-__device__ __forceinline__ void stage(Stage<N>& st, const XT* x,
-                                      const float* dt, const float* dy,
-                                      const float* bm, const float* cm,
-                                      size_t row, int s0, int len, int d,
-                                      bool live, int D) {
-  __syncthreads();   // the previous sub-chunk's staged values are consumed
-  for (int i = threadIdx.x; i < SUB * N; i += THREADS) {
-    const int k = i / N;
-    const size_t at = (row + s0 + k) * N + i % N;
-    (&st.b[0][0])[i] = k < len ? bm[at] : 0.f;
-    (&st.c[0][0])[i] = k < len ? cm[at] : 0.f;
-  }
+__global__ void __launch_bounds__(FWD_THREADS)
+    scan_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ bm, const float* __restrict__ cm,
+                    const float* __restrict__ a_in, float* __restrict__ y,
+                    float* __restrict__ hs, int S, int D) {
+  using Sh = FwdShape<N>;
+  constexpr int L = Sh::L, C = Sh::C;
+  __shared__ __align__(16) float sb[FWD_TILE][N];
+  __shared__ __align__(16) float sc[FWD_TILE][N];
+  __shared__ __align__(16) float2 sv[FWD_TILE][C];   // (dt, dt x)
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q = tid % L, cl = tid / L;   // lane in the channel, channel
+  const int d0 = blockIdx.x * C, d = d0 + cl;
+  const bool live = d < D;
+  const int b = blockIdx.y;
+  const int nc = (S + CHUNK - 1) / CHUNK;
+  const size_t row = (size_t)b * S;      // the row's first step
+  float a2[P], h[P];
 #pragma unroll
-  for (int k = 0; k < SUB; ++k) {
-    const bool in = live && k < len;
-    const size_t at = (row + s0 + k) * D + d;
-    st.x[k][threadIdx.x] = in ? to_f32(x[at]) : 0.f;
-    st.dt[k][threadIdx.x] = in ? dt[at] : 0.f;
-    if (dy != nullptr) st.dy[k][threadIdx.x] = in ? dy[at] : 0.f;
+  for (int p = 0; p < P; ++p) {
+    a2[p] = live ? a_in[(size_t)d * N + q * P + p] * LOG2E : 0.f;
+    h[p] = 0.f;
   }
-  __syncthreads();
+  float ldt[Sh::VPT], lx[Sh::VPT], lb[Sh::BPT], lc[Sh::BPT];
+  auto load = [&](int t0) {
+#pragma unroll
+    for (int i = 0; i < Sh::VPT; ++i) {
+      const int idx = tid + i * FWD_THREADS, k = idx / C;
+      const int dd = d0 + idx % C, t = t0 + k;
+      const bool in = dd < D && t < S;
+      const size_t at = (row + t) * D + dd;
+      ldt[i] = in ? dt[at] : 0.f;
+      lx[i] = in ? to_f32(x[at]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < Sh::BPT; ++i) {
+      const int idx = tid + i * FWD_THREADS;
+      const bool in = idx < FWD_TILE * N && t0 + idx / N < S;
+      const size_t at = (row + t0) * N + idx;
+      lb[i] = in ? bm[at] : 0.f;
+      lc[i] = in ? cm[at] : 0.f;
+    }
+  };
+  load(0);
+  for (int t0 = 0; t0 < S; t0 += FWD_TILE) {
+    if (t0 % CHUNK == 0 && live)
+      store_p(hs + (((size_t)b * nc + t0 / CHUNK) * D + d) * N + q * P, h);
+    __syncthreads();   // the previous tile is consumed
+#pragma unroll
+    for (int i = 0; i < Sh::VPT; ++i) {
+      const int idx = tid + i * FWD_THREADS;
+      sv[idx / C][idx % C] = make_float2(ldt[i], ldt[i] * lx[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < Sh::BPT; ++i) {
+      const int idx = tid + i * FWD_THREADS;
+      if (idx < FWD_TILE * N) {
+        (&sb[0][0])[idx] = lb[i];
+        (&sc[0][0])[idx] = lc[i];
+      }
+    }
+    __syncthreads();
+    if (t0 + FWD_TILE < S) load(t0 + FWD_TILE);   // in flight during the tile
+#pragma unroll
+    for (int g0 = 0; g0 < FWD_TILE; g0 += L) {
+      float v[L];
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const float2 u = sv[g0 + j][cl];
+        float bb[P], cc[P];
+        load_p(&sb[g0 + j][q * P], bb);
+        load_p(&sc[g0 + j][q * P], cc);
+        float acc = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          h[p] = fmaf(exp2_fast(u.x * a2[p]), h[p], u.y * bb[p]);
+          acc = fmaf(h[p], cc[p], acc);
+        }
+        v[j] = acc;
+      }
+      Fold<L, L / 2, Log2<L>::value>::run(v, lane);
+      const int t = t0 + g0 + q;   // lane q holds step q of the group
+      if (live && t < S) y[(row + t) * D + d] = v[0];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+template <int N>
+struct BwdShape {
+  static constexpr int L = N / P;
+  static constexpr int THREADS = BWD_CHANNELS * L;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int CPW = 32 / L;          // channels a warp
+  static constexpr int VPT = SUB / L;         // (step, channel) a lane
+  static constexpr int BC4 = 2 * SUB * N / 4;  // float4s of b and c
+  static constexpr int BPT = (BC4 + 31) / 32;  // ... a lane
+  // db / dc: a warp's channels fold 2P values a lane; the transposing
+  // levels, then plain ones over the rest of the channel bits
+  static constexpr int FOLD = Log2<2 * P>::value;
+  static constexpr int REST = 5 - Log2<L>::value - FOLD;
+};
+
+// A warp's staging buffers for one sub-chunk: (dt, x, dy, dt x) of each
+// of its channels, b and c of the row.
+template <int N>
+struct WarpStage {
+  float4 v[SUB][BwdShape<N>::CPW];
+  float bc[2][SUB][N];   // b, then c
+};
+
+// The backward's shared memory (dynamic: 160 KB at N 16): each warp's
+// staging, and each warp's db / dc sums of a group of GROUP sub-chunks,
+// two groups deep so that one barrier a group orders their writes and
+// reads.
+template <int N>
+struct BwdSmem {
+  WarpStage<N> warp[BwdShape<N>::WARPS];
+  float wsum[2][BwdShape<N>::WARPS][GROUP * SUB][2 * N];
+};
+
+// A backward event: pass 0 runs sub-chunk k of chunk ci forward and keeps
+// the state after it; pass 1 runs its reverse steps.  Chunks in reverse;
+// within one, pass 0 over k = 0 .. nsub - 2, then pass 1 over k = nsub -
+// 1 .. 0.
+struct Event {
+  int ci, k, pass;
+};
+
+__device__ __forceinline__ int subs_of(int ci, int S) {
+  return (min(CHUNK, S - ci * CHUNK) + SUB - 1) / SUB;
+}
+
+__device__ __forceinline__ Event first_event(int nc, int S) {
+  return Event{nc - 1, 0, subs_of(nc - 1, S) == 1 ? 1 : 0};
+}
+
+__device__ __forceinline__ bool next_event(Event& e, int S) {
+  if (e.pass == 0) {
+    if (e.k + 2 < subs_of(e.ci, S)) {
+      ++e.k;
+    } else {
+      e.pass = 1;
+      e.k = subs_of(e.ci, S) - 1;
+    }
+    return true;
+  }
+  if (e.k > 0) {
+    --e.k;
+    return true;
+  }
+  if (e.ci == 0) return false;
+  --e.ci;
+  e.k = 0;
+  e.pass = subs_of(e.ci, S) == 1 ? 1 : 0;
+  return true;
 }
 
 template <int N, typename XT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BwdShape<N>::THREADS, 1)
     scan_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ bm, const float* __restrict__ cm,
                     const float* __restrict__ a_in,
                     const float* __restrict__ hs, const float* __restrict__ dy,
                     XT* __restrict__ dx, float* __restrict__ ddt,
                     float* __restrict__ part_bc, float* __restrict__ part_a,
-                    float* sub_h, int S, int D) {
-  constexpr int V = 2 * N;
-  constexpr int SHIFT = 5 - Log2<V>::value;
-  __shared__ Stage<N> st;
-  // hist[j][n][tid]: the sub-chunk's states, j = 0 the one before it
-  extern __shared__ float hist[];
-  const int b = blockIdx.y, B = gridDim.y;
+                    float* __restrict__ sub_h, int S, int D) {
+  using Sh = BwdShape<N>;
+  constexpr int L = Sh::L, CPW = Sh::CPW, V = 2 * N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<N>& sm = *reinterpret_cast<BwdSmem<N>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d = blockIdx.x * THREADS + tid;
+  const int q = lane % L, cw = lane / L;   // lane in the channel, channel
+  WarpStage<N>& ws = sm.warp[warp];
+  const int d0 = blockIdx.x * BWD_CHANNELS + warp * CPW;  // the warp's first
+  const int d = d0 + cw;
   const bool live = d < D;
+  const int b = blockIdx.y, B = gridDim.y;
   const int nc = (S + CHUNK - 1) / CHUNK;
   const size_t row = (size_t)b * S;
-  float a[N], carry[N], da_acc[N], h[N];
+  // where this lane's states sit in rows of (D, N) of hs and sub_h
+  const size_t col = (size_t)d * N + q * P;
+  // the lane's db / dc value after the channel fold, and whether it
+  // writes it (lanes that differ only in channel bits below the fold
+  // hold the same sum)
+  const int held = lane >> (5 - Sh::FOLD);
+  const int u_held = held < P ? q * P + held : N + q * P + held - P;
+  const bool writer =
+      ((lane >> Log2<L>::value) & ((1 << Sh::REST) - 1)) == 0;
+  float a2[P], carry[P], da_acc[P], h[P];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? a_in[(size_t)d * N + n] : 0.f;
-    carry[n] = 0.f;    // exp(dt_{t+1} a) g_{t+1}
-    da_acc[n] = 0.f;
+  for (int p = 0; p < P; ++p) {
+    a2[p] = live ? a_in[col + p] * LOG2E : 0.f;
+    carry[p] = 0.f;    // exp(dt_{t+1} a) g_{t+1}
+    da_acc[p] = 0.f;
+    h[p] = 0.f;
   }
-  for (int ci = nc - 1; ci >= 0; --ci) {
-    const int c0 = ci * CHUNK;
-    const int nsub = (min(CHUNK, S - c0) + SUB - 1) / SUB;
-    // 1. the chunk's states again, keeping the one before every sub-chunk
-    const float* h0 = hs + (((size_t)b * nc + ci) * D + d) * N;
+  // the next event's inputs and start state, loaded while this one runs
+  float ldt[Sh::VPT], lx[Sh::VPT], ldy[Sh::VPT], lh[P];
+  float4 lbc[Sh::BPT];
 #pragma unroll
-    for (int n = 0; n < N; ++n) h[n] = live ? h0[n] : 0.f;
-    for (int k = 0; k < nsub; ++k) {
-      const int s0 = c0 + k * SUB, len = min(SUB, S - s0);
-      if (live) {
-        float* dst = sub_h + (((size_t)b * NSUB + k) * D + d) * N;
+  for (int p = 0; p < P; ++p) lh[p] = 0.f;   // a dead channel's stays 0
+  auto load = [&](const Event& e) {
+    const int s0 = e.ci * CHUNK + e.k * SUB;
 #pragma unroll
-        for (int n = 0; n < N; ++n) dst[n] = h[n];
-      }
-      if (k + 1 == nsub) break;   // the last sub-chunk's states come in 2.
-      stage<N, XT>(st, x, dt, nullptr, bm, cm, row, s0, len, d, live, D);
-#pragma unroll
-      for (int j = 0; j < SUB; ++j) {
-        const float dtv = st.dt[j][tid];
-        const float dtx = dtv * st.x[j][tid];
-#pragma unroll
-        for (int n = 0; n < N; ++n)
-          h[n] = expf(dtv * a[n]) * h[n] + dtx * st.b[j][n];
-      }
+    for (int i = 0; i < Sh::VPT; ++i) {
+      const int idx = lane + i * 32, j = idx / CPW;
+      const int dd = d0 + idx % CPW, t = s0 + j;
+      const bool in = dd < D && t < S;
+      const size_t at = (row + t) * D + dd;
+      ldt[i] = in ? dt[at] : 0.f;
+      lx[i] = in ? to_f32(x[at]) : 0.f;
+      ldy[i] = in && e.pass == 1 ? dy[at] : 0.f;
     }
-    // 2. the sub-chunks in reverse: their states, then the reverse steps
-    for (int k = nsub - 1; k >= 0; --k) {
-      const int s0 = c0 + k * SUB, len = min(SUB, S - s0);
-      stage<N, XT>(st, x, dt, dy, bm, cm, row, s0, len, d, live, D);
-      const float* src = sub_h + (((size_t)b * NSUB + k) * D + d) * N;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = live ? src[n] : 0.f;
-        hist[n * THREADS + tid] = h[n];
-      }
+    for (int i = 0; i < Sh::BPT; ++i) {
+      const int idx = lane + i * 32, half = idx / (Sh::BC4 / 2);
+      const int r = 4 * (idx % (Sh::BC4 / 2));
+      const bool in = idx < Sh::BC4 && s0 + r / N < S &&
+                      (half == 0 || e.pass == 1);
+      const float* src = (half == 0 ? bm : cm) + (row + s0) * N + r;
+      lbc[i] = in ? *reinterpret_cast<const float4*>(src)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    // the start state of a pass-1 event, but where pass 0 is making it
+    // (the chunk's last sub-chunk: pass 0 ends holding it in h)
+    const int ns = subs_of(e.ci, S);
+    if (e.pass == 1 && (e.k + 1 < ns || ns == 1) && live)
+      load_p(e.k == 0 ? hs + ((size_t)b * nc + e.ci) * D * N + col
+                         : sub_h + ((size_t)b * NSUB + e.k) * D * N + col,
+                lh);
+  };
+  Event ev = first_event(nc, S);
+  load(ev);
+  bool more = true;
+  int buf = 0;
+  while (more) {
+    __syncwarp();   // the warp's previous staging is consumed
+#pragma unroll
+    for (int i = 0; i < Sh::VPT; ++i) {
+      const int idx = lane + i * 32;
+      ws.v[idx / CPW][idx % CPW] =
+          make_float4(ldt[i], lx[i], ldy[i], ldt[i] * lx[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < Sh::BPT; ++i)
+      if (lane + i * 32 < Sh::BC4)
+        reinterpret_cast<float4*>(&ws.bc[0][0][0])[lane + i * 32] = lbc[i];
+    __syncwarp();
+    const Event cur = ev;
+    float h_start[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) h_start[p] = lh[p];
+    more = next_event(ev, S);
+    if (more) load(ev);
+    const int s0 = cur.ci * CHUNK + cur.k * SUB, len = min(SUB, S - s0);
+    const float* h_chunk = hs + ((size_t)b * nc + cur.ci) * D * N + col;
+    float* h_sub = sub_h + (size_t)b * NSUB * D * N + col;   // + k D N
+
+    if (cur.pass == 0) {
+      // forward over the sub-chunk; keep the state after it
+      if (cur.k == 0 && live) load_p(h_chunk, h);
 #pragma unroll
       for (int j = 0; j < SUB; ++j) {
-        if (j < len) {
-          const float dtv = st.dt[j][tid];
-          const float dtx = dtv * st.x[j][tid];
+        const float4 u = ws.v[j][cw];
+        float bb[P];
+        load_p(&ws.bc[0][j][q * P], bb);
 #pragma unroll
-          for (int n = 0; n < N; ++n) {
-            h[n] = expf(dtv * a[n]) * h[n] + dtx * st.b[j][n];
-            hist[((j + 1) * N + n) * THREADS + tid] = h[n];
-          }
-        }
+        for (int p = 0; p < P; ++p)
+          h[p] = fmaf(exp2_fast(u.x * a2[p]), h[p], u.w * bb[p]);
       }
-      for (int j = len - 1; j >= 0; --j) {
-        const float dtv = st.dt[j][tid], xv = st.x[j][tid];
-        const float dyv = st.dy[j][tid];
-        const float dtx = dtv * xv;
-        float v[V];           // db's then dc's terms of this channel
+      if (live) store_p(h_sub + (size_t)(cur.k + 1) * D * N, h);
+      continue;
+    }
+
+    // pass 1: the sub-chunk's states into registers, then its reverse
+    // steps (the exps taken again there: registers, not the SFU, are
+    // what this kernel runs short of)
+    float hh[SUB + 1][P];
+    const bool from_pass0 = cur.k > 0 && cur.k + 1 == subs_of(cur.ci, S);
+#pragma unroll
+    for (int p = 0; p < P; ++p) hh[0][p] = from_pass0 ? h[p] : h_start[p];
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) {
+      const float4 u = ws.v[j][cw];
+      float bb[P];
+      load_p(&ws.bc[0][j][q * P], bb);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        hh[j + 1][p] = fmaf(exp2_fast(u.x * a2[p]), hh[j][p], u.w * bb[p]);
+    }
+#pragma unroll
+    for (int g0 = SUB - L; g0 >= 0; g0 -= L) {
+      float v[2 * L];   // per step of the group: sum_n g b, sum_n t1 a
+#pragma unroll
+      for (int jj = L - 1; jj >= 0; --jj) {
+        const int j = g0 + jj;
+        const float4 u = ws.v[j][cw];   // dt, x, dy, dt x
+        float bb[P], cc[P], w[2 * P];   // w: db's then dc's terms
+        load_p(&ws.bc[0][j][q * P], bb);
+        load_p(&ws.bc[1][j][q * P], cc);
         float sgb = 0.f, sdt = 0.f;
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float hn = hist[((j + 1) * N + n) * THREADS + tid];
-          const float hp = hist[(j * N + n) * THREADS + tid];
-          const float e = expf(dtv * a[n]);
-          const float g = dyv * st.c[j][n] + carry[n];
-          v[N + n] = dyv * hn;
-          v[n] = g * dtx;
-          sgb += g * st.b[j][n];
-          const float t1 = g * hp * e;
-          sdt += t1 * a[n];
-          da_acc[n] += t1 * dtv;
-          carry[n] = e * g;
+        for (int p = 0; p < P; ++p) {
+          const float e = exp2_fast(u.x * a2[p]);
+          const float g = fmaf(u.z, cc[p], carry[p]);
+          w[p] = g * u.w;
+          w[P + p] = u.z * hh[j + 1][p];
+          sgb = fmaf(g, bb[p], sgb);
+          carry[p] = e * g;
+          const float t1 = carry[p] * hh[j][p];   // g h_{t-1} exp(dt a)
+          sdt = fmaf(t1, a2[p], sdt);
+          da_acc[p] = fmaf(t1, u.x, da_acc[p]);
         }
-        if (live) {
-          const size_t at = (row + s0 + j) * D + d;
-          put(dx + at, dtv * sgb);
-          ddt[at] = sdt + xv * sgb;
-        }
-        Halve<V, 16>::run(v, lane);
-        if ((lane & ((1 << SHIFT) - 1)) == 0) st.wsum[warp][j][lane >> SHIFT] = v[0];
+        v[2 * jj] = sgb;
+        v[2 * jj + 1] = sdt;
+        Fold<2 * P, 16, 5 - Log2<L>::value>::run(w, lane);
+        if (writer)
+          sm.wsum[buf][warp][cur.k % GROUP * SUB + j][u_held] = w[0];
       }
-      __syncthreads();
-      // the block's partial of every step of the sub-chunk, warps in order
-      for (int i = tid; i < len * V; i += THREADS) {
-        const int j = i / V, u = i % V;
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += st.wsum[w][j][u];
-        part_bc[(((size_t)blockIdx.x * B + b) * S + s0 + j) * V + u] = s;
+      Fold<2 * L, L / 2, Log2<L>::value>::run(v, lane);
+      const int j = g0 + q;   // lane q holds step q of the group
+      if (live && j < len) {
+        const float4 u = ws.v[j][cw];
+        const size_t at = (row + s0 + j) * D + d;
+        put(dx + at, u.x * v[0]);
+        // sum_n t1 a: the terms carry a log2 e, taken out once here
+        ddt[at] = v[1] * LN2 + u.y * v[0];
       }
     }
+    if (cur.k % GROUP != 0) continue;
+    // the group of sub-chunks k .. k + GROUP - 1 is done
+    __syncthreads();   // every warp's sums of the group are in
+    // the block's partial of every step of the group, warps in order
+    for (int i = tid; i < min(GROUP * SUB, S - s0) * V; i += Sh::THREADS) {
+      const int j = i / V, u = i % V;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < Sh::WARPS; ++w) s += sm.wsum[buf][w][j][u];
+      part_bc[(((size_t)blockIdx.x * B + b) * S + s0 + j) * V + u] = s;
+    }
+    buf ^= 1;
   }
   if (live) {
+    float out[P];
 #pragma unroll
-    for (int n = 0; n < N; ++n) part_a[((size_t)b * D + d) * N + n] = da_acc[n];
+    for (int p = 0; p < P; ++p) out[p] = da_acc[p];
+    store_p(part_a + (size_t)b * D * N + col, out);
   }
 }
 
@@ -350,16 +547,13 @@ __global__ void scan_bwd_reduce_kernel(const float* __restrict__ part_bc,
   }
 }
 
-size_t hist_bytes(int n_state) {
-  return (size_t)(SUB + 1) * n_state * THREADS * sizeof(float);
-}
-
 template <int N, typename XT>
 cudaError_t fwd(const void* x, const void* dt, const void* bm, const void* cm,
                 const void* a, void* y, void* hs, int B, int S, int D,
                 cudaStream_t stream) {
-  const dim3 grid((D + THREADS - 1) / THREADS, B);
-  scan_fwd_kernel<N, XT><<<grid, THREADS, 0, stream>>>(
+  constexpr int C = FwdShape<N>::C;
+  const dim3 grid((D + C - 1) / C, B);
+  scan_fwd_kernel<N, XT><<<grid, FWD_THREADS, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<float*>(y),
@@ -373,13 +567,14 @@ cudaError_t bwd(const void* x, const void* dt, const void* bm, const void* cm,
                 void* ddt, void* db, void* dc, void* da, void* part_bc,
                 void* part_a, void* sub_h, int B, int S, int D,
                 cudaStream_t stream) {
-  const int blocks = (D + THREADS - 1) / THREADS;
-  const size_t smem = hist_bytes(N);
+  const int blocks = (D + BWD_CHANNELS - 1) / BWD_CHANNELS;
+  constexpr int smem = sizeof(BwdSmem<N>);
   cudaError_t err = cudaFuncSetAttribute(
       scan_bwd_kernel<N, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem);
   if (err != cudaSuccess) return err;
-  scan_bwd_kernel<N, XT><<<dim3(blocks, B), THREADS, smem, stream>>>(
+  scan_bwd_kernel<N, XT><<<dim3(blocks, B), BwdShape<N>::THREADS, smem,
+                           stream>>>(
       static_cast<const XT*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<const float*>(hs),
@@ -395,6 +590,26 @@ cudaError_t bwd(const void* x, const void* dt, const void* bm, const void* cm,
       static_cast<float*>(db), static_cast<float*>(dc),
       static_cast<float*>(da), blocks, B, S, D, N);
   return cudaGetLastError();
+}
+
+// The template arguments of one instantiation, as a value for a generic
+// lambda.
+template <int N_, typename XT_>
+struct Inst {
+  static constexpr int N = N_;
+  using XT = XT_;
+};
+
+// Calls fn(Inst<N, XT>{}) for the instantiation the arguments name: N 4
+// or 16, x float32 or bf16.
+template <typename F>
+cudaError_t dispatch(int n_state, int x_bf16, F fn) {
+  using bf16 = __nv_bfloat16;
+  if (n_state == 16)
+    return x_bf16 ? fn(Inst<16, bf16>{}) : fn(Inst<16, float>{});
+  if (n_state == 4)
+    return x_bf16 ? fn(Inst<4, bf16>{}) : fn(Inst<4, float>{});
+  return cudaErrorInvalidValue;
 }
 
 // Runs `fn` with `device` current and hands the caller's device back.
@@ -413,9 +628,25 @@ int on_device(int device, F fn) {
   return (int)err;
 }
 
-bool shapes_ok(int n_state, int B, int S, int D) {
-  return (n_state == 4 || n_state == 16) && B > 0 && S > 0 && D > 0 &&
-         B <= 65535;
+bool shapes_ok(int B, int S, int D) {
+  return B > 0 && S > 0 && D > 0 && B <= 65535;
+}
+
+// out: resident blocks an SM, registers a thread, local (spill) bytes a
+// thread.
+template <typename K>
+cudaError_t kernel_info(K kernel, int threads, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -428,30 +659,48 @@ extern "C" {
 void selective_scan_geometry(int S, int D, int* chunks, int* blocks,
                              int* subs) {
   *chunks = (S + CHUNK - 1) / CHUNK;
-  *blocks = (D + THREADS - 1) / THREADS;
+  *blocks = (D + BWD_CHANNELS - 1) / BWD_CHANNELS;
   *subs = NSUB;
+}
+
+// What the card makes of the kernels at d_state n_state: out[8] = the
+// forward's threads a block, resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread
+// and local (spill) bytes a thread, then the backward's four.
+int selective_scan_occupancy(int device, int n_state, int x_bf16, int* out) {
+  return on_device(device, [&]() {
+    return dispatch(n_state, x_bf16, [&](auto inst) {
+      using I = decltype(inst);
+      out[0] = FWD_THREADS;
+      cudaError_t err = kernel_info(scan_fwd_kernel<I::N, typename I::XT>,
+                                    FWD_THREADS, 0, out + 1);
+      if (err != cudaSuccess) return err;
+      out[4] = BwdShape<I::N>::THREADS;
+      return kernel_info(scan_bwd_kernel<I::N, typename I::XT>, out[4],
+                         (int)sizeof(BwdSmem<I::N>), out + 5);
+    });
+  });
 }
 
 // Both launch on `stream`, allocate nothing and do not synchronise.
 // Every tensor is contiguous; x (and dx) is float32, or bf16 with
 // `x_bf16`; everything else float32.  n_state is 4 or 16.  With
-// (chunks, blocks, subs) from selective_scan_geometry(S, D): forward: y
-// (B, S, D), hs (B, chunks, D, N).  Backward: dx, d(dt) (B, S, D), db,
-// dc (B, S, N), da (D, N), and the scratch part_bc (blocks, B, S, 2N),
-// part_a (B, D, N) and sub_h (B, subs, D, N).  Return
-// cudaGetLastError() after the launches.
+// (chunks, blocks, subs) from
+// selective_scan_geometry(S, D): forward: y (B, S, D), hs (B, chunks,
+// D, N).  Backward: dx, d(dt) (B, S, D), db, dc (B, S, N), da (D, N),
+// and the scratch part_bc (blocks, B, S, 2N), part_a (B, D, N) and
+// sub_h (B, subs, D, N).  Return cudaGetLastError() after the launches.
 int selective_scan_fwd_launch(int device, int n_state, int x_bf16,
                               const void* x, const void* dt, const void* bm,
                               const void* cm, const void* a, void* y,
                               void* hs, int B, int S, int D, void* stream) {
-  if (!shapes_ok(n_state, B, S, D)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() {
-    if (n_state == 16)
-      return x_bf16 ? fwd<16, __nv_bfloat16>(x, dt, bm, cm, a, y, hs, B, S, D, s)
-                    : fwd<16, float>(x, dt, bm, cm, a, y, hs, B, S, D, s);
-    return x_bf16 ? fwd<4, __nv_bfloat16>(x, dt, bm, cm, a, y, hs, B, S, D, s)
-                  : fwd<4, float>(x, dt, bm, cm, a, y, hs, B, S, D, s);
+    return dispatch(n_state, x_bf16, [&](auto inst) {
+      using I = decltype(inst);
+      return fwd<I::N, typename I::XT>(x, dt, bm, cm, a, y, hs, B, S, D, s);
+    });
   });
 }
 
@@ -461,22 +710,15 @@ int selective_scan_bwd_launch(int device, int n_state, int x_bf16,
                               const void* dy, void* dx, void* ddt, void* db,
                               void* dc, void* da, void* part_bc, void* part_a,
                               void* sub_h, int B, int S, int D, void* stream) {
-  if (!shapes_ok(n_state, B, S, D)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() {
-    if (n_state == 16)
-      return x_bf16
-                 ? bwd<16, __nv_bfloat16>(x, dt, bm, cm, a, hs, dy, dx, ddt, db,
-                                          dc, da, part_bc, part_a, sub_h, B, S,
-                                          D, s)
-                 : bwd<16, float>(x, dt, bm, cm, a, hs, dy, dx, ddt, db, dc, da,
-                                  part_bc, part_a, sub_h, B, S, D, s);
-    return x_bf16
-               ? bwd<4, __nv_bfloat16>(x, dt, bm, cm, a, hs, dy, dx, ddt, db,
+    return dispatch(n_state, x_bf16, [&](auto inst) {
+      using I = decltype(inst);
+      return bwd<I::N, typename I::XT>(x, dt, bm, cm, a, hs, dy, dx, ddt, db,
                                        dc, da, part_bc, part_a, sub_h, B, S, D,
-                                       s)
-               : bwd<4, float>(x, dt, bm, cm, a, hs, dy, dx, ddt, db, dc, da,
-                               part_bc, part_a, sub_h, B, S, D, s);
+                                       s);
+    });
   });
 }
 

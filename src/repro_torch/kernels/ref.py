@@ -770,9 +770,11 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
     returns with ``return_states`` and dy (B, S, D) float32.
 
     The chunks run in reverse; each chunk's states are recomputed from
-    its stored state (the kernel recomputes a sub-chunk at a time, from
-    states it keeps every few steps: the same operations, so the same
-    numbers), then the reverse recurrence runs over the chunk with
+    its stored state (the kernel recomputes an 8-step sub-chunk at a
+    time into registers, from states it keeps every 8 steps: the same
+    recurrence, with its exps taken as ex2.approx of dt a log2 e and its
+    sums over n and channels in another order, so within rounding), then
+    the reverse recurrence runs over the chunk with
     ``g_t = dy_t c_t + exp(dt_{t+1} a) g_{t+1}`` (the gradient of h_t):
 
         dx_t    = dt_t sum_n g_t b_t

@@ -16,30 +16,35 @@ a) h + (dt x) b`` and ``y = sum_n h c``; y (B, S, D) float32, as the
 JAX ``ys`` are.  N (``d_state``) is 16 (jamba) or 4 (``smoke_variant``);
 anything else raises.
 
-Design (the source says more).  The forward is a thread per (batch row,
-channel) with its N states in registers, 128 channels a block; b_t and
-c_t are staged through shared memory a tile of steps at a time.  It
-stores the state at the start of every 256-step chunk, (B, ceil(S /
-256), D, N) float32, 16 MB at jamba's B 1, S 4,096.
+Design (the source says more).  The states lie across lanes: a
+channel's N states are spread over N / 4 lanes of one warp, 4 states a
+lane, so jamba's B 1, d_inner 16,384 gives
+2,048 warps, about 16 an SM.  The sums over n (y; dx and d(dt)) are
+transposing butterflies over a group of steps: one shuffle a step and
+value, not log2 of the lanes.  The forward stages b_t, c_t and (dt_t,
+dt_t x_t) through shared memory a tile of 16 steps at a time, loaded one
+tile ahead, and stores the state at the start of every 256-step chunk,
+(B, ceil(S / 256), D, N) float32, 16 MB at jamba's B 1, S 4,096.
 :class:`SelectiveScan` saves the inputs and those states and nothing
 else, so under ``torch.utils.checkpoint`` the forward runs twice a step
 and the backward once.  The backward walks the chunks in reverse and
-recomputes each from its stored state.  The recomputed states live in
-shared-memory sub-chunks, not in a chunk-sized global buffer (256 MB a
-batch row at full width): the state before every 8-step
-sub-chunk goes to a small global scratch (B, 32, D, N), then each
-sub-chunk's states are recomputed into shared memory and the reverse
-recurrence runs over them.  dx and d(dt) are written per element; db
-and dc (sums over all D channels) and da (a sum over batch and time) go
-through float32 partials (one per 128-channel block, one per batch row)
-that a second kernel adds in a fixed order.  No atomics, so two
-backwards give the same bits.  The tiling lives in the source alone:
-:func:`geometry` asks it the sizes of the states and the scratch.
+each twice from its stored state, 8-step sub-chunks at a time: once to
+keep the state before every sub-chunk in a small global scratch (B, 32,
+D, N), then a sub-chunk at a time in reverse, its states recomputed into
+registers and the reverse recurrence run over them.  dx and d(dt) are
+written per element; db and dc (sums over all D channels) and da (a sum
+over batch and time) go through float32 partials (one per 128-channel
+block, 67 MB at jamba's shape; one per batch row) that a second kernel
+adds in a fixed order.  No atomics, so two backwards give the same bits.
+The tiling lives in the source alone: :func:`geometry` asks it the sizes
+of the states and the scratch, and :func:`occupancy` what the card makes
+of the kernels.
 
 Counters: :data:`launches_fwd` (one per :func:`forward`) and
 :data:`launches_bwd` (one per :func:`backward`, which is the scan kernel
-and the reduction of its partials), counted where they launch.  ``kernels.ops.selective_scan`` sends CPU
-tensors to the plain version and CUDA tensors here; nothing falls back.
+and the reduction of its partials), counted where they launch.
+``kernels.ops.selective_scan`` sends CPU tensors to the plain version
+and CUDA tensors here; nothing falls back.
 """
 from __future__ import annotations
 
@@ -75,6 +80,9 @@ def _lib() -> ctypes.CDLL:
         lib.selective_scan_geometry.argtypes = (
             [i32] * 2 + [ctypes.POINTER(i32)] * 3)
         lib.selective_scan_geometry.restype = None
+        lib.selective_scan_occupancy.argtypes = (
+            [i32] * 3 + [ctypes.POINTER(i32)])
+        lib.selective_scan_occupancy.restype = i32
         lib.selective_scan_error_string.argtypes = [i32]
         lib.selective_scan_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -119,7 +127,7 @@ def _check_kernel(x, dt, b, c, a) -> None:
 def _raise(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().selective_scan_error_string(err).decode()
-        raise RuntimeError(f"selective_scan {what} kernel launch failed: "
+        raise RuntimeError(f"selective_scan {what} failed: "
                            f"CUDA error {err} ({msg})")
 
 
@@ -135,6 +143,18 @@ def geometry(s: int, d: int) -> Tuple[int, int, int]:
     out = [ctypes.c_int() for _ in range(3)]
     _lib().selective_scan_geometry(s, d, *(ctypes.byref(v) for v in out))
     return out[0].value, out[1].value, out[2].value
+
+
+def occupancy(n: int, x_dtype: torch.dtype) -> dict:
+    """What the current card makes of the kernels at d_state ``n``: for
+    the forward and the backward, threads a block, resident blocks an SM,
+    registers a thread and local (spill) bytes a thread."""
+    out = (ctypes.c_int * 8)()
+    _raise(_lib().selective_scan_occupancy(
+        torch.cuda.current_device(), n, int(x_dtype == torch.bfloat16),
+        out), "occupancy query")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes")
+    return {"fwd": dict(zip(keys, out[:4])), "bwd": dict(zip(keys, out[4:]))}
 
 
 def forward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -153,7 +173,7 @@ def forward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         x.device.index, n, int(x.dtype == torch.bfloat16), x.data_ptr(),
         dt.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(),
         y.data_ptr(), hs.data_ptr(), bsz, s, d, _stream(x))
-    _raise(err, "forward")
+    _raise(err, "forward kernel launch")
     launches_fwd += 1
     return y, hs
 
@@ -165,6 +185,9 @@ def backward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     partials): (dx in x's dtype, d(dt), db, dc, da)."""
     global launches_bwd
     _check_kernel(x, dt, b, c, a)
+    # the kernel reads b and c as float4s; a view that starts off a
+    # 16-byte boundary (a split of a B S == 1 projection) is copied
+    b, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (b, c))
     lib = _lib()
     bsz, s, d = x.shape
     n = a.shape[-1]
@@ -192,7 +215,7 @@ def backward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         hs.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
         db.data_ptr(), dc.data_ptr(), da.data_ptr(), part_bc.data_ptr(),
         part_a.data_ptr(), sub_h.data_ptr(), bsz, s, d, _stream(x))
-    _raise(err, "backward")
+    _raise(err, "backward kernel launch")
     launches_bwd += 1
     return dx, ddt, db, dc, da
 

@@ -255,11 +255,25 @@ def test_bwd_ref_matches_autograd(b, s, d, n):
     _scaled_close(got, want, BWD_TOL, "bwd_ref vs autograd")
 
 
-@pytest.mark.parametrize("s", [12, 203, 512])
-def test_scan_and_bwd_ref_match_jax(s):
+@pytest.mark.parametrize("b,s,d,n", [
+    pytest.param(2, 12, 128, 4, id="12"),
+    pytest.param(2, 203, 128, 4, id="203"),
+    pytest.param(2, 512, 128, 4, id="512"),
+    pytest.param(1, 200, 136, 4, id="b1-s200-d136-n4"),
+    pytest.param(1, 256, 136, 4, id="b1-s256-d136-n4"),
+    pytest.param(1, 512, 136, 4, id="b1-s512-d136-n4"),
+    pytest.param(1, 200, 136, 16, id="b1-s200-d136-n16"),
+    pytest.param(1, 256, 136, 16, id="b1-s256-d136-n16"),
+    pytest.param(1, 512, 136, 16, id="b1-s512-d136-n16"),
+])
+def test_scan_and_bwd_ref_match_jax(b, s, d, n):
     """The plain forward and the kernel's backward algorithm against the
-    JAX recurrence under chunked_scan and its ``jax.grad``."""
-    arrays, t = _scan_inputs(2, s, 128, 4, seed=s + 1)
+    JAX recurrence under chunked_scan and its ``jax.grad``: at jamba's N
+    16 and the smoke width's N 4; S inside one chunk (203: not a whole
+    8-step backward sub-chunk; 200: not a whole 16-step forward tile),
+    exactly one chunk and two chunks; D 136, not a whole 128-channel
+    block."""
+    arrays, t = _scan_inputs(b, s, d, n, seed=s + 1)
     j = {k: jnp.asarray(v, jnp.float32) for k, v in arrays.items()}
     y, hs = ref.selective_scan_ref(t["x"], t["dt"], t["b"], t["c"], t["a"],
                                    return_states=True)
