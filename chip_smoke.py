@@ -66,6 +66,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         workloads, the paper's five mechanisms) and zoo_machine(4) with
         all 17 registered mechanisms: packed hit bits, tables and stamps
         identical; counters of events equal, cycles within rtol 1e-5;
+        then the epilogue alone at the shapes where its tiling can break
+        (T 1 and 1,000, C 1 and 256, M 17, 64 banks, a lane invalid
+        throughout; seeded random hit bits), held the same way and
+        launched twice from one state (bit-identical), with its ptxas
+        registers and spills and each instantiation's resident blocks an
+        SM;
      b. the six full-preset buckets (ndp and cpu machines at 1, 4 and 8
         cores, 11 workloads, 8,000-entry windows) through the port's
         launcher: the Fig 12-14 rows, the orderings (on NDP ideal >
@@ -74,8 +80,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         the ndp(8) bucket from torch.profiler (at most 12), and per
         bucket wall s, entries/s and both kernels' and their plain
         versions' times on one 1,024-step chunk (L2 flushed), with the
-        least time the card could take and both kernels' registers and
-        spills; on that chunk each kernel is held against its plain
+        least time the card could take, the epilogue's grid and the
+        scan's registers and spills; on that chunk each kernel is held
+        against its plain
         version again; at 8 cores the scan also timed with no step valid
         and with every chain one mechanism;
      c. the ndp_machine(4) bucket at the full preset on the card against
@@ -123,10 +130,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      a. the serving cost table (``SERVING_COST``: ndp_machine(4), dlrm,
         the paper's five mechanisms) derived through the simulator
         kernels on the card at the smoke preset (exactly 4 launches of
-        each kernel, one bucket plan) and the full one (8 each): the
-        smoke table within 2e-3 cycles of the port's CPU derivation and
-        within rtol 0.05 of ``PINNED_COSTS``, ndpage's walk below
-        radix's, ideal free;
+        each kernel, one bucket plan) and the full one (8 each): both
+        tables within 2e-3 cycles of the port's CPU derivation (its
+        seconds printed), the smoke one within rtol 0.05 of
+        ``PINNED_COSTS``, ndpage's walk below radix's, ideal free;
      b. phase 4's requests served again through the launcher with
         ``--cost-model sweep``: the same tokens, 24 x steps paged
         launches, and ``throughput()``'s checks (hits + misses = priced
@@ -213,10 +220,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
+
+    python3 chip_smoke.py --sim-times
+    CHIP_SMOKE_SRC=<other checkout>/src python3 chip_smoke.py --sim-times
+
+time only the simulator's epilogue kernel at 9b's, 9e's and 9f's chunks
+and the walls of 9b, 9f and 9g, for this checkout's port or another's:
+run both in turns in one call to compare two trees on one card.
 """
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -231,8 +246,11 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+#: the port's sources: this checkout's, or the ``src`` of another checkout
+#: named by CHIP_SMOKE_SRC (``--sim-times`` times two trees' simulator
+#: kernels with this harness in one call)
+sys.path.insert(0, os.environ.get("CHIP_SMOKE_SRC") or os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import config as C  # noqa: E402
 from repro_torch.configs.ndp_sim import (PRESETS,  # noqa: E402
@@ -2477,6 +2495,137 @@ def phase_sim_kernel() -> dict:
     return out
 
 
+#: shapes at which the epilogue's tiling can break (9a): (tag, steps,
+#: simulations, cores, machine, mechanisms, banks, lines a row); each case
+#: has lane 1 invalid throughout.  T 1 and 1,000 are not whole step
+#: tiles, C 256 is MAX_CORES (80 column tiles), M 17 the zoo's, 24 lines
+#: a row not a power of two
+SIM_EDGE_CASES = (
+    ("t1_ndp8", 1, 11, 8, "ndp", DEFAULT_MECHS, 0, 0),
+    ("t1000_cpu8", 1000, 11, 8, "cpu", DEFAULT_MECHS, 0, 0),
+    ("c1_ndp", 1024, 11, 1, "ndp", DEFAULT_MECHS, 0, 0),
+    ("c256_ndp", 1000, 2, SE.MAX_CORES, "ndp", DEFAULT_MECHS, 0, 0),
+    ("m17_zoo4", 1000, 11, 4, "zoo", registered_names(), 0, 0),
+    ("banked64_ndp8", 1000, 11, 8, "ndp", DEFAULT_MECHS, SE.MAX_BANKS, 32),
+    ("banked64_zoo1_t1", 1, 11, 1, "zoo", registered_names(), SE.MAX_BANKS,
+     24),
+)
+
+
+def edge_operands(t_len, b, c, machine, mechs, banks, lines_per_row,
+                  seed) -> dict:
+    """Seeded epilogue operands on the card: random hit bits (every gate
+    and site reached), the mechanisms' flag words, per-lane latencies
+    jittered around ``machine``'s (a multi-stack penalty on every other
+    lane), lane 1 invalid throughout, and a state of random integer
+    counts and zero cycle sums (so the cycles compare as the chunk's
+    sums)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lanes, m = b * c, len(mechs)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    def randint(high, *shape):
+        return torch.randint(0, high, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    mach = SIM_MACHINES[machine](c)
+    mt = {k: torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        v, (lanes,) + v.shape))).cuda()
+        for k, v in SIM._mech_arrays(tuple(mechs)).items()}
+    dp = {k: torch.full((lanes,), float(v), device="cuda")
+          * (1.0 + 0.1 * rand(lanes))
+          for k, v in SIM._data_params(mach).items()}
+    dp["stack_pen"] = torch.where(torch.arange(lanes, device="cuda") % 2 == 1,
+                                  25.0 * rand(lanes), 0.0)
+    valid = rand(t_len, lanes) < 0.9
+    valid[:, 1] = False
+    nb = (banks,) if banks else ()
+    ep = dict(packed=randint(2 ** 31 - 1, t_len, lanes, m),
+              work=8.0 * rand(t_len, lanes), is4k=rand(t_len, lanes) < 0.5,
+              valid=valid, q=40.0 * rand(b, m, *nb), flags=LS.mech_flags(mt),
+              params=SE.lane_params(dp),
+              clock=torch.zeros(b, m, c, device="cuda"),
+              mem_accs=randint(1 << 20, b, m, *nb).float(),
+              counters={k: (torch.zeros(b, m, c, device="cuda")
+                            if k in ("trans", "walk_cyc")
+                            else randint(1 << 16, b, m, c).float())
+                        for k in ref.COUNTERS},
+              n_hier=3 if machine == "cpu" else 1,
+              has_ctlb=machine == "zoo")
+    if banks:
+        ep.update(pte=randint(1 << 30, t_len, lanes, m, 4),
+                  vpn=randint(1 << 25, t_len, lanes),
+                  off=randint(64, t_len, lanes), lines_per_row=lines_per_row)
+    return ep
+
+
+def epilogue_ptxas() -> dict:
+    """The epilogue's ptxas lines and what the card makes of each
+    instantiation (resident blocks an SM, registers, local bytes),
+    printed; returns the registers and spill bytes for the kernels
+    line."""
+    for line in ptxas_lines("sim_epilogue", ["sim_epilogue_kernel"]):
+        print(f"  ptxas {line}")
+    occ = SE.occupancy()
+    for kind, o in occ.items():
+        print(f"sim_epilogue_kernel ({kind}): {o['threads']} threads a "
+              f"block, {o['registers']} registers, {o['local_bytes']} local "
+              f"bytes a thread, {o['blocks_per_sm']} blocks an SM resident "
+              f"({o['blocks_per_sm'] * o['threads'] // 32} warps)")
+    return {f"{kind}_{k}": o[k] for kind, o in occ.items()
+            for k in ("registers", "local_bytes")}
+
+
+def phase_sim_edges() -> dict:
+    """9a's edge cases: the epilogue kernel against its plain version at
+    SIM_EDGE_CASES from the same state (counters and memory accesses
+    equal, cycles within SIM_RTOL), launched twice from that state and
+    held bit-identical."""
+    out = {"ep_mismatches": 0, "ep_max_abs_err": 0.0, "ep_max_rel_err": 0.0,
+           "not_identical": 0}
+    for seed, (tag, t_len, b, c, machine, mechs, banks, lpr) in enumerate(
+            SIM_EDGE_CASES):
+        ep = edge_operands(t_len, b, c, machine, mechs, banks, lpr, seed)
+        start = [t.clone() for t in state_out(ep)]
+
+        def restore():
+            for t, s in zip(state_out(ep), start):
+                t.copy_(s)
+
+        plain = plain_state(ep)
+        SE._plain(**plain)
+        runs = []
+        for _ in range(2):
+            restore()
+            SE._launch(**ep)
+            runs.append([t.clone() for t in state_out(ep)])
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        mism, compared, err, rel = epilogue_diff(ep, plain)
+        geo = SE.geometry(torch.cuda.current_device(), t_len, b, c,
+                          len(mechs), banks)
+        print(f"sim_epilogue edge case {tag} (T {t_len}, B {b}, C {c}, M "
+              f"{len(mechs)}, "
+              + (f"{banks} banks of {lpr} lines" if banks else "bounded")
+              + f", lane 1 invalid; grid {geo['col_tiles']} x "
+              f"{geo['step_tiles']} blocks, {geo['steps']} steps a thread): "
+              f"{mism} mismatches in {compared} counters, cycle sums and "
+              f"memory accesses, cycles max relative error {rel:.3e} (rtol "
+              f"{SIM_RTOL:g}); two launches bit-identical: {same}")
+        out["ep_mismatches"] += mism
+        out["not_identical"] += not same
+        out["ep_max_abs_err"] = max(out["ep_max_abs_err"], err)
+        out["ep_max_rel_err"] = max(out["ep_max_rel_err"], rel)
+        del ep, plain, runs, start
+    check(out["ep_mismatches"] == 0, "sim_epilogue kernel disagrees with its "
+                                     "plain version at an edge case")
+    check(out["not_identical"] == 0, "two sim_epilogue launches from the "
+                                     "same state differ")
+    return out
+
+
 def scan_bytes(args) -> int:
     """Bytes a chunk of the scan must move: the inputs, walk lines and
     packed bits once, the stamps and the tables read once and written
@@ -2626,8 +2775,13 @@ def time_sim_chunk(machine: str, cores: int, probe: bool = False,
     ep_mism, ep_compared, ep_err, ep_rel = epilogue_diff(got_state, ep_plain)
     ep_bytes = epilogue_bytes(ep)
     ep_bound = ep_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"sim_epilogue timing, {where}, the same chunk ({bk.b} x {m} "
-          f"blocks; L2 flushed): kernel {ep_ms:.4f} ms, plain "
+    geo = SE.geometry(torch.cuda.current_device(), bk.chunk, bk.b,
+                      lanes // bk.b, m,
+                      ep["q"].shape[2] if ep["q"].dim() == 3 else 0)
+    print(f"sim_epilogue timing, {where}, the same chunk (grid "
+          f"{geo['col_tiles']} x {geo['step_tiles']} blocks, "
+          f"{geo['steps']} steps a thread; L2 flushed): kernel {ep_ms:.4f} "
+          f"ms, plain "
           f"{ep_plain_ms:.4f} ms, bound {ep_bound:.4f} ms (bytes: "
           f"{ep_bytes / 1e6:.3f} MB), {ep_bound / ep_ms:.2%} of bound; no "
           f"library call computes the epilogue; kernel vs plain: "
@@ -2777,8 +2931,13 @@ def phase_sim_parity(memory: str = "bounded_linear") -> float:
 def phase_sim() -> dict:
     t0 = time.perf_counter()
     kernel = phase_sim_kernel()
-    print(f"phase 9a (lru_scan and sim_epilogue vs plain): "
-          f"{time.perf_counter() - t0:.1f} s")
+    edges = phase_sim_edges()
+    kernel["ep_mismatches"] += edges["ep_mismatches"]
+    for k in ("ep_max_abs_err", "ep_max_rel_err"):
+        kernel[k] = max(kernel[k], edges[k])
+    kernel["ep_build"] = epilogue_ptxas()
+    print(f"phase 9a (lru_scan and sim_epilogue vs plain, the epilogue's "
+          f"edge cases): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     LS.launches = SE.launches = 0
@@ -2793,8 +2952,7 @@ def phase_sim() -> dict:
           f"{sum(bk['wall_s'] for bk in buckets):.3f} s of simulate_batch, "
           f"lru_scan launches {launches}, sim_epilogue launches "
           f"{ep_launches}")
-    for line in (ptxas_lines("lru_scan", ["lru_scan_kernel"])
-                 + ptxas_lines("sim_epilogue", ["sim_epilogue_kernel"])):
+    for line in ptxas_lines("lru_scan", ["lru_scan_kernel"]):
         print(f"  ptxas {line}")
     per_chunk = count_chunk_kernels("ndp", 8)
     check(per_chunk["loop"] <= SIM_KERNELS_A_CHUNK,
@@ -3254,7 +3412,8 @@ def print_cost_tables(tables: dict) -> None:
 
 def phase_cost_table() -> dict:
     """10a: the SERVING_COST table derived through the simulator kernels
-    on the card, at the smoke preset and the full one."""
+    on the card, at the smoke preset and the full one, each held against
+    the port's CPU derivation at COST_ATOL."""
     mach = ndp_machine(int(SERVING_COST["cores"]))
     SIM.clear_runner_cache()                 # count this phase's plans
     tables, out = {}, {}
@@ -3279,12 +3438,19 @@ def phase_cost_table() -> dict:
         tables[f"card {preset}"] = model
         out[preset] = dict(launches=launches[0], ep_launches=launches[1],
                            wall_s=wall)
-    t0 = time.perf_counter()
-    cpu = TranslationCostModel.from_sim(mach, use_cache=False, device="cpu")
-    print(f"cost table, smoke preset, on the CPU: "
-          f"{time.perf_counter() - t0:.3f} s")
+    # both tables card vs the port's CPU derivation (the full one's walks
+    # come through the same two kernels at 1,024-step chunks)
+    diff = {}
+    for preset in ("smoke", "full"):
+        t0 = time.perf_counter()
+        cpu = TranslationCostModel.from_sim(mach, preset=preset,
+                                            use_cache=False, device="cpu")
+        print(f"cost table, {preset} preset, on the CPU: "
+              f"{time.perf_counter() - t0:.3f} s")
+        diff[preset] = hold_costs(tables[f"card {preset}"], cpu,
+                                  f"{preset} card vs CPU", atol=COST_ATOL)
+        tables[f"CPU {preset}"] = cpu
     card = tables["card smoke"]
-    diff = hold_costs(card, cpu, "card vs CPU", atol=COST_ATOL)
     hold_costs(card, TranslationCostModel.pinned(), "card vs PINNED_COSTS",
                rtol=PINNED_RTOL)
     check(card.cost("ndpage").walk < card.cost("radix").walk,
@@ -3292,11 +3458,11 @@ def phase_cost_table() -> dict:
     ideal = card.cost("ideal")
     check((ideal.tlb_hit, ideal.walk, ideal.pte_line) == (0.0, 0.0, 0.0),
           f"ideal costs {ideal}")
-    tables["CPU smoke"] = cpu
     print_cost_tables(tables)
-    print(f"cost table card vs CPU: max |diff| {diff:.3g} cycles (atol "
-          f"{COST_ATOL:g}); vs PINNED_COSTS ({PINNED_COSTS['machine']}) "
-          f"within rtol {PINNED_RTOL:g}")
+    print(f"cost table card vs CPU: max |diff| {diff['smoke']:.3g} cycles "
+          f"at the smoke preset, {diff['full']:.3g} at the full one (atol "
+          f"{COST_ATOL:g}); the smoke table vs PINNED_COSTS "
+          f"({PINNED_COSTS['machine']}) within rtol {PINNED_RTOL:g}")
     return dict(model=card, **out)
 
 
@@ -3584,6 +3750,128 @@ def phase_fleet(cost: dict) -> dict:
             for name, rep in runs.items()}
 
 
+#: cuts of csrc/sim_epilogue.cu that time its parts (--sim-times): the
+#: launch alone (the kernel returns at once) and the launch with the step
+#: pass (it returns before the fold); each inserts a line before an anchor
+EPILOGUE_CUTS = {
+    "launch": ("  // the state the fold adds into, brought to L2",
+               "  if (p.T > 0) return;\n"),
+    "step_pass": ("  // the last block of this column tile folds its tiles",
+                  "  return;\n"),
+}
+
+
+def build_epilogue_cuts() -> dict:
+    """EPILOGUE_CUTS built, one nvcc each, in parallel: name -> library
+    path; empty where the source has no anchors (another tree's)."""
+    src = (_build.CSRC / "sim_epilogue.cu").read_text()
+    if not all(anchor in src for anchor, _ in EPILOGUE_CUTS.values()):
+        return {}
+    out_dir = _build.BUILD_DIR / "cuts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (anchor, line) in EPILOGUE_CUTS.items():
+        cu = out_dir / f"sim_epilogue_{name}.cu"
+        cu.write_text(src.replace(anchor, line + anchor, 1))
+        lib = cu.with_suffix(".so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"epilogue cut {name}: nvcc failed\n{log}")
+    return {name: lib for name, (lib, _) in procs.items()}
+
+
+def use_epilogue_library(path=None) -> None:
+    """Route SE's launches through the library at ``path`` (a cut), or
+    back to the built kernel with None."""
+    _build._libs.pop("sim_epilogue", None)
+    if path is not None:
+        _build._libs["sim_epilogue"] = ctypes.CDLL(str(path))
+    SE._lib_handle = None
+    SE.geometry.cache_clear()
+    SE._lib()
+
+
+def sim_times() -> None:
+    """``--sim-times``: the epilogue kernel on the middle chunk of each
+    9b bucket, the banked ndp(8) and cpu(8) buckets and the sweep
+    geometries (L2 flushed), and the same with the kernel cut after its
+    launch and after its step pass (this tree's source only), then the
+    walls of 9b's six buckets, 9f's nine sweeps and 9g's default search.
+    It calls only what the port's package has had since the epilogue's
+    first design, so with CHIP_SMOKE_SRC it times another checkout's
+    kernels in the same way."""
+    print(f"sim-times: the port from {SIM.__file__}")
+    _build.build_all(["lru_scan", "sim_epilogue"])
+    cases = [(f"{m}{c}", m, c, "bounded_linear", (), DEFAULT_MECHS)
+             for c in (1, 4, 8) for m in ("ndp", "cpu")] + [
+        (f"banked_{m}8", m, 8, "banked", (), DEFAULT_MECHS)
+        for m in ("ndp", "cpu")] + [
+        (tag, "ndp", 8, "bounded_linear", params, mechs)
+        for tag, params, mechs in SWEEP_GEOMETRIES]
+    chunks = {}
+    for tag, machine, cores, memory, params, mechs in cases:
+        bk, state = sim_bucket(machine, cores, PRESETS["full"], mechs,
+                               memory=memory, params=params)
+        k = bk.n_chunks // 2
+        for i in range(k):
+            SIM._run_chunk(bk, state, i)
+        args = SIM._scan_inputs(bk, state, k)
+        work = args.pop("work")
+        packed = LS._launch(**args)
+        chunks[tag] = epilogue_args(bk, state, dict(args, work=work), packed)
+
+    def time_chunks() -> dict:
+        out = {}
+        for tag, ep in chunks.items():
+            saved = [t.clone() for t in state_out(ep)]
+
+            def restore():
+                for t, s in zip(state_out(ep), saved):
+                    t.copy_(s)
+
+            out[tag] = time_device_ms(lambda: SE._launch(**ep), restore,
+                                      iters=20)
+            restore()
+        return out
+
+    whole = time_chunks()
+    cuts = build_epilogue_cuts()
+    parts = {}
+    for name, lib in cuts.items():
+        use_epilogue_library(lib)
+        parts[name] = time_chunks()
+    if cuts:
+        use_epilogue_library()
+    for tag, ms in whole.items():
+        line = (f"sim-times {tag}: sim_epilogue {ms:.4f} ms a 1,024-step "
+                f"chunk (L2 flushed)")
+        if parts:
+            launch, pass_ = parts["launch"][tag], parts["step_pass"][tag]
+            line += (f"; cut after the launch {launch:.4f} ms, after the "
+                     f"step pass {pass_:.4f} ms: launch {launch:.4f}, step "
+                     f"pass {pass_ - launch:.4f}, fold {ms - pass_:.4f}")
+        print(line)
+    del chunks
+    parser = SIMLAUNCH.build_parser()
+    for _ in range(2):           # the second: bucket plans made
+        buckets = SIMLAUNCH.run(parser.parse_args([]))
+        print(f"sim-times 9b: 6 full-preset buckets in "
+              f"{sum(bk['wall_s'] for bk in buckets):.3f} s of "
+              f"simulate_batch")
+    t0 = time.perf_counter()
+    SIMLAUNCH.run_sweeps(parser.parse_args(["--sweep", ",".join(SWEEPS)]),
+                         show_points=False)
+    print(f"sim-times 9f: the nine sweeps in {time.perf_counter() - t0:.3f} "
+          f"s")
+    t0 = time.perf_counter()
+    SEARCH.search("default", use_cache=False, device="cuda")
+    print(f"sim-times 9g: the default search in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+
 def banked_keys(banked: dict, kernel: str) -> dict:
     """The banked path's launches and chunk times of one simulator kernel,
     for its row of the kernels line."""
@@ -3620,6 +3908,9 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--sim-times"]:
+        sim_times()
+        return 0
 
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
@@ -3806,6 +4097,11 @@ def main() -> int:
         **{f"cpu8_{k}": v for k, v in
            sim["timed"][("cpu", 8)]["sim_epilogue"].items()
            if k.endswith("ms")},
+        # every 9b bucket's chunk, and each instantiation's registers and
+        # local (spill) bytes a thread (9a)
+        **{f"{m}{c}_{k}": t["sim_epilogue"][k]
+           for (m, c), t in sim["timed"].items() for k in ("ms", "bound_ms")},
+        **sim["ep_build"],
         **banked_keys(sim["banked"], "sim_epilogue"),
         **sweep_search_keys(sim, "sim_epilogue"),
         "cost_model_launches": cost["smoke"]["ep_launches"],

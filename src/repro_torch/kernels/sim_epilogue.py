@@ -15,21 +15,32 @@ queue delay, less the row-buffer discount where the scan's bit says the
 row was open, and the memory accesses are summed per bank.
 
 Bound.  A streaming reduction: the packed bits, work, is4k and valid read
-once, about 1.8 MB for a 1,024-step chunk of the ``ndp_machine(8)``
-bucket, 0.6 us at 3.35 TB/s.  Design: a block per (simulation,
-mechanism) whose 256 threads split the steps among the simulation's
-lanes; partial sums in float64, folded in a fixed order, rounded once and
-added by one thread per state element, so no atomics on the floats.
+once, about 2.4 MB for a 1,024-step chunk of the ``ndp_machine(8)``
+bucket, 0.7 us at 3.35 TB/s; the kernel is bound by issue and latency.
+Design: the chunk spread over the card as column tiles x step tiles (a
+column is one (lane, mechanism), 32 a block, one a lane, whole
+(simulation, mechanism) groups of C lanes side by side; 16 warps a block,
+each loading 2 consecutive steps of the block's step tile at once, so
+the loads of a step coalesce and the grid fits the card in one wave);
+float64 partial sums folded in a fixed order (warps, then step tiles,
+then a group's lanes for the memory accesses) by the last block of each
+column tile to finish, which an integer ticket names, and rounded once
+into the state: no float atomics, and two launches from the same state
+give bit-identical states.  The tiling is the source's
+(:func:`geometry`); the wrapper keeps the scratch of the tile partials
+and the zeroed ticket words a stream (:func:`_workspace`), grown when a
+larger launch needs them and never with a host sync.
 Banked (a ``BANKED`` instantiation): the five sites' lines come from the
-walk lines the scan read (``pte``) and ``vpn * 64 + off``, the block's
-queue delays per bank sit in shared memory, and the per-bank access
-counts are integers, added with shared-memory atomics (exact in any
-order).
+walk lines the scan read (``pte``) and ``vpn * 64 + off``, the queue
+delays of the block's columns per bank sit in shared memory, and the
+per-bank access counts are integers, counted with shared-memory atomics
+(exact in any order) and folded like the rest.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,12 +53,14 @@ from repro_torch.kernels.ref import (COUNTERS, EPILOGUE_PARAMS, FLAG_BYPASS,
 #: number of kernel launches since the counter was last reset
 launches = 0
 
-#: the most lanes a simulation may have (one block's threads), and the
-#: most banks of a banked memory
+#: the most lanes a simulation may have and the most banks of a banked
+#: memory (the kernel's limits; chip_smoke.py phase 9a runs it at both)
 MAX_CORES = 256
 MAX_BANKS = 64
 
 _lib_handle = None
+#: (device index, stream) -> (scratch bytes, ticket words): see _workspace
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -55,14 +68,72 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("sim_epilogue")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        i64 = ctypes.c_longlong
         lib.sim_epilogue_launch.argtypes = (
-            [i32] + [ptr] * 10 + [ctypes.POINTER(ptr)] + [i32] * 8
-            + [ptr])
+            [i32] + [ptr] * 10 + [ctypes.POINTER(ptr), ptr, i64, ptr]
+            + [i32] * 9 + [ptr])
         lib.sim_epilogue_launch.restype = i32
+        lib.sim_epilogue_geometry.argtypes = (
+            [i32] * 6 + [ctypes.POINTER(i64)])
+        lib.sim_epilogue_geometry.restype = i32
+        lib.sim_epilogue_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.sim_epilogue_occupancy.restype = i32
         lib.sim_epilogue_error_string.argtypes = [i32]
         lib.sim_epilogue_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
+
+
+def _raise(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().sim_epilogue_error_string(err).decode()
+        raise RuntimeError(f"sim_epilogue {what} failed: CUDA error {err} "
+                           f"({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(device: int, t_len: int, b: int, c: int, m: int, banks: int
+             ) -> Dict[str, int]:
+    """The kernel's grid and scratch on card ``device`` for a chunk of
+    ``t_len`` steps, ``b`` simulations of ``c`` cores, ``m`` mechanisms
+    and ``banks`` banks (0: a bounded memory): column tiles, step tiles,
+    steps a thread, scratch bytes and ticket words.  The tiling is the
+    source's; this asks it."""
+    out = (ctypes.c_longlong * 5)()
+    _raise(_lib().sim_epilogue_geometry(device, t_len, b, c, m, banks, out),
+           "geometry query")
+    return dict(zip(("col_tiles", "step_tiles", "steps", "scratch_bytes",
+                     "tickets"), out))
+
+
+def occupancy() -> Dict[str, dict]:
+    """What the current card makes of the two instantiations (bounded,
+    banked): threads a block, resident blocks an SM, registers a thread
+    and local (spill) bytes a thread."""
+    out = (ctypes.c_int * 8)()
+    _raise(_lib().sim_epilogue_occupancy(torch.cuda.current_device(), out),
+           "occupancy query")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes")
+    return {"bounded": dict(zip(keys, out[:4])),
+            "banked": dict(zip(keys, out[4:]))}
+
+
+def _workspace(device: torch.device, stream: int, scratch_bytes: int,
+               tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scratch of the tile partials and the ticket words of launches
+    on ``stream``, grown to the sizes given.  The scratch is rewritten by
+    every launch; the tickets are allocated zero and every launch leaves
+    them zero, so one set serves every launch on the stream (launches on
+    one stream never overlap)."""
+    key = (device.index, stream)
+    scratch, words = _workspaces.get(key, (None, None))
+    if scratch is None or scratch.numel() < scratch_bytes:
+        scratch = torch.empty(max(scratch_bytes, 8), dtype=torch.uint8,
+                              device=device)
+    if words is None or words.numel() < tickets:
+        words = torch.zeros(tickets, dtype=torch.int32, device=device)
+    _workspaces[key] = (scratch, words)
+    return scratch, words
 
 
 def lane_params(dp: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -212,18 +283,19 @@ def _launch(packed, work, is4k, valid, q, flags, params, clock, mem_accs,
     outs = [counters[k] for k in COUNTERS] + [clock, mem_accs]
     out_p = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     banked = q.dim() == 3
+    banks = q.shape[2] if banked else 0
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    geo = geometry(packed.device.index, t_len, b, c, m, banks)
+    scratch, tickets = _workspace(packed.device, stream,
+                                  geo["scratch_bytes"], geo["tickets"])
 
     def ptr(t):
         return t.data_ptr() if banked else None
 
-    err = lib.sim_epilogue_launch(
+    _raise(lib.sim_epilogue_launch(
         packed.device.index, packed.data_ptr(), work.data_ptr(),
         is4k.data_ptr(), valid.data_ptr(), q.data_ptr(), flags.data_ptr(),
-        params.data_ptr(), ptr(pte), ptr(vpn), ptr(off), out_p, t_len, b, c,
-        m, n_hier, int(has_ctlb), q.shape[2] if banked else 0,
-        lines_per_row if banked else 0,
-        torch.cuda.current_stream(packed.device).cuda_stream)
-    if err != 0:
-        msg = lib.sim_epilogue_error_string(err).decode()
-        raise RuntimeError(f"sim_epilogue kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
+        params.data_ptr(), ptr(pte), ptr(vpn), ptr(off), out_p,
+        scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
+        tickets.numel(), t_len, b, c, m, n_hier, int(has_ctlb), banks,
+        lines_per_row if banked else 0, stream), "kernel launch")

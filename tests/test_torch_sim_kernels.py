@@ -25,17 +25,32 @@ CASES = {
     "cpu": ("cpu_machine", None),
     "zoo": ("zoo_machine", registered_names()),
 }
+#: the epilogue against the JAX package's: (machine case, chunk length,
+#: a lane invalid throughout).  768 steps is the first cases'; 1 and 1,000
+#: are not whole step tiles of the kernel's tiling
+EPILOGUE_CASES = {
+    "ndp": ("ndp", 768, False),
+    "cpu": ("cpu", 768, False),
+    "zoo": ("zoo", 768, False),
+    "ndp_t1": ("ndp", 1, False),
+    "cpu_t1000": ("cpu", 1000, False),
+    "zoo_t1000": ("zoo", 1000, False),
+    "ndp_lane_invalid": ("ndp", 768, True),
+    "zoo_t1_lane_invalid": ("zoo", 1, True),
+}
 
 
 def cut(trace, n):
     return {k: (v[:, :n] if k != "pages" else v) for k, v in trace.items()}
 
 
-def epilogue_inputs(smoke_trace, machine, names, t_len=768):
+def epilogue_inputs(smoke_trace, machine, names, t_len=768,
+                    lane_invalid=False):
     """One chunk of 4 lanes (two workloads x 2 cores; the second goes
-    invalid after 600 steps) through the plain scan, and per-lane data
-    params that differ between lanes (seeded), with a multi-stack penalty
-    on half of them so the co-location discount is reached."""
+    invalid after 600 steps; with ``lane_invalid`` lane 1 is invalid
+    throughout) through the plain scan, and per-lane data params that
+    differ between lanes (seeded), with a multi-stack penalty on half of
+    them so the co-location discount is reached."""
     jmach = getattr(JC, machine)(2)
     traces = [cut(smoke_trace(w, 2), t_len) for w in ("rnd", "xs")]
 
@@ -48,6 +63,8 @@ def epilogue_inputs(smoke_trace, machine, names, t_len=768):
     is4k = (JSIM._hash_np(vpn >> JSIM.HUGE_SHIFT) % 1000) < int(frac * 1000)
     valid = np.ones((t_len, 4), bool)
     valid[600:, 2:] = False
+    if lane_invalid:
+        valid[:, 1] = False
     mt = {k: np.ascontiguousarray(np.broadcast_to(v, (4,) + v.shape))
           for k, v in JSIM._mech_arrays(names).items()}
     rng = np.random.default_rng(17)
@@ -71,12 +88,13 @@ def epilogue_inputs(smoke_trace, machine, names, t_len=768):
     return shape, packed, work, is4k, valid, q, mt, dp
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
 def test_sim_epilogue_ref_matches_reference_epilogue(smoke_trace, case):
-    machine, mechs = CASES[case]
+    which, t_len, lane_invalid = EPILOGUE_CASES[case]
+    machine, mechs = CASES[which]
     names = tuple(mechs) if mechs else JSIM.DEFAULT_MECHS
     shape, packed, work, is4k, valid, q, mt, dp = epilogue_inputs(
-        smoke_trace, machine, names)
+        smoke_trace, machine, names, t_len, lane_invalid)
     n_hier = len(shape.hier)
     has_ctlb = any(n == "ctlb" for n, _, _ in shape.tables)
 
@@ -107,8 +125,12 @@ def test_sim_epilogue_ref_matches_reference_epilogue(smoke_trace, case):
     assert np.array_equal(mem_n.numpy(), np.asarray(want_mem))
     # the chunk did real work: walks, PTE accesses, multi-stack penalties
     assert cnt["walks"].sum() > 0 and cnt["pte_mem"].sum() > 0
-    if case == "zoo":
+    if which == "zoo":
         assert cnt["trans"].shape == (17, 4)
+    if lane_invalid:    # the invalid lane adds nothing
+        assert float(cyc[:, 1].abs().sum()) == 0.0
+        assert float(mem_n[:, 1].sum()) == 0.0
+        assert all(float(v[:, 1].sum()) == 0.0 for v in cnt.values())
 
     # the wrapper's CPU path: the plain version, added into a (B, M, C)
     # state from the flag words and the parameter array
@@ -214,6 +236,22 @@ def test_sim_epilogue_wrapper_dispatch_and_checks(monkeypatch):
     with pytest.raises(ValueError, match="is on cpu"):
         SE._check(**dict({k: cuda[k] for k in check_args},
                          work=args["work"]), **kw)
+
+    # the kernel's scratch and ticket words: one set a stream, grown when a
+    # launch needs more, the tickets allocated zero (the kernel leaves
+    # them zero)
+    monkeypatch.setattr(SE, "_workspaces", {})
+    cpu = torch.device("cpu")
+    scratch, tickets = SE._workspace(cpu, 7, 100, 5)
+    assert scratch.numel() >= 100 and scratch.dtype == torch.uint8
+    assert tickets.numel() >= 5 and tickets.dtype == torch.int32
+    assert not tickets.any()
+    again = SE._workspace(cpu, 7, 50, 3)
+    assert again[0] is scratch and again[1] is tickets
+    grown = SE._workspace(cpu, 7, 200, 9)
+    assert grown[0].numel() >= 200 and grown[1].numel() >= 9
+    assert not grown[1].any()
+    assert SE._workspace(cpu, 8, 10, 1)[0] is not grown[0]
 
 
 def scan_operands(mach, m, lanes, t_len=1024, device="meta"):
