@@ -216,7 +216,33 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         with bf16 gradients and float32 AdamW moments, selective-scan
         launches 6 + 3 and sm90 flash launches 6 + 3, peak memory, and a
         fourth step under torch.profiler (time by operator);
- 14. one JSON line describing every kernel, then the final ``ok`` line.
+ 14. RWKV6 (rwkv6-3b):
+     a. the WKV kernels (``csrc/wkv.cu``), forward and backward, against
+        their plain versions: rwkv6-3b's training call (B 2, S 4,096, 40
+        heads of 64), S 1, 17, 256 and 512, B 1, head size 16; the
+        forward (and its chunk states) allclose 2e-5, the backward's five
+        gradients to 2e-5 of their largest element against
+        ``wkv_bwd_ref`` and against autograd of the plain forward, two
+        backwards bit-identical; ptxas registers and spills; both timed
+        at the training call (L2 flushed) beside the plain versions and
+        the least time (bytes, or the FMAs at the float32 rate);
+     b. rwkv6-3b at smoke width in float32 (2 layers, head size 16):
+        engine streams equal greedy_reference's in every table mode with
+        slots reused (4 requests on 2), and on a 2 x 512-token batch
+        logits card vs CPU 1e-3, loss 1e-4 and every gradient 5e-5 of
+        its scale (through the WKV kernels at head size 16);
+     c. full-width rwkv6-3b (32 layers, 2.87 B parameters, bf16, random
+        weights from a seed) served through the launcher at phase 4's
+        shape, flat and radix tables: exactly 0 paged launches (no layer
+        holds a KV cache), the same tokens in both modes, ms/step,
+        tokens/s, peak memory;
+     d. full-width rwkv6-3b trained through the launcher at phase 7's
+        shape (8 x 4,096 tokens in 4 microbatches, 3 steps) with bf16
+        gradients and float32 AdamW moments: WKV launches exactly 768 +
+        384, finite nonzero losses and gradient norms, s/step, tokens/s,
+        peak memory, and a fourth step under torch.profiler (time by
+        operator);
+ 15. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -265,6 +291,7 @@ from repro_torch.kernels import lru_scan as LS  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import selective_scan as SS  # noqa: E402
 from repro_torch.kernels import sim_epilogue as SE  # noqa: E402
+from repro_torch.kernels import wkv as WK  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
@@ -2323,6 +2350,350 @@ def phase_jamba_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: RWKV6 (rwkv6-3b)
+# ---------------------------------------------------------------------------
+RWKV = "rwkv6-3b"
+#: 14a: the WKV kernels' cases (B, S, heads, head size): rwkv6-3b's
+#: training call (B 2, S 4,096 = 16 chunks, 40 heads of 64), then S 1,
+#: a ragged 17 (not a whole 32-step forward tile or 16-step backward
+#: sub-chunk), exactly one chunk (256) and two (512), B 1, and the
+#: smoke width's head size 16
+WKV_CASES = {
+    "rwkv6_train": (2, 4096, 40, 64),
+    "s1": (2, 1, 40, 64),
+    "s17": (2, 17, 8, 64),
+    "s256_b1": (1, 256, 40, 64),
+    "s512_b1": (1, 512, 40, 64),
+    "hs16_s512": (2, 512, 4, 16),
+    "hs16_s17_b3": (3, 17, 4, 16),
+}
+#: the WKV kernels against their plain versions: the forward (and its
+#: chunk states) allclose at the float32 2e-5 (atol = rtol); the
+#: backward's five gradients to 2e-5 of their largest element (du sums
+#: over B x S steps and dr, dk, dw over 64 columns, in other orders),
+#: against wkv_bwd_ref and against autograd of the plain forward
+WKV_TOL = 2e-5
+#: float32 outside the tensor cores, NVIDIA H100 SXM data sheet, dense,
+#: at the 700 W limit: the WKV kernels' arithmetic is plain FMAs
+FP32_SIMT_FLOPS = 67e12
+#: flops a state element and step (an FMA counts 2): the forward's a =
+#: k v (1), S + u a (2), the sum of r (S + u a) (2), w S + a (2); the
+#: backward's state (3), d a (2), dk (2), dr (4), dw (2), dv (2), and the
+#: state's gradient, w G + r do (3)
+WKV_FLOPS = {"fwd": 7, "bwd": 18}
+#: 14b: smoke width in float32 (2 layers, head size 16): 4 requests on 2
+#: slots (slots reused), and one 2 x 512-token batch (two scan chunks)
+#: for logits, loss and gradients card vs CPU
+RWKV_PARITY = dict(MOE_PARITY, requests=4)
+RWKV_PARITY_TOKENS = (2, 512)
+
+
+def wkv_inputs(b, s, h, hs, seed):
+    """WKV operands at an RWKV layer's scale on the card: r, k, v and do
+    normal, w = exp(-exp(-0.5 + 0.5 n)) (``w0`` -0.5 and a decay lora's
+    spread), u 0.1 n (``rwkv_init``'s)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return {"r": randn(b, s, h * hs), "k": randn(b, s, h * hs),
+            "v": randn(b, s, h * hs),
+            "w": torch.exp(-torch.exp(-0.5 + 0.5 * randn(b, s, h * hs))),
+            "u": 0.1 * randn(h, hs), "do": randn(b, s, h * hs)}
+
+
+def wkv_args(t):
+    return [t[k] for k in ("r", "k", "v", "w", "u")]
+
+
+def wkv_scaled_errs(got, want) -> dict:
+    """Each gradient's max |got - want| over its largest |want|."""
+    return {name: float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
+            for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want)}
+
+
+def autograd_of_plain_wkv(t):
+    leaves = [x.detach().clone().requires_grad_(True) for x in wkv_args(t)]
+    o = ref.wkv_ref(*leaves)
+    # at S 1 the decay reaches no output: its gradient is 0
+    grads = torch.autograd.grad(o, leaves, t["do"], allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    del o, leaves
+    return grads
+
+
+def wkv_bound(b, s, h, hs, backward: bool):
+    """(ms, "bytes" or "operations"): the least time of the forward or
+    the backward.  Bytes: each input read once and each output written
+    once (forward: r, k, v, w, u in, o and the chunk states out;
+    backward: those inputs, the states and do in, dr, dk, dv, dw, du
+    out).  Operations: :data:`WKV_FLOPS` a state element and step at the
+    card's float32 rate outside the tensor cores."""
+    elems = b * s * h * hs
+    states = b * -(-s // ref.SCAN_CHUNK) * h * hs * hs
+    nbytes = 4 * ((9 if backward else 5) * elems + states
+                  + (2 if backward else 1) * h * hs)
+    flops = WKV_FLOPS["bwd" if backward else "fwd"] * elems * hs
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / FP32_SIMT_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def phase_wkv_kernel() -> dict:
+    """14a: the WKV kernels, forward and backward, against their plain
+    versions on the card, and timed at rwkv6-3b's training call."""
+    for line in ptxas_lines("wkv", ("wkv_fwd_kernel", "wkv_bwd_kernel",
+                                    "wkv_bwd_reduce_kernel")):
+        print(f"  wkv ptxas: {line}")
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for name, (b, s, h, hs) in WKV_CASES.items():
+        t = wkv_inputs(b, s, h, hs, seed=len(name))
+        o, st = WK.forward(*wkv_args(t))
+        want_o, want_st = ref.wkv_ref(*wkv_args(t), return_states=True)
+        fwd_ok = (st.shape == want_st.shape and within(o, want_o, WKV_TOL)
+                  and within(st, want_st, WKV_TOL))
+        o_err, st_err = max_err(o, want_o), max_err(st, want_st)
+        del want_o, want_st
+        got = WK.backward(*wkv_args(t), st, t["do"])
+        again = WK.backward(*wkv_args(t), st, t["do"])
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, x) for g, x in zip(got, again))
+        del again
+        vs_ref = wkv_scaled_errs(got, ref.wkv_bwd_ref(*wkv_args(t), st,
+                                                      t["do"]))
+        vs_auto = wkv_scaled_errs(got, autograd_of_plain_wkv(t))
+        bwd_worst = max(*vs_ref.values(), *vs_auto.values())
+        ok = fwd_ok and same and bwd_worst <= WKV_TOL
+        errs["fwd"] = max(errs["fwd"], o_err)
+        errs["bwd"] = max(errs["bwd"], bwd_worst)
+        print(f"wkv {name} (B {b}, S {s}, {h} heads of {hs}): forward o "
+              f"max_abs_err {o_err:.3e} (max |o| "
+              f"{float(o.abs().max()):.3g}), chunk states {st_err:.3e} "
+              f"(allclose {WKV_TOL:g}); backward of scale vs bwd_ref "
+              + ", ".join(f"{k} {v:.2e}" for k, v in vs_ref.items())
+              + "; vs autograd of the plain forward "
+              + ", ".join(f"{k} {v:.2e}" for k, v in vs_auto.items())
+              + f" ({WKV_TOL:g}); two backwards "
+              f"{'bit-identical' if same else 'DIFFER'} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"wkv {name} disagrees with its plain version")
+        del t, o, st, got
+        torch.cuda.empty_cache()
+
+    b, s, h, hs = WKV_CASES["rwkv6_train"]
+    t = wkv_inputs(b, s, h, hs, seed=0)
+    _, st = WK.forward(*wkv_args(t))
+    timed = {}
+    for direction, fn, plain in (
+            ("fwd", lambda: WK.forward(*wkv_args(t)),
+             lambda: ref.wkv_ref(*wkv_args(t))),
+            ("bwd", lambda: WK.backward(*wkv_args(t), st, t["do"]),
+             lambda: ref.wkv_bwd_ref(*wkv_args(t), st, t["do"]))):
+        ms = time_cold_ms(fn, 10)
+        plain_ms = time_plain_ms(plain)
+        bound_ms, bound_by = wkv_bound(b, s, h, hs, direction == "bwd")
+        timed[direction] = dict(max_abs_err=errs[direction], ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=None)
+        print(f"wkv {direction} timing at rwkv6-3b's training call (B {b}, "
+              f"S {s}, {h} heads of {hs}; L2 flushed): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of bound; no PyTorch call "
+              f"computes the recurrence (library: none)")
+    del t, st
+    torch.cuda.empty_cache()
+    return timed
+
+
+def phase_rwkv_parity() -> dict:
+    """14b: rwkv6-3b at smoke width in float32 (2 layers, head size 16):
+    the engine's streams equal greedy_reference's in every table mode
+    with slots reused; the card's logits, loss and gradients on a
+    512-token batch agree with the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p = RWKV_PARITY
+    cfg = dataclasses.replace(C.smoke_variant(C.get_arch(RWKV)),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = init_params(cfg, gen, "cuda")
+    shape = dict(max_batch=p["max_batch"], max_len=p["max_len"],
+                 page_size=p["page_size"], device="cuda")
+
+    def requests():
+        return SERVE.make_requests(p["requests"], cfg.vocab_size,
+                                   p["prompt"], p["new_tokens"], seed=7)
+
+    want = {r.req_id: greedy_reference(
+        cfg, model, r.prompt, p["new_tokens"], kv_mode=BT.FLAT,
+        max_len=p["max_len"], page_size=p["page_size"], device="cuda")
+        for r in requests()}
+    for mode in (None, BT.FLAT, BT.RADIX):
+        eng = ServeEngine(cfg, model, table_mode=mode, **shape)
+        for r in requests():
+            eng.submit(r)
+        got = {r.req_id: r.generated for r in eng.run()}
+        check(eng.sched.stats["admitted"] > p["max_batch"],
+              "rwkv parity: no slot was reused")
+        check(got == want, f"{RWKV} table_mode {mode}: engine {got} != "
+                           f"greedy_reference {want}")
+    print(f"{RWKV} parity (smoke width, float32, {p['requests']} requests "
+          f"on {p['max_batch']} slots): engine streams equal "
+          f"greedy_reference in table modes auto, flat, radix")
+    cpu_model = copy.deepcopy(model).cpu()
+    b, s = RWKV_PARITY_TOKENS
+    raw = DATA.SyntheticLM(cfg.vocab_size, s, b).batch_at(0)
+    out = {}
+    WK.launches_fwd = WK.launches_bwd = 0
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        m = trainable(m)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        logits, _ = forward_train(m, cfg, batch)
+        loss, _ = loss_fn(m, cfg, batch)
+        loss.backward()
+        out[dev] = (logits.detach().cpu(), float(loss.detach()),
+                    {n: q.grad.detach().cpu() for n, q in
+                     m.named_parameters()})
+    wkv = (WK.launches_fwd, WK.launches_bwd)
+    layers = cfg.num_layers
+    check(wkv == (2 * layers, layers), f"smoke parity: wkv launches {wkv}, "
+                                       f"want ({2 * layers}, {layers})")
+    logit_diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    loss_diff = abs(out["cuda"][1] - out["cpu"][1])
+    grad_errs = {n: float((g - out["cpu"][2][n]).abs().max())
+                 / (float(out["cpu"][2][n].abs().max()) or 1.0)
+                 for n, g in out["cuda"][2].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(bool(torch.isfinite(out["cuda"][0]).all()), "non-finite logits")
+    check(logit_diff <= LOGIT_TOL, f"{RWKV} card vs CPU logits differ by "
+                                   f"{logit_diff}")
+    check(loss_diff <= TRAIN_LOSS_TOL, f"{RWKV} card vs CPU loss differ by "
+                                       f"{loss_diff}")
+    check(grad_errs[worst] <= TRAIN_GRAD_TOL,
+          f"{RWKV} card vs CPU gradient {worst} differs by "
+          f"{grad_errs[worst]:.3e} of its scale")
+    print(f"{RWKV} parity card vs CPU ({b} x {s} tokens, two scan chunks): "
+          f"logits max_abs_diff {logit_diff:.3e} (tol {LOGIT_TOL:g}); loss "
+          f"card {out['cuda'][1]:.6f} CPU {out['cpu'][1]:.6f}, diff "
+          f"{loss_diff:.3e} (tol {TRAIN_LOSS_TOL:g}); gradients of scale: "
+          f"worst {worst} {grad_errs[worst]:.3e} over {len(grad_errs)} "
+          f"(tol {TRAIN_GRAD_TOL:g}); wkv launches fwd {wkv[0]}, bwd "
+          f"{wkv[1]} (head size 16)")
+    del model, cpu_model, out
+    torch.cuda.empty_cache()
+    return {"logits": logit_diff, "loss": loss_diff,
+            "grad": grad_errs[worst]}
+
+
+def phase_rwkv_serve() -> dict:
+    """14c: full-width rwkv6-3b (32 layers, bf16) served through the
+    launcher at phase 4's shape in the flat and the radix table mode:
+    no layer holds a KV cache, so no step launches the paged kernel;
+    both modes give the same tokens."""
+    launches, tokens = {}, {}
+    for mode in (BT.FLAT, BT.RADIX):
+        args = SERVE.build_parser().parse_args(["--arch", RWKV,
+                                                "--kv-mode", mode])
+        torch.cuda.reset_peak_memory_stats()
+        PA.launches = 0
+        WK.launches_fwd = WK.launches_bwd = 0
+        out = SERVE.serve(args)
+        n = PA.launches
+        cfg, eng, done = out["cfg"], out["engine"], out["done"]
+        steps = eng.sched.stats["steps"]
+        serve_checks(cfg, done, args.requests, SERVE.FULL["new_tokens"],
+                     f"{RWKV} {mode}")
+        check(n == 0, f"{mode}: paged_attention launches {n} != 0 (rwkv6-3b "
+                      f"has no attention layer)")
+        generated = sum(len(r.generated) for r in done)
+        prompts = sum(len(r.prompt) for r in done)
+        secs = out["seconds"]
+        print(f"serve {RWKV} {mode} (full width, {cfg.num_layers} layers, "
+              f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}): "
+              f"{len(done)} requests, {prompts} prompt + {generated} "
+              f"generated tokens in {steps} steps, {secs:.3f} s; "
+              f"{generated / secs:.1f} generated tokens/s, "
+              f"{(prompts + generated) / secs:.1f} tokens/s in all; "
+              f"{secs / steps * 1e3:.3f} ms/step; paged_attention launches "
+              f"{n}, wkv launches {WK.launches_fwd} (decode is the "
+              f"single-step update); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches[mode] = n
+        tokens[mode] = {r.req_id: list(r.generated) for r in done}
+        del out, eng
+        torch.cuda.empty_cache()
+    check(tokens[BT.FLAT] == tokens[BT.RADIX],
+          f"{RWKV} flat and radix tables generated different tokens")
+    print(f"serve {RWKV}: flat and radix tables generate the same tokens")
+    return launches
+
+
+def phase_rwkv_train() -> dict:
+    """14d: full-width rwkv6-3b (32 layers) trained through the launcher
+    at phase 7's shape (8 x 4,096 tokens in 4 microbatches, 3 steps),
+    bf16 gradients and float32 AdamW moments, every layer's recurrence
+    through the WKV kernels (forward twice a step with the recompute of
+    activation checkpointing, backward once); then a fourth step under
+    torch.profiler."""
+    ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = TRAIN.build_parser().parse_args(["--arch", RWKV,
+                                            "--ckpt-dir", ckpt_dir])
+    torch.cuda.reset_peak_memory_stats()
+    WK.launches_fwd = WK.launches_bwd = 0
+    FA.launches_fwd = FA.launches_bwd = 0
+    out = TRAIN.train(args)
+    wkv = (WK.launches_fwd, WK.launches_bwd)
+    cfg, hist, shape = out["cfg"], out["history"], out["shape"]
+    micro = out["microbatches"]
+    check(len(hist) == args.steps, f"trained {len(hist)} of {args.steps} "
+                                   "steps")
+    for m in hist:
+        for key in ("loss", "grad_norm"):
+            check(bool(np.isfinite(m[key])) and m[key] != 0,
+                  f"{key} {m[key]} is not finite and nonzero")
+    want = (2 * cfg.num_layers * micro * args.steps,
+            cfg.num_layers * micro * args.steps)
+    check(wkv == want, f"wkv launches (fwd, bwd) {wkv} != {want}")
+    check((FA.launches_fwd, FA.launches_bwd) == (0, 0),
+          "rwkv6-3b launched flash attention")
+    tokens = shape.global_batch * shape.seq_len
+    secs = [m["seconds"] for m in hist]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    raw = DATA.SyntheticLM(cfg.vocab_size, shape.seq_len,
+                           shape.global_batch).batch_at(args.steps)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    step = make_train_step(cfg, AdamWConfig(total_steps=args.steps + 1),
+                           micro)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(out["state"], batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    print(f"train {RWKV}: a fourth step under torch.profiler, "
+          f"{traced:.3f} s:")
+    print_profile(prof, traced)
+    print(f"train {RWKV} (full width, {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f} B params, bf16 weights and "
+          f"gradients, float32 AdamW moments): {args.steps} steps of "
+          f"{shape.global_batch} x {shape.seq_len} tokens in {micro} "
+          f"microbatches; losses {[round(m['loss'], 4) for m in hist]}, "
+          f"grad_norms {[round(m['grad_norm'], 4) for m in hist]}; s/step "
+          f"{[round(x, 3) for x in secs]} (first includes warm-up); "
+          f"{np.mean(secs[1:]):.3f} s/step and "
+          f"{tokens / np.mean(secs[1:]):.1f} tokens/s after the first; "
+          f"wkv launches fwd {wkv[0]}, bwd {wkv[1]}; peak memory "
+          f"{peak:.2f} GiB")
+    del out, step
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"wkv": wkv, "peak_gib": peak}
+
+# ---------------------------------------------------------------------------
 # phase 9: the translation simulator
 # ---------------------------------------------------------------------------
 SIM_MACHINES = {"ndp": ndp_machine, "cpu": cpu_machine, "zoo": zoo_machine}
@@ -3915,8 +4286,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
                       "flash_attention_sm90", "flash_attention_d256",
-                      "lru_scan", "sim_epilogue", "selective_scan"])
-    PA._lib(), FA._lib(), LS._lib(), SE._lib(), SS._lib()  # load them
+                      "lru_scan", "sim_epilogue", "selective_scan", "wkv"])
+    PA._lib(), FA._lib(), LS._lib(), SE._lib(), SS._lib(), WK._lib()
     FA._lib_bf16("sm90"), FA._lib_bf16("d256")    # d192 is d256's library
     print(f"kernel build (parallel): {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
@@ -4002,6 +4373,19 @@ def main() -> int:
     print(f"phase 13d ({JAMBA} train cut): {time.perf_counter() - t0:.1f} s")
     print(f"phase 13 (Mamba and the jamba hybrid): "
           f"{time.perf_counter() - t13:.1f} s")
+    t14 = t0 = time.perf_counter()
+    wkv_timed = phase_wkv_kernel()
+    print(f"phase 14a (WKV kernels): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_rwkv_parity()
+    print(f"phase 14b (rwkv parity): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rwkv_serve = phase_rwkv_serve()
+    print(f"phase 14c ({RWKV} serve): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rwkv_train = phase_rwkv_train()
+    print(f"phase 14d ({RWKV} train): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 14 (RWKV6): {time.perf_counter() - t14:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches,
@@ -4052,6 +4436,9 @@ def main() -> int:
         # phase 13c: jamba-1.5-large's serve cut (flat, radix)
         "jamba_serve_launches": jamba_serve[BT.FLAT],
         "jamba_radix_serve_launches": jamba_serve[BT.RADIX],
+        # phase 14c: rwkv6-3b served (flat, radix): no attention layer
+        "rwkv_serve_launches": rwkv_serve[BT.FLAT],
+        "rwkv_radix_serve_launches": rwkv_serve[BT.RADIX],
         **{f"{tag}_{k}": timed[f"{tag}_bf16"][k]
            for tag in ("gemma3_p16", "granite34b", "jamba")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -4064,6 +4451,15 @@ def main() -> int:
         # recompute of activation checkpointing)
         "launches": jamba_train["scan"][direction == "bwd"],
         **scan_timed[direction],
+    } for direction in ("fwd", "bwd")] + [{
+        "name": f"wkv_{direction}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv.cu",
+        "replaces": "src/repro/models/rwkv.py:105",
+        # phase 14d: rwkv6-3b's training (forward twice a step with the
+        # recompute of activation checkpointing)
+        "launches": rwkv_train["wkv"][direction == "bwd"],
+        **wkv_timed[direction],
     } for direction in ("fwd", "bwd")] + [{
         "name": "lru_scan",
         "route": "cuda",

@@ -132,9 +132,9 @@ class ArchConfig:
         return out
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head) of the
-        kinds the port runs, the JAX package's formula (MLA's two norm
-        scales are not counted there either)."""
+        """Analytic parameter count (embedding + blocks + head), the
+        JAX package's formula (MLA's two norm scales are not counted
+        there either, nor RWKV's channel-mix ``mix_k``)."""
         d = self.d_model
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for mixer, ffn in self.layer_kinds():
@@ -180,6 +180,14 @@ class ArchConfig:
                     + d_in * mc.d_state                # A_log
                     + d_in                             # D
                     + d_in * d)                        # out_proj
+        if kind == RWKV:
+            # the JAX package's count, kept as it is: it counts a gate
+            # lora rwkv_init never creates and 6 d of the 9 d mix, decay
+            # and norm parameters the leaves hold (ROADMAP section 3)
+            r = self.rwkv
+            return (5 * d * d                  # r, k, v, g, o projections
+                    + d * (r.decay_lora + r.gate_lora) * 2
+                    + 6 * d)                   # token-shift mix params
         raise ValueError(f"unknown mixer kind {kind}")
 
 

@@ -2,7 +2,7 @@
 //
 // Replaces the time recurrence of the JAX package's `mamba_apply`
 // (src/repro/models/mamba.py:96-107: the `step` run by `chunked_scan`,
-// src/repro/models/scan_utils.py:165, a `jax.lax.scan` with a
+// src/repro/models/scan_utils.py:18, a `jax.lax.scan` with a
 // `jax.checkpoint` every 256 steps) and XLA's autodiff of it.  It is not
 // a Pallas kernel; PyTorch has no compiled scan, and an eager step loop
 // issues about 8 ops a step.  `ref.selective_scan_ref` and

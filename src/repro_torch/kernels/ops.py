@@ -14,6 +14,8 @@ from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.selective_scan import SelectiveScan
 from repro_torch.kernels.selective_scan import check as _scan_check
+from repro_torch.kernels.wkv import WKV
+from repro_torch.kernels.wkv import check as _wkv_check
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -56,3 +58,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         _scan_check(x, dt, b, c, a)
         return ref.selective_scan_ref(x, dt, b, c, a)
     raise ValueError(f"no selective_scan for device {x.device}")
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor) -> torch.Tensor:
+    """Differentiable WKV recurrence (RWKV6): o (B, S, H hs) float32 from
+    r, k, v, w (B, S, H hs) and u (H, hs), all float32 (see
+    kernels/wkv.py).  On the card the forward and the backward are CUDA
+    kernels; on the CPU autograd differentiates the plain version."""
+    if r.device.type == "cuda":
+        return WKV.apply(r, k, v, w, u)
+    if r.device.type == "cpu":
+        _wkv_check(r, k, v, w, u)
+        return ref.wkv_ref(r, k, v, w, u)
+    raise ValueError(f"no wkv for device {r.device}")

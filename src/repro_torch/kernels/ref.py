@@ -825,3 +825,133 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
     for r in range(1, bsz):
         da_sum += da_part[r]
     return dx.to(x.dtype), ddt, db, dc, da_sum
+
+
+# ---------------------------------------------------------------------------
+# RWKV6's WKV recurrence
+# ---------------------------------------------------------------------------
+#: columns of the state one block of the WKV kernels holds: the backward
+#: sums dr, dk, dw and du over a block's columns first, then over the
+#: blocks in order
+WKV_COLUMNS = 16
+
+
+def wkv_check_length(s: int) -> None:
+    """The JAX package's chunk rule (``chunked_scan``): one scan up to a
+    chunk, else a whole number of chunks."""
+    if s > SCAN_CHUNK and s % SCAN_CHUNK:
+        raise ValueError(f"wkv: a sequence of {s} steps is longer than a "
+                         f"{SCAN_CHUNK}-step scan chunk and not a whole "
+                         f"number of chunks (the JAX package's "
+                         f"chunked_scan refuses it too)")
+
+
+def _heads(t: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(B, S, H hs) -> (B, S, H, hs)."""
+    return t.reshape(t.shape[:2] + tuple(u.shape))
+
+
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, *,
+            return_states: bool = False):
+    """RWKV6's WKV recurrence a step at a time: the JAX ``step`` of
+    ``rwkv_apply`` (``src/repro/models/rwkv.py:105-111``) under the same
+    chunk rule, and the specification of ``csrc/wkv.cu``'s forward.
+
+    r, k, v, w: (B, S, H hs) float32; u: (H, hs) float32.  Per batch row
+    and head, from ``S_0 = 0``: ``a_t = k_t v_t^T``, ``o_t[j] = sum_i
+    r_t[i] (S_t[i, j] + u[i] a_t[i, j])``, ``S_{t+1} = diag(w_t) S_t +
+    a_t``.  Returns o (B, S, H hs) float32 and, with ``return_states``,
+    the states the forward kernel keeps for the backward: S at the start
+    of every :data:`SCAN_CHUNK`-step chunk, (B, ceil(S / chunk), H, hs,
+    hs) (the first is 0), outside the autograd graph.  On the CPU
+    autograd differentiates o."""
+    bsz, s, d = r.shape
+    wkv_check_length(s)
+    rh, kh, vh, wh = (_heads(t, u) for t in (r, k, v, w))
+    state = torch.zeros((bsz,) + tuple(u.shape) + (u.shape[1],),
+                        dtype=torch.float32, device=r.device)
+    os_, states = [], []
+    for t in range(s):
+        if return_states and t % SCAN_CHUNK == 0:
+            states.append(state.detach())
+        a = kh[:, t, :, :, None] * vh[:, t, :, None, :]
+        os_.append(torch.einsum("bhi,bhij->bhj", rh[:, t],
+                                state + u[None, :, :, None] * a))
+        state = wh[:, t, :, :, None] * state + a
+    o = torch.stack(os_, dim=1).reshape(bsz, s, d)
+    return (o, torch.stack(states, dim=1)) if return_states else o
+
+
+def _column_block_sums(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, hs, hs) -> (blocks, B, H, hs): sums over each block of
+    :data:`WKV_COLUMNS` columns (the last axis)."""
+    cols = min(x.shape[-1], WKV_COLUMNS)
+    sums = x.reshape(x.shape[:-1] + (-1, cols)).sum(-1)
+    return sums.permute(3, 0, 1, 2)
+
+
+@torch.no_grad()
+def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor, states: torch.Tensor,
+                do: torch.Tensor):
+    """The backward of :func:`wkv_ref` as the kernel computes it, from
+    the chunk states that :func:`wkv_ref` returns with ``return_states``
+    and do (B, S, H hs) float32.
+
+    The chunks run in reverse; each chunk's states are recomputed from
+    its stored state (the kernel keeps the state every 8 steps, then
+    recomputes an 8-step sub-chunk at a time: the same recurrence; no
+    state is ever recovered by dividing by w, which can be tiny).  With
+    G the gradient of the state after step t (0 after the last step):
+
+        dS_t     = diag(w_t) G + r_t do_t^T        (the next G)
+        dr_t[i]  = sum_j (S_t[i, j] + u[i] k_t[i] v_t[j]) do_t[j]
+        dk_t[i]  = sum_j v_t[j] (u[i] r_t[i] do_t[j] + G[i, j])
+        dv_t[j]  = sum_i k_t[i] (u[i] r_t[i] do_t[j] + G[i, j])
+        dw_t[i]  = sum_j S_t[i, j] G[i, j]
+        du[i]    = sum_{b, t} r_t[i] k_t[i] sum_j v_t[j] do_t[j]
+
+    dr, dk, dw and du are summed over each block of
+    :data:`WKV_COLUMNS` columns, then over the blocks in order (du over
+    the batch rows, each row's blocks in order).  Returns (dr, dk, dv,
+    dw, du), float32."""
+    bsz, s, d = r.shape
+    nh, hs = u.shape
+    rh, kh, vh, wh, doh = (_heads(t, u) for t in (r, k, v, w, do))
+    blocks = -(-hs // WKV_COLUMNS)
+    part = torch.zeros((3, blocks, bsz, s, nh, hs), dtype=torch.float32,
+                       device=r.device)
+    part_u = torch.zeros((bsz, blocks, nh, hs), dtype=torch.float32,
+                         device=r.device)
+    dv = torch.empty((bsz, s, nh, hs), dtype=torch.float32, device=r.device)
+    g = torch.zeros((bsz, nh, hs, hs), dtype=torch.float32, device=r.device)
+    for ci in reversed(range(states.shape[1])):
+        t0, t1 = ci * SCAN_CHUNK, min(s, (ci + 1) * SCAN_CHUNK)
+        chunk = [states[:, ci]]
+        for t in range(t0, t1):
+            a = kh[:, t, :, :, None] * vh[:, t, :, None, :]
+            chunk.append(wh[:, t, :, :, None] * chunk[-1] + a)
+        for t in reversed(range(t0, t1)):
+            s_t = chunk[t - t0]
+            r_t, k_t, v_t, w_t, do_t = (x[:, t] for x in (rh, kh, vh, wh,
+                                                          doh))
+            a = k_t[..., :, None] * v_t[..., None, :]
+            da = (u * r_t)[..., :, None] * do_t[..., None, :] + g
+            dv[:, t] = torch.einsum("bhi,bhij->bhj", k_t, da)
+            part[0, :, :, t] = _column_block_sums(
+                (s_t + u[None, :, :, None] * a) * do_t[..., None, :])
+            part[1, :, :, t] = _column_block_sums(v_t[..., None, :] * da)
+            part[2, :, :, t] = _column_block_sums(s_t * g)
+            vdo = _column_block_sums((v_t * do_t)[..., None, :])  # (nb,B,H,1)
+            part_u += (r_t * k_t)[:, None] * vdo.permute(1, 0, 2, 3)
+            g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
+    drkw = part[:, 0].clone()
+    for blk in range(1, blocks):
+        drkw += part[:, blk]
+    du = torch.zeros((nh, hs), dtype=torch.float32, device=r.device)
+    for row in range(bsz):
+        for blk in range(blocks):
+            du += part_u[row, blk]
+    dr, dk, dw = (x.reshape(bsz, s, d) for x in drkw)
+    return dr, dk, dv.reshape(bsz, s, d), dw, du

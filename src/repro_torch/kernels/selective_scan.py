@@ -4,7 +4,7 @@ and backward.
 The kernels (``csrc/selective_scan.cu``) replace the time recurrence of
 the JAX package's ``mamba_apply`` (the ``step`` of
 ``src/repro/models/mamba.py:96-107``, run by ``jax.lax.scan`` inside
-``chunked_scan``, ``src/repro/models/scan_utils.py:165``) and XLA's
+``chunked_scan``, ``src/repro/models/scan_utils.py:18``) and XLA's
 autodiff of it.  It is not a Pallas kernel: PyTorch has no compiled
 scan, an eager loop issues about 8 ops a step, and autograd through it
 keeps every step's state.  ``ref.selective_scan_ref`` and

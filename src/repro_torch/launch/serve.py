@@ -20,11 +20,15 @@ does):
 jamba-1.5-large-398b's Mamba layers decode with the single-step update
 and its attention layers through the paged kernel; at 398 B parameters
 it too runs on one card only with its depth cut (``chip_smoke.py`` phase
-13c serves the period's first 4 layers).
+13c serves the period's first 4 layers).  rwkv6-3b serves at full width
+and depth; its layers keep a recurrent state and no KV cache, so no step
+makes a paged-attention call:
+  python -m repro_torch.launch.serve --arch rwkv6-3b
 
 Reduced run on the CPU (smoke config in float32, plain PyTorch path):
   python -m repro_torch.launch.serve --local-smoke --device cpu \
-      [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b]
+      [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b
+       | rwkv6-3b]
 
 Translation-costed serving: ``--cost-model pinned`` prices every step
 with the committed cost table, ``--cost-model sweep`` derives the table

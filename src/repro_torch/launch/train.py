@@ -21,10 +21,12 @@ prints the time by operator and the card's busy share.
 Reduced run on the CPU (smoke config in float32 at 64 tokens, plain
 PyTorch path), as the JAX launcher's ``--local-smoke``:
   python -m repro_torch.launch.train --local-smoke --device cpu \
-      [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b]
+      [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b
+       | rwkv6-3b]
 A Mamba layer's time recurrence runs the hand-written selective-scan
-kernels on the card (``kernels/selective_scan.py``), the plain step loop
-on the CPU.
+kernels on the card (``kernels/selective_scan.py``), an RWKV layer's the
+WKV kernels (``kernels/wkv.py``; rwkv6-3b trains at full width and
+depth: ``--arch rwkv6-3b``), the plain step loops on the CPU.
 
 Without ``--device cpu`` the launcher needs a card and raises otherwise.
 The multi-host flags of the JAX launcher (``--coordinator``,

@@ -95,16 +95,17 @@ class MLA(nn.Module):
 
 def rope_width(cfg, mixer_kind: str) -> int:
     """The width a layer of ``mixer_kind`` rotates: the head for GQA,
-    ``qk_rope_head_dim`` for MLA."""
+    ``qk_rope_head_dim`` for MLA, 0 (none) for Mamba and RWKV."""
+    if mixer_kind in (C.MAMBA, C.RWKV):
+        return 0
     return (cfg.mla.qk_rope_head_dim if mixer_kind == C.ATTN_MLA
             else cfg.head_dim)
 
 
 def rope_widths(cfg) -> Set[int]:
-    """The widths the config's attention layers rotate (a Mamba layer
-    takes no rope)."""
-    return {rope_width(cfg, mk) for mk, _ in cfg.layer_kinds()
-            if mk != C.MAMBA}
+    """The widths the config's attention layers rotate."""
+    return {w for w in (rope_width(cfg, mk) for mk, _ in cfg.layer_kinds())
+            if w}
 
 
 @dataclass

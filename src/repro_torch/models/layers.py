@@ -123,3 +123,36 @@ def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return h @ ffn.w_down
+
+
+class ReluSqFFN(nn.Module):
+    """RWKV's channel mix (``relu_sq_ffn_init``): ``w_k`` (D, d_ff),
+    ``w_v`` (d_ff, D) and the token-shift mix ``mix_k`` (D), all in the
+    model dtype."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
+                 device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w_k = frozen(dense_init(generator, d_model, d_ff, dtype,
+                                     device))
+        self.w_v = frozen(dense_init(generator, d_ff, d_model, dtype,
+                                     device))
+        self.mix_k = frozen(torch.full((d_model,), 0.5, dtype=dtype,
+                                       device=device))
+
+
+def token_shift_mix(x: torch.Tensor, x_prev: torch.Tensor,
+                    mix: torch.Tensor) -> torch.Tensor:
+    """``x mix + x_prev (1 - mix)`` taken in float32, cast to x's dtype."""
+    mix = mix.float()
+    return (x.float() * mix + x_prev.float() * (1 - mix)).to(x.dtype)
+
+
+def relu_sq_ffn_apply(ffn: ReluSqFFN, x: torch.Tensor,
+                      x_prev: torch.Tensor) -> torch.Tensor:
+    """``relu(xk W_k)^2 W_v`` with ``xk`` the token-shift mix of x and
+    the previous token's x_prev (both (..., D))."""
+    xk = token_shift_mix(x, x_prev, ffn.mix_k)
+    h = torch.square(F.relu((xk @ ffn.w_k).float()))
+    return h.to(x.dtype) @ ffn.w_v

@@ -15,13 +15,17 @@ list with one dict per layer.  KV backends of a GQA layer:
   paged_radix 2-level directory->leaf block table (two indirections)
 An MLA layer holds its dense latent cache (``ckv``, ``kr``) in every
 mode, as the JAX package's ``block_init_state`` does; a Mamba layer its
-recurrent state (``conv``, ``ssm``, float32), which
-:func:`reset_recurrent_state` zeroes for one batch slot.
+recurrent state (``conv``, ``ssm``, float32); an RWKV layer its own
+(``wkv``, ``shift``, float32) and, with a dense FFN, the channel mix's
+token shift (``ffn_shift``, float32).  :func:`reset_recurrent_state`
+zeroes a layer's recurrent state for one batch slot.
 
 Ported blocks: global (``ATTN``), sliding-window (``ATTN_LOCAL``) or
-latent (``ATTN_MLA``) attention and Mamba (``MAMBA``, no rope), with a
-dense FFN (gated or GELU) or a routed mixture of experts (``MOE_FF``);
-RWKV blocks raise ``NotImplementedError`` naming their ROADMAP item.
+latent (``ATTN_MLA``) attention, Mamba (``MAMBA``) and RWKV6
+(``RWKV``), the last two with no rope, with a dense FFN (gated or GELU;
+in a config with ``cfg.rwkv`` RWKV's relu^2 channel mix, which shifts
+the norm2 output by one token) or a routed mixture of experts
+(``MOE_FF``).
 """
 from __future__ import annotations
 
@@ -29,38 +33,32 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import config as C
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
-from repro_torch.models.layers import FFN, RMSNorm, ffn_apply, rope_tables
+from repro_torch.models import rwkv as R
+from repro_torch.models.layers import (FFN, ReluSqFFN, RMSNorm, ffn_apply,
+                                       relu_sq_ffn_apply, rope_tables)
 
-_NOT_PORTED = {C.RWKV: ("RWKV blocks", "8f")}
-_MIXERS = (C.ATTN, C.ATTN_LOCAL, C.ATTN_MLA, C.MAMBA)
+_MIXERS = (C.ATTN, C.ATTN_LOCAL, C.ATTN_MLA, C.MAMBA, C.RWKV)
 #: the keys of a layer's decode state that carry a sequence's recurrent
-#: state (a Mamba layer's), reset when a slot takes a new sequence
-RECURRENT_STATE = ("conv", "ssm")
-
-
-def _roadmap(item: str) -> str:
-    return f"ROADMAP module queue item {item}, other model families"
+#: state (a Mamba or an RWKV layer's, the channel mix's token shift),
+#: reset when a slot takes a new sequence
+RECURRENT_STATE = ("conv", "ssm", "wkv", "shift", "ffn_shift")
 
 
 def _check_kinds(cfg, mixer_kind: str, ffn_kind: str) -> None:
-    if mixer_kind in _NOT_PORTED:
-        what, item = _NOT_PORTED[mixer_kind]
-        raise NotImplementedError(f"{cfg.name}: {what} not ported yet "
-                                  f"({_roadmap(item)})")
     if mixer_kind not in _MIXERS or ffn_kind not in (C.DENSE_FF,
                                                      C.MOE_FF):
         raise ValueError((mixer_kind, ffn_kind))
     if mixer_kind == C.MAMBA and cfg.mamba is None:
         raise ValueError(f"{cfg.name}: a Mamba layer needs cfg.mamba")
-    if cfg.rwkv is not None:
-        raise NotImplementedError(f"{cfg.name}: the RWKV channel mix is not "
-                                  f"ported yet ({_roadmap('8f')})")
+    if mixer_kind == C.RWKV and cfg.rwkv is None:
+        raise ValueError(f"{cfg.name}: an RWKV layer needs cfg.rwkv")
 
 
 # ---------------------------------------------------------------------------
@@ -77,38 +75,59 @@ class Block(nn.Module):
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
         self.mla = mixer_kind == C.ATTN_MLA
         self.mamba = mixer_kind == C.MAMBA
+        self.rwkv = mixer_kind == C.RWKV
         if self.mamba:
             self.mixer = M.Mamba(cfg, dt, device, generator)
+        elif self.rwkv:
+            self.mixer = R.RWKV(cfg, dt, device, generator)
         elif self.mla:
             self.mixer = A.MLA(cfg, dt, device, generator)
         else:
             self.mixer = A.Attention(cfg, dt, device, generator)
         self.moe = ffn_kind == C.MOE_FF
-        self.ffn = (MOE.MoE(cfg, dt, device, generator) if self.moe
-                    else FFN(cfg.d_model, cfg.d_ff, dt, device, generator,
-                             gated=cfg.gated_ffn))
+        #: RWKV's relu^2 channel mix in place of the dense FFN
+        self.channel_mix = not self.moe and cfg.rwkv is not None
+        if self.moe:
+            self.ffn = MOE.MoE(cfg, dt, device, generator)
+        elif self.channel_mix:
+            self.ffn = ReluSqFFN(cfg.d_model, cfg.d_ff, dt, device,
+                                 generator)
+        else:
+            self.ffn = FFN(cfg.d_model, cfg.d_ff, dt, device, generator,
+                           gated=cfg.gated_ffn)
         #: keys older than this are masked (0: a global layer)
         self.window = cfg.window_size if mixer_kind == C.ATTN_LOCAL else 0
         #: the width of the rope tables the mixer takes (0: none)
-        self.rope_width = 0 if self.mamba else A.rope_width(cfg, mixer_kind)
+        self.rope_width = A.rope_width(cfg, mixer_kind)
 
 
-def _ffn(block: Block, h: torch.Tensor, cfg
+def _ffn(block: Block, h: torch.Tensor, cfg,
+         shift_prev: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y, aux): aux is the MoE's load-balance loss, 0 for a dense FFN."""
+    """(y, aux): aux is the MoE's load-balance loss, 0 for a dense FFN.
+    The channel mix shifts h (the norm2 output) along the sequence in
+    training, zero first; in decode it takes ``shift_prev`` (B, D), the
+    previous token's."""
     if block.moe:
         return MOE.moe_apply(block.ffn, h, cfg)
-    return ffn_apply(block.ffn, h), torch.zeros((), device=h.device)
+    zero = torch.zeros((), device=h.device)
+    if block.channel_mix:
+        prev = (F.pad(h, (0, 0, 1, 0))[:, :-1] if shift_prev is None
+                else shift_prev[:, None].to(h.dtype))
+        return relu_sq_ffn_apply(block.ffn, h, prev), zero
+    return ffn_apply(block.ffn, h), zero
 
 
 def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
                       sin: torch.Tensor, cfg
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); ``cos``/``sin`` at the block's ``rope_width``
-    (None for a Mamba block).  Returns (x', aux)."""
+    (None for a Mamba or an RWKV block).  Returns (x', aux)."""
     h = block.norm1(x, cfg.rms_norm_eps)
     if block.mamba:
         x = x + M.mamba_apply(block.mixer, h, cfg)
+    elif block.rwkv:
+        x = x + R.rwkv_apply(block.mixer, h, cfg)
     elif block.mla:
         x = x + A.mla_apply(block.mixer, h, cos, sin, cfg)
     else:
@@ -117,10 +136,24 @@ def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
     return x + y, aux
 
 
-def block_init_state(cfg, mixer_kind: str, batch: int, max_len: int,
-                     kv_mode: str, page_size: int, pages_per_layer: int,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
+def block_init_state(cfg, mixer_kind: str, ffn_kind: str, batch: int,
+                     max_len: int, kv_mode: str, page_size: int,
+                     pages_per_layer: int, device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    st = _mixer_state(cfg, mixer_kind, batch, max_len, kv_mode, page_size,
+                      pages_per_layer, device)
+    if cfg.rwkv is not None and ffn_kind == C.DENSE_FF:
+        st["ffn_shift"] = torch.zeros((batch, cfg.d_model),
+                                      dtype=torch.float32, device=device)
+    return st
+
+
+def _mixer_state(cfg, mixer_kind: str, batch: int, max_len: int,
+                 kv_mode: str, page_size: int, pages_per_layer: int,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
     dt = cfg.torch_dtype
+    if mixer_kind == C.RWKV:
+        return R.rwkv_init_state(cfg, batch, device)
     if mixer_kind == C.MAMBA:
         return M.mamba_init_state(cfg, batch, device)
     if mixer_kind == C.ATTN_MLA:
@@ -146,6 +179,8 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
     h = block.norm1(x, cfg.rms_norm_eps)
     if block.mamba:
         y = M.mamba_decode(block.mixer, h, st, cfg)
+    elif block.rwkv:
+        y = R.rwkv_decode(block.mixer, h, st, cfg)
     elif block.mla:
         y = A.mla_decode(block.mixer, h, st["ckv"], st["kr"], step, cfg)
     elif kv_mode == "dense":
@@ -155,7 +190,12 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
         y = A.attn_decode_paged(block.mixer, h, st["kp"], st["vp"], step,
                                 cfg, block.window)
     x = x + y
-    return x + _ffn(block, block.norm2(x, cfg.rms_norm_eps), cfg)[0]
+    h2 = block.norm2(x, cfg.rms_norm_eps)
+    shift_prev = st.get("ffn_shift")
+    y2 = _ffn(block, h2, cfg, shift_prev)[0]
+    if shift_prev is not None:
+        shift_prev.copy_(h2[:, 0].float())
+    return x + y2
 
 
 # ---------------------------------------------------------------------------
@@ -197,9 +237,9 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
 def stack_init_state(cfg, batch: int, max_len: int, kv_mode: str,
                      page_size: int, pages_per_layer: int,
                      device: torch.device) -> List[Dict[str, Any]]:
-    return [block_init_state(cfg, mk, batch, max_len, kv_mode, page_size,
-                             pages_per_layer, device)
-            for mk, _ in cfg.layer_kinds()]
+    return [block_init_state(cfg, mk, fk, batch, max_len, kv_mode,
+                             page_size, pages_per_layer, device)
+            for mk, fk in cfg.layer_kinds()]
 
 
 def reset_recurrent_state(state: List[Dict[str, Any]], slot: int) -> None:
@@ -218,8 +258,8 @@ def stack_apply_decode(stack: Stack, state: List[Dict[str, Any]],
     """x: (B,1,D).  Updates the per-layer states in place; returns x.
     The operands all layers share are prepared once for the step; the
     cache length, page size and latent length come from the first layer
-    that holds such a cache (an MLA or a Mamba layer has no KV cache or
-    pool)."""
+    that holds such a cache (an MLA, a Mamba or an RWKV layer has no KV
+    cache or pool)."""
 
     def dim1(key: str) -> int:
         return next((st[key].shape[1] for st in state if key in st), 0)

@@ -137,7 +137,12 @@ def test_init_params_is_seeded_and_on_device():
 
 
 def test_other_block_kinds_raise_not_implemented():
-    for kind, item in ((C.RWKV, "8f"),):
+    """Every block kind is ported; an encoder-decoder stack is not, and a
+    recurrent layer without its config is refused."""
+    encdec = dataclasses.replace(CFG, encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*8d"):
+        init_params(encdec, torch.Generator(), device="cpu")
+    for kind in (C.MAMBA, C.RWKV):
         other = dataclasses.replace(CFG, layer_pattern=((kind, C.DENSE_FF),))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        with pytest.raises(ValueError, match="layer needs cfg"):
             init_params(other, torch.Generator(), device="cpu")
