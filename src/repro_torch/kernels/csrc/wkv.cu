@@ -14,13 +14,18 @@
 // per batch row and head.  r, k, v, w and o are (B, S, H HS) float32, u
 // (H, HS); HS (the head size) is a template, 64 (rwkv6-3b) or 16.
 //
-// Bound.  Per step and state element the forward does 7 flops (an FMA
-// counts 2): 9.4 GFLOP at rwkv6-3b's training call (B 2, S 4,096, 40
-// heads of 64), 0.14 ms at the card's 67 TFLOP/s of float32; it must
-// move r, k, v, w in and o out, 0.42 GB, 0.13 ms at 3.35 TB/s.  The
-// backward does 18 flops an element and step (0.36 ms) and moves 0.78
-// GB (0.23 ms).  Each state element is a chain of S dependent steps; the
-// columns j of a head's state are independent in the forward.
+// Bound.  The least work a step and state element is 5 flops in the
+// forward (r S, 2; w S + k v, 3) and 14 in the backward (the state
+// recomputed, 3; w G + r do, 3; dr, dk, dv, dw, 2 each); the u terms are
+// rank one a row and step, O(HS) a step (an FMA counts 2).  At
+// rwkv6-3b's training call (B 2, S 4,096, 40 heads of 64) the forward
+// does 6.7 GFLOP, 0.10 ms at the card's 67 TFLOP/s of float32, and must
+// move r, k, v, w in and o and the chunk states out, 0.44 GB, 0.13 ms at
+// 3.35 TB/s: bound by bytes.  The backward does 18.8 GFLOP (0.28 ms) and
+// moves 0.78 GB (0.23 ms): bound by operations.  This kernel spends 7
+// and 18 flops an element and step (the u terms per element).  Each
+// state element is a chain of S dependent steps; the columns j of a
+// head's state are independent in the forward.
 //
 // Forward: a block holds COLS = 16 columns of one (row, head)'s state, a
 // column's HS rows spread over 8 lanes (HS / 8 rows a lane, strided so

@@ -830,12 +830,6 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
 # ---------------------------------------------------------------------------
 # RWKV6's WKV recurrence
 # ---------------------------------------------------------------------------
-#: columns of the state one block of the WKV kernels holds: the backward
-#: sums dr, dk, dw and du over a block's columns first, then over the
-#: blocks in order
-WKV_COLUMNS = 16
-
-
 def wkv_check_length(s: int) -> None:
     """The JAX package's chunk rule (``chunked_scan``): one scan up to a
     chunk, else a whole number of chunks."""
@@ -883,27 +877,18 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o, torch.stack(states, dim=1)) if return_states else o
 
 
-def _column_block_sums(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, hs, hs) -> (blocks, B, H, hs): sums over each block of
-    :data:`WKV_COLUMNS` columns (the last axis)."""
-    cols = min(x.shape[-1], WKV_COLUMNS)
-    sums = x.reshape(x.shape[:-1] + (-1, cols)).sum(-1)
-    return sums.permute(3, 0, 1, 2)
-
-
 @torch.no_grad()
 def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 w: torch.Tensor, u: torch.Tensor, states: torch.Tensor,
                 do: torch.Tensor):
-    """The backward of :func:`wkv_ref` as the kernel computes it, from
+    """The backward of :func:`wkv_ref` by the kernel's algorithm, from
     the chunk states that :func:`wkv_ref` returns with ``return_states``
     and do (B, S, H hs) float32.
 
     The chunks run in reverse; each chunk's states are recomputed from
-    its stored state (the kernel keeps the state every 8 steps, then
-    recomputes an 8-step sub-chunk at a time: the same recurrence; no
-    state is ever recovered by dividing by w, which can be tiny).  With
-    G the gradient of the state after step t (0 after the last step):
+    its stored state (no state is ever recovered by dividing by w, which
+    can be tiny).  With G the gradient of the state after step t (0
+    after the last step):
 
         dS_t     = diag(w_t) G + r_t do_t^T        (the next G)
         dr_t[i]  = sum_j (S_t[i, j] + u[i] k_t[i] v_t[j]) do_t[j]
@@ -912,24 +897,16 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dw_t[i]  = sum_j S_t[i, j] G[i, j]
         du[i]    = sum_{b, t} r_t[i] k_t[i] sum_j v_t[j] do_t[j]
 
-    dr, dk, dw and du are summed over each block of
-    :data:`WKV_COLUMNS` columns, then over the blocks in order (du over
-    the batch rows, each row's blocks in order).  Returns (dr, dk, dv,
-    dw, du), float32."""
+    Returns (dr, dk, dv, dw, du), float32."""
     bsz, s, d = r.shape
-    nh, hs = u.shape
     rh, kh, vh, wh, doh = (_heads(t, u) for t in (r, k, v, w, do))
-    blocks = -(-hs // WKV_COLUMNS)
-    part = torch.zeros((3, blocks, bsz, s, nh, hs), dtype=torch.float32,
-                       device=r.device)
-    part_u = torch.zeros((bsz, blocks, nh, hs), dtype=torch.float32,
-                         device=r.device)
-    dv = torch.empty((bsz, s, nh, hs), dtype=torch.float32, device=r.device)
-    g = torch.zeros((bsz, nh, hs, hs), dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (torch.empty_like(rh) for _ in range(4))
+    du = torch.zeros_like(u)
+    g = torch.zeros_like(states[:, 0])
     for ci in reversed(range(states.shape[1])):
         t0, t1 = ci * SCAN_CHUNK, min(s, (ci + 1) * SCAN_CHUNK)
         chunk = [states[:, ci]]
-        for t in range(t0, t1):
+        for t in range(t0, t1 - 1):
             a = kh[:, t, :, :, None] * vh[:, t, :, None, :]
             chunk.append(wh[:, t, :, :, None] * chunk[-1] + a)
         for t in reversed(range(t0, t1)):
@@ -938,20 +915,12 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                           doh))
             a = k_t[..., :, None] * v_t[..., None, :]
             da = (u * r_t)[..., :, None] * do_t[..., None, :] + g
+            dr[:, t] = torch.einsum("bhij,bhj->bhi",
+                                    s_t + u[None, :, :, None] * a, do_t)
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", da, v_t)
             dv[:, t] = torch.einsum("bhi,bhij->bhj", k_t, da)
-            part[0, :, :, t] = _column_block_sums(
-                (s_t + u[None, :, :, None] * a) * do_t[..., None, :])
-            part[1, :, :, t] = _column_block_sums(v_t[..., None, :] * da)
-            part[2, :, :, t] = _column_block_sums(s_t * g)
-            vdo = _column_block_sums((v_t * do_t)[..., None, :])  # (nb,B,H,1)
-            part_u += (r_t * k_t)[:, None] * vdo.permute(1, 0, 2, 3)
+            dw[:, t] = (s_t * g).sum(-1)
+            du += (r_t * k_t * (v_t * do_t).sum(-1, keepdim=True)).sum(0)
             g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
-    drkw = part[:, 0].clone()
-    for blk in range(1, blocks):
-        drkw += part[:, blk]
-    du = torch.zeros((nh, hs), dtype=torch.float32, device=r.device)
-    for row in range(bsz):
-        for blk in range(blocks):
-            du += part_u[row, blk]
-    dr, dk, dw = (x.reshape(bsz, s, d) for x in drkw)
-    return dr, dk, dv.reshape(bsz, s, d), dw, du
+    return (dr.reshape(bsz, s, d), dk.reshape(bsz, s, d),
+            dv.reshape(bsz, s, d), dw.reshape(bsz, s, d), du)

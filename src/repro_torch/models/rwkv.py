@@ -14,7 +14,7 @@ the hand-written kernel pair of ``kernels/wkv.py`` (forward and
 backward), on the CPU the plain step loop.  The JAX package runs it as
 ``chunked_scan`` (chunks of 256 steps), whose assert refuses a sequence
 longer than a chunk that is not a whole number of chunks;
-:func:`rwkv_apply` refuses it too.  The output groupnorm (per head, eps
+``ops.wkv`` refuses it too.  The output groupnorm (per head, eps
 64e-5, the population variance), the ``silu(g)`` gate and the
 projections stay plain torch.  Decode is the O(1) single-step update in
 plain torch ops.  State: ``wkv`` (B, H, hs, hs) and ``shift`` (B, D),
@@ -33,7 +33,6 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import SCAN_CHUNK
 from repro_torch.models.layers import dense_init, frozen, token_shift_mix
 
 #: the groupnorm's epsilon (``_groupnorm_heads``)
@@ -109,13 +108,8 @@ def _output(m: RWKV, o: torch.Tensor, g: torch.Tensor, x_dtype, cfg
 
 
 def rwkv_apply(m: RWKV, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Train / prefill forward.  x: (B, S, D) -> (B, S, D)."""
-    s = x.shape[1]
-    if s > SCAN_CHUNK and s % SCAN_CHUNK:
-        raise ValueError(f"rwkv_apply: a sequence of {s} tokens is longer "
-                         f"than a {SCAN_CHUNK}-step scan chunk and not a "
-                         f"whole number of chunks (the JAX package's "
-                         f"chunked_scan refuses it too)")
+    """Train / prefill forward.  x: (B, S, D) -> (B, S, D).  ``ops.wkv``
+    refuses a ragged S over a chunk, as the JAX package's chunk rule."""
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, g, w = _projections(m, x, x_prev)
     o = ops.wkv(r.float().contiguous(), k.float().contiguous(),

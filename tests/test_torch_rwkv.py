@@ -14,8 +14,9 @@ held to rtol = atol = 2e-5 and 1e-5 (both packages sum in float32 in
 other orders: the einsum over the state, the projections); gradients to
 the same bound of each gradient's largest element (a weight's gradient
 sums over every token, and its rounding scales with its largest terms,
-not with the element; the backward's algorithm sums over columns and
-time in the kernel's blocked order).  The model's logits, losses and
+not with the element).  At slow decay (``w0`` -6) the forward too is
+held to 2e-5 of its largest element: outputs near 0 come from float32
+sums of terms in the tens there.  The model's logits, losses and
 gradients to rtol = atol = 1e-4 (several layers and the vocabulary
 projection).  Generated tokens exactly.
 """
@@ -103,16 +104,16 @@ def _rwkv_pair():
     return jcfg, cfg, jp, m
 
 
-def _wkv_inputs(b, s, h, hs, seed):
+def _wkv_inputs(b, s, h, hs, seed, w0=-0.5):
     """WKV operands at an RWKV layer's scale: r, k, v, do normal, w =
-    exp(-exp(-0.5 + 0.5 n)) (``w0`` and a decay lora's spread), u 0.1 n
+    exp(-exp(w0 + 0.5 n)) (a decay lora's spread), u 0.1 n
     (``rwkv_init``'s)."""
     rng = np.random.default_rng(seed)
     d = h * hs
     arrays = dict(r=rng.standard_normal((b, s, d)),
                   k=rng.standard_normal((b, s, d)),
                   v=rng.standard_normal((b, s, d)),
-                  w=np.exp(-np.exp(-0.5 + 0.5 * rng.standard_normal(
+                  w=np.exp(-np.exp(w0 + 0.5 * rng.standard_normal(
                       (b, s, d)))),
                   u=0.1 * rng.standard_normal((h, hs)),
                   do=rng.standard_normal((b, s, d)))
@@ -208,7 +209,7 @@ def test_params_roundtrip():
 def test_wkv_ref_and_bwd_ref_match_jax(b, s, h, hs):
     """The plain forward against the JAX recurrence under chunked_scan,
     and the kernel's backward algorithm against ``jax.grad`` of it: S
-    inside one chunk (17: not a whole 16-step backward sub-chunk),
+    inside one chunk (17: not a whole 8-step backward sub-chunk),
     exactly one chunk and two chunks; head sizes 16 and 64."""
     arrays, t = _wkv_inputs(b, s, h, hs, seed=s)
     j = {k: jnp.asarray(v, jnp.float32) for k, v in arrays.items()}
@@ -228,9 +229,9 @@ def test_wkv_ref_and_bwd_ref_match_jax(b, s, h, hs):
 @pytest.mark.parametrize("b,s,h,hs", [(2, 12, 2, 16), (1, 256, 1, 64),
                                       (2, 512, 2, 16), (3, 1, 2, 16)])
 def test_wkv_bwd_ref_matches_autograd(b, s, h, hs):
-    """``wkv_bwd_ref`` (chunks recomputed from their stored states, the
-    column-block partials of dr, dk, dw and du added in order) against
-    torch autograd of ``wkv_ref``; at S 1 the decay reaches no output."""
+    """``wkv_bwd_ref`` (chunks recomputed from their stored states)
+    against torch autograd of ``wkv_ref``; at S 1 the decay reaches no
+    output."""
     _, t = _wkv_inputs(b, s, h, hs, seed=s + 1)
     leaves = [x.clone().requires_grad_(True) for x in _args(t)]
     o, states = ref.wkv_ref(*leaves, return_states=True)
@@ -241,6 +242,30 @@ def test_wkv_bwd_ref_matches_autograd(b, s, h, hs):
     _scaled_close(got, want, WKV_TOL, "bwd_ref vs autograd")
     if s == 1:
         assert not got[3].any()
+
+
+@pytest.mark.parametrize("b,s,h,hs", [(1, 512, 1, 64), (2, 512, 2, 16)])
+def test_wkv_slow_decay_matches_jax_and_autograd(b, s, h, hs):
+    """Slow decay, ``w0`` -6 (w about 0.997): a state sums hundreds of
+    steps and G crosses the 256-step chunk at nearly full weight.  The
+    plain forward against the JAX recurrence, and ``wkv_bwd_ref``
+    against ``jax.grad`` and torch autograd, all to 2e-5 of the largest
+    element."""
+    arrays, t = _wkv_inputs(b, s, h, hs, seed=s + hs, w0=-6.0)
+    assert arrays["w"].mean() > 0.99
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in arrays.items()}
+    leaves = [x.clone().requires_grad_(True) for x in _args(t)]
+    o, states = ref.wkv_ref(*leaves, return_states=True)
+    jo = _jax_wkv(j["r"], j["k"], j["v"], j["w"], j["u"])
+    _scaled_close([o.detach()], [jo], WKV_TOL, "wkv_ref vs jax",
+                  names=("o",))
+    got = ref.wkv_bwd_ref(*_args(t), states, t["do"])
+    want = torch.autograd.grad(o, leaves, t["do"])
+    _scaled_close(got, want, WKV_TOL, "bwd_ref vs autograd")
+    jgrads = jax.grad(lambda *x: jnp.sum(_jax_wkv(*x) * j["do"]),
+                      argnums=(0, 1, 2, 3, 4))(
+        j["r"], j["k"], j["v"], j["w"], j["u"])
+    _scaled_close(got, jgrads, WKV_TOL, "bwd_ref vs jax.grad")
 
 
 def test_chunk_states_restart_the_recurrence():
