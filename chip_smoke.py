@@ -217,15 +217,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         launches 6 + 3 and sm90 flash launches 6 + 3, peak memory, and a
         fourth step under torch.profiler (time by operator);
  14. RWKV6 (rwkv6-3b):
-     a. the WKV kernels (``csrc/wkv.cu``), forward and backward, against
-        their plain versions: rwkv6-3b's training call (B 2, S 4,096, 40
-        heads of 64), S 1, 17, 256 and 512, B 1, head size 16; the
-        forward (and its chunk states) allclose 2e-5, the backward's five
-        gradients to 2e-5 of their largest element against
-        ``wkv_bwd_ref`` and against autograd of the plain forward, two
-        backwards bit-identical; ptxas registers and spills; both timed
-        at the training call (L2 flushed) beside the plain versions and
-        the least time (bytes, or the FMAs at the float32 rate);
+     a. the WKV kernels (``csrc/wkv.cu``, the chunks side by side),
+        forward and backward, against their plain versions: rwkv6-3b's
+        training call (B 2, S 4,096, 40 heads of 64), S 1, 17, 256 and
+        512, B 1, head size 16, and slow (``w0`` -6) and underflowing
+        (+2) decay at the training call; the forward (and its chunk
+        states, the forward's chain, also against ``wkv_chunk_ref``)
+        allclose 2e-5 (2e-5 of the largest element at slow and
+        underflowing decay), the backward's chain (G at every chunk's
+        end) against ``wkv_bwd_chunk_ref`` and its five gradients
+        against ``wkv_bwd_ref`` and autograd of the plain forward to
+        2e-5 of their largest element, two backwards bit-identical;
+        ptxas registers and spills and the resident warps an SM of each
+        kernel; both timed at the training call (L2 flushed) beside the
+        plain versions and the least time (bytes, or the FMAs at the
+        float32 rate), and each stage's kernels by torch.profiler;
      b. rwkv6-3b at smoke width in float32 (2 layers, head size 16):
         engine streams equal greedy_reference's in every table mode with
         slots reused (4 requests on 2), and on a 2 x 512-token batch
@@ -253,6 +259,12 @@ no result.
 time only the simulator's epilogue kernel at 9b's, 9e's and 9f's chunks
 and the walls of 9b, 9f and 9g, for this checkout's port or another's:
 run both in turns in one call to compare two trees on one card.
+
+    python3 chip_smoke.py --wkv-times
+    CHIP_SMOKE_SRC=<other checkout>/src python3 chip_smoke.py --wkv-times
+
+time only the WKV forward and backward at rwkv6-3b's training call, the
+same way, for this checkout's port or another's.
 """
 from __future__ import annotations
 
@@ -2380,6 +2392,20 @@ WKV_CASES = {
 WKV_SLOW_CASES = {"slow_train": (2, 4096, 40, 64),
                   "slow_s512_b1": (1, 512, 40, 64)}
 WKV_SLOW_W0 = -6.0
+#: 14a's underflowing-decay case, ``w0`` +2 (w about 6e-4), at the
+#: training call: a chunk's decay and most products of w inside it are
+#: exactly 0 in float32, which the stages must carry without 0 x inf or
+#: NaN; held as the slow cases are
+WKV_UNDERFLOW_CASES = {"underflow_train": (2, 4096, 40, 64)}
+WKV_UNDERFLOW_W0 = 2.0
+#: each stage's kernels, by the names torch.profiler gives them
+WKV_STAGES = {"fwd": (("F1 chunk walks", "wkv_chunk_kernel<64, false>"),
+                      ("F2 chain", "wkv_chain_kernel<false>"),
+                      ("F3 chunks from their states", "wkv_fwd_kernel<64>")),
+              "bwd": (("B1 chunk walks", "wkv_chunk_kernel<64, true>"),
+                      ("B2 chain", "wkv_chain_kernel<true>"),
+                      ("B3 chunks from their states", "wkv_bwd_kernel<64>"),
+                      ("du fold", "wkv_du_kernel"))}
 #: the WKV kernels against their plain versions: the forward (and its
 #: chunk states) allclose at the float32 2e-5 (atol = rtol); the
 #: backward's five gradients to 2e-5 of their largest element (du sums
@@ -2460,26 +2486,85 @@ def wkv_bound(b, s, h, hs, backward: bool):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def wkv_close(got, want, scaled: bool) -> tuple:
+    """(ok, note): allclose WKV_TOL, or with ``scaled`` within WKV_TOL of
+    the largest element."""
+    if scaled:
+        err = err_of_scale(got, want)
+        return err <= WKV_TOL, f"{err:.2e} of scale"
+    return within(got, want, WKV_TOL), f"max_abs_err {max_err(got, want):.3e}"
+
+
+def wkv_stage_split(direction: str, fn, chain, calls: int = 3) -> None:
+    """Each stage's device time over ``calls`` calls of the forward or the
+    backward (torch.profiler, L2 warm), printed, not gated; fails if the
+    profiler saw kernels but not a stage's.  Where it records no kernel
+    at all, the first two stages (``chain``) and the rest are timed apart
+    by CUDA events instead."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / 1e3 / calls
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    if not kernels:
+        whole, first = time_cold_ms(fn, calls), time_cold_ms(chain, calls)
+        print(f"wkv {direction} by stage (CUDA events, L2 flushed; "
+              f"torch.profiler recorded no kernel): the chunk walks and "
+              f"the chain {first:.4f} ms, the rest {whole - first:.4f} ms")
+        return
+    stages = {}
+    for label, name in WKV_STAGES[direction]:
+        hits = [ms for k, ms in kernels.items() if name in k]
+        check(bool(hits), f"the wkv {direction} ran no {name} (recorded: "
+                          f"{sorted(kernels)})")
+        stages[label] = sum(hits)
+    total = sum(stages.values())
+    print(f"wkv {direction} by stage (torch.profiler, {calls} calls, L2 "
+          f"warm): {total:.4f} ms a call: "
+          + ", ".join(f"{k} {ms:.4f} ms ({ms / total:.1%})"
+                      for k, ms in stages.items()))
+
+
 def phase_wkv_kernel() -> dict:
     """14a: the WKV kernels, forward and backward, against their plain
     versions on the card, and timed at rwkv6-3b's training call."""
-    for line in ptxas_lines("wkv", ("wkv_fwd_kernel", "wkv_bwd_kernel",
-                                    "wkv_bwd_reduce_kernel")):
+    for line in ptxas_lines("wkv", ("wkv_chunk_kernel", "wkv_chain_kernel",
+                                    "wkv_fwd_kernel", "wkv_bwd_kernel",
+                                    "wkv_du_kernel")):
         print(f"  wkv ptxas: {line}")
+    for hs in WK.HEAD_SIZES:
+        occ = WK.occupancy(hs)
+        print(f"wkv occupancy at head size {hs}: " + "; ".join(
+            f"{name} {o['threads']} threads, {o['registers']} registers, "
+            f"{o['local_bytes']} local bytes, {o['blocks_per_sm']} blocks "
+            f"and {o['blocks_per_sm'] * o['threads'] / 32:g} warps an SM"
+            for name, o in occ.items())
+            + f"; B3 clusters on the card {occ['b3']['clusters']}")
     # (max |got - want|, the worst of max |got - want| over max |want|)
     errs = {"fwd": (0.0, 0.0), "bwd": (0.0, 0.0)}
     cases = [(name, shape, -0.5) for name, shape in WKV_CASES.items()]
     cases += [(name, shape, WKV_SLOW_W0)
               for name, shape in WKV_SLOW_CASES.items()]
+    cases += [(name, shape, WKV_UNDERFLOW_W0)
+              for name, shape in WKV_UNDERFLOW_CASES.items()]
     for name, (b, s, h, hs), w0 in cases:
-        slow = w0 == WKV_SLOW_W0
+        scaled = w0 != -0.5
         t = wkv_inputs(b, s, h, hs, seed=len(name), w0=w0)
         o, st = WK.forward(*wkv_args(t))
         want_o, want_st = ref.wkv_ref(*wkv_args(t), return_states=True)
         o_err, st_err = max_err(o, want_o), max_err(st, want_st)
         o_sc, st_sc = err_of_scale(o, want_o), err_of_scale(st, want_st)
-        if slow:
-            fwd_ok = max(o_sc, st_sc) <= WKV_TOL
+        fwd_ok = all(wkv_close(got, want, scaled)[0]
+                     for got, want in ((o, want_o), (st, want_st)))
+        chain_ok, chain_note = wkv_close(st, ref.wkv_chunk_ref(
+            t["k"], t["v"], t["w"], t["u"])[2], scaled)
+        if scaled:
             o64 = ref.wkv_ref(*(x.double() for x in wkv_args(t)))
             note = (f"of scale: o {o_sc:.2e}, states {st_sc:.2e} "
                     f"({WKV_TOL:g}); elementwise allclose "
@@ -2489,15 +2574,19 @@ def phase_wkv_kernel() -> dict:
                     f"{err_of_scale(want_o.double(), o64):.2e}")
             del o64
         else:
-            fwd_ok = within(o, want_o, WKV_TOL) and within(st, want_st,
-                                                           WKV_TOL)
             note = f"allclose {WKV_TOL:g}"
-        fwd_ok = fwd_ok and st.shape == want_st.shape
+        finite = bool(torch.isfinite(o).all() and torch.isfinite(st).all())
+        fwd_ok = fwd_ok and chain_ok and finite and st.shape == want_st.shape
         del want_o, want_st
+        g_end = WK.chain(t["r"], t["do"], t["w"], t["u"], reverse=True)
+        g_sc = err_of_scale(g_end, ref.wkv_bwd_chunk_ref(
+            t["r"], t["w"], t["do"], t["u"])[2])
+        del g_end
         got = WK.backward(*wkv_args(t), st, t["do"])
         again = WK.backward(*wkv_args(t), st, t["do"])
         torch.cuda.synchronize()
         same = all(torch.equal(g, x) for g, x in zip(got, again))
+        finite = finite and all(bool(torch.isfinite(g).all()) for g in got)
         del again
         wants = (ref.wkv_bwd_ref(*wkv_args(t), st, t["do"]),
                  autograd_of_plain_wkv(t))
@@ -2506,19 +2595,22 @@ def phase_wkv_kernel() -> dict:
         bwd_abs = max(max_err(g, w) for want in wants
                       for g, w in zip(got, want))
         del wants
-        ok = fwd_ok and same and bwd_worst <= WKV_TOL
+        ok = (fwd_ok and same and finite and bwd_worst <= WKV_TOL
+              and g_sc <= WKV_TOL)
         for direction, case in (("fwd", (o_err, o_sc)),
                                 ("bwd", (bwd_abs, bwd_worst))):
             errs[direction] = tuple(map(max, errs[direction], case))
         print(f"wkv {name} (B {b}, S {s}, {h} heads of {hs}, w0 {w0:g}): "
               f"forward o max_abs_err {o_err:.3e} (max |o| "
               f"{float(o.abs().max()):.3g}), chunk states {st_err:.3e} "
-              f"({note}); backward of scale vs bwd_ref "
+              f"({note}); the chain vs wkv_chunk_ref {chain_note}; "
+              f"backward: G_end vs wkv_bwd_chunk_ref {g_sc:.2e} of scale; "
+              f"of scale vs bwd_ref "
               + ", ".join(f"{k} {v:.2e}" for k, v in vs_ref.items())
               + "; vs autograd of the plain forward "
               + ", ".join(f"{k} {v:.2e}" for k, v in vs_auto.items())
-              + f" ({WKV_TOL:g}); two backwards "
-              f"{'bit-identical' if same else 'DIFFER'} "
+              + f" ({WKV_TOL:g}); {'all finite' if finite else 'NOT FINITE'}"
+              f"; two backwards {'bit-identical' if same else 'DIFFER'} "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"wkv {name} disagrees with its plain version")
         del t, o, st, got
@@ -2528,14 +2620,17 @@ def phase_wkv_kernel() -> dict:
     t = wkv_inputs(b, s, h, hs, seed=0)
     _, st = WK.forward(*wkv_args(t))
     timed = {}
-    for direction, fn, plain in (
+    for direction, fn, plain, chain in (
             ("fwd", lambda: WK.forward(*wkv_args(t)),
-             lambda: ref.wkv_ref(*wkv_args(t))),
+             lambda: ref.wkv_ref(*wkv_args(t)),
+             lambda: WK.chain(t["k"], t["v"], t["w"], t["u"], False)),
             ("bwd", lambda: WK.backward(*wkv_args(t), st, t["do"]),
-             lambda: ref.wkv_bwd_ref(*wkv_args(t), st, t["do"]))):
+             lambda: ref.wkv_bwd_ref(*wkv_args(t), st, t["do"]),
+             lambda: WK.chain(t["r"], t["do"], t["w"], t["u"], True))):
         ms = time_cold_ms(fn, 10)
         plain_ms = time_plain_ms(plain)
         bound_ms, bound_by = wkv_bound(b, s, h, hs, direction == "bwd")
+        wkv_stage_split(direction, fn, chain)
         timed[direction] = dict(max_abs_err=errs[direction][0],
                                 max_err_of_scale=errs[direction][1], ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2548,6 +2643,24 @@ def phase_wkv_kernel() -> dict:
     del t, st
     torch.cuda.empty_cache()
     return timed
+
+
+def wkv_times() -> None:
+    """``--wkv-times``: the WKV forward and backward at rwkv6-3b's training
+    call (L2 flushed), 10 calls each, twice.  It calls only what the
+    port's package has had since the kernels' first design, so with
+    CHIP_SMOKE_SRC it times another checkout's kernels in the same way."""
+    print(f"wkv-times: the port from {WK.__file__}")
+    _build.build_all(["wkv"])
+    b, s, h, hs = WKV_CASES["rwkv6_train"]
+    t = wkv_inputs(b, s, h, hs, seed=0)
+    _, st = WK.forward(*wkv_args(t))
+    for rep in range(2):
+        fwd = time_cold_ms(lambda: WK.forward(*wkv_args(t)), 10)
+        bwd = time_cold_ms(lambda: WK.backward(*wkv_args(t), st, t["do"]),
+                           10)
+        print(f"wkv-times {rep}: forward {fwd:.4f} ms, backward {bwd:.4f} ms "
+              f"(B {b}, S {s}, {h} heads of {hs}; L2 flushed)")
 
 
 def phase_rwkv_parity() -> dict:
@@ -4324,6 +4437,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     if sys.argv[1:] == ["--sim-times"]:
         sim_times()
+        return 0
+    if sys.argv[1:] == ["--wkv-times"]:
+        wkv_times()
         return 0
 
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the
 card-side oracle in ``chip_smoke.py``): paged decode attention, the
 flash attention forward and backward of the training path, Mamba's
-selective scan forward and backward, and the simulator's LRU scan and
+selective scan forward and backward, RWKV6's WKV recurrence (a step at
+a time, and by the kernels' stages), and the simulator's LRU scan and
 timing epilogue."""
 from __future__ import annotations
 
@@ -924,3 +925,143 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
     return (dr.reshape(bsz, s, d), dk.reshape(bsz, s, d),
             dv.reshape(bsz, s, d), dw.reshape(bsz, s, d), du)
+
+
+# ---------------------------------------------------------------------------
+# the WKV recurrence by stages, the chunks side by side (csrc/wkv.cu)
+# ---------------------------------------------------------------------------
+def _by_chunk(t: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(B, S, H hs) -> (B, chunks, steps a chunk, H, hs): one chunk of S
+    steps up to :data:`SCAN_CHUNK`, else whole chunks."""
+    bsz, s = t.shape[:2]
+    n = min(s, SCAN_CHUNK)
+    return t.reshape((bsz, s // n, n) + tuple(u.shape))
+
+
+@torch.no_grad()
+def wkv_chunk_ref(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor):
+    """The forward's first two stages, every chunk at once.  For chunk c
+    (steps t0 .. t1 - 1) of every batch row and head (u gives the heads'
+    shape, (H, hs)):
+
+        delta[c] = sum_t diag(prod_{t < tau < t1} w_tau) k_t v_t^T
+        decay[c] = prod_{t0 <= tau < t1} w_tau
+
+    the chunk's end state started from 0 and its decay (summed as the
+    kernel sums them: the steps in reverse, the product of the w after a
+    step kept as it goes), then the chain ``S_0 = 0``, ``S_{c+1} =
+    diag(decay[c]) S_c + delta[c]``.  No factor is divided by w: a product
+    that underflows to 0 is the right one.  Returns (delta (B, C, H, hs,
+    hs), decay (B, C, H, hs), states (B, C, H, hs, hs)); the states equal
+    ``wkv_ref(return_states=True)``'s."""
+    wkv_check_length(k.shape[1])
+    kc, vc, wc = (_by_chunk(t, u) for t in (k, v, w))
+    delta = torch.zeros(kc.shape[:2] + tuple(u.shape) + (u.shape[1],),
+                        dtype=torch.float32, device=k.device)
+    decay = torch.ones(kc.shape[:2] + tuple(u.shape), dtype=torch.float32,
+                       device=k.device)
+    for l in reversed(range(kc.shape[2])):
+        delta = delta + ((decay * kc[:, :, l])[..., :, None]
+                         * vc[:, :, l, :, None, :])
+        decay = decay * wc[:, :, l]
+    states = [torch.zeros_like(delta[:, 0])]
+    for c in range(delta.shape[1] - 1):
+        states.append(decay[:, c, :, :, None] * states[-1] + delta[:, c])
+    return delta, decay, torch.stack(states, dim=1)
+
+
+@torch.no_grad()
+def wkv_bwd_chunk_ref(r: torch.Tensor, w: torch.Tensor, do: torch.Tensor,
+                      u: torch.Tensor):
+    """The backward's first two stages, every chunk at once.  With G the
+    gradient of the state, ``G_t = diag(w_t) G_{t+1} + r_t do_t^T``, so
+    over chunk c ``G_start(c) = diag(decay[c]) G_end(c) + delta[c]``:
+
+        delta[c] = sum_t diag(prod_{t0 <= tau < t} w_tau) r_t do_t^T
+        decay[c] = prod_{t0 <= tau < t1} w_tau
+
+    (the steps in order, the product of the w before a step kept as it
+    goes), then the chain in reverse, ``G_end(C - 1) = 0``, ``G_end(c - 1) =
+    diag(decay[c]) G_end(c) + delta[c]``.  Returns (delta, decay, g_end),
+    shaped as :func:`wkv_chunk_ref`'s; g_end[c] is the gradient of the
+    state after chunk c's last step, the first state of chunk c + 1."""
+    wkv_check_length(r.shape[1])
+    rc, wc, dc = (_by_chunk(t, u) for t in (r, w, do))
+    delta = torch.zeros(rc.shape[:2] + tuple(u.shape) + (u.shape[1],),
+                        dtype=torch.float32, device=r.device)
+    decay = torch.ones(rc.shape[:2] + tuple(u.shape), dtype=torch.float32,
+                       device=r.device)
+    for l in range(rc.shape[2]):
+        delta = delta + ((decay * rc[:, :, l])[..., :, None]
+                         * dc[:, :, l, :, None, :])
+        decay = decay * wc[:, :, l]
+    g_end = [torch.zeros_like(delta[:, 0])]
+    for c in range(delta.shape[1] - 1, 0, -1):
+        g_end.insert(0, decay[:, c, :, :, None] * g_end[0] + delta[:, c])
+    return delta, decay, torch.stack(g_end, dim=1)
+
+
+@torch.no_grad()
+def wkv_stages_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor):
+    """The forward composed from its stages: the chained chunk states of
+    :func:`wkv_chunk_ref`, then every chunk walked from its own state at
+    once, with the u term as the rank-one term it is, ``o_t[j] = sum_i
+    r_t[i] S_t[i, j] + (sum_i r_t[i] u[i] k_t[i]) v_t[j]``.  Returns (o,
+    states), as ``wkv_ref(return_states=True)``."""
+    bsz, s, d = r.shape
+    _, _, states = wkv_chunk_ref(k, v, w, u)
+    rc, kc, vc, wc = (_by_chunk(t, u) for t in (r, k, v, w))
+    st = states
+    outs = []
+    for l in range(rc.shape[2]):
+        r_t, k_t, v_t = rc[:, :, l], kc[:, :, l], vc[:, :, l]
+        outs.append(torch.einsum("bchi,bchij->bchj", r_t, st)
+                    + (r_t * u * k_t).sum(-1, keepdim=True) * v_t)
+        st = (wc[:, :, l, :, :, None] * st
+              + k_t[..., :, None] * v_t[..., None, :])
+    return torch.stack(outs, dim=2).reshape(bsz, s, d), states
+
+
+@torch.no_grad()
+def wkv_bwd_stages_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       states: torch.Tensor, do: torch.Tensor):
+    """The backward composed from its stages: G at every chunk's end from
+    :func:`wkv_bwd_chunk_ref`, then every chunk at once, its states
+    recomputed from its stored one and G's reverse recurrence run from
+    its G_end, the u terms rank one a row and step (with ``vdo = v_t .
+    do_t`` and ``kru = sum_i k_t[i] u[i] r_t[i]``):
+
+        dr_t[i] = sum_j S_t[i, j] do_t[j] + u[i] k_t[i] vdo
+        dk_t[i] = sum_j G[i, j] v_t[j] + u[i] r_t[i] vdo
+        dv_t[j] = sum_i k_t[i] G[i, j] + kru do_t[j]
+        dw_t[i] = sum_j S_t[i, j] G[i, j]
+        du[i]   = sum_{b, t} r_t[i] k_t[i] vdo
+
+    G the gradient of the state after step t.  Returns (dr, dk, dv, dw,
+    du), as :func:`wkv_bwd_ref`."""
+    bsz, s, d = r.shape
+    _, _, g = wkv_bwd_chunk_ref(r, w, do, u)
+    rc, kc, vc, wc, dc = (_by_chunk(t, u) for t in (r, k, v, w, do))
+    chunk = [states]
+    for l in range(rc.shape[2] - 1):
+        chunk.append(wc[:, :, l, :, :, None] * chunk[-1]
+                     + kc[:, :, l, :, :, None] * vc[:, :, l, :, None, :])
+    dr, dk, dv, dw = (torch.empty_like(rc) for _ in range(4))
+    du = torch.zeros_like(u)
+    for l in reversed(range(rc.shape[2])):
+        r_t, k_t, v_t, w_t, do_t = (x[:, :, l] for x in (rc, kc, vc, wc,
+                                                          dc))
+        s_t = chunk[l]
+        vdo = (v_t * do_t).sum(-1, keepdim=True)
+        kru = (k_t * u * r_t).sum(-1, keepdim=True)
+        dr[:, :, l] = (torch.einsum("bchij,bchj->bchi", s_t, do_t)
+                       + u * k_t * vdo)
+        dk[:, :, l] = torch.einsum("bchij,bchj->bchi", g, v_t) + u * r_t * vdo
+        dv[:, :, l] = torch.einsum("bchi,bchij->bchj", k_t, g) + kru * do_t
+        dw[:, :, l] = (s_t * g).sum(-1)
+        du += (r_t * k_t * vdo).sum((0, 1))
+        g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
+    return tuple(x.reshape(bsz, s, d) for x in (dr, dk, dv, dw)) + (du,)

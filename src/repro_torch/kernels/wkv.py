@@ -17,36 +17,42 @@ S_t + a_t``; o (B, S, H hs) float32.  hs is 64 (rwkv6-3b) or 16
 (``smoke_variant``); anything else raises.  S follows the JAX chunk
 rule: up to 256, or a whole number of 256-step chunks.
 
-Design (the source says more).  A block holds 16 columns of one (row,
-head)'s state, so rwkv6-3b's 40 heads of 64 give 4 blocks a head: 320
-blocks at B 2, 160 at B 1.  The forward spreads a column's 64 rows over
-8 lanes, stages r, k, w and v a tile of 32 steps at a time through
-shared memory, sums a lane's rows for 8 steps at once and folds them
-over the lanes by a transposing butterfly, and stores the state at the
-start of every 256-step chunk, (B, ceil(S / 256), H, hs, hs) float32.
-:class:`WKV` saves the inputs and those states and nothing else, so
-under ``torch.utils.checkpoint`` the forward runs twice a step and the
-backward once.  The backward gives each thread a row of the block's 16
-columns, walks the chunks in reverse, and each twice from its stored
-state: once to keep the state every 8 steps in a per-block global
-scratch, then an 8-step sub-chunk at a time in reverse, its inputs and
-recomputed states in shared memory and the reverse recurrence of the
-state's gradient run over them in registers.  dv sums over rows through
-shared memory in a fixed order; dr, dk, dw (sums over columns) go out as
-one float32 partial a column block, and du (over batch and time) as one
-a (row, column block); a second kernel adds them in a fixed order.  No
-atomics, so two backwards give the same bits.
+Design (the source says more).  The chunks run side by side: every
+chunk's state at its start is tied to the ones before it only through
+``S_{c+1} = diag(W_c) S_c + dS_c`` (W_c the product of the chunk's w,
+dS_c its end state from 0), and the backward's gradient of the state
+likewise in reverse; every factor is a product of w <= 1, so nothing is
+divided by w.  The forward is three kernels: each chunk's dS_c and W_c
+(a block a (row, head, chunk) and its whole hs x hs state, a thread 8
+rows x 4 columns), the chain over chunks (an element a thread; it
+writes the states (B, ceil(S / 256), H, hs, hs) float32, the first 0),
+and each chunk walked from its state, o out.  :class:`WKV` saves the
+inputs and those states and nothing else, so under
+``torch.utils.checkpoint`` the forward runs twice a step and the
+backward once.  The backward is four: the same two first stages for the
+gradient of the state (G at every chunk's end), then each chunk from
+its stored state and G_end by a cluster of 4 blocks of 16 columns (a
+thread 2 rows x 4 columns; the state every 16 steps in a global scratch,
+every 4 in registers, the 4-step sub-chunks' states in registers, G's
+reverse recurrence), dr, dk, dw summed over the head's columns through
+the cluster's distributed shared memory in a fixed order and written
+once, dv over rows by butterflies and shared memory, and a small kernel
+that adds du's partials a (batch row, chunk) in order.  Inputs reach
+shared memory by cp.async, a tile of 16 steps ahead.  No atomics, so two
+backwards give the same bits.  :func:`chain` runs the first two stages
+alone (the chunk states, or G at every chunk's end) and
+:func:`occupancy` says what the card makes of the kernels.
 
-Counters: :data:`launches_fwd` (one per :func:`forward`) and
-:data:`launches_bwd` (one per :func:`backward`, which is the recurrence
-kernel and the reduction of its partials), counted where they launch.
+Counters: :data:`launches_fwd` (one per :func:`forward`, its three
+kernels) and :data:`launches_bwd` (one per :func:`backward`, its four),
+counted where they launch; :func:`chain` counts nothing.
 ``kernels.ops.wkv`` sends CPU tensors to the plain version and CUDA
 tensors here; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -68,13 +74,18 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = _build.load("wkv")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.wkv_chain_launch.argtypes = [i32] * 3 + [ptr] * 6 + [i32] * 3 + [
+            ptr]
+        lib.wkv_chain_launch.restype = i32
         lib.wkv_fwd_launch.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 3 + [ptr]
         lib.wkv_fwd_launch.restype = i32
-        lib.wkv_bwd_launch.argtypes = ([i32] * 2 + [ptr] * 13 + [i32] * 3
+        lib.wkv_bwd_launch.argtypes = ([i32] * 2 + [ptr] * 13 + [i32] * 4
                                        + [ptr])
         lib.wkv_bwd_launch.restype = i32
         lib.wkv_geometry.argtypes = [i32] * 2 + [ctypes.POINTER(i32)] * 3
         lib.wkv_geometry.restype = None
+        lib.wkv_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.wkv_occupancy.restype = i32
         lib.wkv_error_string.argtypes = [i32]
         lib.wkv_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
@@ -126,34 +137,82 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read v and do as float4s."""
+    """The kernels copy r, k, v, w and do 16 bytes at a time."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _same(name: str, t: torch.Tensor, shape, like: torch.Tensor) -> None:
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or t.device != like.device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous float32 {tuple(shape)} "
+                         f"on {like.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def geometry(s: int, hs: int) -> Tuple[int, int, int]:
     """The kernels' tiling at S steps and head size hs, from the source:
     (chunks, the states a (row, head) the forward keeps; column blocks a
-    head; scratch floats a block of the backward)."""
+    head, the backward's cluster; states a chunk the backward keeps in
+    its scratch)."""
     out = [ctypes.c_int() for _ in range(3)]
     _lib().wkv_geometry(s, hs, *(ctypes.byref(x) for x in out))
     return out[0].value, out[1].value, out[2].value
 
 
+def occupancy(hs: int) -> Dict[str, dict]:
+    """What the current card makes of the kernels at head size hs: for
+    the chunk walk forward (F1) and in reverse (B1), the walk of each
+    chunk (F3) and the backward's per-chunk kernel (B3), threads a block,
+    resident blocks an SM, registers and local (spill) bytes a thread;
+    and B3's clusters resident on the whole card."""
+    out = (ctypes.c_int * 17)()
+    _raise(_lib().wkv_occupancy(torch.cuda.current_device(), hs, out),
+           "occupancy query")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes")
+    got = {name: dict(zip(keys, out[4 * q:4 * q + 4]))
+           for q, name in enumerate(("f1", "b1", "f3", "b3"))}
+    got["b3"]["clusters"] = out[16]
+    return got
+
+
+def chain(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The first two stages on checked operands: forward (a = k, b = v)
+    the state at every chunk's start, the forward's ``states``; reverse
+    (a = r, b = do) the gradient of the state after every chunk's last
+    step, G_end.  (B, chunks, H, hs, hs) float32; counts nothing."""
+    _check_kernel(a, b, b, w, u)
+    bsz, s, _ = a.shape
+    nh, hs = u.shape
+    nc = geometry(s, hs)[0]
+    a, b, w = _aligned(a), _aligned(b), _aligned(w)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    out = torch.empty((bsz, nc, nh, hs, hs), **f32)
+    delta = torch.empty((bsz, nc - 1, nh, hs, hs), **f32)
+    decay = torch.empty((bsz, nc - 1, nh, hs), **f32)
+    err = _lib().wkv_chain_launch(
+        a.device.index, hs, int(reverse), a.data_ptr(), b.data_ptr(),
+        w.data_ptr(), delta.data_ptr(), decay.data_ptr(), out.data_ptr(),
+        bsz, s, nh, _stream(a))
+    _raise(err, "chain launch")
+    return out
+
+
 def forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             w: torch.Tensor, u: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward on checked operands: (o, the chunk states)."""
+    """Launch the forward on checked operands (the chunk walks, the
+    chain, each chunk from its state): (o, the chunk states)."""
     global launches_fwd
     _check_kernel(r, k, v, w, u)
-    lib = _lib()
     bsz, s, d = r.shape
     nh, hs = u.shape
+    states = chain(k, v, w, u, reverse=False)
+    r, k, v, w = (_aligned(t) for t in (r, k, v, w))
     o = torch.empty((bsz, s, d), dtype=torch.float32, device=r.device)
-    states = torch.empty((bsz, geometry(s, hs)[0], nh, hs, hs),
-                         dtype=torch.float32, device=r.device)
-    err = lib.wkv_fwd_launch(
+    err = _lib().wkv_fwd_launch(
         r.device.index, hs, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        w.data_ptr(), u.data_ptr(), o.data_ptr(), states.data_ptr(), bsz,
+        w.data_ptr(), u.data_ptr(), states.data_ptr(), o.data_ptr(), bsz,
         s, nh, _stream(r))
     _raise(err, "forward kernel launch")
     launches_fwd += 1
@@ -163,34 +222,29 @@ def forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, states: torch.Tensor,
              do: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward (the recurrence kernel, then the reduction of
-    its partials): (dr, dk, dv, dw, du), float32."""
+    """Launch the backward (the chunk walks of G and its chain, each
+    chunk from its stored state and G_end, du's fold): (dr, dk, dv, dw,
+    du), float32."""
     global launches_bwd
     _check_kernel(r, k, v, w, u)
-    lib = _lib()
     bsz, s, d = r.shape
     nh, hs = u.shape
-    nc, blocks, scratch = geometry(s, hs)
-    for name, t, shape in (("states", states, (bsz, nc, nh, hs, hs)),
-                           ("do", do, (bsz, s, d))):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
-                or t.device != r.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} "
-                             f"on {r.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    v, do = _aligned(v), _aligned(do)
+    nc, blocks, ckpts = geometry(s, hs)
+    _same("states", states, (bsz, nc, nh, hs, hs), r)
+    _same("do", do, (bsz, s, d), r)
+    g_end = chain(r, do, w, u, reverse=True)
+    r, k, v, w, do = (_aligned(t) for t in (r, k, v, w, do))
     f32 = dict(dtype=torch.float32, device=r.device)
     dv = torch.empty((bsz, s, d), **f32)
     drkw = torch.empty((3, bsz, s, d), **f32)
     du = torch.empty((nh, hs), **f32)
-    part_rkw = torch.empty((3, blocks, bsz, s, d), **f32)
-    part_u = torch.empty((bsz, blocks, d), **f32)
-    work = torch.empty((bsz * nh * blocks, scratch), **f32)
-    err = lib.wkv_bwd_launch(
+    part_u = torch.empty((bsz, nc, d), **f32)
+    ckpt = torch.empty((bsz, nc, nh, blocks, ckpts, hs, 16), **f32)
+    err = _lib().wkv_bwd_launch(
         r.device.index, hs, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        w.data_ptr(), u.data_ptr(), states.data_ptr(), do.data_ptr(),
-        dv.data_ptr(), drkw.data_ptr(), du.data_ptr(), part_rkw.data_ptr(),
-        part_u.data_ptr(), work.data_ptr(), bsz, s, nh, _stream(r))
+        w.data_ptr(), u.data_ptr(), states.data_ptr(), g_end.data_ptr(),
+        do.data_ptr(), dv.data_ptr(), drkw.data_ptr(), du.data_ptr(),
+        part_u.data_ptr(), ckpt.data_ptr(), bsz, s, nh, ckpts, _stream(r))
     _raise(err, "backward kernel launch")
     launches_bwd += 1
     return drkw[0], drkw[1], dv, drkw[2], du

@@ -268,6 +268,159 @@ def test_wkv_slow_decay_matches_jax_and_autograd(b, s, h, hs):
     _scaled_close(got, jgrads, WKV_TOL, "bwd_ref vs jax.grad")
 
 
+# ---------------------------------------------------------------------------
+# the WKV recurrence by the kernels' stages, the chunks side by side
+# ---------------------------------------------------------------------------
+#: (B, S, heads, head size): one chunk (a ragged 200 steps, and exactly
+#: 256), two chunks and sixteen (rwkv6-3b's 4,096 training steps), at
+#: head sizes 16 and 64
+STAGE_SHAPES = [(2, 200, 2, 16), (1, 256, 1, 64), (2, 512, 2, 16),
+                (1, 512, 1, 64), (1, 4096, 1, 16), (1, 4096, 1, 64)]
+#: the composed forward and backward run the JAX gradient too: sixteen
+#: chunks at head size 16 only (at 64 a case takes minutes beside the
+#: other test workers)
+COMPOSE_SHAPES = STAGE_SHAPES[:-1]
+#: the decay's ``w0``: fast (w about 0.2-0.8), slow (w about 0.997: a
+#: chunk's decay about 0.46 and its delta a sum of hundreds of terms) and
+#: underflowing (w about 6e-4: a chunk's decay and most of its partial
+#: products are exactly 0)
+STAGE_DECAYS = {"fast": -0.5, "slow": -6.0, "underflow": 2.0}
+
+
+def _stage_case(b, s, h, hs, decay):
+    w0 = STAGE_DECAYS[decay]
+    arrays, t = _wkv_inputs(b, s, h, hs, seed=s + hs + int(w0 * 10),
+                            w0=w0)
+    return arrays, t
+
+
+def _forward_close(got, want, decay, what):
+    """The forward's tolerance: allclose 2e-5, or at slow decay 2e-5 of
+    the largest element (outputs near 0 from float32 sums of terms in
+    the tens)."""
+    if decay == "slow":
+        _scaled_close([got], [want], WKV_TOL, what, names=("o",))
+    else:
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=WKV_TOL, atol=WKV_TOL, err_msg=what)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chunk_step():
+    def step(state, inp):
+        k_t, v_t, w_t = inp
+        return w_t[..., :, None] * state + k_t[..., :, None] * v_t[
+            ..., None, :], None
+
+    return jax.jit(lambda state, xs: jax.lax.scan(step, state, xs)[0])
+
+
+def _jax_chunk_states(k, v, w, u):
+    """The JAX recurrence's state at the start of every 256-step chunk
+    (the first 0), a chunk's scan at a time."""
+    b, s, _ = k.shape
+    nh, hs = u.shape
+    xs = tuple(x.reshape(b, s, nh, hs).swapaxes(0, 1) for x in (k, v, w))
+    out = [jnp.zeros((b, nh, hs, hs), jnp.float32)]
+    for c0 in range(256, s, 256):
+        out.append(_jax_chunk_step()(out[-1], tuple(
+            x[c0 - 256:c0] for x in xs)))
+    return np.stack([np.asarray(x) for x in out], axis=1)
+
+
+def _autograd_g_end(t):
+    """torch autograd's gradient of the state at the start of every
+    chunk but the first, through ``wkv_ref``'s step: the gradient of the
+    state after each chunk's last step (0 after the last chunk)."""
+    r, k, v, w, u = _args(t)
+    b, s, _ = r.shape
+    nh, hs = u.shape
+    rh, kh, vh, wh = (x.reshape(b, s, nh, hs) for x in (r, k, v, w))
+    zs = [torch.zeros((b, nh, hs, hs), requires_grad=True)
+          for _ in range(-(-s // 256) - 1)]
+    state = torch.zeros((b, nh, hs, hs))
+    outs = []
+    for step in range(s):
+        if step and step % 256 == 0:
+            state = state + zs[step // 256 - 1]
+        a = kh[:, step, :, :, None] * vh[:, step, :, None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", rh[:, step],
+                                 state + u[None, :, :, None] * a))
+        state = wh[:, step, :, :, None] * state + a
+    o = torch.stack(outs, dim=1).reshape(b, s, nh * hs)
+    grads = list(torch.autograd.grad(o, zs, t["do"])) if zs else []
+    return torch.stack(grads + [torch.zeros((b, nh, hs, hs))], dim=1)
+
+
+@pytest.mark.parametrize("decay", list(STAGE_DECAYS))
+@pytest.mark.parametrize("b,s,h,hs", STAGE_SHAPES)
+def test_wkv_chunk_chain_matches_states(b, s, h, hs, decay):
+    """The forward's stages (each chunk's end state from 0 and its
+    decay, then the chain over chunks) give the chunk states of the
+    step-at-a-time ``wkv_ref`` and of the JAX recurrence; no factor is
+    divided by w, so at underflowing decay the chunks' decays are exactly
+    0 and nothing is NaN."""
+    arrays, t = _stage_case(b, s, h, hs, decay)
+    delta, dec, states = ref.wkv_chunk_ref(t["k"], t["v"], t["w"], t["u"])
+    chunks = -(-s // 256)
+    assert tuple(states.shape) == (b, chunks, h, hs, hs)
+    assert tuple(delta.shape) == states.shape
+    assert tuple(dec.shape) == (b, chunks, h, hs)
+    assert torch.isfinite(delta).all() and torch.isfinite(states).all()
+    assert ((dec >= 0) & (dec <= 1)).all()
+    assert not states[:, 0].any()
+    if decay == "underflow" and s >= 256:
+        assert not dec.any()
+    _, want = ref.wkv_ref(*_args(t), return_states=True)
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in arrays.items()}
+    jstates = _jax_chunk_states(j["k"], j["v"], j["w"], j["u"])
+    for other, what in ((want, "wkv_ref"), (jstates, "jax")):
+        _forward_close(states.numpy(), np.asarray(other), decay,
+                       f"chained states vs {what}")
+
+
+@pytest.mark.parametrize("decay", list(STAGE_DECAYS))
+@pytest.mark.parametrize("b,s,h,hs", STAGE_SHAPES)
+def test_wkv_bwd_chunk_chain_matches_autograd(b, s, h, hs, decay):
+    """The backward's stages (each chunk's G contribution from 0 and its
+    decay, then the chain in reverse) give the gradient of the state at
+    every chunk's end, against torch autograd's gradient of the
+    chunk-start states."""
+    _, t = _stage_case(b, s, h, hs, decay)
+    delta, dec, g_end = ref.wkv_bwd_chunk_ref(t["r"], t["w"], t["do"],
+                                              t["u"])
+    assert tuple(g_end.shape) == (b, -(-s // 256), h, hs, hs)
+    assert torch.isfinite(delta).all() and torch.isfinite(g_end).all()
+    assert not g_end[:, -1].any()
+    if decay == "underflow" and s >= 256:
+        assert not dec.any()
+    _scaled_close([g_end], [_autograd_g_end(t)], WKV_TOL,
+                  "g_end vs autograd", names=("g_end",))
+
+
+@pytest.mark.parametrize("decay", list(STAGE_DECAYS))
+@pytest.mark.parametrize("b,s,h,hs", COMPOSE_SHAPES)
+def test_wkv_stages_compose_forward_and_backward(b, s, h, hs, decay):
+    """A forward and a backward composed from the stages (every chunk
+    walked from its chained state, the u terms rank one) against
+    ``wkv_ref``, ``wkv_bwd_ref``, the JAX recurrence and ``jax.grad``."""
+    arrays, t = _stage_case(b, s, h, hs, decay)
+    o, states = ref.wkv_stages_ref(*_args(t))
+    want_o, want_states = ref.wkv_ref(*_args(t), return_states=True)
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in arrays.items()}
+    jo = _jax_wkv(j["r"], j["k"], j["v"], j["w"], j["u"])
+    _forward_close(o.numpy(), want_o.numpy(), decay, "stages vs wkv_ref")
+    _forward_close(o.numpy(), np.asarray(jo), decay, "stages vs jax")
+    got = ref.wkv_bwd_stages_ref(*_args(t), states, t["do"])
+    assert all(torch.isfinite(g).all() for g in got)
+    _scaled_close(got, ref.wkv_bwd_ref(*_args(t), want_states, t["do"]),
+                  WKV_TOL, "stages vs bwd_ref")
+    jgrads = jax.grad(lambda *x: jnp.sum(_jax_wkv(*x) * j["do"]),
+                      argnums=(0, 1, 2, 3, 4))(
+        j["r"], j["k"], j["v"], j["w"], j["u"])
+    _scaled_close(got, jgrads, WKV_TOL, "stages vs jax.grad")
+
+
 def test_chunk_states_restart_the_recurrence():
     """The state kept at the start of the second chunk restarts the
     recurrence to the same outputs."""
