@@ -80,11 +80,14 @@
 // sub-chunk walked again into registers, then run in reverse with G (in
 // registers, from G_end(c)).  The sums over columns (dr, dk, dw) fold
 // over a warp's 4 column lanes by a transposing butterfly, 2 steps at a
-// time; the warp then stores them, by distributed shared memory, into
-// the block of the cluster that owns its 16 rows, which adds the 4
-// blocks' sums in the fixed order block 0, 1, 2, 3 every 8 steps, after
-// a cluster barrier (split: the next sub-chunk's states are recomputed
-// while it waits), and writes them once, straight to the output.  dv
+// time; the warp then stores them (`st.async`, distributed shared
+// memory) into the block of the cluster that owns its 16 rows, where
+// each store counts on that block's mbarrier.  Once a 16-step piece's
+// bytes are in, the owner adds the 4 blocks' sums in the fixed order
+// block 0, 1, 2, 3 and writes them once, straight to the output; no
+// fence is needed (a release cluster barrier would cost one at the scope
+// of the card).  A relaxed cluster barrier marks the sums read, waited
+// on only before the next piece's first store.  dv
 // sums over rows: the warp's 8 row lanes by a butterfly, then its 4
 // warps in order through shared memory.
 // The u terms are rank one a row and step (dr += u k (v.do), dk += u r
@@ -105,7 +108,6 @@ constexpr int CHUNK = 256;        // steps between the stored states
 constexpr int TILE = 16;          // steps a staged tile; a backward piece
 constexpr int SUB = 4;            // steps of a backward sub-chunk
 constexpr int BCOLS = 16;         // state columns a backward block holds
-constexpr int HALF = TILE / 2;    // steps a backward fold covers
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -425,28 +427,88 @@ struct Bwd {
   static constexpr int NCB = HS / BCOLS;    // column blocks: the cluster
   static constexpr int WARPS = HS / 16;     // a warp: 16 rows x 16 columns
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr int PAIRS = BCOLS * HALF / THREADS;  // folds a thread
+  static constexpr int PAIRS = BCOLS * TILE / THREADS;  // folds a thread
+  // bytes the blocks of a cluster store into a block's pin and vin a piece
+  static constexpr uint32_t PIECE_BYTES = 4u * NCB * TILE * (3 * BCOLS + 1);
 };
 
 template <int HS>
 struct BwdSmem {
   float r[2][TILE][HS], k[2][TILE][HS], w[2][TILE][HS];
   float v[2][TILE][BCOLS], d[2][TILE][BCOLS];  // the block's columns
-  // dr, dk, dw of the block's 16 rows, a half piece, summed over the
+  // dr, dk, dw of the block's 16 rows at a piece's steps, summed over the
   // columns of each block of the cluster (stored there by that block)
-  float pin[2][Bwd<HS>::NCB][3][HALF][BCOLS];
-  float dvp[2][Bwd<HS>::WARPS][HALF][BCOLS];   // dv summed over a warp
+  float pin[Bwd<HS>::NCB][3][TILE][BCOLS];
+  float dvp[Bwd<HS>::WARPS][TILE][BCOLS];   // dv summed over a warp
   float vin[2][Bwd<HS>::NCB][TILE];  // v . do over each block's columns
   float kru[TILE];     // sum_i k u r over the head
   float us[HS];
-  float dus[HALF][BCOLS];
+  float dus[TILE][BCOLS];
+  uint64_t bar;        // completes when a piece's pin and vin are in
 };
 
-// The two halves of a cluster barrier: arrive releases this thread's
-// writes (to its own block's shared memory and its neighbours'), wait
-// returns once every thread of the cluster has arrived.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address in block `rank` of the cluster of this block's shared
+// address `a`.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// Stores v at cluster address `addr` and counts its 4 bytes on the
+// mbarrier at cluster address `bar` of the same block: no fence, the
+// barrier's phase completes once every byte it expects has landed.
+__device__ __forceinline__ void store_remote(uint32_t addr, float v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" :: "r"(addr), "f"(v), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The owner's one arrival of a phase, with the bytes the phase expects.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Spins until phase `parity` of the barrier has completed, with the
+// stores it counted visible.  A wait of about 10 s (2^34 cycles) traps,
+// so a lost store fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// The halves of a cluster barrier.  The arrive is relaxed: it orders no
+// write (a release arrive costs a fence at the scope of the whole card),
+// and only says that this thread's reads of a buffer are done, their
+// values in registers, before the buffer is written again; the data
+// itself travels by store_remote and the owner's mbarrier.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_wait() {
@@ -557,8 +619,18 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                          ckpts * HS * BCOLS + (size_t)i0 * BCOLS + jc;
   for (int x = tid; x < HS; x += Bw::THREADS) sm.us[x] = u[h * HS + x];
   // the block that sums the warp's 16 rows over the head's columns
-  BwdSmem<HS>* owner = cluster.map_shared_rank(&sm, wi);
-  cluster_arrive();  // no block stores to another before it has started
+  // the pin of the block that sums the warp's 16 rows over the head's
+  // columns, and that block's mbarrier
+  const uint32_t owner_pin = cluster_addr(smem_addr(&sm.pin[rank][0][0][0]),
+                                          wi);
+  const uint32_t owner_bar = cluster_addr(smem_addr(&sm.bar), wi);
+  if (tid == 0) {
+    mbar_init(&sm.bar);
+    mbar_expect(&sm.bar, Bw::PIECE_BYTES);  // the first piece's
+  }
+  uint32_t phase = 0;
+  // no block stores to another before it has started and set its barrier
+  cluster_arrive_relaxed();
 
   auto issue = [&](int stg, int buf) {
     const bool rev = stg >= np - 1;
@@ -608,16 +680,27 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
       continue;
     }
     const int p = 2 * np - 2 - stg;
-    if (p == np - 1) cluster_wait();
     const float* s0 = p == 0 ? states + mat : ck + (size_t)(p - 1) * HS * BCOLS;
     const int s0_stride = p == 0 ? HS : BCOLS;
-    float x[2][4];  // the piece's start state, loaded ahead of the pre-pass
+    float x[2][4];  // the piece's start state, walked to its checkpoints
     load2x4(s0, s0_stride, x);
 
+    // the state every SUB steps of the piece
+    float cks[TILE / SUB - 1][2][4];
+#pragma unroll
+    for (int l = 0; l < TILE - SUB; ++l) {
+      bwd_walk(sm, buf, l, i0, jc, x);
+      if (l % SUB == SUB - 1) copy2x4(x, cks[l / SUB]);
+    }
+    // every block has read the last piece's sums (or, before the first
+    // piece, has started): their buffers may be written again
+    cluster_wait();
+
     // the piece's rank-one sums a step: kru over the head's rows, v . do
-    // over the block's columns (8 lanes a step, folded by a butterfly)
-    for (int x = tid; x < TILE * 8; x += Bw::THREADS) {
-      const int l = x / 8, sl = x % 8;
+    // over the block's columns (8 lanes a step, folded by a butterfly),
+    // the latter stored in every block of the cluster
+    for (int idx = tid; idx < TILE * 8; idx += Bw::THREADS) {
+      const int l = idx / 8, sl = idx % 8;
       float a = 0.f, c = 0.f;
 #pragma unroll
       for (int e = 0; e < HS / 8; ++e) {
@@ -636,66 +719,18 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
       }
       if (sl == 0) {
         sm.kru[l] = a;
+        const uint32_t at = smem_addr(&sm.vin[p & 1][rank][l]);
 #pragma unroll
         for (int cb = 0; cb < Bw::NCB; ++cb)
-          cluster.map_shared_rank(&sm, cb)->vin[p & 1][rank][l] = c;
+          store_remote(cluster_addr(at, cb), c,
+                       cluster_addr(smem_addr(&sm.bar), cb));
       }
     }
 
-    // the sums of half `half` of the piece, of the block's 16 rows (dr,
-    // dk, dw, du) and its 16 columns (dv), a (row or column, step) pair a
-    // thread, written out
-    auto fold = [&](int half) {
-      const int pb = 1 - half;
-#pragma unroll
-      for (int q = 0; q < Bw::PAIRS; ++q) {
-        const int pair = tid + q * Bw::THREADS;
-        const int rr = pair % BCOLS, s8 = pair / BCOLS;
-        const int l = half * HALF + s8;
-        const int i = rank * BCOLS + rr;
-        float vdo = 0.f, dr = 0.f, dk = 0.f, dw = 0.f;
-#pragma unroll
-        for (int cb = 0; cb < Bw::NCB; ++cb) {
-          vdo += sm.vin[p & 1][cb][l];
-          dr += sm.pin[pb][cb][0][s8][rr];
-          dk += sm.pin[pb][cb][1][s8][rr];
-          dw += sm.pin[pb][cb][2][s8][rr];
-        }
-        const float ri = sm.r[buf][l][i], ki = sm.k[buf][l][i];
-        const float ui = sm.us[i];
-        dr = fmaf(ui * ki, vdo, dr);
-        dk = fmaf(ui * ri, vdo, dk);
-        du_acc[q] = fmaf(ri * ki, vdo, du_acc[q]);
-        float dvs = 0.f;
-#pragma unroll
-        for (int x = 0; x < Bw::WARPS; ++x) dvs += sm.dvp[pb][x][s8][rr];
-        dvs = fmaf(sm.kru[l], sm.d[buf][l][rr], dvs);
-        const int t = p * TILE + l;
-        if (t < nc) {
-          const size_t e = base + (size_t)t * D;
-          drkw[e + i] = dr;
-          drkw[plane + e + i] = dk;
-          drkw[2 * plane + e + i] = dw;
-          dv[e + rank * BCOLS + rr] = dvs;
-        }
-      }
-    };
-
-    // the state every SUB steps of the piece
-    float cks[TILE / SUB - 1][2][4];
-    {
-#pragma unroll
-      for (int l = 0; l < TILE - SUB; ++l) {
-        bwd_walk(sm, buf, l, i0, jc, x);
-        if (l % SUB == SUB - 1) copy2x4(x, cks[l / SUB]);
-      }
-    }
-    // the sub-chunks in reverse; a half's partials go to the blocks that
-    // own their rows, and the barrier of half 1 waits while sub-chunk 1's
-    // states are recomputed
+    // the sub-chunks in reverse; the partials go to the blocks that own
+    // their rows
 #pragma unroll
     for (int sb = TILE / SUB - 1; sb >= 0; --sb) {
-      const int half = sb * SUB / HALF, pb = 1 - half;
       float st[SUB][2][4];  // the sub-chunk's states
       if (sb == 0)
         load2x4(s0, s0_stride, st[0]);
@@ -705,10 +740,6 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
       for (int l = 1; l < SUB; ++l) {
         copy2x4(st[l - 1], st[l]);
         bwd_walk(sm, buf, sb * SUB + l - 1, i0, jc, st[l]);
-      }
-      if (sb * SUB == HALF - SUB) {  // the first sub-chunk of half 0
-        cluster_wait();
-        fold(1);
       }
 #pragma unroll
       for (int gp = 1; gp >= 0; --gp) {
@@ -724,24 +755,59 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
         fold_lanes<12, 2>(a, lane, FULL);
         // over its 8 row lanes (lane bits 2-4): lane rl ends with value rl
         fold_lanes<8, 16>(dvv, lane, FULL);
-        const int l8 = sb * SUB + gp * 2 - half * HALF;  // the group's step
+        const int l0 = sb * SUB + gp * 2;  // the group's first step
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           const int vi = cl * 3 + q;
-          owner->pin[pb][rank][(vi / 2) % 3][l8 + vi / 6][rl * 2 + vi % 2] =
-              a[q];
+          const int at = ((vi / 2) % 3 * TILE + l0 + vi / 6) * BCOLS + rl * 2 +
+                         vi % 2;
+          store_remote(owner_pin + 4 * at, a[q], owner_bar);
         }
-        sm.dvp[pb][wi][l8 + (rl >> 2)][jc + (rl & 3)] = dvv[0];
-      }
-      if (sb * SUB % HALF == 0) cluster_arrive();  // the half is out
-      if (sb == 0) {
-        cluster_wait();
-        fold(0);
+        sm.dvp[wi][l0 + (rl >> 2)][jc + (rl & 3)] = dvv[0];
       }
     }
+    __syncthreads();           // the block's kru and dvp are in
+    mbar_wait(&sm.bar, phase);  // and every block's pin and vin
+    phase ^= 1;
+    if (tid == 0 && p > 0) mbar_expect(&sm.bar, Bw::PIECE_BYTES);  // the next
+
+    // the piece's sums of the block's 16 rows (dr, dk, dw, du) and its 16
+    // columns (dv), a (row or column, step) pair a thread, written out
+#pragma unroll
+    for (int q = 0; q < Bw::PAIRS; ++q) {
+      const int pair = tid + q * Bw::THREADS;
+      const int rr = pair % BCOLS, l = pair / BCOLS;
+      const int i = rank * BCOLS + rr;
+      float vdo = 0.f, dr = 0.f, dk = 0.f, dw = 0.f;
+#pragma unroll
+      for (int cb = 0; cb < Bw::NCB; ++cb) {
+        vdo += sm.vin[p & 1][cb][l];
+        dr += sm.pin[cb][0][l][rr];
+        dk += sm.pin[cb][1][l][rr];
+        dw += sm.pin[cb][2][l][rr];
+      }
+      const float ri = sm.r[buf][l][i], ki = sm.k[buf][l][i];
+      const float ui = sm.us[i];
+      dr = fmaf(ui * ki, vdo, dr);
+      dk = fmaf(ui * ri, vdo, dk);
+      du_acc[q] = fmaf(ri * ki, vdo, du_acc[q]);
+      float dvs = 0.f;
+#pragma unroll
+      for (int wj = 0; wj < Bw::WARPS; ++wj) dvs += sm.dvp[wj][l][rr];
+      dvs = fmaf(sm.kru[l], sm.d[buf][l][rr], dvs);
+      const int t = p * TILE + l;
+      if (t < nc) {
+        const size_t e = base + (size_t)t * D;
+        drkw[e + i] = dr;
+        drkw[plane + e + i] = dk;
+        drkw[2 * plane + e + i] = dw;
+        dv[e + rank * BCOLS + rr] = dvs;
+      }
+    }
+    cluster_arrive_relaxed();  // this thread has read the piece's sums
     __syncthreads();  // the buffer is free for stage stg + 2
   }
-  // du: each of the block's rows summed over its 8 step slots in order
+  // du: each of the block's rows summed over its step slots in order
 #pragma unroll
   for (int q = 0; q < Bw::PAIRS; ++q) {
     const int pair = tid + q * Bw::THREADS;
@@ -751,10 +817,10 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   if (tid < BCOLS) {
     float s = 0.f;
 #pragma unroll
-    for (int s8 = 0; s8 < HALF; ++s8) s += sm.dus[s8][tid];
+    for (int l = 0; l < TILE; ++l) s += sm.dus[l][tid];
     part_u[((size_t)b * C + chunk) * D + h * HS + rank * BCOLS + tid] = s;
   }
-  cluster.sync();  // no block leaves while another reads its shared memory
+  cluster_wait();  // pairs the last relaxed arrive
 }
 
 // du[d] = sum over batch rows, then chunks, in order, of part_u (B, C, D).

@@ -34,10 +34,11 @@ gradient of the state (G at every chunk's end), then each chunk from
 its stored state and G_end by a cluster of 4 blocks of 16 columns (a
 thread 2 rows x 4 columns; the state every 16 steps in a global scratch,
 every 4 in registers, the 4-step sub-chunks' states in registers, G's
-reverse recurrence), dr, dk, dw summed over the head's columns through
-the cluster's distributed shared memory in a fixed order and written
-once, dv over rows by butterflies and shared memory, and a small kernel
-that adds du's partials a (batch row, chunk) in order.  Inputs reach
+reverse recurrence), dr, dk, dw summed over the head's columns in the
+owning block of the cluster, stored there through distributed shared
+memory (`st.async`, counted on its mbarrier), in a fixed order and
+written once, dv over rows by butterflies and shared memory, and a
+small kernel that adds du's partials a (batch row, chunk) in order.  Inputs reach
 shared memory by cp.async, a tile of 16 steps ahead.  No atomics, so two
 backwards give the same bits.  :func:`chain` runs the first two stages
 alone (the chunk states, or G at every chunk's end) and
