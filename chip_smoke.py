@@ -18,6 +18,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      sides of it, pages 16 and 64, where shared memory bounds the split
      size; granite-34b: 48 query heads on one KV head; granite-moe: D 64,
      16 / 8; jamba-1.5-large: 64 / 8 heads of 128 at phase 13c's engine
+     shape; whisper-tiny: 6 / 6 heads of 64, G 1, at phase 15b's serve
      shape), float32 and bf16, at every split size the card's shared
      memory allows;
   4. full-width internlm2-1.8b (bf16, random weights from a seed) served
@@ -43,7 +44,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      MQA (8 / 1 heads), G = 3 (6 / 2 heads, ragged, window 100) and a
      non-causal case; in bf16 at head_dim 192 (the d192 instantiation of
      the same template) at deepseek-v2's sequence length (S 4,096, 16 /
-     16 heads, causal), a non-causal S 777 and a GQA windowed case; each
+     16 heads, causal), a non-causal S 777 and a GQA windowed case; the
+     sm90 kernels at whisper-tiny's training call (B 2, S 4,096, 6 / 6
+     heads of 64), held, timed and run twice as a route is; each
      route timed at its own path's shape with the same four times and
      the achieved TFLOP/s (d256 also with the window; d192 at
      deepseek-v2's B 1, S 4,096, 128 / 128 heads of 192; the d256
@@ -237,18 +240,46 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         slots reused (4 requests on 2), and on a 2 x 512-token batch
         logits card vs CPU 1e-3, loss 1e-4 and every gradient 5e-5 of
         its scale (through the WKV kernels at head size 16);
-     c. full-width rwkv6-3b (32 layers, 2.87 B parameters, bf16, random
-        weights from a seed) served through the launcher at phase 4's
-        shape, flat and radix tables: exactly 0 paged launches (no layer
-        holds a KV cache), the same tokens in both modes, ms/step,
-        tokens/s, peak memory;
+     c. full-width rwkv6-3b (bf16, random weights from a seed) served
+        through the launcher at phase 4's shape with its depth cut to 16
+        of its 32 layers (``RWKV_SERVE_LAYERS``: the script's time;
+        14d trains all 32), flat and radix tables: exactly 0 paged
+        launches (no layer holds a KV cache), the same tokens in both
+        modes, ms/step, tokens/s, peak memory;
      d. full-width rwkv6-3b trained through the launcher at phase 7's
         shape (8 x 4,096 tokens in 4 microbatches, 3 steps) with bf16
         gradients and float32 AdamW moments: WKV launches exactly 768 +
         384, finite nonzero losses and gradient norms, s/step, tokens/s,
         peak memory, and a fourth step under torch.profiler (time by
         operator);
- 15. one JSON line describing every kernel, then the final ``ok`` line.
+ 15. whisper-tiny, the encoder-decoder (4 + 4 layers, d_model 384, 6
+     heads of 64, 36.4 M parameters; no new kernel: its decoder's
+     self-attention decodes through the paged kernel and trains through
+     the sm90 flash kernels, its encoder's 1,500 frames and the
+     cross-attention take the masked softmax):
+     a. smoke width in float32 card vs CPU on a 2 x 512-token batch with
+        16 stub frames: logits 1e-3, loss 1e-4, every gradient 5e-5 of
+        its scale; then ``prefill(audio_frames=)`` and a ``decode_step``
+        on the card in the dense, flat and radix modes, whose logits
+        equal ``forward_train``'s last position within 2e-4;
+     b. full width and depth (bf16, random weights from a seed) served
+        through the launcher at phase 4's shape, flat and radix tables
+        (the engine at the decode state's zero encoder output, as the
+        JAX engine has no audio path): paged launches 4 x steps, the
+        same tokens in both modes, ms/step, tokens/s, peak memory;
+     c. the audio path at full width: 4 sequences of 1,500 stub frames
+        (``add_modality_stubs``), ``prefill(audio_frames=)`` of a
+        64-token prompt and 32 greedy decode steps in the flat and
+        radix modes (paged launches 4 x steps, the same tokens, the
+        encoder output float32 from bf16 weights); a float32 copy of
+        the model: prefill's last logits against ``forward_train``'s
+        within 2e-4;
+     d. full width trained through the launcher at phase 7's shape (8 x
+        4,096 tokens in 4 microbatches, 1,500 frames a sequence, 3
+        steps): sm90 flash launches exactly 96 + 48 and no other route
+        (the encoder launches none), finite losses, s/step, tokens/s,
+        peak memory, and a fourth step under torch.profiler;
+ 16. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -307,8 +338,8 @@ from repro_torch.kernels import wkv as WK  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import simulate as SIMLAUNCH  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
-from repro_torch.models import (forward_train, init_params,  # noqa: E402
-                                prefill)
+from repro_torch.models import (decode_step, forward_train,  # noqa: E402
+                                init_params, prefill)
 from repro_torch.serving import (FleetEngine, Request,  # noqa: E402
                                  ServeEngine, greedy_reference)
 from repro_torch.serving import fleet as FLEET  # noqa: E402
@@ -647,7 +678,7 @@ def phase_kernel():
 
     timed = {}
     for name in ("serve_bf16", "b8_bf16", "b8_f32", "gemma3_p16_bf16",
-                 "granite34b_bf16", "jamba_bf16"):
+                 "granite34b_bf16", "jamba_bf16", "whisper_bf16"):
         case = cases[name]
         ms = time_cold_ms(lambda: run(PA.paged_attention_cuda, case), 200)
         plain_ms = time_cold_ms(lambda: run(ref.paged_attention_ref, case),
@@ -687,6 +718,11 @@ VARIANT_PAGED = {
     # (max_batch 4, max_len 256 / page 16, pool of 4 * 16 + 8 pages)
     "jamba": dict(b=4, h=64, kh=8, d=128, page=16, maxp=16, n=72,
                   lengths=[70, 101, 129, 143], seed=11),
+    # whisper-tiny's decoder at phase 15b's engine shape (phase 4's:
+    # max_batch 4, max_len 512 / page 16): 6 query heads on 6 KV heads
+    # of 64 (G 1)
+    "whisper": dict(b=4, h=6, kh=6, d=64, page=16, maxp=32, n=136,
+                    lengths=_SERVE_LENS, seed=12),
 }
 
 
@@ -786,6 +822,10 @@ DEEPSEEK_ATTN = dict(b=1, s=4096, h=128, kh=128, d=192, causal=True,
 #: jamba-1.5-large's training attention (phase 13d, the sm90 route): 64
 #: query heads over 8 KV heads of 128 (G = 8), one 4,096-token sequence
 JAMBA_ATTN = dict(b=1, s=4096, h=64, kh=8, d=128, causal=True, window=0)
+#: whisper-tiny's training attention (phase 15d, the sm90 route): its
+#: decoder's 6 query heads on 6 KV heads of 64 (G 1), 2 sequences of
+#: 4,096 tokens a microbatch
+WHISPER_ATTN = dict(b=2, s=4096, h=6, kh=6, d=64, causal=True, window=0)
 #: each route is timed at its own path's shape and dtype
 ROUTE_CASES = {"sm90": (TRAIN_ATTN, torch.bfloat16),
                "simt": (PARITY_ATTN, torch.float32),
@@ -968,7 +1008,7 @@ def phase_flash():
     results = {}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         cases = ({**shapes, **D256_CASES, **D192_CASES,
-                  "jamba_train": JAMBA_ATTN}
+                  "jamba_train": JAMBA_ATTN, "whisper_train": WHISPER_ATTN}
                  if dt == torch.bfloat16 else {**shapes, **f32_only})
         for i, (name, shape) in enumerate(cases.items()):
             case = flash_case(**shape, dtype=dt, seed=10 + i)
@@ -1011,6 +1051,7 @@ def phase_flash():
           "flash_attention kernels disagree with their plain versions")
 
     timed = {route: time_route(route) for route in ROUTE_CASES}
+    timed["whisper"] = time_route("sm90", WHISPER_ATTN, "whisper")
     torch.cuda.empty_cache()
     return timed
 
@@ -1039,13 +1080,16 @@ def check_d256_ptxas() -> None:
               f"reported nothing for it")
 
 
-def time_route(route: str) -> dict:
-    """A route's kernels, plain versions and SDPA at its path's shape:
-    the kernels held against the plain versions with phase 6's gates,
-    times with L2 flushed, bound, achieved TFLOP/s, max abs errors; the
-    sm90, d256 and d192 backwards are also run twice and held
-    bit-identical."""
-    shape, dtype = ROUTE_CASES[route]
+def time_route(route: str, shape=None, label: str = "") -> dict:
+    """A route's kernels, plain versions and SDPA at its path's shape
+    (or at ``shape``, another path's call on the route, named by
+    ``label``): the kernels held against the plain versions with phase
+    6's gates, times with L2 flushed, bound, achieved TFLOP/s, max abs
+    errors; the sm90, d256 and d192 backwards are also run twice and
+    held bit-identical."""
+    shape, dtype = (ROUTE_CASES[route] if shape is None
+                    else (shape, torch.bfloat16))
+    name = f"{route} at {label}'s call" if label else route
     case = flash_case(**shape, dtype=dtype, seed=10)
     check(FA._route(dtype, shape["d"]) == route, f"{route} case is routed "
                                                  f"elsewhere")
@@ -1062,24 +1106,24 @@ def time_route(route: str) -> dict:
           and bwd_scaled <= bwd_tol)
     if dtype == torch.bfloat16:
         ok &= errs["fwd"] <= FLASH_TIGHT_BF16
-    print(f"flash_attention {route} at its path's shape {shape}: fwd "
+    print(f"flash_attention {name} at its path's shape {shape}: fwd "
           f"max_abs_err {errs['fwd']:.3e} (allclose {fwd_tol:g}), lse "
           f"{lse_err:.3e} (2e-05), bwd vs bwd_ref max_abs_err "
           f"{errs['bwd']:.3e}, of scale {bwd_scaled:.3e} ({bwd_tol:g}) "
           f"{'ok' if ok else 'FAIL'}")
-    check(ok, f"the {route} kernels disagree with their plain versions at "
+    check(ok, f"the {name} kernels disagree with their plain versions at "
               f"their path's shape")
     if route != "simt":
         again = flash_bwd("kernel", case, o, lse)
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        check(same, f"two {route} backward runs on the same inputs differ")
-        print(f"flash_attention {route} backward deterministic: two runs "
+        check(same, f"two {name} backward runs on the same inputs differ")
+        print(f"flash_attention {name} backward deterministic: two runs "
               f"give bit-identical dq, dk, dv")
         del again
     del grads, want
     lib_fwd, lib_bwd = library_attention(case)
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
-    print(f"library yardstick vs plain ({route}, {tag}): max_abs_err "
+    print(f"library yardstick vs plain ({name}, {tag}): max_abs_err "
           f"{max_err(lib_fwd().transpose(1, 2), ro):.3e}")
     timed = {}
     for direction in ("fwd", "bwd"):
@@ -1101,7 +1145,7 @@ def time_route(route: str) -> dict:
                                 library_ms=library_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, tflops=tflops,
                                 max_abs_err=errs[direction])
-        print(f"flash_attention {route} {direction} {tag} {shape} timing (L2 "
+        print(f"flash_attention {name} {direction} {tag} {shape} timing (L2 "
               f"flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {attended_pairs(case)} attended pairs a head), "
@@ -2426,6 +2470,10 @@ WKV_FLOPS = {"fwd": 5, "bwd": 14}
 #: for logits, loss and gradients card vs CPU
 RWKV_PARITY = dict(MOE_PARITY, requests=4)
 RWKV_PARITY_TOKENS = (2, 512)
+#: 14c: the serve's depth, cut from 32 layers to keep the script within
+#: its time (its two full-depth serves took 66.5-96.9 s); every layer is
+#: the same RWKV block, and 14d trains all 32
+RWKV_SERVE_LAYERS = 16
 
 
 def wkv_inputs(b, s, h, hs, seed, w0=-0.5):
@@ -2744,10 +2792,12 @@ def phase_rwkv_parity() -> dict:
 
 
 def phase_rwkv_serve() -> dict:
-    """14c: full-width rwkv6-3b (32 layers, bf16) served through the
-    launcher at phase 4's shape in the flat and the radix table mode:
-    no layer holds a KV cache, so no step launches the paged kernel;
-    both modes give the same tokens."""
+    """14c: full-width rwkv6-3b (bf16) at :data:`RWKV_SERVE_LAYERS` of
+    its 32 layers served through the launcher at phase 4's shape in the
+    flat and the radix table mode: no layer holds a KV cache, so no step
+    launches the paged kernel; both modes give the same tokens."""
+    full = C.get_arch(RWKV)
+    cut = dataclasses.replace(full, num_layers=RWKV_SERVE_LAYERS)
     launches, tokens = {}, {}
     for mode in (BT.FLAT, BT.RADIX):
         args = SERVE.build_parser().parse_args(["--arch", RWKV,
@@ -2755,7 +2805,10 @@ def phase_rwkv_serve() -> dict:
         torch.cuda.reset_peak_memory_stats()
         PA.launches = 0
         WK.launches_fwd = WK.launches_bwd = 0
-        out = SERVE.serve(args)
+        with mock.patch.object(SERVE.C, "get_arch",
+                               lambda name, get=C.get_arch:
+                               cut if name == RWKV else get(name)):
+            out = SERVE.serve(args)
         n = PA.launches
         cfg, eng, done = out["cfg"], out["engine"], out["done"]
         steps = eng.sched.stats["steps"]
@@ -2766,8 +2819,11 @@ def phase_rwkv_serve() -> dict:
         generated = sum(len(r.generated) for r in done)
         prompts = sum(len(r.prompt) for r in done)
         secs = out["seconds"]
-        print(f"serve {RWKV} {mode} (full width, {cfg.num_layers} layers, "
-              f"{cfg.param_count() / 1e9:.2f} B params, {cfg.dtype}): "
+        check(cfg.num_layers == RWKV_SERVE_LAYERS,
+              f"{RWKV} served {cfg.num_layers} layers")
+        print(f"serve {RWKV} {mode} (full width, {cfg.num_layers} of "
+              f"{full.num_layers} layers, {cfg.param_count() / 1e9:.2f} B "
+              f"params, {cfg.dtype}): "
               f"{len(done)} requests, {prompts} prompt + {generated} "
               f"generated tokens in {steps} steps, {secs:.3f} s; "
               f"{generated / secs:.1f} generated tokens/s, "
@@ -2848,6 +2904,303 @@ def phase_rwkv_train() -> dict:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"wkv": wkv, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: whisper-tiny, the encoder-decoder
+# ---------------------------------------------------------------------------
+WHISPER = "whisper-tiny"
+#: 15a: smoke width in float32 card vs CPU, a 2 x 512-token batch (the
+#: smoke config's 16 stub frames); then the decode check on its first
+#: 16 tokens
+WHISPER_PARITY_TOKENS = (2, 512)
+WHISPER_DECODE_TOKENS = 16
+#: decode after prefill against the training forward's last position:
+#: the JAX package's own invariant (tests/test_models.py, rtol = atol)
+WHISPER_DECODE_TOL = 2e-4
+#: 15c: the audio path at full width: 4 sequences of 1,500 stub frames,
+#: a 64-token prompt and 32 greedy decode steps
+WHISPER_AUDIO = dict(batch=4, prompt=64, new_tokens=32, max_len=128,
+                     page_size=16)
+
+
+def phase_whisper_parity() -> dict:
+    """15a: whisper-tiny at smoke width in float32: the card's logits,
+    loss and gradients on a 2 x 512-token batch with the audio stubs
+    against the CPU's; then ``prefill(audio_frames=)`` and one
+    ``decode_step`` on the card in every KV mode against the training
+    forward's last position."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(C.smoke_variant(C.get_arch(WHISPER)),
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    model = init_params(cfg, gen, "cuda")
+    cpu_model = copy.deepcopy(model).cpu()
+    b, s = WHISPER_PARITY_TOKENS
+    raw = DATA.add_modality_stubs(
+        DATA.SyntheticLM(cfg.vocab_size, s, b).batch_at(0), cfg)
+    out = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        m = trainable(m)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        logits, _ = forward_train(m, cfg, batch)
+        loss, _ = loss_fn(m, cfg, batch)
+        loss.backward()
+        out[dev] = (logits.detach().cpu(), float(loss.detach()),
+                    {n: q.grad.detach().cpu() for n, q in
+                     m.named_parameters()})
+        m.requires_grad_(False)
+    logit_diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    loss_diff = abs(out["cuda"][1] - out["cpu"][1])
+    grad_errs = {n: float((g - out["cpu"][2][n]).abs().max())
+                 / (float(out["cpu"][2][n].abs().max()) or 1.0)
+                 for n, g in out["cuda"][2].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(bool(torch.isfinite(out["cuda"][0]).all()), "non-finite logits")
+    check(logit_diff <= LOGIT_TOL, f"{WHISPER} card vs CPU logits differ "
+                                   f"by {logit_diff}")
+    check(loss_diff <= TRAIN_LOSS_TOL, f"{WHISPER} card vs CPU loss differ "
+                                       f"by {loss_diff}")
+    check(grad_errs[worst] <= TRAIN_GRAD_TOL,
+          f"{WHISPER} card vs CPU gradient {worst} differs by "
+          f"{grad_errs[worst]:.3e} of its scale")
+    check(any(n.startswith("encoder.") for n in grad_errs)
+          and any(".cross." in n for n in grad_errs),
+          "the parity run held no encoder or cross-attention gradient")
+    print(f"{WHISPER} parity card vs CPU (smoke width, float32, {b} x {s} "
+          f"tokens, {cfg.encoder_seq_len} stub frames): logits "
+          f"max_abs_diff {logit_diff:.3e} (tol {LOGIT_TOL:g}); loss card "
+          f"{out['cuda'][1]:.6f} CPU {out['cpu'][1]:.6f}, diff "
+          f"{loss_diff:.3e} (tol {TRAIN_LOSS_TOL:g}); gradients of scale: "
+          f"worst {worst} {grad_errs[worst]:.3e} over {len(grad_errs)} "
+          f"(tol {TRAIN_GRAD_TOL:g})")
+    n = WHISPER_DECODE_TOKENS
+    toks = torch.from_numpy(raw["tokens"][:, :n]).cuda()
+    frames = torch.from_numpy(raw["audio_frames"]).cuda()
+    with torch.no_grad():
+        ref, _ = forward_train(model, cfg, {"tokens": toks,
+                                            "audio_frames": frames})
+    errs = {}
+    PA.launches = 0
+    for mode in ("dense", BT.FLAT, BT.RADIX):
+        _, st = prefill(model, cfg, toks[:, :-1].int(), kv_mode=mode,
+                        max_len=32, page_size=4, audio_frames=frames)
+        last, _ = decode_step(model, cfg, st, toks[:, -1].int(),
+                              kv_mode=mode)
+        check(within(last, ref[:, -1], WHISPER_DECODE_TOL),
+              f"{WHISPER} {mode}: decode after prefill differs from "
+              f"forward_train's last position by "
+              f"{max_err(last, ref[:, -1]):.3e}")
+        errs[mode] = max_err(last, ref[:, -1])
+    want = 2 * n * cfg.num_layers
+    check(PA.launches == want, f"{WHISPER} parity: paged_attention "
+                               f"launches {PA.launches} != {want}")
+    print(f"{WHISPER} decode on the card (prefill of {n - 1} tokens with "
+          f"the audio frames, then a decode_step) against forward_train's "
+          f"last position: max_abs_err "
+          + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
+          + f" (allclose {WHISPER_DECODE_TOL:g}); paged_attention launches "
+          f"{PA.launches}")
+    del model, cpu_model, out
+    torch.cuda.empty_cache()
+    return {"logits": logit_diff, "loss": loss_diff,
+            "grad": grad_errs[worst], "decode": errs}
+
+
+def phase_whisper_serve() -> dict:
+    """15b: full-width whisper-tiny (4 + 4 layers, bf16) served through
+    the launcher at phase 4's shape in the flat and the radix table
+    mode: every decoder layer of every step through the paged kernel at
+    6 / 6 heads of 64, the cross-attention over the decode state's zero
+    encoder output (the engine has no audio path, as the JAX engine has
+    none); both modes give the same tokens."""
+    launches, tokens = {}, {}
+    for mode in (BT.FLAT, BT.RADIX):
+        args = SERVE.build_parser().parse_args(["--arch", WHISPER,
+                                                "--kv-mode", mode])
+        torch.cuda.reset_peak_memory_stats()
+        PA.launches = 0
+        out = SERVE.serve(args)
+        n = PA.launches
+        cfg, eng, done = out["cfg"], out["engine"], out["done"]
+        steps = eng.sched.stats["steps"]
+        serve_checks(cfg, done, args.requests, SERVE.FULL["new_tokens"],
+                     f"{WHISPER} {mode}")
+        check(n == cfg.num_layers * steps and n > 0,
+              f"{mode}: paged_attention launches {n} != {cfg.num_layers} "
+              f"layers x {steps} steps")
+        enc = eng.state["enc_out"]
+        check(enc.dtype == torch.bfloat16 and not bool(enc.any()),
+              "the engine's encoder output is not the zero bf16 state")
+        generated = sum(len(r.generated) for r in done)
+        prompts = sum(len(r.prompt) for r in done)
+        secs = out["seconds"]
+        print(f"serve {WHISPER} {mode} (full width, {cfg.encoder_layers} + "
+              f"{cfg.num_layers} layers, {cfg.param_count() / 1e6:.2f} M "
+              f"params, {cfg.dtype}): {len(done)} requests, {prompts} "
+              f"prompt + {generated} generated tokens in {steps} steps, "
+              f"{secs:.3f} s; {generated / secs:.1f} generated tokens/s, "
+              f"{(prompts + generated) / secs:.1f} tokens/s in all; "
+              f"{secs / steps * 1e3:.3f} ms/step; paged_attention launches "
+              f"{n}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches[mode] = n
+        tokens[mode] = {r.req_id: list(r.generated) for r in done}
+        del out, eng
+        torch.cuda.empty_cache()
+    check(tokens[BT.FLAT] == tokens[BT.RADIX],
+          f"{WHISPER} flat and radix tables generated different tokens")
+    print(f"serve {WHISPER}: flat and radix tables generate the same tokens")
+    return launches
+
+
+def phase_whisper_audio() -> dict:
+    """15c: the audio path at full width: ``prefill(audio_frames=)`` of
+    4 prompts with 1,500 stub frames each and 32 greedy decode steps in
+    the flat and the radix mode (every decoder layer of every step
+    through the paged kernel; the same tokens); then a float32 copy of
+    the model, whose prefill's last logits equal ``forward_train``'s
+    last position within 2e-4."""
+    p = WHISPER_AUDIO
+    cfg = C.get_arch(WHISPER)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_params(cfg, gen, "cuda")
+    raw = DATA.add_modality_stubs(DATA.SyntheticLM(
+        cfg.vocab_size, p["prompt"], p["batch"]).batch_at(0), cfg)
+    toks = torch.from_numpy(raw["tokens"]).cuda()
+    frames = torch.from_numpy(raw["audio_frames"]).cuda()
+    check(tuple(frames.shape) == (p["batch"], cfg.encoder_seq_len,
+                                  cfg.d_model),
+          f"audio stubs of shape {tuple(frames.shape)}")
+    tokens, launches = {}, {}
+    for mode in (BT.FLAT, BT.RADIX):
+        torch.cuda.reset_peak_memory_stats()
+        PA.launches = 0
+        t0 = time.perf_counter()
+        logits, st = prefill(model, cfg, toks, kv_mode=mode,
+                             max_len=p["max_len"],
+                             page_size=p["page_size"], audio_frames=frames)
+        check(st["enc_out"].dtype == torch.float32,
+              f"the encoder output is {st['enc_out'].dtype}, not float32 "
+              f"(float32 frames through bf16 weights promote)")
+        out = []
+        for _ in range(p["new_tokens"]):
+            tok = torch.argmax(logits, dim=-1).int()
+            out.append(tok)
+            logits, st = decode_step(model, cfg, st, tok, kv_mode=mode)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = p["prompt"] + p["new_tokens"]
+        n = PA.launches
+        check(n == cfg.num_layers * steps,
+              f"{mode}: paged_attention launches {n} != {cfg.num_layers} "
+              f"layers x {steps} steps")
+        gen_toks = torch.stack(out, dim=1).cpu()
+        check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
+              "a generated token lies outside the vocabulary")
+        tokens[mode], launches[mode] = gen_toks, n
+        print(f"{WHISPER} audio path {mode} (full width, bf16, {p['batch']} "
+              f"x {frames.shape[1]} stub frames, prompt {p['prompt']}, "
+              f"{p['new_tokens']} greedy steps): {steps} decode steps in "
+              f"{secs:.3f} s, {secs / steps * 1e3:.3f} ms/step (the encoder "
+              f"once, its K/V recomputed in each layer and step); "
+              f"paged_attention launches {n}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(torch.equal(tokens[BT.FLAT], tokens[BT.RADIX]),
+          f"{WHISPER} audio path: flat and radix generated different tokens")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = copy.deepcopy(model).float()
+    with torch.no_grad():
+        ref, _ = forward_train(f32, f32cfg, {"tokens": toks,
+                                             "audio_frames": frames})
+    last, _ = prefill(f32, f32cfg, toks, kv_mode=BT.FLAT,
+                      max_len=p["max_len"], page_size=p["page_size"],
+                      audio_frames=frames)
+    err = max_err(last, ref[:, -1])
+    check(within(last, ref[:, -1], WHISPER_DECODE_TOL),
+          f"{WHISPER} float32 full width: prefill's last logits differ from "
+          f"forward_train's by {err:.3e}")
+    print(f"{WHISPER} audio path: flat and radix generate the same tokens; "
+          f"float32 copy at full width: prefill's last logits against "
+          f"forward_train's last position max_abs_err {err:.3e} (allclose "
+          f"{WHISPER_DECODE_TOL:g})")
+    del model, f32, st
+    torch.cuda.empty_cache()
+    return {"launches": launches, "f32_err": err}
+
+
+def phase_whisper_train() -> dict:
+    """15d: full-width whisper-tiny trained through the launcher at
+    phase 7's shape (8 x 4,096 tokens in 4 microbatches, 1,500 stub
+    frames a sequence, 3 steps): every decoder layer's self-attention
+    through the sm90 flash kernels (forward twice a step with the
+    recompute of activation checkpointing, backward once), the encoder's
+    1,500 frames and the cross-attention on the masked softmax (no
+    flash launch); then a fourth step under torch.profiler."""
+    ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = TRAIN.build_parser().parse_args(["--arch", WHISPER,
+                                            "--ckpt-dir", ckpt_dir])
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches_fwd = FA.launches_bwd = 0
+    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    out = TRAIN.train(args)
+    sm90 = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
+    total = (FA.launches_fwd, FA.launches_bwd)
+    cfg, hist, shape = out["cfg"], out["history"], out["shape"]
+    micro = out["microbatches"]
+    check(len(hist) == args.steps, f"trained {len(hist)} of {args.steps} "
+                                   "steps")
+    for m in hist:
+        for key in ("loss", "grad_norm"):
+            check(bool(np.isfinite(m[key])) and m[key] != 0,
+                  f"{key} {m[key]} is not finite and nonzero")
+    want = (2 * cfg.num_layers * micro * args.steps,
+            cfg.num_layers * micro * args.steps)
+    check(sm90 == want, f"sm90 flash_attention launches (fwd, bwd) {sm90} "
+                        f"!= {want}")
+    check(total == want, f"flash_attention launches (fwd, bwd) {total} "
+                         f"!= {want}: another route or the encoder ran")
+    tokens = shape.global_batch * shape.seq_len
+    secs = [m["seconds"] for m in hist]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    raw = DATA.add_modality_stubs(DATA.SyntheticLM(
+        cfg.vocab_size, shape.seq_len, shape.global_batch).batch_at(
+        args.steps), cfg, seed=args.steps)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    step = make_train_step(cfg, AdamWConfig(total_steps=args.steps + 1),
+                           micro)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(out["state"], batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    print(f"train {WHISPER}: a fourth step under torch.profiler, "
+          f"{traced:.3f} s:")
+    print_profile(prof, traced)
+    print(f"train {WHISPER} (full width, {cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, {cfg.param_count() / 1e6:.2f} M params, "
+          f"bf16 weights and gradients, float32 AdamW moments, float32 "
+          f"encoder over float32 frames): {args.steps} steps of "
+          f"{shape.global_batch} x {shape.seq_len} tokens and "
+          f"{cfg.encoder_seq_len} frames a sequence in {micro} "
+          f"microbatches; losses {[round(m['loss'], 4) for m in hist]}, "
+          f"grad_norms {[round(m['grad_norm'], 4) for m in hist]}; s/step "
+          f"{[round(x, 3) for x in secs]} (first includes warm-up); "
+          f"{np.mean(secs[1:]):.3f} s/step and "
+          f"{tokens / np.mean(secs[1:]):.1f} tokens/s after the first; "
+          f"flash_attention sm90 launches fwd {sm90[0]}, bwd {sm90[1]}; "
+          f"peak memory {peak:.2f} GiB")
+    del out, step, batch
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"sm90": sm90, "peak_gib": peak}
+
 
 # ---------------------------------------------------------------------------
 # phase 9: the translation simulator
@@ -4545,6 +4898,20 @@ def main() -> int:
     rwkv_train = phase_rwkv_train()
     print(f"phase 14d ({RWKV} train): {time.perf_counter() - t0:.1f} s")
     print(f"phase 14 (RWKV6): {time.perf_counter() - t14:.1f} s")
+    t15 = t0 = time.perf_counter()
+    phase_whisper_parity()
+    print(f"phase 15a (whisper parity): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_serve = phase_whisper_serve()
+    print(f"phase 15b ({WHISPER} serve): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_audio = phase_whisper_audio()
+    print(f"phase 15c ({WHISPER} audio path): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_train = phase_whisper_train()
+    print(f"phase 15d ({WHISPER} train): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 15 (whisper-tiny): {time.perf_counter() - t15:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches,
@@ -4561,10 +4928,16 @@ def main() -> int:
         # d256: gemma3's local layers (window 512) beside its global ones
         **{k: v for k, v in flash_timed[route][direction].items()
            if k.startswith("window")},
-        # sm90: granite-moe's (12c) and jamba's (13d) training beside
-        # internlm2's
+        # sm90: granite-moe's (12c), jamba's (13d) and whisper-tiny's
+        # (15d) training beside internlm2's, and the kernels at
+        # whisper's training call (phase 6)
         **({"granite_moe_train_launches": moe_train[direction == "bwd"],
-            "jamba_train_launches": jamba_train["sm90"][direction == "bwd"]}
+            "jamba_train_launches": jamba_train["sm90"][direction == "bwd"],
+            "whisper_train_launches":
+                whisper_train["sm90"][direction == "bwd"],
+            **{f"whisper_{k}": flash_timed["whisper"][direction][k]
+               for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}}
            if route == "sm90" else {}),
     } for route in ROUTE_CASES
         for direction, n in zip(("fwd", "bwd"), path_launches[route])]
@@ -4598,8 +4971,14 @@ def main() -> int:
         # phase 14c: rwkv6-3b served (flat, radix): no attention layer
         "rwkv_serve_launches": rwkv_serve[BT.FLAT],
         "rwkv_radix_serve_launches": rwkv_serve[BT.RADIX],
+        # phase 15b: whisper-tiny served (flat, radix), and 15c's audio
+        # path (prefill with the frames, then greedy decode)
+        "whisper_serve_launches": whisper_serve[BT.FLAT],
+        "whisper_radix_serve_launches": whisper_serve[BT.RADIX],
+        "whisper_audio_launches": whisper_audio["launches"][BT.FLAT],
+        "whisper_radix_audio_launches": whisper_audio["launches"][BT.RADIX],
         **{f"{tag}_{k}": timed[f"{tag}_bf16"][k]
-           for tag in ("gemma3_p16", "granite34b", "jamba")
+           for tag in ("gemma3_p16", "granite34b", "jamba", "whisper")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }] + flash_rows + [{
         "name": f"selective_scan_{direction}",

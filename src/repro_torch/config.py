@@ -6,9 +6,10 @@ dataclasses with no framework dependency, so the port keeps its own copy
 instead of importing the JAX package.  The dense GQA architectures
 (internlm2-1.8b and the dense attention variants: gemma3-1b,
 phi3-medium-14b, granite-34b, internvl2-76b), the mixture-of-experts
-granite-moe-1b-a400m and deepseek-v2-236b (MLA and MoE) and the hybrid
-jamba-1.5-large-398b (Mamba, attention and MoE) are registered so far;
-the shape cells (``SHAPES``) are the JAX package's.
+granite-moe-1b-a400m and deepseek-v2-236b (MLA and MoE), the hybrid
+jamba-1.5-large-398b (Mamba, attention and MoE), rwkv6-3b and the
+encoder-decoder whisper-tiny are registered; the shape cells
+(``SHAPES``) are the JAX package's.
 """
 from __future__ import annotations
 
@@ -134,12 +135,20 @@ class ArchConfig:
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
         JAX package's formula (MLA's two norm scales are not counted
-        there either, nor RWKV's channel-mix ``mix_k``)."""
+        there either, nor RWKV's channel-mix ``mix_k``, nor an
+        encoder-decoder's ``enc_norm``)."""
         d = self.d_model
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for mixer, ffn in self.layer_kinds():
             total += self._mixer_params(mixer) + self._ffn_params(ffn)
             total += 2 * d  # two norms
+        if self.is_encdec:
+            # encoder blocks (attention, FFN, two norms), and each
+            # decoder layer's cross-attention and its norm
+            total += self.encoder_layers * (
+                self._mixer_params(ATTN) + self._ffn_params(DENSE_FF)
+                + 2 * d)
+            total += self.num_layers * (self._mixer_params(ATTN) + d)
         return total
 
     def _expert_params(self) -> int:

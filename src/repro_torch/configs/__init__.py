@@ -11,7 +11,9 @@ dense prefix layer, then 160 routed experts with 2 shared) and of the
 hybrid slice (jamba-1.5-large-398b: Mamba layers with one attention
 layer in eight, 16 experts top 2 on every other layer) and of the RWKV
 slice (rwkv6-3b: attention-free, the WKV recurrence and the relu^2
-channel mix in every layer).
+channel mix in every layer) and of the encoder-decoder slice
+(whisper-tiny: a non-causal encoder over stub audio frames, a decoder
+with cross-attention, sinusoidal positions and no rope).
 ``configs.ndp_sim`` holds the simulator's machines, workloads and
 presets.
 """
@@ -19,4 +21,4 @@ from repro_torch.configs import (deepseek_v2_236b,  # noqa: F401
                                  gemma3_1b, granite_34b,
                                  granite_moe_1b_a400m, internlm2_1_8b,
                                  internvl2_76b, jamba_1_5_large_398b,
-                                 phi3_medium_14b, rwkv6_3b)
+                                 phi3_medium_14b, rwkv6_3b, whisper_tiny)

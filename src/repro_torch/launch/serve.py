@@ -24,11 +24,17 @@ it too runs on one card only with its depth cut (``chip_smoke.py`` phase
 and depth; its layers keep a recurrent state and no KV cache, so no step
 makes a paged-attention call:
   python -m repro_torch.launch.serve --arch rwkv6-3b
+whisper-tiny (the encoder-decoder) serves at full width and depth: its
+decoder's self-attention decodes through the paged kernel at 6 / 6
+heads of 64, and its cross-attention reads the decode state's zero
+encoder output, as the JAX engine serves it (neither engine has an
+audio path; ``models.prefill(audio_frames=)`` encodes frames):
+  python -m repro_torch.launch.serve --arch whisper-tiny
 
 Reduced run on the CPU (smoke config in float32, plain PyTorch path):
   python -m repro_torch.launch.serve --local-smoke --device cpu \
       [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b
-       | rwkv6-3b]
+       | rwkv6-3b | whisper-tiny]
 
 Translation-costed serving: ``--cost-model pinned`` prices every step
 with the committed cost table, ``--cost-model sweep`` derives the table

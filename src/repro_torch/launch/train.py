@@ -14,7 +14,12 @@ of its 26 layers with a 512-key window, on the d256 route:
 ``--arch gemma3-1b``; granite-moe-1b-a400m's routed experts with the
 MoE aux loss in the loss: ``--arch granite-moe-1b-a400m``).  A vlm
 config (internvl2) gets the stub frontend's vision embeddings,
-prepended to the tokens, as the JAX launcher does.  ``--profile``
+prepended to the tokens, and an encoder-decoder (whisper-tiny) its
+1,500 stub audio frames a sequence, which its encoder reads in float32
+through the bf16 weights, as the JAX launcher does (``--arch
+whisper-tiny``: the decoder's self-attention on the sm90 kernels at 6 /
+6 heads of 64, the encoder and the cross-attention on the masked
+softmax).  ``--profile``
 traces every step after the first (warm-up) with torch.profiler and
 prints the time by operator and the card's busy share.
 
@@ -22,7 +27,7 @@ Reduced run on the CPU (smoke config in float32 at 64 tokens, plain
 PyTorch path), as the JAX launcher's ``--local-smoke``:
   python -m repro_torch.launch.train --local-smoke --device cpu \
       [--arch granite-moe-1b-a400m | deepseek-v2-236b | jamba-1.5-large-398b
-       | rwkv6-3b]
+       | rwkv6-3b | whisper-tiny]
 A Mamba layer's time recurrence runs the hand-written selective-scan
 kernels on the card (``kernels/selective_scan.py``), an RWKV layer's the
 WKV kernels (``kernels/wkv.py``; rwkv6-3b trains at full width and

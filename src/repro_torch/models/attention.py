@@ -29,8 +29,19 @@ v to it and runs :func:`self_attention` (above the threshold the flash
 kernel at head_dim 192); its decode is the absorbed-matrix attention
 over a dense latent cache, whatever the KV mode: an MLA layer has no KV
 pool.  The mesh branch of the paged path (``_paged_attend_shardmap``)
-belongs to the parallel slice and is not ported yet; cross-attention
-waits for its slice too.
+belongs to the parallel slice and is not ported yet.
+
+An encoder-decoder (whisper) adds :func:`cross_kv` and
+:func:`cross_attn_apply`: a decoder layer's queries over the encoder
+output's keys and values, the masked softmax of :func:`full_attention`
+without a mask, in training and in decode alike (the JAX package's jnp
+path; no kernel), the K/V recomputed from the encoder output at every
+call as there.  Its encoder runs :func:`attn_apply` with ``causal``
+False.  A config with ``rope_theta <= 0`` rotates nothing: it has no
+rope widths and builds no tables.  Projections go through
+``layers.mm``, so float32 activations (the encoder over float32 audio
+frames) through bf16 weights run in float32, as ``jnp.matmul``
+promotes them.
 """
 from __future__ import annotations
 
@@ -47,7 +58,7 @@ from repro_torch.core import block_table as BT
 from repro_torch.core import kv_page_manager as KVM
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models.layers import (RMSNorm, apply_rope, dense_init,
-                                       frozen, rope_tables)
+                                       frozen, mm, rope_tables)
 
 BLOCKWISE_THRESHOLD = 2048
 NEG_INF = -1e30
@@ -95,8 +106,9 @@ class MLA(nn.Module):
 
 def rope_width(cfg, mixer_kind: str) -> int:
     """The width a layer of ``mixer_kind`` rotates: the head for GQA,
-    ``qk_rope_head_dim`` for MLA, 0 (none) for Mamba and RWKV."""
-    if mixer_kind in (C.MAMBA, C.RWKV):
+    ``qk_rope_head_dim`` for MLA, 0 (none) for Mamba and RWKV and for
+    every layer of a config without rope (``rope_theta <= 0``)."""
+    if mixer_kind in (C.MAMBA, C.RWKV) or cfg.rope_theta <= 0:
         return 0
     return (cfg.mla.qk_rope_head_dim if mixer_kind == C.ATTN_MLA
             else cfg.head_dim)
@@ -174,7 +186,7 @@ def _project_qkv(attn: Attention, x: torch.Tensor, step: DecodeStep, cfg):
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qk = torch.cat([x @ attn.wq, x @ attn.wk], dim=-1).reshape(b, 1, h + kh,
                                                                 hd)
-    qk = apply_rope(qk, *step.rope[hd])
+    qk = apply_rope(qk, *step.rope.get(hd, (None, None)))
     v = (x @ attn.wv).reshape(b, 1, kh, hd)
     return qk[:, :, :h], qk[:, :, h:], v
 
@@ -222,20 +234,48 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0
 # ---------------------------------------------------------------------------
 # GQA layer: train
 # ---------------------------------------------------------------------------
-def attn_apply(attn: Attention, x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor, cfg, window: int = 0) -> torch.Tensor:
-    """Causal GQA self-attention of a decoder layer, keys older than
-    ``window`` positions masked if ``window`` > 0.  x: (B, S, D);
-    ``cos``/``sin``: rope tables at the sequence's positions
-    (:func:`rope_tables`, built once for all layers).  Returns y:
-    (B, S, D)."""
+def attn_apply(attn: Attention, x: torch.Tensor,
+               cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
+               cfg, window: int = 0, causal: bool = True) -> torch.Tensor:
+    """GQA self-attention, causal for a decoder layer and not for an
+    encoder's, keys older than ``window`` positions masked if ``window``
+    > 0.  x: (B, S, D); ``cos``/``sin``: rope tables at the sequence's
+    positions (:func:`rope_tables`, built once for all layers; None
+    without rope).  Returns y: (B, S, D)."""
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope((x @ attn.wq).reshape(b, s, h, hd), cos, sin)
-    k = apply_rope((x @ attn.wk).reshape(b, s, kh, hd), cos, sin)
-    v = (x @ attn.wv).reshape(b, s, kh, hd)
-    out = self_attention(q, k, v, causal=True, window=window)
-    return out.reshape(b, s, h * hd) @ attn.wo
+    q = apply_rope(mm(x, attn.wq).reshape(b, s, h, hd), cos, sin)
+    k = apply_rope(mm(x, attn.wk).reshape(b, s, kh, hd), cos, sin)
+    v = mm(x, attn.wv).reshape(b, s, kh, hd)
+    out = self_attention(q, k, v, causal=causal, window=window)
+    return mm(out.reshape(b, s, h * hd), attn.wo)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+def cross_attn_apply(attn: Attention, x: torch.Tensor, enc_k: torch.Tensor,
+                     enc_v: torch.Tensor, cfg) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's K/V (no mask).  x:
+    (B, S, D) (S 1 in decode); enc_k / enc_v: (B, S_enc, KH, Dh) from
+    :func:`cross_kv`.  The scores and weights are float32 and the output
+    takes q's dtype, as in :func:`_gqa_scores_attend`.  Returns y:
+    (B, S, D)."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = mm(x, attn.wq).reshape(b, s, h, hd)
+    out = full_attention(q, enc_k, enc_v, causal=False)
+    return mm(out.reshape(b, s, h * hd), attn.wo)
+
+
+def cross_kv(attn: Attention, enc_out: torch.Tensor, cfg):
+    """The cross-attention's K and V, (B, S_enc, KH, Dh) each, from the
+    encoder output (B, S_enc, D)."""
+    b, se, _ = enc_out.shape
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    k = mm(enc_out, attn.wk).reshape(b, se, kh, hd)
+    v = mm(enc_out, attn.wv).reshape(b, se, kh, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +383,7 @@ def mla_decode(mla: MLA, x: torch.Tensor, cache_ckv: torch.Tensor,
     m = cfg.mla
     b = x.shape[0]
     h = cfg.num_heads
-    cos, sin = step.rope[m.qk_rope_head_dim]
+    cos, sin = step.rope.get(m.qk_rope_head_dim, (None, None))
     q_nope, q_rope = _mla_q(mla, x, cos, sin, cfg)
     c_kv, k_rope = _mla_latent(mla, x, cos, sin, cfg)
     idx = (torch.arange(b, device=x.device), step.lengths.long())

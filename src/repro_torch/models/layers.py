@@ -9,9 +9,11 @@ generator the weights are left uninitialised, to be filled by
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -20,6 +22,15 @@ from torch.nn import functional as F
 def frozen(t: torch.Tensor) -> nn.Parameter:
     """An inference-only parameter."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp.matmul``
+    computes it: float32 activations through bf16 weights (whisper's
+    encoder over float32 audio frames) give float32, where a torch
+    matmul of mixed dtypes raises."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -82,14 +93,47 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, cos: Optional[torch.Tensor],
+               sin: Optional[torch.Tensor]) -> torch.Tensor:
     """x: (..., S, H, D) rotated by the tables of :func:`rope_tables`.
     The JAX counterpart takes the positions and builds the tables on
-    every call; here a decode step builds them once for all layers."""
+    every call; here a decode step builds them once for all layers.
+    No tables (``cos`` None: a config with ``rope_theta <= 0``) returns
+    x unchanged, as the JAX counterpart does for such a theta."""
+    if cos is None:
+        return x
     x1, x2 = torch.chunk(x, 2, dim=-1)   # promoted to float32 by cos/sin
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(seq_len: int, d: int) -> torch.Tensor:
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = 1.0 / (10_000 ** (dim / max(d // 2 - 1, 1)))
+    ang = pos * inv
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32))
+
+
+def sinusoidal_positions(seq_len: int, d: int, device: torch.device
+                         ) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (S, d) float32 for the archs
+    without rope: computed in float64 by numpy, then cast, as the JAX
+    package computes them (the table is built once for a shape)."""
+    return _sinusoid_table(seq_len, d).to(device)
+
+
+def decode_positions(lengths: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoidal embedding (B, d) float32 of each sequence's current
+    index ``lengths`` in a decode step: the JAX ``decode_step``'s own
+    formula, in float32 throughout (not :func:`sinusoidal_positions`)."""
+    half = d // 2
+    inv = 1.0 / (10_000 ** (torch.arange(half, device=lengths.device)
+                            / max(half - 1, 1)))
+    ang = lengths[:, None].float() * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -115,14 +159,14 @@ class FFN(nn.Module):
 
 
 def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
-    up = x @ ffn.w_up
+    up = mm(x, ffn.w_up)
     if ffn.gated:
-        gate = F.silu((x @ ffn.w_gate).float())
+        gate = F.silu(mm(x, ffn.w_gate).float())
         h = (gate * up).to(x.dtype)              # up promoted to float32
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return h @ ffn.w_down
+    return mm(h, ffn.w_down)
 
 
 class ReluSqFFN(nn.Module):

@@ -26,6 +26,13 @@ latent (``ATTN_MLA``) attention, Mamba (``MAMBA``) and RWKV6
 in a config with ``cfg.rwkv`` RWKV's relu^2 channel mix, which shifts
 the norm2 output by one token) or a routed mixture of experts
 (``MOE_FF``).
+
+An encoder-decoder (whisper) builds its decoder stack with ``cross``:
+each block adds ``norm_cross`` and a cross-attention (``cross``), run
+after the mixer and before the FFN over the encoder output ``enc_out``
+(training and decode), as the JAX package's blocks do.  Its encoder is
+a stack of the same blocks without ``cross``, run with ``causal``
+False.
 """
 from __future__ import annotations
 
@@ -67,7 +74,8 @@ def _check_kinds(cfg, mixer_kind: str, ffn_kind: str) -> None:
 class Block(nn.Module):
     def __init__(self, cfg, mixer_kind: str, ffn_kind: str,
                  device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cross: bool = False):
         super().__init__()
         _check_kinds(cfg, mixer_kind, ffn_kind)
         dt = cfg.torch_dtype
@@ -99,6 +107,12 @@ class Block(nn.Module):
         self.window = cfg.window_size if mixer_kind == C.ATTN_LOCAL else 0
         #: the width of the rope tables the mixer takes (0: none)
         self.rope_width = A.rope_width(cfg, mixer_kind)
+        #: an encoder-decoder's decoder block: cross-attention over the
+        #: encoder output after the mixer (None elsewhere)
+        self.norm_cross = self.cross = None
+        if cross:
+            self.norm_cross = RMSNorm(cfg.d_model, dt, device)
+            self.cross = A.Attention(cfg, dt, device, generator)
 
 
 def _ffn(block: Block, h: torch.Tensor, cfg,
@@ -118,11 +132,27 @@ def _ffn(block: Block, h: torch.Tensor, cfg,
     return ffn_apply(block.ffn, h), zero
 
 
-def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
-                      sin: torch.Tensor, cfg
+def _cross(block: Block, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+           cfg) -> torch.Tensor:
+    """x plus the block's cross-attention over ``enc_out``, if the block
+    has one and an encoder output is given."""
+    if enc_out is None or block.cross is None:
+        return x
+    hc = block.norm_cross(x, cfg.rms_norm_eps)
+    ek, ev = A.cross_kv(block.cross, enc_out, cfg)
+    return x + A.cross_attn_apply(block.cross, hc, ek, ev, cfg)
+
+
+def block_apply_train(block: Block, x: torch.Tensor,
+                      cos: Optional[torch.Tensor],
+                      sin: Optional[torch.Tensor], cfg,
+                      enc_out: Optional[torch.Tensor] = None,
+                      causal: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); ``cos``/``sin`` at the block's ``rope_width``
-    (None for a Mamba or an RWKV block).  Returns (x', aux)."""
+    (None for a Mamba or an RWKV block, and without rope); ``enc_out``
+    the encoder output a cross block attends to; ``causal`` False for an
+    encoder block.  Returns (x', aux)."""
     h = block.norm1(x, cfg.rms_norm_eps)
     if block.mamba:
         x = x + M.mamba_apply(block.mixer, h, cfg)
@@ -131,7 +161,9 @@ def block_apply_train(block: Block, x: torch.Tensor, cos: torch.Tensor,
     elif block.mla:
         x = x + A.mla_apply(block.mixer, h, cos, sin, cfg)
     else:
-        x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window)
+        x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window,
+                             causal)
+    x = _cross(block, x, enc_out, cfg)
     y, aux = _ffn(block, block.norm2(x, cfg.rms_norm_eps), cfg)
     return x + y, aux
 
@@ -174,8 +206,11 @@ def _mixer_state(cfg, mixer_kind: str, batch: int, max_len: int,
 
 def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
                        x: torch.Tensor, step: A.DecodeStep, cfg,
-                       kv_mode: str) -> torch.Tensor:
-    """x: (B,1,D).  Updates ``st`` in place; returns x'."""
+                       kv_mode: str,
+                       enc_out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """x: (B,1,D).  Updates ``st`` in place; returns x'.  A cross block
+    attends to ``enc_out`` after the mixer."""
     h = block.norm1(x, cfg.rms_norm_eps)
     if block.mamba:
         y = M.mamba_decode(block.mixer, h, st, cfg)
@@ -189,7 +224,7 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
     else:
         y = A.attn_decode_paged(block.mixer, h, st["kp"], st["vp"], step,
                                 cfg, block.window)
-    x = x + y
+    x = _cross(block, x + y, enc_out, cfg)
     h2 = block.norm2(x, cfg.rms_norm_eps)
     shift_prev = st.get("ffn_shift")
     y2 = _ffn(block, h2, cfg, shift_prev)[0]
@@ -203,23 +238,29 @@ def block_apply_decode(block: Block, st: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 class Stack(nn.Module):
     """Prefix blocks followed by the periods of ``layer_pattern``, one
-    module per layer (``cfg.layer_kinds()`` order)."""
+    module per layer (``cfg.layer_kinds()`` order); with ``cross`` each
+    block has a cross-attention (an encoder-decoder's decoder)."""
 
     def __init__(self, cfg, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cross: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(cfg, mk, fk, device, generator)
+            Block(cfg, mk, fk, device, generator, cross)
             for mk, fk in cfg.layer_kinds())
 
 
 def stack_apply_train(stack: Stack, x: torch.Tensor,
-                      positions: torch.Tensor, cfg
+                      positions: torch.Tensor, cfg, *,
+                      enc_out: Optional[torch.Tensor] = None,
+                      causal: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D); positions: (B|1, S).  Returns (x, aux_sum).  The
-    rope tables are built once for all layers, one pair for each width a
-    layer rotates (inside a checkpointed block they would be rebuilt in
-    the backward's recompute)."""
+    """x: (B, S, D); positions: (B|1, S); ``enc_out``: the encoder output
+    of an encoder-decoder's decoder stack; ``causal`` False for its
+    encoder.  Returns (x, aux_sum).  The rope tables are built once for
+    all layers, one pair for each width a layer rotates (inside a
+    checkpointed block they would be rebuilt in the backward's
+    recompute)."""
     rope = {w: rope_tables(positions, w, cfg.rope_theta)
             for w in A.rope_widths(cfg)}
     aux = torch.zeros((), device=x.device)
@@ -227,9 +268,10 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
         cos, sin = rope.get(block.rope_width, (None, None))
         if cfg.remat:
             x, a = checkpoint(block_apply_train, block, x, cos, sin, cfg,
-                              use_reentrant=False)
+                              enc_out, causal, use_reentrant=False)
         else:
-            x, a = block_apply_train(block, x, cos, sin, cfg)
+            x, a = block_apply_train(block, x, cos, sin, cfg, enc_out,
+                                     causal)
         aux = aux + a
     return x, aux
 
@@ -254,8 +296,12 @@ def reset_recurrent_state(state: List[Dict[str, Any]], slot: int) -> None:
 
 def stack_apply_decode(stack: Stack, state: List[Dict[str, Any]],
                        x: torch.Tensor, lengths: torch.Tensor, cfg, *,
-                       kv_mode: str, table=None) -> torch.Tensor:
-    """x: (B,1,D).  Updates the per-layer states in place; returns x.
+                       kv_mode: str, table=None,
+                       enc_out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """x: (B,1,D); ``enc_out``: the encoder output (B, S_enc, D) the
+    cross blocks attend to.  Updates the per-layer states in place;
+    returns x.
     The operands all layers share are prepared once for the step; the
     cache length, page size and latent length come from the first layer
     that holds such a cache (an MLA, a Mamba or an RWKV layer has no KV
@@ -270,5 +316,5 @@ def stack_apply_decode(stack: Stack, state: List[Dict[str, Any]],
         page_size=dim1("kp") if kv_mode != "dense" else 0,
         latent_len=dim1("ckv"))
     for block, st in zip(stack.layers, state):
-        x = block_apply_decode(block, st, x, step, cfg, kv_mode)
+        x = block_apply_decode(block, st, x, step, cfg, kv_mode, enc_out)
     return x

@@ -5,9 +5,8 @@ batches are bit-identical to the JAX package's).
 Every (step, rank) slice of the synthetic stream is derived by
 counter-based hashing, so a checkpoint that stores only the step
 resumes the identical stream, and each data-parallel rank generates
-exactly its slice.  :func:`add_modality_stubs` attaches the vision
-frontend's stub embeddings (internvl2); the audio frames wait for the
-encoder-decoder family that reads them.
+exactly its slice.  :func:`add_modality_stubs` attaches the frontends'
+stub embeddings: vision (internvl2) and audio frames (whisper).
 """
 from __future__ import annotations
 
@@ -84,19 +83,19 @@ class TokenBinLoader:
 
 def add_modality_stubs(batch: Dict[str, np.ndarray], cfg,
                        seed: int = 0) -> Dict[str, np.ndarray]:
-    """Attach deterministic frontend-stub embeddings for vlm archs: the
-    JAX package's ``vision_embeds``, (B, vision_tokens, d_model) float32
-    from ``seed``.  Encoder-decoder configs raise (their audio frames
-    are not ported yet)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: audio frames are not ported yet (ROADMAP module "
-            "queue item 8d)")
-    if not cfg.vision_tokens:
-        return batch
+    """Attach deterministic frontend-stub embeddings, the JAX package's:
+    for vlm archs ``vision_embeds`` (B, vision_tokens, d_model), for
+    encoder-decoders ``audio_frames`` (B, encoder_seq_len, d_model),
+    float32, from one generator seeded with ``seed`` that draws vision
+    before audio, as there."""
     b = batch["tokens"].shape[0]
     rng = np.random.default_rng(seed)
-    batch = dict(batch)
-    batch["vision_embeds"] = rng.standard_normal(
-        (b, cfg.vision_tokens, cfg.d_model), dtype=np.float32) * 0.02
+    if cfg.vision_tokens:
+        batch = dict(batch)
+        batch["vision_embeds"] = rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model), dtype=np.float32) * 0.02
+    if cfg.is_encdec:
+        batch = dict(batch)
+        batch["audio_frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32) * 0.02
     return batch

@@ -72,13 +72,17 @@ def decayed_names(model: Model):
     """The parameters AdamW decays: those whose leaf in the JAX
     ``init_params`` tree has ``ndim >= 2``.  The parameters of the
     scanned layers carry the stacked period axis there, so their norm
-    scales (1-D here, (periods, d) there) are decayed; the prefix
-    layers' norm scales and the final norm's are not."""
+    scales (1-D here, (periods, d) there) are decayed: the decoder
+    stack's layers after the prefix (their ``norm_cross`` too) and
+    every layer of an encoder-decoder's encoder (its stack has no
+    prefix); the prefix layers' norm scales, the final norm's and
+    ``enc_norm``'s are not."""
     n_prefix = len(model.cfg.prefix_pattern)
 
-    def stacked(name: str) -> bool:     # "stack.layers.<i>.<...>"
-        return (name.startswith("stack.")
-                and int(name.split(".")[2]) >= n_prefix)
+    def stacked(name: str) -> bool:  # "<stack|encoder>.layers.<i>.<...>"
+        top, _, rest = name.partition(".")
+        return (top == "encoder" or top == "stack"
+                and int(rest.split(".")[1]) >= n_prefix)
 
     return {n for n, p in model.named_parameters()
             if p.ndim + stacked(n) >= 2}

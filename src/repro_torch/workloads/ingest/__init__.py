@@ -44,6 +44,11 @@ Pipeline
 The engine takes vpns below 2^25 (``sim.simulator.MAX_VPN``): a trace
 whose remapped footprint is larger is refused there; a lower
 ``gap_cap`` shrinks it.
+
+``python -m repro_torch.workloads.ingest <trace>`` (``__main__``) is the
+command line over this layer, the JAX package's
+``scripts/convert_trace.py``: the trace's characterization, and its
+``.npz``.
 """
 from __future__ import annotations
 

@@ -137,11 +137,33 @@ def test_init_params_is_seeded_and_on_device():
 
 
 def test_other_block_kinds_raise_not_implemented():
-    """Every block kind is ported; an encoder-decoder stack is not, and a
-    recurrent layer without its config is refused."""
-    encdec = dataclasses.replace(CFG, encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8d"):
-        init_params(encdec, torch.Generator(), device="cpu")
+    """Every block kind is ported, the encoder-decoder stack too: an
+    encoder-decoder internlm2 (2 encoder layers over 8 frames, rope
+    kept, so the encoder rotates its frames' q and k and the decoder
+    adds no sinusoidal positions) runs as the JAX package runs it, its
+    logits and prefill within 1e-4.  A recurrent layer without its
+    config is refused."""
+    from repro.models import forward_train as jforward_train
+    from repro_torch.models import forward_train
+    jencdec = dataclasses.replace(JCFG, encoder_layers=2, encoder_seq_len=8)
+    encdec = dataclasses.replace(CFG, encoder_layers=2, encoder_seq_len=8)
+    jparams = jinit_params(jencdec, jax.random.PRNGKey(1))
+    model = params_from_numpy(encdec, jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(1, CFG.vocab_size, (2, 9)).astype(np.int32)
+    frames = rng.standard_normal((2, 8, CFG.d_model), np.float32) * 0.02
+    logits, _ = forward_train(model, encdec, {
+        "tokens": torch.tensor(toks), "audio_frames": torch.tensor(frames)})
+    jlogits, _ = jforward_train(jparams, jencdec, {
+        "tokens": jnp.asarray(toks), "audio_frames": jnp.asarray(frames)})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    tl, _ = prefill(model, encdec, torch.tensor(toks), kv_mode=BT.RADIX,
+                    max_len=16, page_size=4, audio_frames=torch.tensor(frames))
+    jl, _ = jprefill(jparams, jencdec, jnp.asarray(toks), kv_mode=BT.RADIX,
+                     max_len=16, page_size=4,
+                     audio_frames=jnp.asarray(frames))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     for kind in (C.MAMBA, C.RWKV):
         other = dataclasses.replace(CFG, layer_pattern=((kind, C.DENSE_FF),))
         with pytest.raises(ValueError, match="layer needs cfg"):

@@ -45,8 +45,8 @@ from repro_torch.core import block_table as BT
 from repro_torch.launch import serve as LS
 from repro_torch.launch import train as LT
 from repro_torch.models import (decode_step, forward_train,
-                                init_decode_state, init_params,
-                                params_from_numpy, params_to_numpy, prefill)
+                                init_decode_state, params_from_numpy,
+                                params_to_numpy, prefill)
 from repro_torch.models import layers as L
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.train import data as D
@@ -418,26 +418,65 @@ def test_moe_and_mla_layouts():
 
 
 def test_modality_stubs_match_and_refuse_audio():
+    """The stubs are the JAX package's bit for bit: internvl2's vision
+    embeddings, and (the audio frames now ported) an encoder-decoder
+    variant's audio frames drawn after them from the same generator; a
+    config with neither gets the batch back as it is."""
     cfg = C.smoke_variant(C.get_arch("internvl2-76b"))
+    jcfg = jsmoke(jget_arch("internvl2-76b"))
     raw = D.SyntheticLM(cfg.vocab_size, 8, 2).batch_at(0)
     got = D.add_modality_stubs(raw, cfg, seed=3)
-    want = jdata.add_modality_stubs(raw, jsmoke(jget_arch("internvl2-76b")),
-                                    seed=3)
+    want = jdata.add_modality_stubs(raw, jcfg, seed=3)
     assert got.keys() == want.keys() == {"tokens", "labels", "vision_embeds"}
     np.testing.assert_array_equal(got["vision_embeds"],
                                   want["vision_embeds"])
     assert D.add_modality_stubs(raw, C.get_arch("gemma3-1b")) is raw
-    encdec = dataclasses.replace(cfg, encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="8d"):
-        D.add_modality_stubs(raw, encdec)
+    got = D.add_modality_stubs(raw, dataclasses.replace(
+        cfg, encoder_layers=2, encoder_seq_len=5), seed=3)
+    want = jdata.add_modality_stubs(raw, dataclasses.replace(
+        jcfg, encoder_layers=2, encoder_seq_len=5), seed=3)
+    assert got.keys() == want.keys() == {"tokens", "labels",
+                                         "vision_embeds", "audio_frames"}
+    for k in ("vision_embeds", "audio_frames"):
+        np.testing.assert_array_equal(got[k], want[k])
+    assert got["audio_frames"].shape == (2, 5, cfg.d_model)
 
 
 def test_encoder_decoder_still_refused():
-    _, cfg, _, _, _ = _setup("gemma3-1b")
-    for bad in (dataclasses.replace(cfg, encoder_layers=2),
-                dataclasses.replace(cfg, rope_theta=0.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(bad, torch.Generator(), device="cpu")
+    """What the port refused before the encoder-decoder slice now runs
+    as the JAX package runs it: a decoder-only gemma3 smoke model with
+    ``rope_theta`` 0 (sinusoidal positions added at embed time, in
+    training and in decode, and no rope in any layer, windowed or
+    global): ``forward_train`` logits, then 12 decode steps past the
+    window of 8 (logits, greedy tokens) in every KV mode."""
+    jcfg0, cfg0, _, _, _ = _setup("gemma3-1b")
+    jcfg = dataclasses.replace(jcfg0, rope_theta=0.0)
+    cfg = dataclasses.replace(cfg0, rope_theta=0.0)
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(5))
+    model = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    assert all(b.rope_width == 0 for b in model.stack.layers)
+    assert [b.window for b in model.stack.layers].count(8) == 7
+    tb, jb = _batches(cfg, jcfg, b=2, s=12)
+    logits, _ = forward_train(model, cfg, tb)
+    jlogits, _ = jforward_train(jparams, jcfg, jb)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               **TOL)
+    for kv_mode in KV_MODES:
+        jst = jinit_state(jcfg, 2, 32, kv_mode, 4)
+        st = init_decode_state(cfg, 2, 32, kv_mode, 4, device="cpu")
+        tok = jtok = np.asarray(tb["tokens"][:, 0])
+        for step in range(12):
+            jl, jst = jdecode_step(jparams, jcfg, jst,
+                                   jnp.asarray(jtok, jnp.int32),
+                                   kv_mode=kv_mode)
+            tl, st = decode_step(model, cfg, st,
+                                 torch.tensor(tok, dtype=torch.int32),
+                                 kv_mode=kv_mode)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL,
+                                       err_msg=f"{kv_mode} step {step}")
+            tok = torch.argmax(tl, dim=-1).numpy()
+            jtok = np.asarray(jnp.argmax(jl, axis=-1))
+            np.testing.assert_array_equal(tok, jtok)
 
 
 def test_serve_shape_crosses_the_window():
