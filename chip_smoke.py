@@ -279,7 +279,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         steps): sm90 flash launches exactly 96 + 48 and no other route
         (the encoder launches none), finite losses, s/step, tokens/s,
         peak memory, and a fourth step under torch.profiler;
- 16. one JSON line describing every kernel, then the final ``ok`` line.
+ 16. the roofline (``repro_torch.roofline``):
+     a. one train step of phase 7's configuration counted on the card
+        under ``flop_stats`` (the aten products and each hand kernel's
+        operations as its wrapper records them), then the same step
+        counted by ``step_flops`` on fake CUDA tensors on the host: the
+        two dicts equal op by op, and the specs allocate nothing on the
+        card;
+     b. for each training path timed above (7, 11c, 12c, 12d, 13d, 14d,
+        15d), the model FLOPs and the fake-tensor count at its shape
+        beside its s/step after the first step, each as a share of the
+        card's peak, with the card's name and power limit (printed, not
+        gated);
+ 17. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -303,6 +315,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -354,6 +367,10 @@ from repro_torch.sim.mechanisms import (DEFAULT_MECHS,  # noqa: E402
 from repro_torch.models import attention as AT  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.layers import rope_tables  # noqa: E402
+from repro_torch.roofline import counts as RC  # noqa: E402
+from repro_torch.roofline.analysis import model_flops  # noqa: E402
+from repro_torch.roofline.flop_stats import (flop_stats,  # noqa: E402
+                                             step_flops)
 from repro_torch.train import data as DATA  # noqa: E402
 from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
                                          adamw_init)
@@ -363,11 +380,11 @@ from repro_torch.train.train_loop import (TrainState,  # noqa: E402
 from repro_torch.util.profile import print_profile  # noqa: E402
 from repro_torch.workloads import generate_traces  # noqa: E402
 
-#: NVIDIA H100 SXM data sheet, dense, at the 700 W limit.  float32: the
-#: TF32 tensor-core peak (494.7 TFLOP/s) over three, the least time for
-#: float32-accurate products, which the simt backward runs as 3xTF32
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+#: the card's rates (H100 SXM data sheet, at the 700 W limit) and the hand
+#: kernels' operation counts: repro_torch.roofline.counts, which the port's
+#: FLOP counter reads too
+HBM_BYTES_PER_S = RC.HBM_BYTES_PER_S
+PEAK_FLOPS = RC.PEAK_FLOPS
 #: allclose tolerance (atol = rtol) of the kernel against its plain
 #: version: the JAX package's kernel tests use the same
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
@@ -421,6 +438,16 @@ SLEEP_CYCLES = 10_000_000        # about 5 ms at the H100's clock
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def train_run(cfg, batch: int, seq_len: int, microbatches: int,
+              secs) -> dict:
+    """What phase 16b reads of a training phase: the config it trained
+    (depth cut included), its shape, and its s/step after the first."""
+    return {"cfg": cfg, "shape": C.ShapeConfig("train", seq_len, batch,
+                                               "train"),
+            "microbatches": microbatches,
+            "s_per_step": float(np.mean(secs[1:] or secs))}
 
 
 def ptxas_lines(name: str, kernels) -> list:
@@ -533,7 +560,7 @@ def bound(case):
     item = q.element_size()
     nbytes = (2 * q.numel() * item + 2 * tokens * kh * d * item
               + table.numel() * 4 + b * 4)
-    flops = 4 * tokens * (h // kh) * kh * d
+    flops = RC.paged_flops(tokens, h, d)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -881,11 +908,8 @@ def flash_case(*, b, s, h, kh, d, causal, window, dtype, seed,
 
 def attended_pairs(case) -> int:
     """(query, key) pairs the mask leaves, per (sequence, head)."""
-    s, causal, window = case["q"].shape[1], case["causal"], case["window"]
-    qp = np.arange(s)
-    hi = qp if causal else np.full(s, s - 1)
-    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(s, int)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    return RC.attended_pairs(case["q"].shape[1], case["causal"],
+                             case["window"])
 
 
 def flash_bound(case, backward: bool):
@@ -901,7 +925,8 @@ def flash_bound(case, backward: bool):
         nbytes = (big + q.numel() + q.numel() + 2 * k.numel()) * item + lse
     else:               # read q k v; write o lse
         nbytes = big * item + lse
-    flops = (10 if backward else 4) * b * h * d * attended_pairs(case)
+    flops = RC.flash_flops(b, s, h, d, case["causal"], case["window"],
+                           backward)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -912,8 +937,9 @@ def kernel_flops(case, backward: bool) -> int:
     """Operations of the products the kernels run: 4 D an attended pair
     and head forward, 14 D backward (the dQ kernel recomputes S and dP:
     seven products where the bound counts five)."""
-    b, _, h, d = case["q"].shape
-    return (14 if backward else 4) * b * h * d * attended_pairs(case)
+    b, s, h, d = case["q"].shape
+    return RC.flash_kernel_flops(b, s, h, d, case["causal"], case["window"],
+                                 backward)
 
 
 def flash_fwd(impl, case):
@@ -1270,7 +1296,8 @@ def phase_train():
     del out
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, train_run(cfg, shape.global_batch, shape.seq_len, micro,
+                               secs)
 
 
 # ---------------------------------------------------------------------------
@@ -1497,7 +1524,8 @@ def phase_gemma_train() -> tuple:
     del out, step, batch, prof
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return d256
+    return d256, train_run(cfg, shape.global_batch, shape.seq_len, micro,
+                           secs)
 
 
 def phase_variants() -> dict:
@@ -1785,7 +1813,8 @@ def phase_moe_train() -> tuple:
     del out
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return sm90
+    return sm90, train_run(cfg, shape.global_batch, shape.seq_len, micro,
+                           secs)
 
 
 class PlainFlash(torch.autograd.Function):
@@ -1954,7 +1983,8 @@ def phase_deepseek() -> dict:
           f"peak memory {peak:.2f} GiB")
     del state
     torch.cuda.empty_cache()
-    return {"launches": d192, "peak_gib": peak}
+    return {"launches": d192, "peak_gib": peak,
+            "train": train_run(cfg, 1, 4096, 1, secs)}
 
 
 # ---------------------------------------------------------------------------
@@ -2095,7 +2125,7 @@ def scan_bound(b, s, d, n, x_bytes: int, backward: bool):
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0]
-    exp_ms = b * s * d * n / (H100_SMS * SFU_PER_CLOCK
+    exp_ms = RC.scan_exps(b, s, d, n) / (H100_SMS * SFU_PER_CLOCK
                               * float(clock) * 1e6) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= exp_ms else (exp_ms,
@@ -2402,7 +2432,8 @@ def phase_jamba_train() -> dict:
           f"peak memory {peak:.2f} GiB")
     del state
     torch.cuda.empty_cache()
-    return {"scan": scan, "sm90": sm90, "peak_gib": peak}
+    return {"scan": scan, "sm90": sm90, "peak_gib": peak,
+            "train": train_run(cfg, 1, 4096, 1, secs)}
 
 
 # ---------------------------------------------------------------------------
@@ -2456,15 +2487,6 @@ WKV_STAGES = {"fwd": (("F1 chunk walks", "wkv_chunk_kernel<64, false>"),
 #: over B x S steps and dr, dk, dw over 64 columns, in other orders),
 #: against wkv_bwd_ref and against autograd of the plain forward
 WKV_TOL = 2e-5
-#: float32 outside the tensor cores, NVIDIA H100 SXM data sheet, dense,
-#: at the 700 W limit: the WKV kernels' arithmetic is plain FMAs
-FP32_SIMT_FLOPS = 67e12
-#: the least flops a state element and step (an FMA counts 2): the
-#: forward's sum of r S (2) and w S + k v (3); the backward's state
-#: recomputed (3), w G + r do (3), and dr, dk, dv, dw (2 each).  The u
-#: terms are rank one a row and step (o += (r u k) v, dr += u k (v do),
-#: dk += u r (v do), dv += (k u r) do): O(hs) a step, left out
-WKV_FLOPS = {"fwd": 5, "bwd": 14}
 #: 14b: smoke width in float32 (2 layers, head size 16): 4 requests on 2
 #: slots (slots reused), and one 2 x 512-token batch (two scan chunks)
 #: for logits, loss and gradients card vs CPU
@@ -2522,15 +2544,15 @@ def wkv_bound(b, s, h, hs, backward: bool):
     the backward.  Bytes: each input read once and each output written
     once (forward: r, k, v, w, u in, o and the chunk states out;
     backward: those inputs, the states and do in, dr, dk, dv, dw, du
-    out).  Operations: :data:`WKV_FLOPS` a state element and step at the
+    out).  Operations: ``RC.WKV_FLOPS`` a state element and step at the
     card's float32 rate outside the tensor cores."""
     elems = b * s * h * hs
     states = b * -(-s // ref.SCAN_CHUNK) * h * hs * hs
     nbytes = 4 * ((9 if backward else 5) * elems + states
                   + (2 if backward else 1) * h * hs)
-    flops = WKV_FLOPS["bwd" if backward else "fwd"] * elems * hs
+    flops = RC.wkv_flops(elems, hs, backward)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = flops / FP32_SIMT_FLOPS * 1e3
+    op_ms = flops / RC.FP32_SIMT_FLOPS * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
@@ -2903,7 +2925,9 @@ def phase_rwkv_train() -> dict:
     del out, step
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {"wkv": wkv, "peak_gib": peak}
+    return {"wkv": wkv, "peak_gib": peak,
+            "train": train_run(cfg, shape.global_batch, shape.seq_len,
+                               micro, secs)}
 
 
 # ---------------------------------------------------------------------------
@@ -3199,7 +3223,107 @@ def phase_whisper_train() -> dict:
     del out, step, batch
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {"sm90": sm90, "peak_gib": peak}
+    return {"sm90": sm90, "peak_gib": peak,
+            "train": train_run(cfg, shape.global_batch, shape.seq_len,
+                               micro, secs)}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the roofline (FLOPs counted on the card and on fake tensors)
+# ---------------------------------------------------------------------------
+def train_paths() -> dict:
+    """The (config, shape) of each training path phase 16b reads, as its
+    phase trains it: 7, 11c, 12c, 14d and 15d through the launcher
+    (train_4k's 4,096 tokens, ``TRAIN.GLOBAL_BATCH`` sequences), 12d and
+    13d their depth cuts on one sequence."""
+    launcher = C.ShapeConfig("train", 4096, TRAIN.GLOBAL_BATCH, "train")
+    one = C.ShapeConfig("train", 4096, 1, "train")
+    return {"7": (C.get_arch("internlm2-1.8b"), launcher),
+            "11c": (C.get_arch(GEMMA), launcher),
+            "12c": (C.get_arch(GRANITE_MOE), launcher),
+            "12d": (dataclasses.replace(C.get_arch(DEEPSEEK),
+                                        num_layers=DEEPSEEK_DEPTH), one),
+            "13d": (jamba_cut("train"), one),
+            "14d": (C.get_arch(RWKV), launcher),
+            "15d": (C.get_arch(WHISPER), launcher)}
+
+
+def host_counts(paths: dict) -> dict:
+    """16b's fake-tensor counts, ``step_flops`` of each path in one
+    microbatch, made in a process of their own while phases 3-15 hold the
+    card.  Fake CPU tensors, so that process never touches the card; the
+    kernels' wrappers route fake tensors by type, not device, and 16a
+    holds the "7" count to the card's.  One microbatch does not change a
+    count at these shapes: every product's work is linear in its rows,
+    and an MoE layer's routing groups stay 512 tokens."""
+    return {label: step_flops(cfg, shape, device="cpu")
+            for label, (cfg, shape) in paths.items()}
+
+
+def phase_roofline(runs: dict, card: str, paths: dict,
+                   counted: dict) -> None:
+    """16a: one train step of phase 7's configuration (internlm2-1.8b at
+    full width, 8 x 4,096 tokens in 4 microbatches) counted on the card
+    under ``flop_stats`` (the sm90 flash pair records through its real
+    route), then the same step counted by ``step_flops`` on fake CUDA
+    tensors on the host: the two dicts must be equal op by op and kernel
+    by kernel, and to :func:`host_counts`' count of it, and building the
+    specs must leave the card's allocated memory unchanged.  16b: for
+    each training path timed above, the model FLOPs (6 N D) and
+    :func:`host_counts`' count at its shape beside its s/step after the
+    first step, as shares of the card's peak for the run's dtype
+    (printed, not gated)."""
+    for label, run in runs.items():
+        check((run["cfg"], run["shape"]) == paths[label],
+              f"16b: phase {label} trained another config or shape than "
+              f"the one counted")
+    run = runs["7"]
+    cfg, shape, micro = run["cfg"], run["shape"], run["microbatches"]
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, 0, "cuda")
+    step = make_train_step(cfg, AdamWConfig(), micro)
+    raw = DATA.SyntheticLM(cfg.vocab_size, shape.seq_len,
+                           shape.global_batch).batch_at(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    t0 = time.perf_counter()
+    with flop_stats() as on_card:
+        step(state, batch)
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del state, step, batch
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    on_host = step_flops(cfg, shape, device="cuda", microbatches=micro)
+    host_s = time.perf_counter() - t0
+    check(torch.cuda.memory_allocated() == allocated,
+          f"building the specs allocated "
+          f"{torch.cuda.memory_allocated() - allocated} bytes on the card")
+    check(on_card == on_host == counted["7"],
+          f"16a: the card counted {on_card}, fake CUDA tensors on the host "
+          f"{on_host}, fake CPU tensors in one microbatch {counted['7']}")
+    print(f"16a {cfg.name} train step ({shape.global_batch} x "
+          f"{shape.seq_len} tokens in {micro} microbatches): counted on the "
+          f"card ({card_s:.2f} s, under flop_stats) and on fake CUDA "
+          f"tensors on the host ({host_s:.2f} s), and on fake CPU tensors "
+          f"in one microbatch, equal op by op: "
+          f"{json.dumps(on_card)}; card memory allocated "
+          f"{allocated} bytes before and after the specs")
+    for label, run in runs.items():
+        cfg, shape = run["cfg"], run["shape"]
+        got = counted[label]
+        model = model_flops(cfg, shape)
+        peak = RC.PEAK_FLOPS[cfg.torch_dtype]
+        secs = run["s_per_step"]
+        parts = ", ".join(f"{k} {v:.4e}" for k, v in got.items()
+                          if k != "total")
+        print(f"16b {label} {cfg.name} ({cfg.num_layers} layers, "
+              f"{cfg.dtype}, {shape.global_batch} x {shape.seq_len} "
+              f"tokens): model flops {model:.4e}, counted {got['total']:.4e} "
+              f"({parts}); {secs:.4f} s/step after the first; "
+              f"{got['total'] / (secs * peak):.2%} of the {peak / 1e12:.1f} "
+              f"TFLOP/s peak counted, {model / (secs * peak):.2%} in model "
+              f"flops; card {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4785,7 +4909,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     if sys.argv[1:] == ["--sim-times"]:
@@ -4794,7 +4919,14 @@ def main() -> int:
     if sys.argv[1:] == ["--wkv-times"]:
         wkv_times()
         return 0
+    paths = train_paths()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        counting = pool.apply_async(host_counts, (paths,))
+        return phases(card, paths, counting)
 
+
+def phases(card: str, paths: dict, counting) -> int:
+    """Phases 2-17, while ``counting`` (16b's counts) runs beside them."""
     t0 = time.perf_counter()
     _build.build_all(["paged_attention", "flash_attention",
                       "flash_attention_sm90", "flash_attention_d256",
@@ -4821,7 +4953,7 @@ def main() -> int:
     flash_timed = phase_flash()
     print(f"phase 6 (flash kernels): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_launches = phase_train()
+    train_launches, train7 = phase_train()
     print(f"phase 7 (train): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     parity_launches = phase_train_parity()
@@ -4847,7 +4979,7 @@ def main() -> int:
     phase_gemma_parity()
     print(f"phase 11b (gemma3 parity): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    gemma_train = phase_gemma_train()
+    gemma_train, train11c = phase_gemma_train()
     print(f"phase 11c (gemma3-1b train): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     variants = phase_variants()
@@ -4862,7 +4994,7 @@ def main() -> int:
     phase_moe_parity()
     print(f"phase 12b (MoE and MLA parity): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    moe_train = phase_moe_train()
+    moe_train, train12c = phase_moe_train()
     print(f"phase 12c ({GRANITE_MOE} train): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     deepseek = phase_deepseek()
@@ -4912,6 +5044,12 @@ def main() -> int:
     whisper_train = phase_whisper_train()
     print(f"phase 15d ({WHISPER} train): {time.perf_counter() - t0:.1f} s")
     print(f"phase 15 (whisper-tiny): {time.perf_counter() - t15:.1f} s")
+    t0 = time.perf_counter()
+    phase_roofline({"7": train7, "11c": train11c, "12c": train12c,
+                    "12d": deepseek["train"], "13d": jamba_train["train"],
+                    "14d": rwkv_train["train"], "15d": whisper_train["train"]},
+                   card, paths, counting.get(timeout=600))
+    print(f"phase 16 (roofline): {time.perf_counter() - t0:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches,

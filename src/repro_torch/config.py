@@ -113,6 +113,10 @@ class ArchConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def attn_free(self) -> bool:
+        return all(m in (MAMBA, RWKV) for m, _ in self.layer_pattern)
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
@@ -149,6 +153,22 @@ class ArchConfig:
                 self._mixer_params(ATTN) + self._ffn_params(DENSE_FF)
                 + 2 * d)
             total += self.num_layers * (self._mixer_params(ATTN) + d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches (an MoE layer: its top-k routed
+        experts, its shared experts and its router), the JAX package's
+        formula, with :meth:`param_count`'s RWKV count."""
+        d = self.d_model
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for mixer, ffn in self.layer_kinds():
+            total += self._mixer_params(mixer) + 2 * d
+            if ffn == MOE_FF:
+                m = self.moe
+                total += ((m.num_experts_per_tok + m.num_shared_experts)
+                          * self._expert_params() + d * m.num_experts)
+            else:
+                total += self._ffn_params(ffn)
         return total
 
     def _expert_params(self) -> int:
@@ -218,6 +238,17 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
+#: archs that run long_500k (sub-quadratic or O(1)-state paths)
+LONG_CONTEXT_ARCHS = ("rwkv6-3b", "jamba-1.5-large-398b", "gemma3-1b")
+
+
+def cells_for(arch: ArchConfig) -> List[str]:
+    """The shape cells an architecture runs."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch.name in LONG_CONTEXT_ARCHS:
+        cells.append("long_500k")
+    return cells
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -237,6 +268,11 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
 
 
 def _ensure_loaded() -> None:

@@ -27,7 +27,14 @@ together for autograd and saves q, k, v, the output and its log-sum-exp:
 the score blocks are never stored, the memory discipline that
 ``jax.checkpoint`` gives the JAX side.  It takes CUDA tensors only;
 ``kernels.ops.flash_attention`` sends CPU tensors to the plain version
-in ``kernels.ref``.
+in ``kernels.ref``.  Fake tensors (``util.device.is_fake``: a shape and
+a dtype, no storage, on any device) take a shape-only route: the
+operands are checked and the route picked as for a launch, nothing
+launches, the outputs are fake tensors of the kernel's shapes and dtypes
+and no launch is counted.  A launch and a fake call alike add the call's
+``roofline.counts.flash_flops`` (4 D an attended pair and head forward,
+10 D backward) to the open ``roofline.counts`` recordings, as
+``flash_attention_<route>_<fwd|bwd>``.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import counts
+from repro_torch.util.device import is_fake
 
 #: kernel launches since the counters were last reset: all routes, then
 #: the sm90, d256 and d192 routes alone
@@ -150,9 +159,9 @@ def simt_design() -> dict:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            **more: torch.Tensor) -> None:
     """q (and o, do): (B, S, H, D); k, v: (B, S, KH, D); one dtype, one
-    CUDA device, contiguous."""
+    CUDA device (any device for fake tensors), contiguous."""
     for name, t in dict(q=q, k=k, v=v, **more).items():
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not is_fake(t):
             raise ValueError(f"{name} is on {t.device}; the CUDA kernel "
                              "takes CUDA tensors")
         if t.device != q.device:
@@ -235,6 +244,13 @@ def d256_bwd_plan(b: int, s: int, h: int, kh: int, d: int, *,
             "partials": (2, splits, b, s, kh, d) if splits > 1 else None}
 
 
+def _record(route: str, direction: str, q: torch.Tensor, causal: bool,
+            window: int) -> None:
+    b, s, h, d = q.shape
+    counts.record(f"flash_attention_{route}_{direction}", counts.flash_flops(
+        b, s, h, d, causal, window, direction == "bwd"))
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0
@@ -245,6 +261,10 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v)
     b, s, h, d = q.shape
     route = _route(q.dtype, d)
+    if is_fake(q):
+        _record(route, "fwd", q, causal, window)
+        return q.new_empty(q.shape), q.new_empty((b, h, s),
+                                                 dtype=torch.float32)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = _entry(route, "fwd_launch")(
@@ -260,6 +280,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         launches_d256_fwd += 1
     elif route == "d192":
         launches_d192_fwd += 1
+    _record(route, "fwd", q, causal, window)
     return out, lse
 
 
@@ -279,6 +300,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"on {q.device}")
     route = _route(q.dtype, d)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if is_fake(q):
+        _record(route, "bwd", q, causal, window)
+        return dq, dk, dv
     f32 = dict(dtype=torch.float32, device=q.device)
     more: tuple = ()
     if route == "sm90":     # delta and LSE x log2(e), S rounded up
@@ -306,6 +330,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         launches_d256_bwd += 1
     elif route == "d192":
         launches_d192_bwd += 1
+    _record(route, "bwd", q, causal, window)
     return dq, dk, dv
 
 

@@ -9,7 +9,19 @@ current stream, and counts calls in :data:`launches` (one per call,
 whatever the number of CUDA launches inside).  It takes CUDA tensors
 only; ``kernels.ops.paged_attention`` sends CPU tensors to the plain
 version in ``kernels.ref``, and ``ref.paged_attention_split_ref`` is the
-plain form of the split-K algorithm.
+plain form of the split-K algorithm.  Fake tensors
+(``util.device.is_fake``, on any device) take a shape-only route: the
+operands are checked as for a launch (but for the alignment of storage
+they lack), nothing launches and no launch is counted, and the output
+is a fake tensor of q's shape and dtype.
+
+A call, launched or fake, adds ``roofline.counts.paged_flops`` to the
+open ``roofline.counts`` recordings as ``paged_attention``, counted at
+the state's capacity (``counts.paged_capacity``: every page of every
+row of the block table, or the window where it is shorter), not at the
+attended tokens: those follow from ``lengths``, which a fake tensor
+lacks and which the host would have to read back from the card.  So a
+real call and a fake one on the same shapes record the same count.
 """
 from __future__ import annotations
 
@@ -19,6 +31,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import counts
+from repro_torch.util.device import is_fake
 
 #: number of kernel launches since the counter was last reset
 launches = 0
@@ -55,7 +69,7 @@ def _check(q, k_pages, v_pages, block_table, lengths) -> None:
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                    block_table=block_table, lengths=lengths)
     for name, t in tensors.items():
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not is_fake(t):
             raise ValueError(f"{name} is on {t.device}; the CUDA kernel "
                              "takes CUDA tensors")
         if t.device != q.device:
@@ -81,6 +95,8 @@ def _check(q, k_pages, v_pages, block_table, lengths) -> None:
         raise ValueError(f"block_table must be (B, MAXP) with B={b}")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be ({b},)")
+    if is_fake(q):
+        return
     # K/V rows are copied in 16-byte pieces
     item = k_pages.element_size()
     strides = k_pages.stride()[:3] + v_pages.stride()[:3]
@@ -152,8 +168,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     global launches
     _check(q, k_pages, v_pages, block_table, lengths)
     pps, _, _ = call_plan(q, k_pages, block_table)
-    out = _launch(q, k_pages, v_pages, block_table, lengths, window, pps)
-    launches += 1
+    if is_fake(q):
+        out = torch.empty_like(q)
+    else:
+        out = _launch(q, k_pages, v_pages, block_table, lengths, window,
+                      pps)
+        launches += 1
+    b, _, h, d = q.shape
+    counts.record("paged_attention", counts.paged_flops(
+        counts.paged_capacity(b, block_table.shape[1], k_pages.shape[1],
+                              window), h, d))
     return out
 
 

@@ -44,7 +44,15 @@ Counters: :data:`launches_fwd` (one per :func:`forward`) and
 :data:`launches_bwd` (one per :func:`backward`, which is the scan kernel
 and the reduction of its partials), counted where they launch.
 ``kernels.ops.selective_scan`` sends CPU tensors to the plain version
-and CUDA tensors here; nothing falls back.
+and CUDA tensors here; nothing falls back.  Fake tensors
+(``util.device.is_fake``, on any device) take a shape-only route: the
+operands are checked as for a launch, nothing launches and no launch is
+counted, and the outputs are fake tensors of the kernels' shapes (the
+chunk states at one a 256-step chunk, as the source stores them).  A
+launch and a fake call alike add ``roofline.counts.scan_flops`` (6 a
+step, channel and state forward, 18 backward; the formula is
+``counts.SCAN_FLOPS``) to the open ``roofline.counts`` recordings as
+``selective_scan_<fwd|bwd>``.
 """
 from __future__ import annotations
 
@@ -54,6 +62,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import SCAN_CHUNK
+from repro_torch.roofline import counts
+from repro_torch.util.device import is_fake
 
 #: kernel launches since the counters were last reset
 launches_fwd = 0
@@ -114,7 +125,7 @@ def check(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
 
 def _check_kernel(x, dt, b, c, a) -> None:
     check(x, dt, b, c, a)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not is_fake(x):
         raise ValueError(f"the selective-scan kernel takes CUDA tensors, "
                          f"got {x.device}")
     if a.shape[-1] not in STATES:
@@ -163,9 +174,15 @@ def forward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """Launch the forward on checked operands: (y, the chunk states)."""
     global launches_fwd
     _check_kernel(x, dt, b, c, a)
-    lib = _lib()
     bsz, s, d = x.shape
     n = a.shape[-1]
+    if is_fake(x):
+        counts.record("selective_scan_fwd", counts.scan_flops(
+            bsz, s, d, n, False))
+        return (x.new_empty((bsz, s, d), dtype=torch.float32),
+                x.new_empty((bsz, -(-s // SCAN_CHUNK), d, n),
+                            dtype=torch.float32))
+    lib = _lib()
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=x.device)
     hs = torch.empty((bsz, geometry(s, d)[0], d, n), dtype=torch.float32,
                      device=x.device)
@@ -175,6 +192,8 @@ def forward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         y.data_ptr(), hs.data_ptr(), bsz, s, d, _stream(x))
     _raise(err, "forward kernel launch")
     launches_fwd += 1
+    counts.record("selective_scan_fwd", counts.scan_flops(bsz, s, d, n,
+                                                          False))
     return y, hs
 
 
@@ -185,12 +204,18 @@ def backward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     partials): (dx in x's dtype, d(dt), db, dc, da)."""
     global launches_bwd
     _check_kernel(x, dt, b, c, a)
+    bsz, s, d = x.shape
+    n = a.shape[-1]
+    if is_fake(x):
+        counts.record("selective_scan_bwd", counts.scan_flops(
+            bsz, s, d, n, True))
+        return (x.new_empty((bsz, s, d)),
+                *(x.new_empty(shape, dtype=torch.float32) for shape in (
+                    (bsz, s, d), (bsz, s, n), (bsz, s, n), (d, n))))
     # the kernel reads b and c as float4s; a view that starts off a
     # 16-byte boundary (a split of a B S == 1 projection) is copied
     b, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (b, c))
     lib = _lib()
-    bsz, s, d = x.shape
-    n = a.shape[-1]
     nc, blocks, subs = geometry(s, d)
     for name, t, shape in (("hs", hs, (bsz, nc, d, n)),
                            ("dy", dy, (bsz, s, d))):
@@ -217,6 +242,8 @@ def backward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         part_a.data_ptr(), sub_h.data_ptr(), bsz, s, d, _stream(x))
     _raise(err, "backward kernel launch")
     launches_bwd += 1
+    counts.record("selective_scan_bwd", counts.scan_flops(bsz, s, d, n,
+                                                          True))
     return dx, ddt, db, dc, da
 
 

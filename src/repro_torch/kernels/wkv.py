@@ -48,7 +48,13 @@ Counters: :data:`launches_fwd` (one per :func:`forward`, its three
 kernels) and :data:`launches_bwd` (one per :func:`backward`, its four),
 counted where they launch; :func:`chain` counts nothing.
 ``kernels.ops.wkv`` sends CPU tensors to the plain version and CUDA
-tensors here; nothing falls back.
+tensors here; nothing falls back.  Fake tensors (``util.device.is_fake``,
+on any device) take a shape-only route: the operands are checked as for
+a launch, nothing launches and no launch is counted, and the outputs are
+fake tensors of the kernels' shapes (the states at one a 256-step
+chunk).  A launch and a fake call alike add ``roofline.counts.wkv_flops``
+(``counts.WKV_FLOPS`` a state element and step) to the open
+``roofline.counts`` recordings as ``wkv_<fwd|bwd>``.
 """
 from __future__ import annotations
 
@@ -58,7 +64,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import wkv_check_length
+from repro_torch.kernels.ref import SCAN_CHUNK, wkv_check_length
+from repro_torch.roofline import counts
+from repro_torch.util.device import is_fake
 
 #: kernel launches since the counters were last reset
 launches_fwd = 0
@@ -117,7 +125,7 @@ def check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_kernel(r, k, v, w, u) -> None:
     check(r, k, v, w, u)
-    if r.device.type != "cuda":
+    if r.device.type != "cuda" and not is_fake(r):
         raise ValueError(f"the WKV kernel takes CUDA tensors, got "
                          f"{r.device}")
     if u.shape[1] not in HEAD_SIZES:
@@ -208,6 +216,10 @@ def forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel(r, k, v, w, u)
     bsz, s, d = r.shape
     nh, hs = u.shape
+    if is_fake(r):
+        counts.record("wkv_fwd", counts.wkv_flops(r.numel(), hs, False))
+        return (r.new_empty((bsz, s, d)),
+                r.new_empty((bsz, -(-s // SCAN_CHUNK), nh, hs, hs)))
     states = chain(k, v, w, u, reverse=False)
     r, k, v, w = (_aligned(t) for t in (r, k, v, w))
     o = torch.empty((bsz, s, d), dtype=torch.float32, device=r.device)
@@ -217,6 +229,7 @@ def forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s, nh, _stream(r))
     _raise(err, "forward kernel launch")
     launches_fwd += 1
+    counts.record("wkv_fwd", counts.wkv_flops(r.numel(), hs, False))
     return o, states
 
 
@@ -230,6 +243,10 @@ def backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel(r, k, v, w, u)
     bsz, s, d = r.shape
     nh, hs = u.shape
+    if is_fake(r):
+        counts.record("wkv_bwd", counts.wkv_flops(r.numel(), hs, True))
+        return (*(r.new_empty((bsz, s, d)) for _ in range(4)),
+                r.new_empty((nh, hs)))
     nc, blocks, ckpts = geometry(s, hs)
     _same("states", states, (bsz, nc, nh, hs, hs), r)
     _same("do", do, (bsz, s, d), r)
@@ -248,6 +265,7 @@ def backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         part_u.data_ptr(), ckpt.data_ptr(), bsz, s, nh, ckpts, _stream(r))
     _raise(err, "backward kernel launch")
     launches_bwd += 1
+    counts.record("wkv_bwd", counts.wkv_flops(r.numel(), hs, True))
     return drkw[0], drkw[1], dv, drkw[2], du
 
 

@@ -2,7 +2,8 @@
 
 Full width on the card, the default:
   python -m repro_torch.launch.serve [--arch internlm2-1.8b] \
-      [--kv-mode auto|paged_flat|paged_radix] [--requests 8] [--profile]
+      [--kv-mode auto|paged_flat|paged_radix|dense] [--requests 8] \
+      [--profile]
 serves ``--requests`` requests (prompts of 64-256 tokens, 32 new tokens
 each) with random weights from ``--seed`` in the config's dtype (bf16).
 A config with sliding-window layers gets prompts that cross its window
@@ -88,9 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--kv-mode", default="auto",
-                    choices=["auto", "paged_flat", "paged_radix"],
+                    choices=["auto", "paged_flat", "paged_radix", "dense"],
                     help="block table organization; auto picks it from "
-                         "occupancy every step")
+                         "occupancy every step, and dense is served as "
+                         "auto (the engine's KV is always paged), as the "
+                         "JAX launcher does")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -135,7 +138,7 @@ def serve(args: argparse.Namespace) -> Dict:
         shape = SMOKE
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
-    mode = None if args.kv_mode == "auto" else args.kv_mode
+    mode = None if args.kv_mode in ("auto", "dense") else args.kv_mode
     eng = ServeEngine(cfg, params, max_batch=shape["max_batch"],
                       max_len=shape["max_len"],
                       page_size=shape["page_size"], table_mode=mode,

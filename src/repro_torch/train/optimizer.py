@@ -15,7 +15,10 @@ and runs over groups of at most :data:`GROUP_ELEMENTS` elements, a
 tensor larger than that (deepseek-v2's 1.26 G-element expert weights) in
 flat pieces, so its float32 temporaries stay a few GB however large the
 model or any one weight.  The global norm takes each gradient's float32
-norm without a float32 copy of the gradients.
+norm without a float32 copy of the gradients.  On fake tensors
+(``launch.specs``: shapes, no storage) the update runs as one group of
+whole tensors, since there are no temporaries to bound, and its gradient
+norm is NaN.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import math
 from typing import Collection, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.util.device import host_float, is_fake
 
 #: elements per group of parameters the update processes at once
 GROUP_ELEMENTS = 1 << 27
@@ -75,7 +80,10 @@ Piece = Tuple[str, int, int]     # (name, first flat element, end)
 def _groups(names: List[str], params: Dict[str, torch.Tensor]
             ) -> List[List[Piece]]:
     """Pieces of at most GROUP_ELEMENTS elements in groups of at most as
-    many, in ``names`` order."""
+    many, in ``names`` order; fake tensors, one group of whole
+    tensors."""
+    if names and is_fake(params[names[0]]):
+        return [[(n, 0, params[n].numel()) for n in names]]
     groups: List[List[Piece]] = []
     cur: List[Piece] = []
     size = 0
@@ -93,9 +101,11 @@ def _groups(names: List[str], params: Dict[str, torch.Tensor]
 
 def _views(tensors: Dict[str, torch.Tensor], group: List[Piece]
            ) -> List[torch.Tensor]:
-    """Each piece's elements of its tensor, as views, so writes reach
-    the tensor (``view`` raises on a non-contiguous one)."""
-    return [tensors[n].view(-1)[a:e] for n, a, e in group]
+    """Each piece's elements of its tensor: the tensor itself where the
+    piece is all of it, else a flat view, so writes reach the tensor
+    (``view`` raises on a non-contiguous one)."""
+    return [tensors[n] if e - a == tensors[n].numel()
+            else tensors[n].view(-1)[a:e] for n, a, e in group]
 
 
 @torch.no_grad()
@@ -112,7 +122,7 @@ def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
     ``ndim >= 2``)."""
     step = opt_state["step"] + 1
     names = list(params)
-    gnorm = float(global_norm([grads[n] for n in names]))
+    gnorm = host_float(global_norm([grads[n] for n in names]))
     scale = float(torch.clamp(
         _f32(cfg.clip_norm) / max(_f32(gnorm), _f32(1e-9)), max=1.0))
     lr = schedule(cfg, step)

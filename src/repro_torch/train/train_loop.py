@@ -16,7 +16,7 @@ import torch
 from repro_torch.models import forward_train, init_params
 from repro_torch.models.model_zoo import Model
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
-from repro_torch.util.device import DeviceLike, resolve_device
+from repro_torch.util.device import DeviceLike, host_float, resolve_device
 
 Z_LOSS = 1e-4
 AUX_WEIGHT = 1e-2
@@ -100,7 +100,8 @@ def _microbatches(batch: Dict[str, torch.Tensor], n: int):
 def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                     compress=None, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics), metrics as
-    floats: loss, xent, aux, grad_norm, lr."""
+    floats: loss, xent, aux, grad_norm, lr (NaN but lr on fake
+    tensors)."""
     if compress is not None:
         raise NotImplementedError(
             f"gradient compression is not ported yet ({_PARALLEL})")
@@ -137,8 +138,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
         _, opt, om = adamw_update(opt_cfg, params, grads, state.opt,
                                   decay=decayed_names(model))
         model.zero_grad(set_to_none=True)
-        metrics = {"loss": float(loss),
-                   **{k: float(v) for k, v in parts.items()}, **om}
+        metrics = {"loss": host_float(loss),
+                   **{k: host_float(v) for k, v in parts.items()}, **om}
         return TrainState(params=model, opt=opt, rng=state.rng), metrics
 
     return train_step

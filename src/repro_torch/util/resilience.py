@@ -14,6 +14,10 @@ bounds one simulator dispatch by a wall-clock deadline with a retry.
 
 Fault sites:
 
+  ``cache_read``   a verified cache read: the entry is quarantined and
+                   the caller recomputes
+  ``cache_write``  a cache write fails: the store degrades to cache-off
+                   and the caller keeps its computed value
   ``dispatch``  the matching simulator dispatch raises
                 :class:`DispatchTimeout`: the watchdog clears the bucket
                 plans and retries once
@@ -53,7 +57,7 @@ SIDECAR_SUFFIX = ".sha256"
 #: subdirectory (of the entry's cache dir) corrupted entries move to
 QUARANTINE_DIR = "quarantine"
 #: the instrumented fault sites
-FAULT_SITES = ("dispatch", "evict")
+FAULT_SITES = ("cache_read", "cache_write", "dispatch", "evict")
 
 
 class DispatchTimeout(RuntimeError):
@@ -66,9 +70,9 @@ _EVENTS_LOCK = threading.Lock()
 
 
 def log_event(kind: str, detail: str) -> None:
-    """Record one recovery decision (evict / fault_injected / resume /
-    watchdog_timeout / watchdog_retry / ...) in the bounded process-wide
-    log."""
+    """Record one recovery decision (quarantine / cache_off / evict /
+    fault_injected / resume / watchdog_timeout / watchdog_retry / ...)
+    in the bounded process-wide log."""
     with _EVENTS_LOCK:
         _EVENTS.append((kind, detail))
 
@@ -87,7 +91,7 @@ class Fault:
     """One planned fault: fire at the given per-(site, match)
     occurrence indices of ``site`` whose tag contains ``match``."""
 
-    site: str                    # dispatch|evict
+    site: str                    # cache_read|cache_write|dispatch|evict
     at: Tuple[int, ...] = (0,)
     match: str = ""
 
@@ -99,10 +103,13 @@ class Fault:
 class FaultInjector:
     """Deterministic fault plan replay.  The injector counts occurrences
     per (site, match) pair, so a plan is insensitive to unrelated traffic
-    on the same site with different tags."""
+    on the same site with different tags.  ``seed`` is kept for plans
+    that draw their occurrences (none of the named plans does); explicit
+    :class:`Fault` lists replay as they are."""
 
-    def __init__(self, faults: Iterable[Fault] = ()):
+    def __init__(self, faults: Iterable[Fault] = (), seed: int = 0):
         self.faults = tuple(faults)
+        self.seed = seed
         self._counts: Dict[Tuple[str, str], int] = {}
         self.fired: List[Tuple[str, str, int]] = []   # (site, tag, idx)
 
@@ -123,10 +130,16 @@ class FaultInjector:
         return hit
 
     @classmethod
-    def from_plan(cls, name: str) -> "FaultInjector":
-        """A named fault plan (the dispatch and serving plans of the JAX
-        package's matrix; its cache plan is not ported)."""
+    def from_plan(cls, name: str, seed: int = 0) -> "FaultInjector":
+        """A named fault plan (the JAX package's chaos matrix)."""
         plans: Dict[str, Tuple[Fault, ...]] = {
+            # one corrupt cache read and one failed cache write: the
+            # read quarantines and recomputes, the write degrades to
+            # cache-off
+            "cache_corrupt": (
+                Fault("cache_read", at=(0,)),
+                Fault("cache_write", at=(0,)),
+            ),
             # first dispatch of a bucket hangs; the watchdog clears the
             # bucket plans and the retry completes
             "dispatch_hang": (Fault("dispatch", at=(0,)),),
@@ -136,7 +149,7 @@ class FaultInjector:
         if name not in plans:
             raise KeyError(f"unknown fault plan {name!r}; "
                            f"available: {sorted(plans)}")
-        return cls(plans[name])
+        return cls(plans[name], seed=seed)
 
 
 _INJECTOR: Optional[FaultInjector] = None
@@ -202,9 +215,13 @@ def quarantine(path: str, reason: str) -> Optional[str]:
 
 def write_bytes(path: str, data: bytes) -> bool:
     """Atomically publish ``data`` at ``path`` with its sha256 sidecar.
-    Any filesystem failure degrades to cache-off (returns False)."""
+    Any filesystem failure, or an injected ``cache_write`` fault,
+    degrades to cache-off (returns False)."""
     tmp = None
     try:
+        inj = fault_injector()
+        if inj is not None and inj.fires("cache_write", path):
+            raise OSError(f"injected cache_write fault: {path}")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
         with os.fdopen(fd, "wb") as f:
@@ -230,9 +247,13 @@ def write_bytes(path: str, data: bytes) -> bool:
 
 def read_bytes(path: str) -> Optional[bytes]:
     """Verified read of one cache entry; None means "recompute".  A
-    missing entry gives None; a sidecar mismatch or an unreadable file
-    quarantines the entry first."""
+    missing entry gives None; a sidecar mismatch, an unreadable file or
+    an injected ``cache_read`` fault quarantines the entry first."""
     if not os.path.exists(path):
+        return None
+    inj = fault_injector()
+    if inj is not None and inj.fires("cache_read", path):
+        quarantine(path, "injected cache_read fault")
         return None
     try:
         with open(path, "rb") as f:

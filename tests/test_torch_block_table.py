@@ -231,3 +231,97 @@ def test_shared_pages_survive_a_sharers_eviction():
     # sharer 2 still maps the two shared pages after 1 is freed
     assert got[2][got[3][0]] == 1 and got[2][got[3][1]] == 1
     assert got[5] == 10
+
+
+# ---------------------------------------------------------------------------
+# PTE line counters and the costed translations, against the JAX package
+# and against the cost meter's numpy twins
+# ---------------------------------------------------------------------------
+def _costed_rows(seed: int, b: int = 6, maxp: int = 32, leaf: int = 8):
+    """Ragged rows with holes, a leaf shared by three rows (a common
+    prefix), and a physically contiguous run (a one-line segment)."""
+    flat = _flat(b, maxp, seed)
+    flat[1, :leaf] = flat[0, :leaf]
+    flat[2, :leaf] = flat[0, :leaf]
+    flat[3, :20] = np.arange(1000, 1020)
+    flat[4, :] = -1
+    flat[4, 3] = 7                                   # one lonely page
+    return flat
+
+
+def _dup_radix(mod, seed: int):
+    """A radix table whose directories name one leaf twice (prefix
+    sharing inside a sequence) and leave holes."""
+    rng = np.random.default_rng(seed)
+    leaves = rng.integers(-1, 64, (5, 8)).astype(np.int32)
+    directory = np.array([[0, 0, 1, -1], [2, 3, 2, 2], [-1, -1, 4, 0]],
+                         np.int32)
+    conv = torch.tensor if mod is BT else jnp.asarray
+    return mod.RadixTable(directory=conv(directory), leaves=conv(leaves))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("leaf", [4, 8, 16])
+def test_pte_line_counters_match_jax_and_twins(seed, leaf):
+    from repro_torch.sim import cost_model as CM
+    flat = _costed_rows(seed)
+    t, j = torch.tensor(flat), jnp.asarray(flat)
+    twin_flat, twin_radix = CM._np_row_lines(flat, leaf)
+    _, twin_shared = CM._np_row_lines_shared(flat, leaf)
+    tr, jr = BT.radix_from_flat(t, leaf), JBT.radix_from_flat(j, leaf)
+    cases = [
+        (BT.count_pte_lines(t, BT.FLAT), JBT.count_pte_lines(j, JBT.FLAT),
+         twin_flat),
+        (BT.count_pte_lines(tr, BT.RADIX),
+         JBT.count_pte_lines(jr, JBT.RADIX), twin_radix),
+        (BT.count_pte_lines(t, BT.SEGMENT),
+         JBT.count_pte_lines(j, JBT.SEGMENT), CM._np_seg_lines(flat)),
+        (BT.count_pte_lines(t, BT.INVERTED),
+         JBT.count_pte_lines(j, JBT.INVERTED), CM._np_inv_lines(flat)),
+        (BT.count_pte_lines_shared(t, leaf),
+         JBT.count_pte_lines_shared(j, leaf), twin_shared),
+        (BT.count_segment_lines(t), JBT.count_segment_lines(j),
+         CM._np_seg_lines(flat)),
+        (BT.count_inverted_lines(t), JBT.count_inverted_lines(j),
+         CM._np_inv_lines(flat)),
+    ]
+    for got, want, twin in cases:
+        assert _eq(got, want)
+        np.testing.assert_array_equal(got.numpy(), twin)
+    # the shared leaf is charged once, to row 0
+    assert (BT.count_pte_lines_shared(t, leaf)
+            <= BT.count_pte_lines(tr, BT.RADIX)).all()
+    assert (BT.count_pte_lines(t, BT.FLAT)
+            <= BT.count_pte_lines(tr, BT.RADIX)).all()
+    with pytest.raises(ValueError):
+        BT.count_pte_lines(t, "nope")
+    with pytest.raises(ValueError):
+        BT.count_pte_lines_shared(t, 5)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_radix_lines_count_a_repeated_leaf_once(seed):
+    got = BT.count_pte_lines(_dup_radix(BT, seed), BT.RADIX)
+    want = JBT.count_pte_lines(_dup_radix(JBT, seed), JBT.RADIX)
+    assert _eq(got, want)
+
+
+@pytest.mark.parametrize("mode", [BT.FLAT, BT.RADIX])
+@pytest.mark.parametrize("seed", [0, 4])
+def test_costed_translations_match_jax(mode, seed):
+    flat = _costed_rows(seed)
+    tab, jtab = torch.tensor(flat), jnp.asarray(flat)
+    if mode == BT.RADIX:
+        tab, jtab = BT.radix_from_flat(tab, 8), JBT.radix_from_flat(jtab, 8)
+    for got, want in zip(BT.translate_all_costed(tab, mode),
+                         JBT.translate_all_costed(jtab, mode)):
+        assert _eq(got, want)
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, flat.shape[0], 9)
+    page = rng.integers(0, flat.shape[1], 9)
+    got = BT.translate_one_costed(tab, torch.tensor(seq), torch.tensor(page),
+                                  mode)
+    want = JBT.translate_one_costed(jtab, jnp.asarray(seq),
+                                    jnp.asarray(page), mode)
+    assert _eq(got[0], want[0]) and _eq(got[1], want[1])
+    assert BT.SEGMENT == JBT.SEGMENT and BT.INVERTED == JBT.INVERTED

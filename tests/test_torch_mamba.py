@@ -341,6 +341,11 @@ def test_scan_dispatch_and_checks(monkeypatch):
         wide = [torch.zeros(shape, device="cuda")
                 for shape in ((1, 8, 8), (1, 8, 8), (16, 8))]
     before = (SS.launches_fwd, SS.launches_bwd)
+    # a fake CUDA tensor takes the wrapper's shape-only route: no launch
+    assert ops.selective_scan(*cuda).shape == cuda[0].shape
+    # one taken for a real CUDA tensor goes to the kernel, never to the
+    # plain version
+    monkeypatch.setattr(SS, "is_fake", lambda t: False)
     with pytest.raises(RuntimeError, match="no kernel library"):
         ops.selective_scan(*cuda)
     with pytest.raises(ValueError, match="d_state 8"):

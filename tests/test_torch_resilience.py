@@ -100,7 +100,9 @@ def test_dispatch_site_and_plan():
     with pytest.raises(KeyError, match="dispatch_hang"):
         RES.FaultInjector.from_plan("nope")
     with pytest.raises(ValueError, match="unknown fault site"):
-        RES.Fault("cache_write")
+        RES.Fault("nope")
+    assert RES.FAULT_SITES == ("cache_read", "cache_write", "dispatch",
+                               "evict")
 
 
 def test_json_entries(tmp_path):

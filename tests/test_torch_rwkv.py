@@ -480,6 +480,11 @@ def test_wkv_dispatch_and_checks(monkeypatch):
         odd = [torch.zeros((1, 8, 64), device="cuda") for _ in range(4)]
         odd.append(torch.zeros((2, 32), device="cuda"))
     before = (WK.launches_fwd, WK.launches_bwd)
+    # a fake CUDA tensor takes the wrapper's shape-only route: no launch
+    assert ops.wkv(*cuda).shape == cuda[0].shape
+    # one taken for a real CUDA tensor goes to the kernel, never to the
+    # plain version
+    monkeypatch.setattr(WK, "is_fake", lambda t: False)
     with pytest.raises(RuntimeError, match="no kernel library"):
         ops.wkv(*cuda)
     with pytest.raises(ValueError, match="head size 32"):

@@ -1,0 +1,10 @@
+"""``step_flops`` over every cell of deepseek-v2-236b (see
+``test_torch_step_flops.py``, whose check this is)."""
+import pytest
+
+from test_torch_step_flops import cells, check_cell
+
+
+@pytest.mark.parametrize("arch, shape", cells("deepseek-v2-236b"))
+def test_step_flops_cell(arch, shape, monkeypatch):
+    check_cell(arch, shape, monkeypatch)
