@@ -28,16 +28,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      token streams equal greedy_reference's in every table mode, and the
      card's logits agree with the CPU's plain path;
   6. the design of the float32 kernels (forward and backward, 3xTF32
-     tensor-core products) and the ptxas report of each (a forward that
-     spills fails); the ptxas lines of every d256 / d192 kernel (TMA and
-     wgmma, both head dims, and the reduction of the split dK/dV
-     partials: one that spills, or that ptxas did not report, fails); the
+     tensor-core products) and the ptxas report of each (a forward at any
+     head_dim, or any kernel at NT 24 or 32, that spills, or that ptxas
+     did not report, fails), and each instantiation's resident blocks,
+     registers and shared memory; the ptxas lines of every d256 / d192
+     kernel (TMA and wgmma, both head dims, and the reduction of the
+     split dK/dV partials: one that spills, or that ptxas did not
+     report, fails); the
      flash-attention kernels of both routes (bf16: the sm90 wgmma
      kernels; float32: the simt 3xTF32 mma.sync kernels), forward and
      backward, against their plain versions (and the backward against
      autograd of the plain forward) at the training shape and at window,
      non-causal, MQA and ragged cases, and in float32 at head_dim 36 from
-     unaligned rows (head_dim padding and 4-byte copies); in bf16 at
+     unaligned rows (head_dim padding and 4-byte copies); in float32
+     above head_dim 128 (the simt kernels' NT 32 and NT 24
+     instantiations) at gemma3-1b's global and local layers (B 2, S
+     4,096, 4 / 1 heads of 256, window 512 and none), deepseek-v2's
+     layer (B 1, S 4,096, 128 / 128 heads of 192), a non-causal S 777 at
+     192, a GQA windowed ragged case at 256 (8 / 2 heads, S 1,000, window
+     100) and head_dim 200 from unaligned rows, each backward run twice
+     and held bit-identical; in bf16 at
      head_dim 256 (the d256 kernels) at gemma3-1b's training shape (B 2,
      S 4,096, 4 / 1 heads, causal, window 512 and none), a ragged
      windowed case (8 / 2 heads: a 3-way dK/dV split over G = 4 heads),
@@ -47,11 +57,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      16 heads, causal), a non-causal S 777 and a GQA windowed case; the
      sm90 kernels at whisper-tiny's training call (B 2, S 4,096, 6 / 6
      heads of 64), held, timed and run twice as a route is; each
-     route timed at its own path's shape with the same four times and
-     the achieved TFLOP/s (d256 also with the window; d192 at
+     route timed at its own path's shape with the same four times, the
+     backend SDPA picked and the achieved TFLOP/s (the float32 NT 32 and
+     NT 24 kernels at 8c's calls: gemma3-1b's global layer, also with
+     the window, and deepseek-v2's layer; d256 also with the window; d192
+     at
      deepseek-v2's B 1, S 4,096, 128 / 128 heads of 192; the d256
      backward also with its dK/dV work split 1, 2 and 4 ways); the sm90,
-     d256 and d192 backwards run twice and held bit-identical, and the
+     d256, d192 and simt backwards run twice and held bit-identical, and
+     the
      d256 and d192 backwards split by kernel (torch.profiler; each of its
      kernels must have run);
   7. full-width internlm2-1.8b trained through the port's launcher: 3
@@ -62,6 +76,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
   8. training parity in float32 at full width, 2 layers, one 3,072-token
      sequence, through the simt flash kernels: the card's loss and
      gradients agree with the CPU's plain path;
+     b. float32 above head_dim 128, TF32 off, one 2,304-token sequence
+        (past the blockwise threshold), card against the port's CPU
+        path: gemma3-1b at full width and 8 layers (both prefix layers,
+        five local layers and one global) through ``loss_fn``, loss 1e-4
+        and every gradient 5e-5 of its scale, 16 + 8 flash launches all
+        simt; deepseek-v2's MLA layer at full width (d_model 5,120, 128
+        heads of 192) through ``mla_apply``, the output and the
+        gradients of x and every weight 5e-5 of their scale, 1 + 1 simt
+        launches;
+     c. float32 training at full width above head_dim 128 through
+        ``make_train_step``, 2 steps of 1 x 4,096 tokens in one
+        microbatch: gemma3-1b at full depth (26 layers; 104 + 52 simt
+        launches) and deepseek-v2 cut to its dense first layer (MLA and
+        the 12,288-wide FFN; 4 + 2), no other flash route; s/step,
+        tokens/s, peak memory;
   9. the translation simulator (the paper's Figs 12-14 experiment):
      a. the LRU-scan and timing-epilogue kernels against their plain
         versions on the card at the smoke preset's 2,048-entry windows,
@@ -152,11 +181,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         (identical tokens, stats and meter totals); the CUDA kernels a
         decode step launches;
  11. the dense attention variants:
-     a. full-width gemma3-1b (26 layers, vocab 262,144, bf16, random
-        weights from a seed) served through the launcher at its
-        window-crossing shape (prompts of 520-640 tokens, max_len 768,
-        page 16), 4 requests in the flat and the radix table mode:
-        paged launches 26 x steps, every request complete, tokens in
+     a. full-width gemma3-1b (vocab 262,144, bf16, random weights from
+        a seed) with its depth cut to 8 of its 26 layers
+        (``GEMMA_SERVE_LAYERS``: both prefix layers and one period; the
+        script's time; 11c trains all 26) served through the launcher at
+        its window-crossing shape (prompts of 520-640 tokens, max_len
+        768, page 16), 4 requests in the flat and the radix table mode:
+        paged launches 8 x steps, every request complete, tokens in
         range and equal across the two modes;
      b. gemma3 in float32 at 8 layers (both prefix layers, five local,
         one global), prompts past the window: engine streams equal
@@ -171,10 +202,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         layers at full width) one train forward with 256 stub vision
         tokens;
  12. mixture of experts and MLA:
-     a. full-width granite-moe-1b-a400m (24 layers, 32 experts top 8,
-        1.33 B parameters, bf16, random weights from a seed) served
-        through the launcher, 4 requests, flat and radix tables: paged
-        launches 24 x steps, the same tokens in both modes;
+     a. full-width granite-moe-1b-a400m (32 experts top 8, bf16, random
+        weights from a seed) served through the launcher with its depth
+        cut to 12 of its 24 layers (``GRANITE_MOE_SERVE_LAYERS``: the
+        script's time; 12c trains all 24), 4 requests, flat and radix
+        tables: paged launches 12 x steps, the same tokens in both
+        modes;
      b. granite-moe and deepseek-v2 at smoke width in float32: engine
         streams equal greedy_reference's in every table mode, logits
         card vs CPU 1e-3, the first train step's loss card vs CPU 1e-4,
@@ -241,7 +274,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         logits card vs CPU 1e-3, loss 1e-4 and every gradient 5e-5 of
         its scale (through the WKV kernels at head size 16);
      c. full-width rwkv6-3b (bf16, random weights from a seed) served
-        through the launcher at phase 4's shape with its depth cut to 16
+        through the launcher at phase 4's shape with its depth cut to 4
         of its 32 layers (``RWKV_SERVE_LAYERS``: the script's time;
         14d trains all 32), flat and radix tables: exactly 0 paged
         launches (no layer holds a KV cache), the same tokens in both
@@ -327,6 +360,7 @@ from unittest import mock
 import numpy as np
 import torch
 from torch.nn import functional as F
+from torch.nn.attention import SDPBackend
 
 #: the port's sources: this checkout's, or the ``src`` of another checkout
 #: named by CHIP_SMOKE_SRC (``--sim-times`` times two trees' simulator
@@ -858,8 +892,9 @@ ROUTE_CASES = {"sm90": (TRAIN_ATTN, torch.bfloat16),
                "simt": (PARITY_ATTN, torch.float32),
                "d256": (GEMMA_ATTN, torch.bfloat16),
                "d192": (DEEPSEEK_ATTN, torch.bfloat16)}
-#: bf16 only (float32 has no kernel at head_dim 256): the d256 route at
-#: gemma3's training shape, its local (window 512) and global layers, at a
+#: bf16 (the float32 cases at head_dim 256 are SIMT_WIDE_HELD's): the d256
+#: route at gemma3's training shape, its local (window 512) and global
+#: layers, at a
 #: ragged S with a window (G = 4 query heads over a 3-way dK/dV split:
 #: chunks cross heads), with one KV head for 8 query heads (MQA), with G =
 #: 3 and without the causal mask
@@ -871,8 +906,9 @@ D256_CASES = {
     "d256_g3": dict(GEMMA_ATTN, b=1, s=1000, h=6, kh=2, window=100),
     "d256_noncausal": dict(GEMMA_ATTN, b=1, s=777, causal=False),
 }
-#: bf16 only (float32 has no kernel above head_dim 128): the d192 route at
-#: deepseek-v2's sequence length with 16 of its heads, at an odd S without
+#: bf16 (the float32 cases at head_dim 192 are SIMT_WIDE_HELD's): the d192
+#: route at deepseek-v2's sequence length with 16 of its heads, at an odd S
+#: without
 #: the causal mask, and with GQA and a window (the kernel takes both; MLA
 #: uses neither)
 D192_CASES = {
@@ -880,6 +916,33 @@ D192_CASES = {
     "d192_noncausal": dict(DEEPSEEK_ATTN, s=777, h=16, kh=16, causal=False),
     "d192_ragged": dict(DEEPSEEK_ATTN, s=1000, h=8, kh=2, window=100),
 }
+#: float32 above head_dim 128, the simt kernels' NT 32 (head_dim 193-256)
+#: and NT 24 (129-192) instantiations: gemma3-1b's global and local layers,
+#: deepseek-v2's MLA layer at its full 128 heads, a non-causal S 777 at 192,
+#: GQA with a window at a ragged S at 256, and head_dim 200 (padded to 256
+#: inside the kernel) from rows 4 bytes off 16-byte alignment (4-byte
+#: copies)
+SIMT_WIDE_HELD = {
+    "gemma3_global": GEMMA_ATTN,
+    "gemma3_local": dict(GEMMA_ATTN, window=512),
+    "deepseek": DEEPSEEK_ATTN,
+    "d192_noncausal": dict(DEEPSEEK_ATTN, s=777, h=16, kh=16, causal=False),
+    "d256_ragged": dict(GEMMA_ATTN, b=1, s=1000, h=8, kh=2, window=100),
+    "d200": dict(b=2, s=777, h=6, kh=3, d=200, causal=True, window=100,
+                 unaligned=True),
+}
+#: the same instantiations timed at the calls of phase 8c's paths (the
+#: NT 32 one also at gemma3's local layers, window 512), each a row of the
+#: kernels line: (label, shape)
+SIMT_WIDE_CASES = {"simt_d256": ("gemma3-1b", GEMMA_ATTN),
+                   "simt_d192": ("deepseek-v2", DEEPSEEK_ATTN)}
+#: the simt kernels whose ptxas lines must report no spill: the forward at
+#: every head_dim, and every kernel of the instantiations above 128
+SIMT_NO_SPILL = ("flash_fwd_kernel<4>", "flash_fwd_kernel<8>",
+                 "flash_fwd_kernel<16>") + tuple(
+    f"{k}<{nt}>" for nt in (24, 32)
+    for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+              "flash_bwd_dq_kernel"))
 _CSRC = "src/repro_torch/kernels/csrc"
 FLASH_SOURCES = {"sm90": f"{_CSRC}/flash_attention_sm90.cu",
                  "simt": f"{_CSRC}/flash_attention.cu",
@@ -968,10 +1031,14 @@ def autograd_of_plain(case):
 
 def library_attention(case):
     """The yardstick: scaled_dot_product_attention over (B, H, S, D)
-    views made once; returns (forward fn, backward fn)."""
+    views made once; returns (forward fn, backward fn, the name of the
+    backend PyTorch picks for it)."""
     q, k, v = (case[n].transpose(1, 2).contiguous().requires_grad_(True)
                for n in ("q", "k", "v"))
     do = case["do"].transpose(1, 2).contiguous()
+    backends = {int(b): n for n, b in SDPBackend.__members__.items()}
+    backend = backends.get(torch._fused_sdp_choice(
+        q, k, v, is_causal=True, enable_gqa=True), "unknown")
     out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                          enable_gqa=True)
 
@@ -981,7 +1048,7 @@ def library_attention(case):
                                               enable_gqa=True)
 
     return fwd, lambda: torch.autograd.grad(out, (q, k, v), do,
-                                            retain_graph=True)
+                                            retain_graph=True), backend
 
 
 def max_err(got, want) -> float:
@@ -999,6 +1066,14 @@ def within(got, want, tol: float) -> bool:
     return bool((err <= tol + tol * want.float().abs()).all())
 
 
+def zero_flash_counts() -> None:
+    """Sets every flash launch count, all routes and each, to 0."""
+    FA.launches_fwd = FA.launches_bwd = 0
+    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    FA.launches_d256_fwd = FA.launches_d256_bwd = 0
+    FA.launches_d192_fwd = FA.launches_d192_bwd = 0
+
+
 def route_launches() -> dict:
     """(forward, backward) launches so far of the routes counted apart."""
     return {"sm90": (FA.launches_sm90_fwd, FA.launches_sm90_bwd),
@@ -1014,10 +1089,22 @@ def phase_flash():
         "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
     for line in lines:
         print(f"  flash_attention ptxas: {line}")
-    spills = [int(n) for line in lines if line.startswith("flash_fwd_kernel")
-              for n in re.findall(r"(\d+) bytes spill", line)]
-    check(bool(spills) and not any(spills), "the float32 forward spills "
-          "registers, or ptxas reported nothing for it")
+    for kernel in SIMT_NO_SPILL:
+        spills = [int(n) for line in lines if line.startswith(f"{kernel}:")
+                  for n in re.findall(r"(\d+) bytes spill", line)]
+        check(bool(spills) and not any(spills), f"the float32 {kernel} "
+              f"spills registers, or ptxas reported nothing for it")
+    for d in (32, 64, 128, 192, 256):     # one instantiation each, NT d / 8
+        occ = FA.simt_occupancy(d)
+        print(f"flash_attention simt occupancy at head_dim {d} (NT {d // 8}): "
+              + "; ".join(
+                  f"{k} {o['threads']} threads, {o['blocks_per_sm']} blocks "
+                  f"({o['blocks_per_sm'] * o['threads'] // 32} warps) an SM, "
+                  f"{o['registers']} registers, {o['local_bytes']} local "
+                  f"bytes, {o['smem_bytes']} B shared"
+                  for k, o in occ.items()))
+        check(all(o["blocks_per_sm"] >= 1 for o in occ.values()),
+              f"a float32 kernel at head_dim {d} cannot be resident")
     check_d256_ptxas()
     ragged = dict(b=1, s=1000, h=8, kh=2, d=64, causal=True, window=0)
     shapes = {
@@ -1028,9 +1115,10 @@ def phase_flash():
         "ragged": ragged,
     }
     # float32 only (bf16 has no kernel at head_dim 36): head_dim padded to
-    # 64 inside the kernel, rows 4 bytes off 16-byte alignment
+    # 64 inside the kernel, rows 4 bytes off 16-byte alignment; and the
+    # head dims above 128
     f32_only = {"d36": dict(b=2, s=777, h=6, kh=3, d=36, causal=True,
-                            window=100, unaligned=True)}
+                            window=100, unaligned=True), **SIMT_WIDE_HELD}
     results = {}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         cases = ({**shapes, **D256_CASES, **D192_CASES,
@@ -1062,22 +1150,34 @@ def phase_flash():
                   and r["auto_scaled"] <= FLASH_AUTOGRAD_TOL[dt])
             if dt == torch.bfloat16:
                 ok &= r["fwd_err"] <= FLASH_TIGHT_BF16
+            if dt == torch.float32 and shape["d"] > 128:   # NT 24 and 32
+                again = flash_bwd("kernel", case, o, lse)
+                r["twice_equal"] = all(torch.equal(a, b)
+                                       for a, b in zip(grads, again))
+                ok &= r["twice_equal"]
+                del again
             r["ok"] = ok
             results[f"{name}_{tag}"] = r
+            twice = ("" if "twice_equal" not in r else
+                     ", two backwards " + ("bit-identical"
+                                           if r["twice_equal"] else "DIFFER"))
             print(f"flash_attention {name}_{tag} ({route}) {shape}: fwd "
                   f"max_abs_err {r['fwd_err']:.3e} (allclose {fwd_tol:g}), "
                   f"lse "
                   f"{r['lse_err']:.3e} (2e-05), bwd vs bwd_ref max_abs_err "
                   f"{r['bwd_err']:.3e}, of scale {r['bwd_scaled']:.3e} "
                   f"({bwd_tol:g}), bwd vs autograd of plain, of scale "
-                  f"{r['auto_scaled']:.3e} ({FLASH_AUTOGRAD_TOL[dt]:g}) "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"{r['auto_scaled']:.3e} ({FLASH_AUTOGRAD_TOL[dt]:g})"
+                  f"{twice} {'ok' if ok else 'FAIL'}")
             del case, o, lse, ro, rlse, grads, want, auto
+            torch.cuda.empty_cache()
     check(all(r["ok"] for r in results.values()),
           "flash_attention kernels disagree with their plain versions")
 
     timed = {route: time_route(route) for route in ROUTE_CASES}
     timed["whisper"] = time_route("sm90", WHISPER_ATTN, "whisper")
+    for key, (label, shape) in SIMT_WIDE_CASES.items():
+        timed[key] = time_route("simt", shape, label, torch.float32)
     torch.cuda.empty_cache()
     return timed
 
@@ -1106,15 +1206,17 @@ def check_d256_ptxas() -> None:
               f"reported nothing for it")
 
 
-def time_route(route: str, shape=None, label: str = "") -> dict:
+def time_route(route: str, shape=None, label: str = "",
+               dtype=torch.bfloat16) -> dict:
     """A route's kernels, plain versions and SDPA at its path's shape
-    (or at ``shape``, another path's call on the route, named by
-    ``label``): the kernels held against the plain versions with phase
-    6's gates, times with L2 flushed, bound, achieved TFLOP/s, max abs
-    errors; the sm90, d256 and d192 backwards are also run twice and
-    held bit-identical."""
-    shape, dtype = (ROUTE_CASES[route] if shape is None
-                    else (shape, torch.bfloat16))
+    (or at ``shape`` in ``dtype``, another path's call on the route,
+    named by ``label``): the kernels held against the plain versions
+    with phase 6's gates, times with L2 flushed, bound, achieved
+    TFLOP/s, max abs errors, SDPA's backend; the backward is also run
+    twice and held bit-identical.  At gemma3's global layer also its
+    local one (window 512)."""
+    if shape is None:
+        shape, dtype = ROUTE_CASES[route]
     name = f"{route} at {label}'s call" if label else route
     case = flash_case(**shape, dtype=dtype, seed=10)
     check(FA._route(dtype, shape["d"]) == route, f"{route} case is routed "
@@ -1139,17 +1241,16 @@ def time_route(route: str, shape=None, label: str = "") -> dict:
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"the {name} kernels disagree with their plain versions at "
               f"their path's shape")
-    if route != "simt":
-        again = flash_bwd("kernel", case, o, lse)
-        same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        check(same, f"two {name} backward runs on the same inputs differ")
-        print(f"flash_attention {name} backward deterministic: two runs "
-              f"give bit-identical dq, dk, dv")
-        del again
-    del grads, want
-    lib_fwd, lib_bwd = library_attention(case)
+    again = flash_bwd("kernel", case, o, lse)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    check(same, f"two {name} backward runs on the same inputs differ")
+    print(f"flash_attention {name} backward deterministic: two runs "
+          f"give bit-identical dq, dk, dv")
+    del again, grads, want
+    lib_fwd, lib_bwd, backend = library_attention(case)
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
-    print(f"library yardstick vs plain ({name}, {tag}): max_abs_err "
+    print(f"library yardstick vs plain ({name}, {tag}, SDPA backend "
+          f"{backend}): max_abs_err "
           f"{max_err(lib_fwd().transpose(1, 2), ro):.3e}")
     timed = {}
     for direction in ("fwd", "bwd"):
@@ -1170,10 +1271,12 @@ def time_route(route: str, shape=None, label: str = "") -> dict:
         timed[direction] = dict(ms=ms, plain_ms=plain_ms,
                                 library_ms=library_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, tflops=tflops,
-                                max_abs_err=errs[direction])
+                                max_abs_err=errs[direction],
+                                library_backend=backend)
         print(f"flash_attention {name} {direction} {tag} {shape} timing (L2 "
               f"flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"library {library_ms:.4f} ms (SDPA {backend}), bound "
+              f"{bound_ms:.4f} ms "
               f"({bound_by}; {attended_pairs(case)} attended pairs a head), "
               f"{bound_ms / ms:.1%} of bound, {tflops:.1f} TFLOP/s achieved "
               f"({14 if backward else 4}·D an attended pair)")
@@ -1183,22 +1286,22 @@ def time_route(route: str, shape=None, label: str = "") -> dict:
                        FA.d256_bwd_plan(*q.shape[:3], case["k"].shape[2],
                                         q.shape[3], causal=case["causal"],
                                         window=case["window"])["splits"])
-    if route == "d256":     # gemma3's 22 local layers: window 512
+    if shape == GEMMA_ATTN:     # gemma3's 22 local layers: window 512
         local = dict(case, window=512)
         lo, llse = flash_fwd("kernel", local)
-        for layer, c, out, ls in (("global", case, o, lse),
-                                  ("window 512", local, lo, llse)):
-            split_sweep(layer, c, out, ls)
+        if route == "d256":
+            split_sweep("global", case, o, lse)
+            split_sweep("window 512", local, lo, llse)
         for direction, fn in (
                 ("fwd", lambda: flash_fwd("kernel", local)),
                 ("bwd", lambda: flash_bwd("kernel", local, lo, llse))):
             ms = time_cold_ms(fn, 10)
             bound_ms, bound_by = flash_bound(local, direction == "bwd")
             timed[direction].update(window_ms=ms, window_bound_ms=bound_ms)
-            print(f"flash_attention d256 {direction} {tag} window 512 timing "
-                  f"(L2 flushed): kernel {ms:.4f} ms, bound {bound_ms:.4f} "
-                  f"ms ({bound_by}; {attended_pairs(local)} attended pairs "
-                  f"a head), {bound_ms / ms:.1%} of bound")
+            print(f"flash_attention {name} {direction} {tag} window 512 "
+                  f"timing (L2 flushed): kernel {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {attended_pairs(local)} "
+                  f"attended pairs a head), {bound_ms / ms:.1%} of bound")
     return timed
 
 
@@ -1260,8 +1363,7 @@ def phase_train():
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     args = TRAIN.build_parser().parse_args(["--ckpt-dir", ckpt_dir])
     torch.cuda.reset_peak_memory_stats()
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    zero_flash_counts()
     out = TRAIN.train(args)
     launches = (FA.launches_fwd, FA.launches_bwd)
     sm90 = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
@@ -1313,8 +1415,7 @@ def phase_train_parity():
     cpu_model = copy.deepcopy(model).cpu()
     raw = DATA.SyntheticLM(cfg.vocab_size, 3072, 1).batch_at(0)
     batch = {k: torch.from_numpy(v) for k, v in raw.items()}
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    zero_flash_counts()
     loss_gpu, _ = loss_fn(model, cfg, {k: v.cuda() for k, v in batch.items()})
     loss_gpu.backward()
     launches = (FA.launches_fwd, FA.launches_bwd)
@@ -1351,9 +1452,188 @@ def phase_train_parity():
 
 
 # ---------------------------------------------------------------------------
+# phases 8b and 8c: float32 above head_dim 128 (the simt NT 24 / 32 kernels)
+# ---------------------------------------------------------------------------
+#: 8b: one sequence just past BLOCKWISE_THRESHOLD, where both models leave
+#: the masked softmax for flash attention
+WIDE_PARITY_TOKENS = 2304
+#: 8b: gemma3-1b's first 8 layers: both prefix layers and one period (five
+#: local layers, window 512, and one global)
+WIDE_GEMMA_LAYERS = 8
+#: 8c: steps of one 4,096-token sequence in one microbatch; deepseek-v2
+#: cut to its first layer (dense: MLA and the 12,288-wide FFN)
+WIDE_TRAIN_STEPS = 2
+WIDE_TRAIN_TOKENS = 4096
+WIDE_DEEPSEEK_LAYERS = 1
+
+
+def simt_only(what: str, want: tuple) -> tuple:
+    """The (forward, backward) flash launches since
+    :func:`zero_flash_counts`; fails unless they are ``want``, none of
+    them on the sm90, d256 or d192 route (so all on the simt route)."""
+    got = (FA.launches_fwd, FA.launches_bwd)
+    others = route_launches()
+    check(got == want and all(n == (0, 0) for n in others.values()),
+          f"{what}: flash launches (fwd, bwd) {got}, want {want} all on "
+          f"the simt route; the bf16 routes {others}")
+    return got
+
+
+def worst_rel(pairs) -> tuple:
+    """(name, max |card - CPU| / max |CPU|) of the worst of ``pairs``, an
+    iterable of (name, card tensor, CPU tensor)."""
+    rels = {n: float((g.cpu() - c).abs().max() / c.abs().max())
+            for n, g, c in pairs}
+    name = max(rels, key=rels.get)
+    return name, rels[name], len(rels)
+
+
+def phase_wide_parity() -> tuple:
+    """8b: float32 training parity above the blockwise threshold at the
+    head dims above 128, card (the simt NT 32 / 24 kernels) against the
+    port's CPU path (the plain flash pair), TF32 off: gemma3-1b at full
+    width and 8 layers through ``loss_fn``, and deepseek-v2's MLA layer
+    at full width through ``mla_apply``; every gradient is held."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s = WIDE_PARITY_TOKENS
+    cfg = dataclasses.replace(C.get_arch(GEMMA), num_layers=WIDE_GEMMA_LAYERS,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    model = trainable(init_params(cfg, gen, "cuda"))
+    cpu_model = copy.deepcopy(model).cpu()
+    raw = DATA.SyntheticLM(cfg.vocab_size, s, 1).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    zero_flash_counts()
+    loss_gpu, _ = loss_fn(model, cfg, {k: v.cuda() for k, v in batch.items()})
+    loss_gpu.backward()
+    # a layer's attention runs forward, again in its checkpoint's
+    # recompute, and backward: (2 L, L)
+    gemma = simt_only(f"8b {cfg.name}", (2 * cfg.num_layers, cfg.num_layers))
+    loss_cpu, _ = loss_fn(cpu_model, cfg, batch)
+    loss_cpu.backward()
+    loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
+    diff = abs(loss_gpu - loss_cpu)
+    cpu_params = dict(cpu_model.named_parameters())
+    name, rel, n = worst_rel((k, p.grad, cpu_params[k].grad)
+                             for k, p in model.named_parameters())
+    print(f"8b {cfg.name} float32 ({cfg.num_layers} layers at full width, "
+          f"head_dim {cfg.head_dim}, window {cfg.window_size} in the local "
+          f"layers, 1 x {s} tokens, allow_tf32 = False): loss card "
+          f"{loss_gpu:.6f} CPU {loss_cpu:.6f}, diff {diff:.3e} (tol "
+          f"{TRAIN_LOSS_TOL:g}); the worst of {n} gradients {name}: "
+          f"max|card - CPU| / max|CPU| = {rel:.3e} (tol {TRAIN_GRAD_TOL:g}); "
+          f"simt launches fwd {gemma[0]}, bwd {gemma[1]} (2 L, L); sm90, "
+          f"d256, d192 0")
+    check(bool(np.isfinite(loss_gpu)) and diff <= TRAIN_LOSS_TOL,
+          f"8b {cfg.name}: card vs CPU loss {loss_gpu} vs {loss_cpu}")
+    check(rel <= TRAIN_GRAD_TOL, f"8b {cfg.name}: gradient of {name} card "
+                                 f"vs CPU relative max error {rel:.3e}")
+    del model, cpu_model, cpu_params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(C.get_arch(DEEPSEEK), num_layers=1,
+                              dtype="float32")
+    m = cfg.mla
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mla = trainable(AT.MLA(cfg, torch.float32, torch.device("cuda"), gen))
+    cpu_mla = copy.deepcopy(mla).cpu()
+    x, dy = (torch.randn((1, s, cfg.d_model), generator=gen, device="cuda")
+             for _ in range(2))
+    cos, sin = rope_tables(torch.arange(s, device="cuda")[None],
+                           m.qk_rope_head_dim, cfg.rope_theta)
+
+    def run(layer, dev):
+        leaf = x.to(dev).clone().requires_grad_(True)
+        y = AT.mla_apply(layer, leaf, cos.to(dev), sin.to(dev), cfg)
+        names = ["x"] + [n for n, _ in layer.named_parameters()]
+        grads = torch.autograd.grad(y, [leaf, *layer.parameters()],
+                                    dy.to(dev))
+        return {"out": y.detach(), **dict(zip(names, grads))}
+
+    zero_flash_counts()
+    got = run(mla, "cuda")
+    torch.cuda.synchronize()
+    deepseek = simt_only(f"8b {cfg.name} MLA", (1, 1))
+    want = run(cpu_mla, "cpu")
+    name, rel, n = worst_rel((k, got[k], want[k]) for k in want)
+    print(f"8b {cfg.name} MLA layer float32 (full width: d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of "
+          f"{m.qk_nope_head_dim} + {m.qk_rope_head_dim}, v "
+          f"{m.v_head_dim} padded to 192; 1 x {s} tokens): the worst of the "
+          f"output and {n - 1} gradients (x and every weight) {name}: "
+          f"max|card - CPU| / max|CPU| = {rel:.3e} (tol {TRAIN_GRAD_TOL:g}); "
+          f"simt launches fwd {deepseek[0]}, bwd {deepseek[1]}")
+    check(rel <= TRAIN_GRAD_TOL, f"8b {cfg.name} MLA: {name} card vs CPU "
+                                 f"relative max error {rel:.3e}")
+    del mla, cpu_mla, got, want
+    torch.cuda.empty_cache()
+    return gemma, deepseek
+
+
+def phase_wide_train() -> dict:
+    """8c: float32 training at full width past the blockwise threshold,
+    every attention call on the simt NT 32 (gemma3-1b, all 26 layers) or
+    NT 24 (deepseek-v2, its dense first layer) kernels: steps of one
+    4,096-token sequence in one microbatch through ``make_train_step``;
+    s/step, tokens/s and peak memory.  Returns each path's (forward,
+    backward) simt launches, keyed as SIMT_WIDE_CASES."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, arch, layers in (("simt_d256", GEMMA, None),
+                              ("simt_d192", DEEPSEEK, WIDE_DEEPSEEK_LAYERS)):
+        cfg = C.get_arch(arch)
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  num_layers=layers or cfg.num_layers)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, 0, "cuda")
+        step = make_train_step(cfg, AdamWConfig(total_steps=WIDE_TRAIN_STEPS))
+        zero_flash_counts()
+        hist = []
+        for i in range(WIDE_TRAIN_STEPS):
+            raw = DATA.SyntheticLM(cfg.vocab_size, WIDE_TRAIN_TOKENS,
+                                   1).batch_at(i)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            metrics["seconds"] = time.perf_counter() - t0
+            hist.append(metrics)
+        # forward, the checkpoint's recompute and backward a layer and step
+        n = WIDE_TRAIN_STEPS * cfg.num_layers
+        out[key] = simt_only(f"8c {cfg.name}", (2 * n, n))
+        for m in hist:
+            for k in ("loss", "grad_norm"):
+                check(bool(np.isfinite(m[k])) and m[k] != 0,
+                      f"8c {cfg.name}: {k} {m[k]} is not finite and nonzero")
+        secs = [m["seconds"] for m in hist]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"8c train {cfg.name} float32 (full width, layers "
+              f"{cfg.num_layers}, {cfg.param_count() / 1e9:.2f} B params, "
+              f"allow_tf32 = "
+              f"False): {WIDE_TRAIN_STEPS} steps of 1 x {WIDE_TRAIN_TOKENS} "
+              f"tokens in one microbatch; losses "
+              f"{[round(m['loss'], 4) for m in hist]}, grad_norms "
+              f"{[round(m['grad_norm'], 4) for m in hist]}; s/step "
+              f"{[round(x, 3) for x in secs]} (first includes warm-up); "
+              f"{secs[-1]:.3f} s/step and {WIDE_TRAIN_TOKENS / secs[-1]:.1f} "
+              f"tokens/s at the last; simt launches fwd {out[key][0]}, bwd "
+              f"{out[key][1]} (2 L steps, L steps); peak memory {peak:.2f} "
+              f"GiB")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the dense attention variants (gemma3-1b served and trained)
 # ---------------------------------------------------------------------------
 GEMMA = "gemma3-1b"
+#: 11a: the serve's depth, cut from 26 layers to keep the script within
+#: its time (the two full-depth serves took 38.2-49.0 s): both prefix
+#: layers and one period (five local layers, window 512, and one
+#: global), as 11b; 11c trains all 26
+GEMMA_SERVE_LAYERS = 8
 #: 11b: gemma3 float32 at 8 layers (both prefix layers, one period: five
 #: local, one global), prompts past the window of 512; max_len 768 gives
 #: 48 pages, a whole number of the radix table's 16-entry leaves
@@ -1366,17 +1646,23 @@ VLM_DEPTH = 2
 
 
 def phase_gemma_serve() -> dict:
-    """11a: full-width gemma3-1b served through the launcher at its
-    window-crossing shape, in the flat and the radix table mode: every
-    attention layer of every step through the paged kernel, 22 of 26 of
-    them windowed; both modes give the same tokens."""
+    """11a: full-width gemma3-1b at :data:`GEMMA_SERVE_LAYERS` of its 26
+    layers served through the launcher at its window-crossing shape, in
+    the flat and the radix table mode: every attention layer of every
+    step through the paged kernel, 7 of the 8 windowed; both modes give
+    the same tokens."""
+    full = C.get_arch(GEMMA)
+    cut = dataclasses.replace(full, num_layers=GEMMA_SERVE_LAYERS)
     launches, tokens = {}, {}
     for mode in (BT.FLAT, BT.RADIX):
         args = SERVE.build_parser().parse_args(
             ["--arch", GEMMA, "--requests", "4", "--kv-mode", mode])
         torch.cuda.reset_peak_memory_stats()
         PA.launches = 0
-        out = SERVE.serve(args)
+        with mock.patch.object(SERVE.C, "get_arch",
+                               lambda name, get=C.get_arch:
+                               cut if name == GEMMA else get(name)):
+            out = SERVE.serve(args)
         n = PA.launches
         cfg, eng, done = out["cfg"], out["engine"], out["done"]
         shape = SERVE.full_shape(cfg)
@@ -1390,13 +1676,16 @@ def phase_gemma_serve() -> dict:
               f"{mode}: a generated token lies outside the vocabulary")
         check(all(len(r.prompt) > cfg.window_size for r in done),
               "a prompt does not cross the window")
+        check(cfg.num_layers == GEMMA_SERVE_LAYERS,
+              f"{GEMMA} served {cfg.num_layers} layers")
         check(n == cfg.num_layers * steps and n > 0,
               f"{mode}: paged_attention launches {n} != {cfg.num_layers} "
               f"layers x {steps} steps")
         generated = sum(len(r.generated) for r in done)
         prompts = sum(len(r.prompt) for r in done)
         secs = out["seconds"]
-        print(f"serve {cfg.name} {mode} ({cfg.param_count() / 1e9:.2f} B "
+        print(f"serve {cfg.name} {mode} (full width, {cfg.num_layers} of "
+              f"{full.num_layers} layers, {cfg.param_count() / 1e9:.2f} B "
               f"params, {cfg.dtype}, window {cfg.window_size}, max_len "
               f"{shape['max_len']}): {len(done)} requests, {prompts} prompt "
               f"+ {generated} generated tokens in {steps} steps, "
@@ -1472,9 +1761,7 @@ def phase_gemma_train() -> tuple:
     args = TRAIN.build_parser().parse_args(["--arch", GEMMA,
                                             "--ckpt-dir", ckpt_dir])
     torch.cuda.reset_peak_memory_stats()
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
-    FA.launches_d256_fwd = FA.launches_d256_bwd = 0
+    zero_flash_counts()
     out = TRAIN.train(args)
     launches = (FA.launches_fwd, FA.launches_bwd)
     d256 = (FA.launches_d256_fwd, FA.launches_d256_bwd)
@@ -1600,6 +1887,10 @@ def phase_variants() -> dict:
 # ---------------------------------------------------------------------------
 GRANITE_MOE = "granite-moe-1b-a400m"
 DEEPSEEK = "deepseek-v2-236b"
+#: 12a: the serve's depth, cut from 24 layers to keep the script within
+#: its time (the two full-depth serves took 31.1-32.2 s); every layer is
+#: the same attention + MoE block, and 12c trains all 24
+GRANITE_MOE_SERVE_LAYERS = 12
 #: 12d: deepseek-v2 at full width, depth cut to its dense prefix layer
 #: and one MoE layer (5.36 B parameters, 10.7 GB in bf16); 4 requests of
 #: 64-128 prompt and 16 new tokens; one 4,096-token sequence a train step
@@ -1625,28 +1916,38 @@ def serve_checks(cfg, done, n: int, new: int, what: str) -> None:
 
 
 def phase_moe_serve() -> dict:
-    """12a: full-width granite-moe-1b-a400m served through the launcher
-    in the flat and the radix table mode: every attention layer of every
-    step through the paged kernel, the same tokens in both modes."""
+    """12a: full-width granite-moe-1b-a400m at
+    :data:`GRANITE_MOE_SERVE_LAYERS` of its 24 layers served through the
+    launcher in the flat and the radix table mode: every attention layer
+    of every step through the paged kernel, the same tokens in both
+    modes."""
+    full = C.get_arch(GRANITE_MOE)
+    cut = dataclasses.replace(full, num_layers=GRANITE_MOE_SERVE_LAYERS)
     launches, tokens = {}, {}
     for mode in (BT.FLAT, BT.RADIX):
         args = SERVE.build_parser().parse_args(
             ["--arch", GRANITE_MOE, "--requests", "4", "--kv-mode", mode])
         torch.cuda.reset_peak_memory_stats()
         PA.launches = 0
-        out = SERVE.serve(args)
+        with mock.patch.object(SERVE.C, "get_arch",
+                               lambda name, get=C.get_arch:
+                               cut if name == GRANITE_MOE else get(name)):
+            out = SERVE.serve(args)
         n = PA.launches
         cfg, eng, done = out["cfg"], out["engine"], out["done"]
         steps = eng.sched.stats["steps"]
         serve_checks(cfg, done, args.requests, SERVE.FULL["new_tokens"],
                      f"{cfg.name} {mode}")
+        check(cfg.num_layers == GRANITE_MOE_SERVE_LAYERS,
+              f"{GRANITE_MOE} served {cfg.num_layers} layers")
         check(n == cfg.num_layers * steps and n > 0,
               f"{mode}: paged_attention launches {n} != {cfg.num_layers} "
               f"layers x {steps} steps")
         generated = sum(len(r.generated) for r in done)
         prompts = sum(len(r.prompt) for r in done)
         secs = out["seconds"]
-        print(f"serve {cfg.name} {mode} ({cfg.param_count() / 1e9:.2f} B "
+        print(f"serve {cfg.name} {mode} (full width, {cfg.num_layers} of "
+              f"{full.num_layers} layers, {cfg.param_count() / 1e9:.2f} B "
               f"params, {cfg.dtype}, {cfg.moe.num_experts} experts top "
               f"{cfg.moe.num_experts_per_tok}): {len(done)} requests, "
               f"{prompts} prompt + {generated} generated tokens in {steps} "
@@ -1779,8 +2080,7 @@ def phase_moe_train() -> tuple:
     args = TRAIN.build_parser().parse_args(["--arch", GRANITE_MOE,
                                             "--ckpt-dir", ckpt_dir])
     torch.cuda.reset_peak_memory_stats()
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    zero_flash_counts()
     out = TRAIN.train(args)
     sm90 = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
     cfg, hist, shape = out["cfg"], out["history"], out["shape"]
@@ -1936,8 +2236,7 @@ def phase_deepseek() -> dict:
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, 0, "cuda")
     step = make_train_step(cfg, AdamWConfig(total_steps=3), 1)
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_d192_fwd = FA.launches_d192_bwd = 0
+    zero_flash_counts()
     hist = []
     for i in range(3):
         raw = DATA.SyntheticLM(cfg.vocab_size, 4096, 1).batch_at(i)
@@ -2382,8 +2681,7 @@ def phase_jamba_train() -> dict:
     state = init_train_state(cfg, 0, "cuda")
     step = make_train_step(cfg, AdamWConfig(total_steps=3), 1)
     SS.launches_fwd = SS.launches_bwd = 0
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    zero_flash_counts()
     hist = []
     for i in range(3):
         raw = DATA.SyntheticLM(cfg.vocab_size, 4096, 1).batch_at(i)
@@ -2493,9 +2791,9 @@ WKV_TOL = 2e-5
 RWKV_PARITY = dict(MOE_PARITY, requests=4)
 RWKV_PARITY_TOKENS = (2, 512)
 #: 14c: the serve's depth, cut from 32 layers to keep the script within
-#: its time (its two full-depth serves took 66.5-96.9 s); every layer is
-#: the same RWKV block, and 14d trains all 32
-RWKV_SERVE_LAYERS = 16
+#: its time (its two full-depth serves took 66.5-96.9 s, at 16 layers
+#: 38.9 s); every layer is the same RWKV block, and 14d trains all 32
+RWKV_SERVE_LAYERS = 4
 
 
 def wkv_inputs(b, s, h, hs, seed, w0=-0.5):
@@ -3169,8 +3467,7 @@ def phase_whisper_train() -> dict:
     args = TRAIN.build_parser().parse_args(["--arch", WHISPER,
                                             "--ckpt-dir", ckpt_dir])
     torch.cuda.reset_peak_memory_stats()
-    FA.launches_fwd = FA.launches_bwd = 0
-    FA.launches_sm90_fwd = FA.launches_sm90_bwd = 0
+    zero_flash_counts()
     out = TRAIN.train(args)
     sm90 = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
     total = (FA.launches_fwd, FA.launches_bwd)
@@ -4959,6 +5256,14 @@ def phases(card: str, paths: dict, counting) -> int:
     parity_launches = phase_train_parity()
     print(f"phase 8 (train parity): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    wide_parity = phase_wide_parity()
+    print(f"phase 8b (float32 parity above head_dim 128): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_train = phase_wide_train()
+    print(f"phase 8c (float32 training above head_dim 128): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     sim = phase_sim()
     print(f"phase 9 (simulator): {time.perf_counter() - t0:.1f} s")
     t10 = t0 = time.perf_counter()
@@ -5078,7 +5383,22 @@ def phases(card: str, paths: dict, counting) -> int:
                          "bound_by", "library_ms")}}
            if route == "sm90" else {}),
     } for route in ROUTE_CASES
-        for direction, n in zip(("fwd", "bwd"), path_launches[route])]
+        for direction, n in zip(("fwd", "bwd"), path_launches[route])] + [{
+        # the simt instantiations above head_dim 128 (NT 32, NT 24): 8c's
+        # launches, 8b's beside them, timed at 8c's calls (phase 6)
+        "name": f"flash_attention_{key}_{direction}",
+        "route": "cuda",
+        "source": FLASH_SOURCES["simt"],
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": wide_train[key][direction == "bwd"],
+        "parity_launches": wide_parity[i][direction == "bwd"],
+        **{k: flash_timed[key][direction][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend", "tflops")},
+        **{k: v for k, v in flash_timed[key][direction].items()
+           if k.startswith("window")},
+    } for i, key in enumerate(SIMT_WIDE_CASES)
+        for direction in ("fwd", "bwd")]
     print(json.dumps({"kernels": [{
         "name": "paged_attention",
         "route": "cuda",

@@ -66,24 +66,45 @@
 // most keys (dQ) are launched first, so the long chains start in the
 // first wave.
 //
+// Head dims above 128.  head_dim is padded to 8 NT: NT 4, 8, 16 up to
+// 128, NT 24 for 129-192 (deepseek-v2's MLA head of 128 + 64) and NT 32
+// for 193-256 (gemma3's heads).  The same kernels hold a warp's 16 x 8 NT
+// accumulators: 96 / 128 a thread in the forward's O and the dK/dV warps'
+// dV or dK, 48 / 64 in dQ.  The register cap follows from the blocks an
+// SM is built for (`fwd_blocks`, `bwd_blocks`): the tiles of one block
+// take 100 / 133 KB (forward), 155 / 204 KB (dK/dV) and 159 / 208 KB (dQ)
+// of shared memory at NT 24 / 32, so two forward blocks (NT 24) or one
+// (NT 32), and one backward block, fit an SM, and each of these
+// instantiations may take 255 registers a thread without spilling: 8, 4
+// and 8 warps an SM.  A simple first design; few warps an SM hide the
+// loads' latency poorly.
+//
 // Bound.  At the training shape (S 4096, D 128) attention does about
 // 4 * S / 2 * D operations for each of its 2 * S * D * 2 bytes a head:
 // far above the card's ratio of operations to bytes, so it is bound by
 // operations: for float32-accurate products, the TF32 peak over three.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int DMAX = 128;         // largest head_dim
+constexpr int DMAX = 256;         // largest head_dim
 constexpr int FWD_THREADS = 128;  // 4 warps, 16 query rows each
 constexpr int FWD_ROWS = 64;      // query rows a forward block owns
 constexpr int FWD_STEP = 16;      // keys of the K / V tile streamed per step
 constexpr int BWD_THREADS = 256;  // 4 pairs of warps, 16 rows a pair
 constexpr int BWD_ROWS = 64;      // keys (dK/dV) or queries (dQ) a block owns
 constexpr int BWD_STEP = 16;      // rows of the tile streamed per step
+// Blocks an SM each instantiation is built for, which sets the register
+// cap (65,536 / (threads x blocks), at most 255): as many as the shared
+// memory of a block at head_dim 8 NT lets share an SM (see the file
+// header), so that NT 24 and 32 hold their accumulators unspilled
+constexpr int fwd_blocks(int nt) { return nt <= 16 ? 3 : nt <= 24 ? 2 : 1; }
+constexpr int bwd_blocks(int nt) { return nt <= 16 ? 2 : 1; }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -212,15 +233,35 @@ __device__ __forceinline__ void tile_product_t(float (&c)[2][4],
                                                int t) {
   constexpr int LD = 8 * NT + 4;
   float c2[2][4] = {};
+  if constexpr (NT >= 32) {
+    // The same products in the same order, unrolled 4 k-step pairs at a
+    // time: whole, the loads it hoists beside the forward's 128 live
+    // accumulators spilled past the 255 registers a thread may take
+#pragma unroll 4
+    for (int k2 = 0; k2 < NT; k2 += 2) {
 #pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    Frag<4> fa;
-    load_a(fa, a, LD, r0, 8 * kk, g, t);
+      for (int p = 0; p < 2; ++p) {
+        Frag<4> fa;
+        load_a(fa, a, LD, r0, 8 * (k2 + p), g, t);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      Frag<2> fb;
-      load_b_t(fb, b, LD, 8 * j, 8 * kk, g, t);
-      mma3((kk & 1) ? c2[j] : c[j], fa, fb);
+        for (int j = 0; j < 2; ++j) {
+          Frag<2> fb;
+          load_b_t(fb, b, LD, 8 * j, 8 * (k2 + p), g, t);
+          mma3(p ? c2[j] : c[j], fa, fb);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      Frag<4> fa;
+      load_a(fa, a, LD, r0, 8 * kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        Frag<2> fb;
+        load_b_t(fb, b, LD, 8 * j, 8 * kk, g, t);
+        mma3((kk & 1) ? c2[j] : c[j], fa, fb);
+      }
     }
   }
 #pragma unroll
@@ -321,7 +362,8 @@ __device__ __forceinline__ void zero_pad(float* dst, int rows, int D,
 // O += P V with P taken from them as A fragments.
 // ---------------------------------------------------------------------------
 template <int NT>  // head_dim padded to 8 NT
-__global__ void __launch_bounds__(FWD_THREADS, 3) flash_fwd_kernel(
+__global__ void __launch_bounds__(FWD_THREADS, fwd_blocks(NT))
+    flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int S, int H, int KH, int D, int causal,
@@ -515,7 +557,8 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
 // dK += dS^T Q.  P^T and dS^T come out of the accumulators already as the
 // A operands of the second products.
 template <int NT>  // head_dim padded to 8 NT
-__global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
+    flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ lse,
     const float* __restrict__ delta, const float* __restrict__ dout,
@@ -649,7 +692,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dkdv_kernel(
 // dS = P (dP - delta), and each adds dS K to its half of dQ's columns, dS
 // taken from the accumulator as an A fragment.
 template <int NT>
-__global__ void __launch_bounds__(BWD_THREADS, 2) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
+    flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ lse,
     const float* __restrict__ delta, const float* __restrict__ dout,
@@ -800,6 +844,37 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Runs f(std::integral_constant<int, NT>()) for the instantiation whose
+// 8 NT columns hold head_dim D
+template <typename F>
+cudaError_t with_nt(int D, F f) {
+  if (D <= 32) return f(std::integral_constant<int, 4>());
+  if (D <= 64) return f(std::integral_constant<int, 8>());
+  if (D <= 128) return f(std::integral_constant<int, 16>());
+  if (D <= 192) return f(std::integral_constant<int, 24>());
+  return f(std::integral_constant<int, 32>());
+}
+
+// What the card makes of a kernel: out = threads a block, resident blocks
+// an SM, registers a thread, local (spill) bytes a thread, dynamic shared
+// memory a block
+template <typename K>
+cudaError_t kernel_info(K kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  out[0] = threads;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = (int)smem;
+  return cudaSuccess;
+}
+
 // 16-byte copies need head_dim and every row start 16-byte aligned
 bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
@@ -825,14 +900,10 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                        cudaStream_t stream) {
   const int vec4 = D % 4 == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v) && aligned16(o);
-  if (D <= 32)
-    return launch_fwd_tiles<4>(q, k, v, o, lse, B, S, H, KH, D, causal,
-                               window, scale, vec4, stream);
-  if (D <= 64)
-    return launch_fwd_tiles<8>(q, k, v, o, lse, B, S, H, KH, D, causal,
-                               window, scale, vec4, stream);
-  return launch_fwd_tiles<16>(q, k, v, o, lse, B, S, H, KH, D, causal,
-                              window, scale, vec4, stream);
+  return with_nt(D, [&](auto nt) {
+    return launch_fwd_tiles<decltype(nt)::value>(
+        q, k, v, o, lse, B, S, H, KH, D, causal, window, scale, vec4, stream);
+  });
 }
 
 template <int NT>
@@ -871,14 +942,11 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const int vec4 = D % 4 == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v) && aligned16(dout);
-  if (D <= 32)
-    return launch_bwd_tiles<4>(q, k, v, lse, delta, dout, dq, dk, dv, B, S,
-                               H, KH, D, causal, window, scale, vec4, stream);
-  if (D <= 64)
-    return launch_bwd_tiles<8>(q, k, v, lse, delta, dout, dq, dk, dv, B, S,
-                               H, KH, D, causal, window, scale, vec4, stream);
-  return launch_bwd_tiles<16>(q, k, v, lse, delta, dout, dq, dk, dv, B, S, H,
-                              KH, D, causal, window, scale, vec4, stream);
+  return with_nt(D, [&](auto nt) {
+    return launch_bwd_tiles<decltype(nt)::value>(
+        q, k, v, lse, delta, dout, dq, dk, dv, B, S, H, KH, D, causal, window,
+        scale, vec4, stream);
+  });
 }
 
 bool bad_shape(int B, int S, int H, int KH, int D) {
@@ -942,6 +1010,26 @@ int flash_attention_bwd_launch(int device, const void* q, const void* k,
                       static_cast<float*>(dq), static_cast<float*>(dk),
                       static_cast<float*>(dv), static_cast<float*>(delta), B,
                       S, H, KH, D, causal, window, scale, s);
+  });
+}
+
+// kernel_info of the forward, dK/dV and dQ kernels that take head_dim D,
+// five ints each into out[0 .. 15)
+int flash_attention_occupancy(int device, int D, int* out) {
+  if (D <= 0 || D > DMAX) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&]() {
+    return with_nt(D, [&](auto nt) {
+      constexpr int NT = decltype(nt)::value;
+      cudaError_t err = kernel_info(flash_fwd_kernel<NT>, FWD_THREADS,
+                                    fwd_smem<NT>(), out);
+      if (err == cudaSuccess)
+        err = kernel_info(flash_bwd_dkdv_kernel<NT>, BWD_THREADS,
+                          dkdv_smem<NT>(), out + 5);
+      if (err == cudaSuccess)
+        err = kernel_info(flash_bwd_dq_kernel<NT>, BWD_THREADS,
+                          dq_smem<NT>(), out + 10);
+      return err;
+    });
   });
 }
 

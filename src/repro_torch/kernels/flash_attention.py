@@ -10,11 +10,14 @@ head_dim 64 or 128, TMA loads and ``wgmma`` products), ``"d256"`` and
 ``"d192"`` (``csrc/flash_attention_d256.cu``, one template on head_dim
 instantiated at 256 and 192: bf16, TMA loads and ``wgmma`` products,
 sharing ``csrc/sm90_common.cuh`` with the sm90 route) and ``"simt"``
-(``csrc/flash_attention.cu``: float32, head_dim up to 128, every product
-of the forward and backward an ``mma.sync`` in 3xTF32, which keeps
-float32 accuracy; the name is kept from the CUDA-core kernels it
-replaced).  This module checks the operands, allocates the outputs and
-scratch, launches on PyTorch's current stream and counts launches in
+(``csrc/flash_attention.cu``: float32, every head_dim up to 256, padded
+to 32, 64, 128, 192 or 256 inside the kernel, every product of the
+forward and backward an ``mma.sync`` in 3xTF32, which keeps float32
+accuracy; the name is kept from the CUDA-core kernels it replaced).
+Nothing else has a kernel: bf16 at other head dims and any dtype above
+head_dim 256 raise, with no fallback.  This module checks the operands,
+allocates the outputs and scratch, launches on PyTorch's current stream
+and counts launches in
 :data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
 backward, which runs a delta pre-pass, the dK/dV kernel, on the d256 /
 d192 routes the reduction of its partials where
@@ -59,8 +62,9 @@ launches_d256_bwd = 0
 launches_d192_fwd = 0
 launches_d192_bwd = 0
 
-#: the float32 kernels keep a head's row of the accumulator in registers
-MAX_HEAD_DIM = 128
+#: the float32 kernels keep a warp's 16 rows of the accumulator, all of
+#: head_dim's columns, in registers: up to 128 a thread at 256
+MAX_HEAD_DIM = 256
 
 #: head sizes of the sm90 kernels (templates); the d256 and d192 routes
 #: are the two instantiations of one template
@@ -87,8 +91,9 @@ _bf16_handles: Dict[str, ctypes.CDLL] = {}
 def _route(dtype: torch.dtype, head_dim: int) -> str:
     """``"sm90"`` for bf16 with head_dim 64 or 128, ``"d256"`` and
     ``"d192"`` for bf16 with head_dim 256 and 192 (all three wgmma),
-    ``"simt"`` (3xTF32 mma.sync) for float32 with head_dim up to 128;
-    anything else raises."""
+    ``"simt"`` (3xTF32 mma.sync) for float32 at every head_dim from 1 to
+    :data:`MAX_HEAD_DIM` (256: gemma3-1b's heads, deepseek-v2's MLA head
+    of 192); anything else raises."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
     if dtype == torch.bfloat16 and head_dim == D256_HEAD_DIM:
@@ -144,6 +149,8 @@ def _lib() -> ctypes.CDLL:
             design.restype = ctypes.c_char_p
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_occupancy.argtypes = [i32, i32, ptr]
+        lib.flash_attention_occupancy.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -154,6 +161,21 @@ def simt_design() -> dict:
     lib = _lib()
     return {"fwd": lib.flash_attention_fwd_design().decode(),
             "bwd": lib.flash_attention_bwd_design().decode()}
+
+
+def simt_occupancy(head_dim: int) -> dict:
+    """What the current card makes of the float32 kernels that take
+    ``head_dim``: for the forward, dK/dV and dQ kernels, threads a block,
+    resident blocks an SM, registers a thread, local (spill) bytes a
+    thread and dynamic shared memory a block."""
+    out = (ctypes.c_int * 15)()
+    _raise_on(_lib().flash_attention_occupancy(torch.cuda.current_device(),
+                                               head_dim, out),
+              "occupancy query", "simt")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes",
+            "smem_bytes")
+    return {k: dict(zip(keys, out[5 * i:5 * i + 5]))
+            for i, k in enumerate(("fwd", "dkdv", "dq"))}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

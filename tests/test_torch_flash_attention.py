@@ -252,15 +252,17 @@ def test_cuda_wrapper_rejects_cpu_tensors(dtype, d):
     (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 96, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 256, "d256"), (torch.bfloat16, 96, ValueError),
-    (torch.bfloat16, 192, "d192"), (torch.float32, 256, ValueError),
+    (torch.bfloat16, 192, "d192"), (torch.float32, 256, "simt"),
     (torch.float16, 128, ValueError), (torch.float16, 256, ValueError),
-    (torch.float32, 192, ValueError), (torch.bfloat16, 320, ValueError),
+    (torch.float32, 192, "simt"), (torch.bfloat16, 320, ValueError),
+    (torch.float32, 200, "simt"), (torch.float32, 264, ValueError),
 ])
 def test_route(dtype, d, route):
     """bf16 with head_dim 64 / 128 takes the sm90 wgmma kernels, bf16 at
     256 and 192 the d256 template's wgmma ones (d192: deepseek-v2's MLA
-    head), float32 up to 128 the 3xTF32 mma.sync ones; nothing else has a
-    kernel (float32 above 128 stays unported)."""
+    head), float32 at every head_dim up to 256 the 3xTF32 mma.sync ones
+    (gemma3-1b's 256, deepseek-v2's 192, and a padded 200); nothing else
+    has a kernel (bf16 at other head dims, any dtype above 256)."""
     if route is ValueError:
         with pytest.raises(ValueError, match="no flash_attention kernel"):
             FA._route(dtype, d)
