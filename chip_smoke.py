@@ -46,8 +46,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      4,096, 4 / 1 heads of 256, window 512 and none), deepseek-v2's
      layer (B 1, S 4,096, 128 / 128 heads of 192), a non-causal S 777 at
      192, a GQA windowed ragged case at 256 (8 / 2 heads, S 1,000, window
-     100) and head_dim 200 from unaligned rows, each backward run twice
-     and held bit-identical; in bf16 at
+     100), head_dim 200 from unaligned rows and G = 3 at 192 (6 / 2
+     heads, S 1,000) with the dK/dV work split 4 ways (chunks crossing
+     heads), each backward run twice and held bit-identical; in bf16 at
      head_dim 256 (the d256 kernels) at gemma3-1b's training shape (B 2,
      S 4,096, 4 / 1 heads, causal, window 512 and none), a ragged
      windowed case (8 / 2 heads: a 3-way dK/dV split over G = 4 heads),
@@ -66,8 +67,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      backward also with its dK/dV work split 1, 2 and 4 ways); the sm90,
      d256, d192 and simt backwards run twice and held bit-identical, and
      the
-     d256 and d192 backwards split by kernel (torch.profiler; each of its
-     kernels must have run);
+     d256 and d192 backwards and the float32 ones above head_dim 128 split
+     by kernel (torch.profiler: delta, dK/dV, the reduction of split
+     partials where the plan splits, dQ; each must have run);
   7. full-width internlm2-1.8b trained through the port's launcher: 3
      steps of 8 x 4,096 tokens in 4 microbatches, every attention layer
      through the sm90 flash kernels (forward twice a step per layer and
@@ -341,6 +343,12 @@ run both in turns in one call to compare two trees on one card.
 
 time only the WKV forward and backward at rwkv6-3b's training call, the
 same way, for this checkout's port or another's.
+
+    python3 chip_smoke.py --simt-wide-times
+    CHIP_SMOKE_SRC=<other checkout>/src python3 chip_smoke.py --simt-wide-times
+
+hold and time only the float32 flash backward above head_dim 128 at
+phase 8c's calls, the same way, for this checkout's port or another's.
 """
 from __future__ import annotations
 
@@ -919,9 +927,10 @@ D192_CASES = {
 #: float32 above head_dim 128, the simt kernels' NT 32 (head_dim 193-256)
 #: and NT 24 (129-192) instantiations: gemma3-1b's global and local layers,
 #: deepseek-v2's MLA layer at its full 128 heads, a non-causal S 777 at 192,
-#: GQA with a window at a ragged S at 256, and head_dim 200 (padded to 256
+#: GQA with a window at a ragged S at 256, head_dim 200 (padded to 256
 #: inside the kernel) from rows 4 bytes off 16-byte alignment (4-byte
-#: copies)
+#: copies), and G = 3 at 192 where the dK/dV plan splits 4 ways (chunks
+#: cross heads)
 SIMT_WIDE_HELD = {
     "gemma3_global": GEMMA_ATTN,
     "gemma3_local": dict(GEMMA_ATTN, window=512),
@@ -930,6 +939,8 @@ SIMT_WIDE_HELD = {
     "d256_ragged": dict(GEMMA_ATTN, b=1, s=1000, h=8, kh=2, window=100),
     "d200": dict(b=2, s=777, h=6, kh=3, d=200, causal=True, window=100,
                  unaligned=True),
+    "d192_g3_split": dict(b=1, s=1000, h=6, kh=2, d=192, causal=True,
+                          window=0),
 }
 #: the same instantiations timed at the calls of phase 8c's paths (the
 #: NT 32 one also at gemma3's local layers, window 512), each a row of the
@@ -937,12 +948,15 @@ SIMT_WIDE_HELD = {
 SIMT_WIDE_CASES = {"simt_d256": ("gemma3-1b", GEMMA_ATTN),
                    "simt_d192": ("deepseek-v2", DEEPSEEK_ATTN)}
 #: the simt kernels whose ptxas lines must report no spill: the forward at
-#: every head_dim, and every kernel of the instantiations above 128
+#: every head_dim, every kernel of the instantiations above 128 (the dK/dV
+#: kernel also as its split form), and the reduction of the split dK/dV
+#: partials
 SIMT_NO_SPILL = ("flash_fwd_kernel<4>", "flash_fwd_kernel<8>",
                  "flash_fwd_kernel<16>") + tuple(
     f"{k}<{nt}>" for nt in (24, 32)
     for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-              "flash_bwd_dq_kernel"))
+              "flash_bwd_dkdv_split_kernel", "flash_bwd_dq_kernel")) + (
+    "flash_bwd_reduce_kernel",)
 _CSRC = "src/repro_torch/kernels/csrc"
 FLASH_SOURCES = {"sm90": f"{_CSRC}/flash_attention_sm90.cu",
                  "simt": f"{_CSRC}/flash_attention.cu",
@@ -1086,7 +1100,8 @@ def phase_flash():
         print(f"flash_attention simt {direction} design: {design}")
     lines = ptxas_lines("flash_attention", (
         "flash_fwd_kernel", "flash_bwd_delta_kernel",
-        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+        "flash_bwd_dkdv_kernel", "flash_bwd_dkdv_split_kernel",
+        "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel"))
     for line in lines:
         print(f"  flash_attention ptxas: {line}")
     for kernel in SIMT_NO_SPILL:
@@ -1280,12 +1295,13 @@ def time_route(route: str, shape=None, label: str = "",
               f"({bound_by}; {attended_pairs(case)} attended pairs a head), "
               f"{bound_ms / ms:.1%} of bound, {tflops:.1f} TFLOP/s achieved "
               f"({14 if backward else 4}·D an attended pair)")
-    if route in ("d256", "d192"):
+    if route in ("d256", "d192") or shape["d"] > 128:
         q = case["q"]
+        plan = FA.d256_bwd_plan if route != "simt" else FA.simt_bwd_plan
         backward_split(route, lambda: flash_bwd("kernel", case, o, lse),
-                       FA.d256_bwd_plan(*q.shape[:3], case["k"].shape[2],
-                                        q.shape[3], causal=case["causal"],
-                                        window=case["window"])["splits"])
+                       plan(*q.shape[:3], case["k"].shape[2], q.shape[3],
+                            causal=case["causal"],
+                            window=case["window"])["splits"])
     if shape == GEMMA_ATTN:     # gemma3's 22 local layers: window 512
         local = dict(case, window=512)
         lo, llse = flash_fwd("kernel", local)
@@ -1325,12 +1341,23 @@ def split_sweep(tag: str, case, o, lse) -> None:
           f"plan's), ms (L2 flushed): {', '.join(times)}")
 
 
+#: the kernels of each backward that backward_split requires to have run:
+#: the delta pre-pass, dK/dV (split or not) and dQ, then the reduction of
+#: split partials
+BACKWARD_KERNELS = {
+    "d256": ("delta_kernel<", "dkdv_kernel<", "dq_kernel<",
+             "dkdv_reduce_kernel"),
+    "simt": ("flash_bwd_delta_kernel", "flash_bwd_dkdv",
+             "flash_bwd_dq_kernel<", "flash_bwd_reduce_kernel")}
+
+
 def backward_split(route: str, bwd, splits: int, calls: int = 3) -> None:
-    """Where the d256 / d192 backward spends its time: each kernel's device
-    time over ``calls`` backward calls (torch.profiler, L2 warm), printed,
-    not gated.  Four kernels: the delta pre-pass, dK/dV, the reduction of
-    the split dK/dV partials (where the plan splits, as at gemma3's shape)
-    and dQ; fails if one of them did not run."""
+    """Where the d256 / d192 backward, or the float32 one above head_dim
+    128 (simt), spends its time: each kernel's device time over ``calls``
+    backward calls (torch.profiler, L2 warm), printed, not gated.  Four
+    kernels: the delta pre-pass, dK/dV, the reduction of the split dK/dV
+    partials (where the plan splits, as at gemma3's global layer) and dQ;
+    fails if one of them did not run."""
     bwd()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -1342,15 +1369,15 @@ def backward_split(route: str, bwd, splits: int, calls: int = 3) -> None:
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
     total = sum(kernels.values())
-    parts = ", ".join(f"{k[:40]} {ms:.4f} ms ({ms / total:.1%})"
-                      for k, ms in sorted(kernels.items(),
-                                          key=lambda kv: -kv[1]))
+    parts = ", ".join(
+        f"{re.sub(r'^void |[(]anonymous namespace[)]::', '', k)[:40]} "
+        f"{ms:.4f} ms ({ms / total:.1%})"
+        for k, ms in sorted(kernels.items(), key=lambda kv: -kv[1]))
     print(f"flash_attention {route} backward by kernel (torch.profiler, "
           f"{calls} calls, L2 warm; dK/dV split {splits} ways): {total:.4f} "
           f"ms a call: {parts}")
-    ran = ("delta_kernel<", "dkdv_kernel<", "dq_kernel<") + (
-        ("dkdv_reduce_kernel",) if splits > 1 else ())
-    for name in ran:
+    names = BACKWARD_KERNELS["simt" if route == "simt" else "d256"]
+    for name in names[:3] + names[3:] * (splits > 1):
         check(any(name in k for k in kernels),
               f"the {route} backward ran no {name.rstrip('<')}")
 
@@ -3029,6 +3056,62 @@ def wkv_times() -> None:
                            10)
         print(f"wkv-times {rep}: forward {fwd:.4f} ms, backward {bwd:.4f} ms "
               f"(B {b}, S {s}, {h} heads of {hs}; L2 flushed)")
+
+
+def simt_wide_times() -> None:
+    """``--simt-wide-times``: the float32 flash backward above head_dim 128
+    at phase 8c's calls (gemma3-1b's global and local layers, deepseek-v2's
+    MLA layer): each held against the plain backward from the kernel's own
+    forward (2e-5 of scale; two backwards bit-identical), then timed (L2
+    flushed, 10 calls) twice, beside its bound.  It calls only what the
+    port's package has had since the float32 route took head dims above
+    128, so with CHIP_SMOKE_SRC it times another checkout's kernels the
+    same way."""
+    print(f"simt-wide-times: the port from {FA.__file__}")
+    _build.build_all(["flash_attention"])
+    print(f"simt-wide-times backward design: {FA.simt_design()['bwd']}")
+    for line in ptxas_lines("flash_attention", (
+            "flash_bwd_dkdv_kernel", "flash_bwd_dkdv_split_kernel",
+            "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel")):
+        if re.search(r"<(24|32)>|reduce", line):
+            print(f"  simt-wide-times ptxas: {line}")
+    for d in (192, 256):
+        occ = FA.simt_occupancy(d)
+        print(f"simt-wide-times occupancy at head_dim {d}: " + "; ".join(
+            f"{k} {o['threads']} threads, {o['blocks_per_sm']} blocks an "
+            f"SM, {o['registers']} registers, {o['local_bytes']} local "
+            f"bytes, {o['smem_bytes']} B shared"
+            for k, o in occ.items() if k != "fwd"))
+    calls = {"gemma3 global": GEMMA_ATTN,
+             "gemma3 window 512": dict(GEMMA_ATTN, window=512),
+             "deepseek": DEEPSEEK_ATTN}
+    for name, shape in calls.items():
+        case = flash_case(**shape, dtype=torch.float32, seed=10)
+        o, lse = flash_fwd("kernel", case)
+        grads = flash_bwd("kernel", case, o, lse)
+        err = scaled_err(grads, flash_bwd("plain", case, o, lse))
+        same = all(torch.equal(a, b) for a, b in
+                   zip(grads, flash_bwd("kernel", case, o, lse)))
+        print(f"simt-wide-times {name}: bwd vs plain of scale {err:.3e} "
+              f"(2e-05), two backwards "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(err <= FLASH_BWD_TOL[torch.float32] and same,
+              f"the float32 backward at {name} is wrong")
+        del grads
+        if hasattr(FA, "simt_bwd_plan"):    # the split dK/dV plan
+            backward_split("simt", lambda: flash_bwd("kernel", case, o, lse),
+                           FA.simt_bwd_plan(
+                               *case["q"].shape[:3], case["k"].shape[2],
+                               case["q"].shape[3], causal=case["causal"],
+                               window=case["window"])["splits"])
+        bound_ms, bound_by = flash_bound(case, True)
+        for rep in range(2):
+            ms = time_cold_ms(lambda: flash_bwd("kernel", case, o, lse), 10)
+            print(f"simt-wide-times {name} {rep}: backward {ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / ms:.1%} of bound (L2 flushed)")
+        del case, o, lse
+        torch.cuda.empty_cache()
 
 
 def phase_rwkv_parity() -> dict:
@@ -5215,6 +5298,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--wkv-times"]:
         wkv_times()
+        return 0
+    if sys.argv[1:] == ["--simt-wide-times"]:
+        simt_wide_times()
         return 0
     paths = train_paths()
     with multiprocessing.get_context("spawn").Pool(1) as pool:

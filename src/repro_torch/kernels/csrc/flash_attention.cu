@@ -14,11 +14,17 @@
 //   delta: delta = rowsum(dO * O) once per row into (B, H, S) scratch;
 //   dK/dV: one block per (kv head, b, k tile); it loops over the G query
 //          heads of its kv head and over the q tiles that reach its keys,
-//          so dK and dV are summed over the group with no atomics;
+//          so dK and dV are summed over the group with no atomics.  Above
+//          head_dim 128, where one block takes a whole SM, the loop may be
+//          cut into `splits` contiguous chunks of (query head, 64-query
+//          tile) units, a block each, writing float32 partial dK and dV
+//          that a reduction pass sums in chunk order (the plan:
+//          kernels/flash_attention.py:simt_bwd_plan);
 //   dQ:    one block per (h, b, q tile), looping over its k tiles and
 //          recomputing S and dP (seven products where the bound counts
 //          five).
-// Nothing is accumulated across blocks: the result is deterministic.
+// Nothing is accumulated by atomics and every sum has a fixed order: the
+// result is deterministic.
 //
 // Products.  Every product, forward and backward, runs on the tensor
 // cores as mma.sync.m16n8k8 with TF32 operands, in 3xTF32: each float32
@@ -76,8 +82,17 @@
 // of shared memory at NT 24 / 32, so two forward blocks (NT 24) or one
 // (NT 32), and one backward block, fit an SM, and each of these
 // instantiations may take 255 registers a thread without spilling: 8, 4
-// and 8 warps an SM.  A simple first design; few warps an SM hide the
-// loads' latency poorly.
+// and 8 warps an SM.  Few warps an SM hide the loads' latency poorly.  In
+// the backward at NT 24 and 32 the dK/dV work of a key tile may be split
+// over the card (above), and at NT 32 the dK/dV kernel's score products
+// take their A and B fragments by ldmatrix, four 8 x 4 float tiles an
+// instruction, where the other kernels load them a float at a time (at
+// NT 24 the same loads spilled past 255 registers).  Each warp still
+// splits its fragments into TF32 halves: planes split once would take
+// another 2 x 16 x (8 NT + 4) floats a stage, past the 227 KB a block may
+// have at NT 32, and the sums' B fragments (k rows permuted) have no
+// ldmatrix form for 32-bit elements.  A design of these products on
+// wgmma, measured beside this one on the H100, was slower (PERF.md).
 //
 // Bound.  At the training shape (S 4096, D 128) attention does about
 // 4 * S / 2 * D operations for each of its 2 * S * D * 2 bytes a head:
@@ -263,6 +278,60 @@ __device__ __forceinline__ void tile_product_t(float (&c)[2][4],
         mma3((kk & 1) ? c2[j] : c[j], fa, fb);
       }
     }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] += c2[j][e];
+}
+// ldmatrix.x4 of 32-bit elements: four 8 x 4 float tiles (8 x 8 b16
+// matrices), thread i taking row i / 4, column i % 4 of each; lane l gives
+// the address of row l % 8 of tile l / 8 (16-byte aligned)
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+// load_a by one ldmatrix: tiles (rows r0, r0 + 8) x (columns c0, c0 + 4)
+__device__ __forceinline__ void load_a_ldm(Frag<4>& a, const float* x,
+                                           int ld, int r0, int c0,
+                                           int lane) {
+  const int m = lane >> 3;
+  unsigned r[4];
+  ldmatrix_x4(r, x + (r0 + (lane & 7) + 8 * (m & 1)) * ld + c0 +
+                     4 * (m >> 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a.set(i, __uint_as_float(r[i]));
+}
+// load_b_t of the n tiles n0 and n0 + 8 by one ldmatrix
+__device__ __forceinline__ void load_b_pair_ldm(Frag<2> (&b)[2],
+                                                const float* x, int ld,
+                                                int n0, int c0, int lane) {
+  const int m = lane >> 3;
+  unsigned r[4];
+  ldmatrix_x4(r, x + (n0 + 8 * (m >> 1) + (lane & 7)) * ld + c0 +
+                     4 * (m & 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i >> 1].set(i & 1, __uint_as_float(r[i]));
+}
+// tile_product_t with its fragments loaded by ldmatrix (the dK/dV kernel
+// at NT 32): the same products in the same order
+template <int NT>
+__device__ __forceinline__ void tile_product_ldm(float (&c)[2][4],
+                                                 const float* a,
+                                                 const float* b, int r0,
+                                                 int lane) {
+  constexpr int LD = 8 * NT + 4;
+  float c2[2][4] = {};
+#pragma unroll 4
+  for (int kk = 0; kk < NT; ++kk) {
+    Frag<4> fa;
+    Frag<2> fb[2];
+    load_a_ldm(fa, a, LD, r0, 8 * kk, lane);
+    load_b_pair_ldm(fb, b, LD, 0, 8 * kk, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma3((kk & 1) ? c2[j] : c[j], fa, fb[j]);
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -547,25 +616,33 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
   }
 }
 
-// dK and dV: one block per (kv head, b, k tile), the k tiles with the most
-// queries launched first.  The block's 8 warps form 4 pairs, a pair owning
-// 16 keys; the block streams 16-query tiles of Q and dO (with their LSE and
-// delta) of each of the G heads, double-buffered by cp.async.  Per tile
-// the pair's first warp forms S^T = K Q^T, P^T = exp(S^T scale - LSE) and
-// dV += P^T dO; its second forms dP^T = V dO^T, takes P^T from the first
-// through shared memory, and forms dS^T = P^T (dP^T - delta) and
-// dK += dS^T Q.  P^T and dS^T come out of the accumulators already as the
-// A operands of the second products.
-template <int NT>  // head_dim padded to 8 NT
-__global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
-    flash_bwd_dkdv_kernel(
+// dK and dV: one block per (kv head x split, b, k tile), the k tiles with
+// the most queries launched first.  The block's 8 warps form 4 pairs, a
+// pair owning 16 keys; the block streams 16-query tiles of Q and dO (with
+// their LSE and delta) of each of the G heads, double-buffered by
+// cp.async.  Per tile the pair's first warp forms S^T = K Q^T, P^T =
+// exp(S^T scale - LSE) and dV += P^T dO; its second forms dP^T = V dO^T,
+// takes P^T from the first through shared memory, and forms dS^T = P^T
+// (dP^T - delta) and dK += dS^T Q.  P^T and dS^T come out of the
+// accumulators already as the A operands of the second products.  With
+// SPLIT (flash_bwd_dkdv_split_kernel, launched where the plan splits) the
+// block is one of `splits` for its (kv head, b, k tile): it walks its
+// split's chunk of the (query head, 64-query tile) units and writes
+// float32 partials (2, splits, B, S, KH, D), dK's unscaled, then dV's.
+// The kernel without the split keeps the loop of a whole tile, so the
+// calls the plan leaves unsplit pay nothing for it.
+template <int NT, bool SPLIT>  // head_dim padded to 8 NT
+__device__ __forceinline__ void dkdv_body(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ lse,
     const float* __restrict__ delta, const float* __restrict__ dout,
-    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KH,
-    int D, int causal, int window, float scale, int vec4) {
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+    int S, int H, int KH, int D, int causal, int window, float scale,
+    int splits, int vec4) {
   constexpr int LD = 8 * NT + 4;
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int split = SPLIT ? blockIdx.x % splits : 0;
+  const int kvh = SPLIT ? blockIdx.x / splits : blockIdx.x;
+  const int b = blockIdx.y;
   const int k0 = blockIdx.z * BWD_ROWS;  // tile 0 has the longest chain
   const int G = H / KH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -593,9 +670,22 @@ __global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
   const int hi = window > 0 ? min(S, k0 + BWD_ROWS - 1 + window) : S;
   lo = lo / BWD_STEP * BWD_STEP;
   const int per_head = max(0, (hi - lo + BWD_STEP - 1) / BWD_STEP);
-  const int steps = G * per_head;
+  // this split's chunk [i0, i1) of the G x per_head steps: its (head,
+  // 64-query tile) units, 4 steps each (the last of a head may be short)
+  int i0 = 0, steps = G * per_head;
+  if constexpr (SPLIT) {
+    const int units = (hi - lo + 63) / 64, n = G * max(0, units);
+    const int per = (n + splits - 1) / splits;
+    const auto first_step = [&](int u) {
+      return u >= n ? G * per_head
+                    : (u / units) * per_head + min(per_head, 4 * (u % units));
+    };
+    i0 = first_step(split * per);
+    steps = first_step(split * per + per) - i0;
+  }
 
-  auto stage = [&](int i, int buf) {
+  auto stage = [&](int i, int buf) {  // step i0 + i
+    i += i0;
     const int h = kvh * G + i / per_head;
     const int q0 = lo + (i % per_head) * BWD_STEP;
     const long long q_base = (long long)b * S * q_ss + (long long)h * D;
@@ -634,11 +724,14 @@ __global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
     const float* q_s = st + buf * STAGE;
     const float* do_s = q_s + BWD_STEP * LD;
     const float* l_s = do_s + BWD_STEP * LD;
-    const int q0 = lo + (i % per_head) * BWD_STEP;
+    const int q0 = lo + ((i0 + i) % per_head) * BWD_STEP;
 
     // S^T (role 0) or dP^T (role 1), 16 keys x 16 queries
     float c[2][4] = {};
-    if (role == 0)
+    if constexpr (NT >= 32)
+      tile_product_ldm<NT>(c, role == 0 ? k_s : v_s, role == 0 ? q_s : do_s,
+                           kr, lane);
+    else if (role == 0)
       tile_product_t<NT>(c, k_s, q_s, kr, g, t);
     else
       tile_product_t<NT>(c, v_s, do_s, kr, g, t);
@@ -670,18 +763,68 @@ __global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
   }
 
   float* out = role == 0 ? dv : dk;
-  const float f = role == 0 ? 1.f : scale;
+  float f = role == 0 ? 1.f : scale;
+  long long base = k_base;
+  // the partials, dK's first, unscaled; `splits` is tested at run time
+  // (the split kernel takes dK and dV too): with the branch known at
+  // compile time ptxas spilled 112 B at NT 24
+  if (SPLIT && splits > 1) {
+    out = part;
+    f = 1.f;
+    base = ((((long long)(1 - role) * splits + split) * gridDim.y + b) * S *
+                KH + kvh) * D;
+  }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int row = k0 + kr + g + (e >> 1) * 8;
     if (row >= S) continue;
-    const long long off = k_base + (long long)row * k_ss;
+    const long long off = base + (long long)row * k_ss;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int d = 8 * n + 2 * t + (e & 1);
       if (d < D) out[off + d] = acc[n][e] * f;
     }
   }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
+    flash_bwd_dkdv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ dout,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KH,
+    int D, int causal, int window, float scale, int vec4) {
+  dkdv_body<NT, false>(q, k, v, lse, delta, dout, dk, dv, nullptr, S, H,
+                       KH, D, causal, window, scale, 1, vec4);
+}
+template <int NT>
+__global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
+    flash_bwd_dkdv_split_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ dout,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
+    int S, int H, int KH, int D, int causal, int window, float scale,
+    int splits, int vec4) {
+  dkdv_body<NT, true>(q, k, v, lse, delta, dout, dk, dv, part, S, H, KH, D,
+                      causal, window, scale, splits, vec4);
+}
+
+// dK = scale x (the dK partials summed over the splits in split order),
+// dV = the dV partials summed; n = B S KH D
+__global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(
+    const float* __restrict__ part, float* __restrict__ dk,
+    float* __restrict__ dv, long long n, int splits, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float sk = part[i], sv = part[splits * n + i];
+  for (int c = 1; c < splits; ++c) {
+    sk += part[c * n + i];
+    sv += part[(splits + c) * n + i];
+  }
+  dk[i] = sk * scale;
+  dv[i] = sv;
 }
 
 // dQ: one block per (h, b, q tile), the q tiles with the most keys
@@ -910,20 +1053,38 @@ template <int NT>
 cudaError_t launch_bwd_tiles(const float* q, const float* k, const float* v,
                              const float* lse, const float* delta,
                              const float* dout, float* dq, float* dk,
-                             float* dv, int B, int S, int H, int KH, int D,
-                             int causal, int window, float scale, int vec4,
+                             float* dv, float* part, int B, int S, int H,
+                             int KH, int D, int causal, int window,
+                             float scale, int splits, int vec4,
                              cudaStream_t stream) {
   const size_t smem_kv = dkdv_smem<NT>(), smem_q = dq_smem<NT>();
   cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<NT>, smem_kv);
   if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_kernel<NT>, smem_q);
   if (err != cudaSuccess) return err;
   const int tiles = (S + BWD_ROWS - 1) / BWD_ROWS;
-  flash_bwd_dkdv_kernel<NT><<<dim3(KH, B, tiles), BWD_THREADS, smem_kv,
-                              stream>>>(q, k, v, lse, delta, dout, dk, dv, S,
-                                        H, KH, D, causal, window, scale,
-                                        vec4);
+  if constexpr (NT >= 24) {  // splits > 1 only above head_dim 128
+    if (splits > 1) {
+      err = allow_smem(flash_bwd_dkdv_split_kernel<NT>, smem_kv);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkdv_split_kernel<NT><<<dim3(KH * splits, B, tiles),
+                                        BWD_THREADS, smem_kv, stream>>>(
+          q, k, v, lse, delta, dout, dk, dv, part, S, H, KH, D, causal,
+          window, scale, splits, vec4);
+    }
+  }
+  if (splits == 1)
+    flash_bwd_dkdv_kernel<NT><<<dim3(KH, B, tiles), BWD_THREADS, smem_kv,
+                                stream>>>(q, k, v, lse, delta, dout, dk, dv,
+                                          S, H, KH, D, causal, window, scale,
+                                          vec4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    const long long n = (long long)B * S * KH * D;
+    flash_bwd_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        part, dk, dv, n, splits, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   flash_bwd_dq_kernel<NT><<<dim3(H, B, tiles), BWD_THREADS, smem_q,
                             stream>>>(q, k, v, lse, delta, dout, dq, S, H, KH,
                                       D, causal, window, scale, vec4);
@@ -932,9 +1093,10 @@ cudaError_t launch_bwd_tiles(const float* q, const float* k, const float* v,
 
 cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                        const float* o, const float* lse, const float* dout,
-                       float* dq, float* dk, float* dv, float* delta, int B,
-                       int S, int H, int KH, int D, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       float* dq, float* dk, float* dv, float* delta,
+                       float* part, int B, int S, int H, int KH, int D,
+                       int causal, int window, float scale, int splits,
+                       cudaStream_t stream) {
   const long long rows = (long long)B * S * H;
   flash_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       o, dout, delta, S, H, D, rows);
@@ -944,8 +1106,8 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                    aligned16(v) && aligned16(dout);
   return with_nt(D, [&](auto nt) {
     return launch_bwd_tiles<decltype(nt)::value>(
-        q, k, v, lse, delta, dout, dq, dk, dv, B, S, H, KH, D, causal, window,
-        scale, vec4, stream);
+        q, k, v, lse, delta, dout, dq, dk, dv, part, B, S, H, KH, D, causal,
+        window, scale, splits, vec4, stream);
   });
 }
 
@@ -977,8 +1139,11 @@ extern "C" {
 // Every tensor is contiguous float32: q, o, dout, dq (B, S, H, D); k, v,
 // dk, dv (B, S, KH, D); lse (B, H, S).  dtype must be 0 (float32; the
 // bf16 route is flash_attention_sm90.cu).  causal: 0 or 1; window: 0 =
-// none.  Return cudaGetLastError() (or the error that stopped the
-// launch).
+// none.  The backward's `delta` is float32 scratch of B x H x S elements;
+// with `splits` > 1 (head_dim above 128 only) its dK/dV kernel splits
+// each key tile's work `splits` ways into `partials`, float32 scratch of 2
+// x splits x B x S x KH x D elements (else unused).  Return
+// cudaGetLastError() (or the error that stopped the launch).
 int flash_attention_fwd_launch(int device, const void* q, const void* k,
                                const void* v, void* o, void* lse, int B,
                                int S, int H, int KH, int D, int causal,
@@ -998,18 +1163,21 @@ int flash_attention_fwd_launch(int device, const void* q, const void* k,
 int flash_attention_bwd_launch(int device, const void* q, const void* k,
                                const void* v, const void* o, const void* lse,
                                const void* dout, void* dq, void* dk,
-                               void* dv, void* delta, int B, int S, int H,
-                               int KH, int D, int causal, int window,
-                               float scale, int dtype, void* stream) {
-  if (bad_shape(B, S, H, KH, D) || dtype != 0)
+                               void* dv, void* delta, void* partials, int B,
+                               int S, int H, int KH, int D, int causal,
+                               int window, float scale, int dtype,
+                               int splits, void* stream) {
+  if (bad_shape(B, S, H, KH, D) || dtype != 0 || splits < 1 ||
+      (splits > 1 && (D <= 128 || partials == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   return on_device(device, [&]() {
     return launch_bwd(f(q), f(k), f(v), f(o), f(lse), f(dout),
                       static_cast<float*>(dq), static_cast<float*>(dk),
-                      static_cast<float*>(dv), static_cast<float*>(delta), B,
-                      S, H, KH, D, causal, window, scale, s);
+                      static_cast<float*>(dv), static_cast<float*>(delta),
+                      static_cast<float*>(partials), B, S, H, KH, D, causal,
+                      window, scale, splits, s);
   });
 }
 
@@ -1041,7 +1209,10 @@ const char* flash_attention_fwd_design() {
 
 const char* flash_attention_bwd_design() {
   return "3xTF32 mma.sync m16n8k8 (hi*hi + hi*lo + lo*hi, truncated "
-         "halves); dK, dV, dQ summed in float32 one k step at a time";
+         "halves); dK, dV, dQ summed in float32 one k step at a time; above "
+         "head_dim 128 the dK/dV work split over the card where one key "
+         "tile walks more than twice an SM's share (partials summed in "
+         "split order) and its score fragments loaded by ldmatrix";
 }
 
 const char* flash_attention_error_string(int err) {

@@ -19,10 +19,10 @@ head_dim 256 raise, with no fallback.  This module checks the operands,
 allocates the outputs and scratch, launches on PyTorch's current stream
 and counts launches in
 :data:`launches_fwd` (one per forward) and :data:`launches_bwd` (one per
-backward, which runs a delta pre-pass, the dK/dV kernel, on the d256 /
-d192 routes the reduction of its partials where
-:func:`d256_bwd_plan` splits it, and the dQ kernel), the
-totals of all routes, and per route in :data:`launches_sm90_fwd` /
+backward, which runs a delta pre-pass, the dK/dV kernel, the reduction
+of its partials where :func:`d256_bwd_plan` (d256 / d192) or
+:func:`simt_bwd_plan` (float32 above head_dim 128) splits it, and the
+dQ kernel), the totals of all routes, and per route in :data:`launches_sm90_fwd` /
 :data:`launches_sm90_bwd`, :data:`launches_d256_fwd` /
 :data:`launches_d256_bwd` and :data:`launches_d192_fwd` /
 :data:`launches_d192_bwd`.  :class:`FlashAttention` ties the two
@@ -82,6 +82,11 @@ D256_TILE = 64
 H100_SMS = 132
 #: the most ways a key tile's dK/dV work is split
 D256_MAX_SPLITS = 4
+#: above this head_dim a float32 dK/dV block takes a whole SM, and the
+#: backward's plan may split its work in units of (query head, 64-query
+#: tile) over its 64-key tiles
+SIMT_SPLIT_MIN_HEAD_DIM = 128
+SIMT_BWD_TILE = 64
 
 _DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
 _lib_handle = None
@@ -91,7 +96,7 @@ _bf16_handles: Dict[str, ctypes.CDLL] = {}
 def _route(dtype: torch.dtype, head_dim: int) -> str:
     """``"sm90"`` for bf16 with head_dim 64 or 128, ``"d256"`` and
     ``"d192"`` for bf16 with head_dim 256 and 192 (all three wgmma),
-    ``"simt"`` (3xTF32 mma.sync) for float32 at every head_dim from 1 to
+    ``"simt"`` (3xTF32) for float32 at every head_dim from 1 to
     :data:`MAX_HEAD_DIM` (256: gemma3-1b's heads, deepseek-v2's MLA head
     of 192); anything else raises."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
@@ -141,7 +146,8 @@ def _lib() -> ctypes.CDLL:
         tail = [i32] * 7 + [ctypes.c_float, i32, ptr]
         lib.flash_attention_fwd_launch.argtypes = [i32] + [ptr] * 5 + tail
         lib.flash_attention_fwd_launch.restype = i32
-        lib.flash_attention_bwd_launch.argtypes = [i32] + [ptr] * 10 + tail
+        lib.flash_attention_bwd_launch.argtypes = (
+            [i32] + [ptr] * 11 + tail[:-1] + [i32, ptr])   # + splits
         lib.flash_attention_bwd_launch.restype = i32
         for design in (lib.flash_attention_fwd_design,
                        lib.flash_attention_bwd_design):
@@ -225,44 +231,69 @@ def _raise_on(err: int, what: str, route: str) -> None:
 
 def _dims(q, k, causal: bool, window: int, *more: int):
     """The launch's integer tail: shape, masks, scale, then ``more``
-    (simt: the dtype tag; the d256 backward: its split count) and the
-    stream."""
+    (simt: the dtype tag, and the backward's split count; the d256
+    backward: its split count) and the stream."""
     b, s, h, d = q.shape
     return (b, s, h, k.shape[2], d, int(bool(causal)), int(window),
             1.0 / math.sqrt(d), *more,
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def bwd_split_plan(b: int, s: int, h: int, kh: int, *, causal: bool,
+                   window: int, tile: int) -> int:
+    """How many ways a dK/dV kernel that runs a block per (``tile``-key
+    tile, kv head, b) splits each block's work, for q (b, s, h, .) and k,
+    v (b, s, kh, .) under the mask.
+
+    Each block walks the (query head, ``tile``-row query tile) steps that
+    reach its keys: G = h / kh heads times the tiles from its own (causal)
+    or the first to the window's end.  Blocks take an SM each, longest
+    first, so the kernel lasts about as long as the longest block or an
+    SM's share of all steps, whichever is more.  Where the longest block
+    walks more than twice that share (a causal mask over few blocks:
+    gemma3-1b's global layer), each block's steps are cut into that many
+    contiguous chunks, one block each (at most :data:`D256_MAX_SPLITS`; G
+    need not divide them), writing float32 partial dK and dV that a
+    reduction pass sums in split order."""
+    steps = []
+    for k0 in range(0, s, tile):
+        lo = k0 if causal else 0
+        hi = min(s, k0 + tile - 1 + window) if window > 0 else s
+        steps.append(h // kh * -(-(hi - lo) // tile))
+    share = b * kh * sum(steps) / H100_SMS
+    return min(D256_MAX_SPLITS, max(1, math.ceil(max(steps) / (2 * share))))
+
+
 def d256_bwd_plan(b: int, s: int, h: int, kh: int, d: int, *,
                   causal: bool = True, window: int = 0) -> dict:
     """The d256 / d192 backward's launch and scratch plan for q (b, s, h,
-    d) and k, v (b, s, kh, d) under the mask.
-
-    The dK/dV kernel runs a block per (64-key tile, kv head, b), each
-    walking the (query head, 64-row query tile) steps that reach its keys:
-    G = h / kh heads times the tiles from its own (causal) or the first to
-    the window's end.  Blocks take an SM each, longest first, so the
-    kernel lasts about as long as the longest block or an SM's share of
-    all steps, whichever is more.  Where the longest block walks more than
-    twice that share (a causal mask over few blocks: gemma3-1b's global
-    layer), each block's steps are cut into ``splits`` contiguous chunks,
-    one block each (at most :data:`D256_MAX_SPLITS`; G need not divide
-    them), writing float32 partial dK and dV that a reduction pass sums in
-    split order.  Returns ``splits``, the shape of the ``stats`` scratch
-    (delta and LSE x log2(e), S rounded up to :data:`SM90_STATS_ROWS`) and
-    of the ``partials`` scratch (dK's, then dV's), None when ``splits`` is
-    1.
+    d) and k, v (b, s, kh, d) under the mask: ``splits`` of the dK/dV
+    kernel's 64-key tiles (:func:`bwd_split_plan` at :data:`D256_TILE`),
+    the shape of the ``stats`` scratch (delta and LSE x log2(e), S rounded
+    up to :data:`SM90_STATS_ROWS`) and of the ``partials`` scratch (dK's,
+    then dV's), None when ``splits`` is 1.
     """
-    t = D256_TILE
-    steps = []
-    for k0 in range(0, s, t):
-        lo = k0 if causal else 0
-        hi = min(s, k0 + t - 1 + window) if window > 0 else s
-        steps.append(h // kh * -(-(hi - lo) // t))
-    share = b * kh * sum(steps) / H100_SMS
-    splits = min(D256_MAX_SPLITS, max(1, math.ceil(max(steps) / (2 * share))))
+    splits = bwd_split_plan(b, s, h, kh, causal=causal, window=window,
+                            tile=D256_TILE)
     rows = -(-s // SM90_STATS_ROWS) * SM90_STATS_ROWS
     return {"splits": splits, "stats": (2, b, h, rows),
+            "partials": (2, splits, b, s, kh, d) if splits > 1 else None}
+
+
+def simt_bwd_plan(b: int, s: int, h: int, kh: int, d: int, *,
+                  causal: bool = True, window: int = 0) -> dict:
+    """The float32 (simt) backward's launch and scratch plan: the
+    ``stats`` scratch (delta = rowsum(dO * O), (B, H, S)) at every
+    head_dim, and above head_dim 128 the dK/dV kernel's split
+    (:func:`bwd_split_plan` over its :data:`SIMT_BWD_TILE`-key tiles and
+    64-query units) with the shape of its ``partials`` scratch (2, splits,
+    B, S, KH, D), None when ``splits`` is 1 (always at head_dim 128 and
+    below, where two dK/dV blocks share an SM)."""
+    splits = 1
+    if d > SIMT_SPLIT_MIN_HEAD_DIM:
+        splits = bwd_split_plan(b, s, h, kh, causal=causal, window=window,
+                                tile=SIMT_BWD_TILE)
+    return {"splits": splits, "stats": (b, h, s),
             "partials": (2, splits, b, s, kh, d) if splits > 1 else None}
 
 
@@ -330,16 +361,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if route == "sm90":     # delta and LSE x log2(e), S rounded up
         rows = -(-s // SM90_STATS_ROWS) * SM90_STATS_ROWS
         scratch = [torch.empty((2, b, h, rows), **f32)]
-    elif route == "simt":   # delta = rowsum(dO * O), written by a pre-pass
-        scratch = [torch.empty((b, h, s), **f32)]
-        more = (_DTYPE_TAG[q.dtype],)
-    else:                   # the same stats, and the split dK/dV partials
-        plan = d256_bwd_plan(b, s, h, k.shape[2], d, causal=causal,
-                             window=window)
+    else:   # simt: delta = rowsum(dO * O); d256 / d192: delta and LSE;
+            # each with the split dK/dV partials where its plan splits
+        plan = (simt_bwd_plan if route == "simt" else d256_bwd_plan)(
+            b, s, h, k.shape[2], d, causal=causal, window=window)
         scratch = [torch.empty(plan["stats"], **f32), None]
         if plan["partials"] is not None:
             scratch[1] = torch.empty(plan["partials"], **f32)
-        more = (plan["splits"],)
+        more = ((_DTYPE_TAG[q.dtype], plan["splits"]) if route == "simt"
+                else (plan["splits"],))
     ptrs = [None if t is None else t.data_ptr()
             for t in (q, k, v, o, lse, do, dq, dk, dv, *scratch)]
     err = _entry(route, "bwd_launch")(

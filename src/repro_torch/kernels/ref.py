@@ -310,8 +310,10 @@ def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
                                   causal: bool = True, window: int = 0,
                                   splits: int = 1, tile: int = 64):
     """:func:`flash_attention_bwd_ref` with dK and dV summed under the
-    split plan of the d256 / d192 dK/dV kernel (``splits`` from
-    ``kernels.flash_attention.d256_bwd_plan``).
+    split plan of the d256 / d192 dK/dV kernel and of the float32 one
+    above head_dim 128 (``splits`` from
+    ``kernels.flash_attention.d256_bwd_plan`` / ``simt_bwd_plan``, both at
+    ``tile`` 64).
 
     Each ``tile``-key tile is reached by the (query head, ``tile``-query
     tile) steps from its own tile (causal) or the first (to the window's

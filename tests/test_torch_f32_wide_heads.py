@@ -14,9 +14,12 @@ around the attention, gradients each against its largest element.
 
 Also here: the kernel's arithmetic (``ref.flash_attention_tf32x3_ref``:
 16-key tiles, 3xTF32 products) at those head dims against the Pallas
-kernel, the fake-tensor FLOP count of a float32 training step of each
-model, which must record the simt route alone, and ``chip_smoke.py``'s
-cases and bounds for the new instantiations.
+kernel, the plain form of the backward's dK/dV split above head_dim
+128 (``ref.flash_attention_bwd_split_ref`` at its 64-row tiles) against
+the unsplit backward and ``jax.vjp`` of ``blockwise_attention``, the
+fake-tensor FLOP count of a float32 training step of each model, which
+must record the simt route alone, and ``chip_smoke.py``'s cases and
+bounds for the new instantiations.
 """
 import dataclasses
 
@@ -187,6 +190,43 @@ def test_tf32x3_ref_matches_pallas(name):
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **ATTN_TOL)
 
 
+# (b, s, h, kh, d, window): the dK/dV split's plain form at the kernel's
+# 64-row tiles and both instantiations' head dims above 128 (200 padded
+# inside the kernel): gemma3's layout (4 / 1 heads), G = 3 (chunks cross
+# heads) and a window
+SPLIT_WIDE = {"d256_mqa": (2, 256, 4, 1, 256, 0),
+              "d192_g3": (1, 256, 6, 2, 192, 0),
+              "d200_window": (1, 320, 4, 2, 200, 70)}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", list(SPLIT_WIDE))
+def test_split_ref_at_wide_tiles(name, splits):
+    """``flash_attention_bwd_split_ref`` at the float32 dK/dV kernel's
+    tile (``FA.SIMT_BWD_TILE``), float32, causal: the unsplit plain backward
+    to 1e-6 of each tensor's largest element, and ``jax.vjp`` of the JAX
+    package's ``blockwise_attention`` (64-row chunks) at ATTN_TOL."""
+    b, s, h, kh, d, window = SPLIT_WIDE[name]
+    arrays = _inputs(b, s, h, kh, d, seed=s + d)
+    q, k, v, do = (torch.tensor(a) for a in arrays)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                       return_lse=True)
+    got = ref.flash_attention_bwd_split_ref(
+        q, k, v, out, lse, do, causal=True, window=window, splits=splits,
+        tile=FA.SIMT_BWD_TILE)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
+                                       window=window)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: JA.blockwise_attention(
+        q, k, v, causal=True, window=window, q_chunk=64, kv_chunk=64),
+        jq, jk, jv)
+    for n, g, w in zip("qkv", got, vjp(jdo)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **ATTN_TOL,
+                                   err_msg=f"d{n}")
+
+
 def _attention_flops(cfg, shape, backward: bool) -> int:
     """Flash work of one pass over every attention layer: gemma3's local
     layers masked to their window, deepseek's MLA heads of 192."""
@@ -228,7 +268,9 @@ def test_step_flops_float32_takes_the_simt_route(arch, layers):
 def test_chip_smoke_wide_cases_route_and_bounds():
     """``chip_smoke.py``'s float32 cases above head_dim 128 take the simt
     route at both new instantiations (NT 24 and 32, one head_dim padded
-    inside the kernel from unaligned rows), its spill gate names every kernel of both, and the
+    inside the kernel from unaligned rows), its spill gate names every
+    kernel of both (dK/dV also in its split form) and the reduction of
+    the split dK/dV partials, and the
     bounds it prints at 8c's calls are the TF32 peak over three for 4 D
     (forward) and 10 D (backward) operations an attended pair and head."""
     cs = _chip_smoke()
@@ -241,8 +283,9 @@ def test_chip_smoke_wide_cases_route_and_bounds():
                for c in cs.SIMT_WIDE_HELD.values())     # padded, 4-byte
     for nt in (24, 32):
         for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                  "flash_bwd_dq_kernel"):
+                  "flash_bwd_dkdv_split_kernel", "flash_bwd_dq_kernel"):
             assert f"{k}<{nt}>" in cs.SIMT_NO_SPILL
+    assert "flash_bwd_reduce_kernel" in cs.SIMT_NO_SPILL
     want = {("simt_d256", 0): (0.4168, 1.0421),
             ("simt_d256", 512): (0.0977, 0.2442),
             ("simt_d192", 0): (5.0020, 12.5051)}

@@ -411,6 +411,24 @@ D256_PLANS = {
 }
 
 
+# the float32 backward's dK/dV split plan above head_dim 128 (its 64-key
+# tiles and 64-query units: d256_bwd_plan's rule), at 8c's calls
+# (gemma3's global layer 2 ways, its window-512 layers and deepseek-v2
+# none), every phase-6 float32 case above 128 of chip_smoke.py (G = 3
+# over 4 splits: chunks crossing heads), and at head_dim 128, where two
+# dK/dV blocks share an SM and the plan never splits
+SIMT_PLANS = {
+    "gemma3_global": ((2, 4096, 4, 1, 256, True, 0), 2),
+    "gemma3_local": ((2, 4096, 4, 1, 256, True, 512), 1),
+    "deepseek": ((1, 4096, 128, 128, 192, True, 0), 1),
+    "d192_noncausal": ((1, 777, 16, 16, 192, False, 0), 1),
+    "d256_ragged": ((1, 1000, 8, 2, 256, True, 100), 3),
+    "d200": ((2, 777, 6, 3, 200, True, 100), 1),
+    "d192_g3_split": ((1, 1000, 6, 2, 192, True, 0), 4),
+    "d128_global": ((2, 4096, 4, 1, 128, True, 0), 1),
+}
+
+
 def _tile_steps(s, g, causal, window, tile=64):
     """(query head, query tile) steps of each key tile, from the mask: a
     query tile counts if some query in it attends some key of the tile,
@@ -464,6 +482,48 @@ def test_d256_bwd_plan_covers_chip_smoke_cases():
             c[k] for k in ("b", "s", "h", "kh", "d", "causal", "window"))
     assert any(sp > 1 and (sh[2] // sh[3]) % sp
                for sh, sp in D256_PLANS.values())
+
+
+@pytest.mark.parametrize("name", list(SIMT_PLANS))
+def test_simt_bwd_plan(name):
+    """The float32 backward's split count and its delta (``stats``) and
+    partial dK/dV scratch shapes; above head_dim 128 the d256 rule at its 64-row tiles,
+    at 128 and below never a split."""
+    (b, s, h, kh, d, causal, window), splits = SIMT_PLANS[name]
+    plan = FA.simt_bwd_plan(b, s, h, kh, d, causal=causal, window=window)
+    assert plan["splits"] == splits
+    assert plan["stats"] == (b, h, s)
+    if splits == 1:
+        assert plan["partials"] is None
+    else:
+        assert plan["partials"] == (2, splits, b, s, kh, d)
+    if d > FA.SIMT_SPLIT_MIN_HEAD_DIM:
+        steps = _tile_steps(s, h // kh, causal, window, FA.SIMT_BWD_TILE)
+        share = b * kh * sum(steps) / FA.H100_SMS
+        want = 1
+        while want < FA.D256_MAX_SPLITS and max(steps) > 2 * share * want:
+            want += 1
+        assert splits == want
+
+
+def test_simt_bwd_plan_covers_chip_smoke_cases():
+    """Every float32 case above head_dim 128 that phase 6 runs has its
+    plan held above, one of them with a split that does not divide G."""
+    cs = _chip_smoke()
+    cases = {**cs.SIMT_WIDE_HELD, "gemma3_global": cs.GEMMA_ATTN,
+             "deepseek": cs.DEEPSEEK_ATTN}
+    for name, c in cases.items():
+        assert SIMT_PLANS[name][0] == tuple(
+            c[k] for k in ("b", "s", "h", "kh", "d", "causal", "window"))
+    assert any(sp > 1 and (sh[2] // sh[3]) % sp
+               for sh, sp in SIMT_PLANS.values())
+
+
+def test_simt_partials_of_gemma3_take_32_mib():
+    """The float32 backward's partials at gemma3's global layer take what the
+    d256 route's do."""
+    plan = FA.simt_bwd_plan(2, 4096, 4, 1, 256)
+    assert 4 * int(np.prod(plan["partials"])) == 32 << 20
 
 
 def test_d256_partials_of_gemma3_take_32_mib():
