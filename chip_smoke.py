@@ -43,12 +43,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      unaligned rows (head_dim padding and 4-byte copies); in float32
      above head_dim 128 (the simt kernels' NT 32 and NT 24
      instantiations) at gemma3-1b's global and local layers (B 2, S
-     4,096, 4 / 1 heads of 256, window 512 and none), deepseek-v2's
+     4,096, 4 / 1 heads of 256, window 512 and none) and its global
+     layer at 8c's B 1 (the forward on 64-row blocks), deepseek-v2's
      layer (B 1, S 4,096, 128 / 128 heads of 192), a non-causal S 777 at
      192, a GQA windowed ragged case at 256 (8 / 2 heads, S 1,000, window
      100), head_dim 200 from unaligned rows and G = 3 at 192 (6 / 2
      heads, S 1,000) with the dK/dV work split 4 ways (chunks crossing
-     heads), each backward run twice and held bit-identical; in bf16 at
+     heads), each forward and backward run twice and held bit-identical;
+     in bf16 at
      head_dim 256 (the d256 kernels) at gemma3-1b's training shape (B 2,
      S 4,096, 4 / 1 heads, causal, window 512 and none), a ragged
      windowed case (8 / 2 heads: a 3-way dK/dV split over G = 4 heads),
@@ -61,7 +63,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      route timed at its own path's shape with the same four times, the
      backend SDPA picked and the achieved TFLOP/s (the float32 NT 32 and
      NT 24 kernels at 8c's calls: gemma3-1b's global layer, also with
-     the window, and deepseek-v2's layer; d256 also with the window; d192
+     the window, at 8c's B 1 and at B 2, and deepseek-v2's layer; d256
+     also with the window; d192
      at
      deepseek-v2's B 1, S 4,096, 128 / 128 heads of 192; the d256
      backward also with its dK/dV work split 1, 2 and 4 ways); the sm90,
@@ -347,8 +350,10 @@ same way, for this checkout's port or another's.
     python3 chip_smoke.py --simt-wide-times
     CHIP_SMOKE_SRC=<other checkout>/src python3 chip_smoke.py --simt-wide-times
 
-hold and time only the float32 flash backward above head_dim 128 at
-phase 8c's calls, the same way, for this checkout's port or another's.
+hold and time only the float32 flash forward and backward above
+head_dim 128 at phase 8c's calls, and the forward at head_dim 128 at
+phase 6's, the same way, for this checkout's port or another's;
+``--simt-wide-times --forward`` holds and times the forwards alone.
 """
 from __future__ import annotations
 
@@ -883,6 +888,9 @@ PARITY_ATTN = dict(TRAIN_ATTN, b=1, s=3072)
 #: gemma3-1b's training attention (phase 11c, the d256 route): a global
 #: layer; its 22 local layers add window=512
 GEMMA_ATTN = dict(b=2, s=4096, h=4, kh=1, d=256, causal=True, window=0)
+#: phase 8c's gemma3-1b float32 calls (the simt NT 32 kernels): one
+#: sequence a step; its 22 local layers add window=512
+GEMMA_F32_ATTN = dict(GEMMA_ATTN, b=1)
 #: deepseek-v2's training attention (phase 12d, the d192 route): MLA's
 #: 128 + 64 query / key columns in one head, 128 heads each with its own
 #: key, one 4,096-token sequence
@@ -925,8 +933,9 @@ D192_CASES = {
     "d192_ragged": dict(DEEPSEEK_ATTN, s=1000, h=8, kh=2, window=100),
 }
 #: float32 above head_dim 128, the simt kernels' NT 32 (head_dim 193-256)
-#: and NT 24 (129-192) instantiations: gemma3-1b's global and local layers,
-#: deepseek-v2's MLA layer at its full 128 heads, a non-causal S 777 at 192,
+#: and NT 24 (129-192) instantiations: gemma3-1b's global and local layers
+#: at 2 sequences (128-row forward blocks) and its global layer at 8c's
+#: one (64-row blocks), deepseek-v2's MLA layer at its full 128 heads, a non-causal S 777 at 192,
 #: GQA with a window at a ragged S at 256, head_dim 200 (padded to 256
 #: inside the kernel) from rows 4 bytes off 16-byte alignment (4-byte
 #: copies), and G = 3 at 192 where the dK/dV plan splits 4 ways (chunks
@@ -934,6 +943,7 @@ D192_CASES = {
 SIMT_WIDE_HELD = {
     "gemma3_global": GEMMA_ATTN,
     "gemma3_local": dict(GEMMA_ATTN, window=512),
+    "gemma3_global_b1": GEMMA_F32_ATTN,
     "deepseek": DEEPSEEK_ATTN,
     "d192_noncausal": dict(DEEPSEEK_ATTN, s=777, h=16, kh=16, causal=False),
     "d256_ragged": dict(GEMMA_ATTN, b=1, s=1000, h=8, kh=2, window=100),
@@ -944,15 +954,21 @@ SIMT_WIDE_HELD = {
 }
 #: the same instantiations timed at the calls of phase 8c's paths (the
 #: NT 32 one also at gemma3's local layers, window 512), each a row of the
-#: kernels line: (label, shape)
-SIMT_WIDE_CASES = {"simt_d256": ("gemma3-1b", GEMMA_ATTN),
-                   "simt_d192": ("deepseek-v2", DEEPSEEK_ATTN)}
+#: kernels line with its path's launches: (label, shape, 8c's path).  The
+#: NT 32 one also at 2 sequences (simt_d256, phase 6's timing shape):
+#: there the forward takes 128-row blocks, at 8c's one sequence 64-row
+#: blocks
+SIMT_WIDE_CASES = {
+    "simt_d256": ("gemma3-1b B 2", GEMMA_ATTN, "simt_d256"),
+    "simt_d256_b1": ("gemma3-1b", GEMMA_F32_ATTN, "simt_d256"),
+    "simt_d192": ("deepseek-v2", DEEPSEEK_ATTN, "simt_d192")}
 #: the simt kernels whose ptxas lines must report no spill: the forward at
-#: every head_dim, every kernel of the instantiations above 128 (the dK/dV
-#: kernel also as its split form), and the reduction of the split dK/dV
-#: partials
+#: every head_dim (at NT 32 also on 64-row blocks), every kernel of the
+#: instantiations above 128 (the dK/dV kernel also as its split form),
+#: and the reduction of the split dK/dV partials
 SIMT_NO_SPILL = ("flash_fwd_kernel<4>", "flash_fwd_kernel<8>",
-                 "flash_fwd_kernel<16>") + tuple(
+                 "flash_fwd_kernel<16>",
+                 "flash_fwd_rows64_kernel<32>") + tuple(
     f"{k}<{nt}>" for nt in (24, 32)
     for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
               "flash_bwd_dkdv_split_kernel", "flash_bwd_dq_kernel")) + (
@@ -1098,8 +1114,16 @@ def route_launches() -> dict:
 def phase_flash():
     for direction, design in FA.simt_design().items():
         print(f"flash_attention simt {direction} design: {design}")
+    tiling = FA.simt_fwd_tiling()
+    print(f"flash_attention simt fwd tiling: {tiling}")
+    check(tiling == {"key_step": ref.FLASH_FWD_STEP,
+                     "pair_min_head_dim": FA.SIMT_PAIR_MIN_HEAD_DIM},
+          f"the float32 forward's tiling {tiling} is not the plain "
+          f"version's key step ({ref.FLASH_FWD_STEP}) and the wrapper's "
+          f"pair cutoff ({FA.SIMT_PAIR_MIN_HEAD_DIM})")
     lines = ptxas_lines("flash_attention", (
-        "flash_fwd_kernel", "flash_bwd_delta_kernel",
+        "flash_fwd_kernel", "flash_fwd_rows64_kernel",
+        "flash_bwd_delta_kernel",
         "flash_bwd_dkdv_kernel", "flash_bwd_dkdv_split_kernel",
         "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel"))
     for line in lines:
@@ -1166,16 +1190,26 @@ def phase_flash():
             if dt == torch.bfloat16:
                 ok &= r["fwd_err"] <= FLASH_TIGHT_BF16
             if dt == torch.float32 and shape["d"] > 128:   # NT 24 and 32
+                o2, lse2 = flash_fwd("kernel", case)
+                r["fwd_twice_equal"] = (torch.equal(o, o2)
+                                        and torch.equal(lse, lse2))
                 again = flash_bwd("kernel", case, o, lse)
                 r["twice_equal"] = all(torch.equal(a, b)
                                        for a, b in zip(grads, again))
-                ok &= r["twice_equal"]
-                del again
+                ok &= r["twice_equal"] and r["fwd_twice_equal"]
+                del again, o2, lse2
             r["ok"] = ok
             results[f"{name}_{tag}"] = r
             twice = ("" if "twice_equal" not in r else
-                     ", two backwards " + ("bit-identical"
-                                           if r["twice_equal"] else "DIFFER"))
+                     ", two forwards " + ("bit-identical"
+                                          if r["fwd_twice_equal"]
+                                          else "DIFFER")
+                     + ", two backwards " + ("bit-identical"
+                                             if r["twice_equal"]
+                                             else "DIFFER")
+                     + ", forward on %d-row blocks" % FA.simt_fwd_plan(
+                         *case["q"].shape, causal=shape["causal"],
+                         window=shape["window"]))
             print(f"flash_attention {name}_{tag} ({route}) {shape}: fwd "
                   f"max_abs_err {r['fwd_err']:.3e} (allclose {fwd_tol:g}), "
                   f"lse "
@@ -1191,7 +1225,7 @@ def phase_flash():
 
     timed = {route: time_route(route) for route in ROUTE_CASES}
     timed["whisper"] = time_route("sm90", WHISPER_ATTN, "whisper")
-    for key, (label, shape) in SIMT_WIDE_CASES.items():
+    for key, (label, shape, _) in SIMT_WIDE_CASES.items():
         timed[key] = time_route("simt", shape, label, torch.float32)
     torch.cuda.empty_cache()
     return timed
@@ -1302,7 +1336,7 @@ def time_route(route: str, shape=None, label: str = "",
                        plan(*q.shape[:3], case["k"].shape[2], q.shape[3],
                             causal=case["causal"],
                             window=case["window"])["splits"])
-    if shape == GEMMA_ATTN:     # gemma3's 22 local layers: window 512
+    if shape in (GEMMA_ATTN, GEMMA_F32_ATTN):   # 22 local layers: window 512
         local = dict(case, window=512)
         lo, llse = flash_fwd("kernel", local)
         if route == "d256":
@@ -1604,7 +1638,7 @@ def phase_wide_train() -> dict:
     NT 24 (deepseek-v2, its dense first layer) kernels: steps of one
     4,096-token sequence in one microbatch through ``make_train_step``;
     s/step, tokens/s and peak memory.  Returns each path's (forward,
-    backward) simt launches, keyed as SIMT_WIDE_CASES."""
+    backward) simt launches, keyed as SIMT_WIDE_CASES's paths."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for key, arch, layers in (("simt_d256", GEMMA, None),
@@ -3058,58 +3092,92 @@ def wkv_times() -> None:
               f"(B {b}, S {s}, {h} heads of {hs}; L2 flushed)")
 
 
-def simt_wide_times() -> None:
-    """``--simt-wide-times``: the float32 flash backward above head_dim 128
-    at phase 8c's calls (gemma3-1b's global and local layers, deepseek-v2's
-    MLA layer): each held against the plain backward from the kernel's own
-    forward (2e-5 of scale; two backwards bit-identical), then timed (L2
-    flushed, 10 calls) twice, beside its bound.  It calls only what the
-    port's package has had since the float32 route took head dims above
-    128, so with CHIP_SMOKE_SRC it times another checkout's kernels the
-    same way."""
+def simt_wide_times(forward_only: bool = False) -> None:
+    """``--simt-wide-times``: the float32 flash forward and backward above
+    head_dim 128 at phase 8c's calls (gemma3-1b's global and local
+    layers, deepseek-v2's MLA layer), and the forward at head_dim 128 at
+    phase 6's simt call.  Each forward is held against the plain forward
+    (allclose 2e-5, its LSE too) and run twice bit-identical; each
+    backward against the plain backward from the kernel's own forward
+    (2e-5 of scale) and run twice bit-identical; then each is timed (L2
+    flushed, 10 calls) twice, beside its bound.  ``forward_only``
+    (``--simt-wide-times --forward``) skips the backwards.  It calls only
+    what the port's package has had since the float32 route took head
+    dims above 128, so with CHIP_SMOKE_SRC it times another checkout's
+    kernels the same way."""
     print(f"simt-wide-times: the port from {FA.__file__}")
     _build.build_all(["flash_attention"])
-    print(f"simt-wide-times backward design: {FA.simt_design()['bwd']}")
+    for direction, design in FA.simt_design().items():
+        print(f"simt-wide-times {direction} design: {design}")
     for line in ptxas_lines("flash_attention", (
-            "flash_bwd_dkdv_kernel", "flash_bwd_dkdv_split_kernel",
-            "flash_bwd_dq_kernel", "flash_bwd_reduce_kernel")):
-        if re.search(r"<(24|32)>|reduce", line):
+            "flash_fwd_kernel", "flash_fwd_rows64_kernel",
+            "flash_bwd_dkdv_kernel",
+            "flash_bwd_dkdv_split_kernel", "flash_bwd_dq_kernel",
+            "flash_bwd_reduce_kernel")):
+        if re.search(r"<(16|24|32)>|reduce", line):
             print(f"  simt-wide-times ptxas: {line}")
-    for d in (192, 256):
+    for d in (128, 192, 256):
         occ = FA.simt_occupancy(d)
         print(f"simt-wide-times occupancy at head_dim {d}: " + "; ".join(
-            f"{k} {o['threads']} threads, {o['blocks_per_sm']} blocks an "
-            f"SM, {o['registers']} registers, {o['local_bytes']} local "
-            f"bytes, {o['smem_bytes']} B shared"
-            for k, o in occ.items() if k != "fwd"))
+            f"{k} {o['threads']} threads, {o['blocks_per_sm']} blocks "
+            f"({o['blocks_per_sm'] * o['threads'] // 32} warps) an SM, "
+            f"{o['registers']} registers, {o['local_bytes']} local bytes, "
+            f"{o['smem_bytes']} B shared" for k, o in occ.items()))
     calls = {"gemma3 global": GEMMA_ATTN,
              "gemma3 window 512": dict(GEMMA_ATTN, window=512),
-             "deepseek": DEEPSEEK_ATTN}
+             "deepseek": DEEPSEEK_ATTN,
+             "head_dim 128": PARITY_ATTN,
+             # 8c trains one sequence a step: its gemma3-1b calls at B 1
+             "gemma3 global B 1": GEMMA_F32_ATTN,
+             "gemma3 window 512 B 1": dict(GEMMA_F32_ATTN, window=512)}
+    f32 = torch.float32
     for name, shape in calls.items():
-        case = flash_case(**shape, dtype=torch.float32, seed=10)
+        case = flash_case(**shape, dtype=f32, seed=10)
         o, lse = flash_fwd("kernel", case)
-        grads = flash_bwd("kernel", case, o, lse)
-        err = scaled_err(grads, flash_bwd("plain", case, o, lse))
-        same = all(torch.equal(a, b) for a, b in
-                   zip(grads, flash_bwd("kernel", case, o, lse)))
-        print(f"simt-wide-times {name}: bwd vs plain of scale {err:.3e} "
-              f"(2e-05), two backwards "
-              f"{'bit-identical' if same else 'DIFFER'}")
-        check(err <= FLASH_BWD_TOL[torch.float32] and same,
-              f"the float32 backward at {name} is wrong")
-        del grads
-        if hasattr(FA, "simt_bwd_plan"):    # the split dK/dV plan
-            backward_split("simt", lambda: flash_bwd("kernel", case, o, lse),
-                           FA.simt_bwd_plan(
-                               *case["q"].shape[:3], case["k"].shape[2],
-                               case["q"].shape[3], causal=case["causal"],
-                               window=case["window"])["splits"])
-        bound_ms, bound_by = flash_bound(case, True)
-        for rep in range(2):
-            ms = time_cold_ms(lambda: flash_bwd("kernel", case, o, lse), 10)
-            print(f"simt-wide-times {name} {rep}: backward {ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"{bound_ms / ms:.1%} of bound (L2 flushed)")
+        ro, rlse = flash_fwd("plain", case)
+        o2, lse2 = flash_fwd("kernel", case)
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        ok = within(o, ro, TOL[f32]) and within(lse, rlse, 2e-5) and same
+        rows = ""
+        if hasattr(FA, "simt_fwd_plan"):    # the forward's rows a block
+            rows = FA.simt_fwd_plan(*case["q"].shape, causal=case["causal"],
+                                    window=case["window"])
+            rows = f", {rows}-row blocks"
+        print(f"simt-wide-times {name}: fwd vs plain max_abs_err "
+              f"{max_err(o, ro):.3e}, lse {max_err(lse, rlse):.3e} "
+              f"(allclose 2e-05), two forwards "
+              f"{'bit-identical' if same else 'DIFFER'}{rows}")
+        check(ok, f"the float32 forward at {name} is wrong")
+        del ro, rlse, o2, lse2
+        wide = shape["d"] > 128 and not forward_only
+        if wide:
+            grads = flash_bwd("kernel", case, o, lse)
+            err = scaled_err(grads, flash_bwd("plain", case, o, lse))
+            same = all(torch.equal(a, b) for a, b in
+                       zip(grads, flash_bwd("kernel", case, o, lse)))
+            print(f"simt-wide-times {name}: bwd vs plain of scale "
+                  f"{err:.3e} (2e-05), two backwards "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            check(err <= FLASH_BWD_TOL[f32] and same,
+                  f"the float32 backward at {name} is wrong")
+            del grads
+            if hasattr(FA, "simt_bwd_plan"):    # the split dK/dV plan
+                backward_split(
+                    "simt", lambda: flash_bwd("kernel", case, o, lse),
+                    FA.simt_bwd_plan(*case["q"].shape[:3],
+                                     case["k"].shape[2], case["q"].shape[3],
+                                     causal=case["causal"],
+                                     window=case["window"])["splits"])
+        for backward in (False, True)[:1 + wide]:
+            bound_ms, bound_by = flash_bound(case, backward)
+            what = "backward" if backward else "forward"
+            run = ((lambda: flash_bwd("kernel", case, o, lse)) if backward
+                   else (lambda: flash_fwd("kernel", case)))
+            for rep in range(2):
+                ms = time_cold_ms(run, 10)
+                print(f"simt-wide-times {name} {rep}: {what} {ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms ({bound_by}), "
+                      f"{bound_ms / ms:.1%} of bound (L2 flushed)")
         del case, o, lse
         torch.cuda.empty_cache()
 
@@ -5299,8 +5367,9 @@ def main() -> int:
     if sys.argv[1:] == ["--wkv-times"]:
         wkv_times()
         return 0
-    if sys.argv[1:] == ["--simt-wide-times"]:
-        simt_wide_times()
+    if sys.argv[1:2] == ["--simt-wide-times"] and sys.argv[2:] in (
+            [], ["--forward"]):
+        simt_wide_times(forward_only=sys.argv[2:] == ["--forward"])
         return 0
     paths = train_paths()
     with multiprocessing.get_context("spawn").Pool(1) as pool:
@@ -5342,7 +5411,8 @@ def phases(card: str, paths: dict, counting) -> int:
     parity_launches = phase_train_parity()
     print(f"phase 8 (train parity): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    wide_parity = phase_wide_parity()
+    wide_parity = dict(zip(("simt_d256", "simt_d192"),
+                           phase_wide_parity()))
     print(f"phase 8b (float32 parity above head_dim 128): "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5476,14 +5546,14 @@ def phases(card: str, paths: dict, counting) -> int:
         "route": "cuda",
         "source": FLASH_SOURCES["simt"],
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": wide_train[key][direction == "bwd"],
-        "parity_launches": wide_parity[i][direction == "bwd"],
+        "launches": wide_train[path][direction == "bwd"],
+        "parity_launches": wide_parity[path][direction == "bwd"],
         **{k: flash_timed[key][direction][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_backend", "tflops")},
         **{k: v for k, v in flash_timed[key][direction].items()
            if k.startswith("window")},
-    } for i, key in enumerate(SIMT_WIDE_CASES)
+    } for key, (_, _, path) in SIMT_WIDE_CASES.items()
         for direction in ("fwd", "bwd")]
     print(json.dumps({"kernels": [{
         "name": "paged_attention",

@@ -74,25 +74,38 @@
 //
 // Head dims above 128.  head_dim is padded to 8 NT: NT 4, 8, 16 up to
 // 128, NT 24 for 129-192 (deepseek-v2's MLA head of 128 + 64) and NT 32
-// for 193-256 (gemma3's heads).  The same kernels hold a warp's 16 x 8 NT
-// accumulators: 96 / 128 a thread in the forward's O and the dK/dV warps'
-// dV or dK, 48 / 64 in dQ.  The register cap follows from the blocks an
-// SM is built for (`fwd_blocks`, `bwd_blocks`): the tiles of one block
-// take 100 / 133 KB (forward), 155 / 204 KB (dK/dV) and 159 / 208 KB (dQ)
-// of shared memory at NT 24 / 32, so two forward blocks (NT 24) or one
-// (NT 32), and one backward block, fit an SM, and each of these
-// instantiations may take 255 registers a thread without spilling: 8, 4
-// and 8 warps an SM.  Few warps an SM hide the loads' latency poorly.  In
-// the backward at NT 24 and 32 the dK/dV work of a key tile may be split
-// over the card (above), and at NT 32 the dK/dV kernel's score products
-// take their A and B fragments by ldmatrix, four 8 x 4 float tiles an
-// instruction, where the other kernels load them a float at a time (at
-// NT 24 the same loads spilled past 255 registers).  Each warp still
-// splits its fragments into TF32 halves: planes split once would take
-// another 2 x 16 x (8 NT + 4) floats a stage, past the 227 KB a block may
-// have at NT 32, and the sums' B fragments (k rows permuted) have no
-// ldmatrix form for 32-bit elements.  A design of these products on
-// wgmma, measured beside this one on the H100, was slower (PERF.md).
+// for 193-256 (gemma3's heads).  The backward kernels and the NT 24
+// forward hold a warp's 16 x 8 NT accumulators: 96 / 128 a thread in the
+// NT 24 forward's O and the dK/dV warps' dV or dK, 48 / 64 in dQ.  The
+// register cap follows from the blocks an SM is built for (`fwd_blocks`,
+// `bwd_blocks`): the tiles of one block take 100 KB (forward, NT 24),
+// 155 / 204 KB (dK/dV) and 159 / 208 KB (dQ) of shared memory at NT 24
+// / 32, so two NT 24 forward blocks and one backward block fit an SM,
+// and each may take 255 registers a thread without spilling: 8 warps an
+// SM.  The NT 32 forward (fwd_pair_body) splits head_dim over a pair of
+// warps instead, as the backward's dQ does: each warp forms half of S,
+// the pair adds the halves through shared memory, and each keeps half of
+// O, 64 accumulators a thread.  Its blocks of 16 warps own 128 query rows
+// (211 KB: Q, the S halves, two stages of K and V), so 16 warps share an
+// SM at 128 registers, where the 4-warp body at NT 32 ran 4 warps an SM
+// at 255; and each staged K / V tile serves twice the rows.  Where a
+// causal mask leaves fewer such blocks than SMs (gemma3-1b's global
+// layer at one sequence) the longest block would set the time, so the
+// wrapper's plan (simt_fwd_plan) then takes blocks of 8 warps on 64 rows
+// (flash_fwd_rows64_kernel, 138 KB, one an SM).  The same split at NT 24
+// measured even with the 4-warp body at deepseek-v2's layer, and it
+// keeps that body (PERF.md).  In the backward at NT 24 and 32 the dK/dV
+// work of a key tile may be split over the card (above), and at NT 32 the
+// dK/dV kernel's score products take their A and B fragments by
+// ldmatrix, four 8 x 4 float tiles an instruction, as the NT 32
+// forward's do, where the other
+// kernels load them a float at a time (at NT 24 the same loads spilled
+// past 255 registers).  Each warp still splits its fragments into TF32
+// halves: planes split once would take another 2 x 16 x (8 NT + 4)
+// floats a stage, past the 227 KB a block may have at NT 32, and the
+// sums' B fragments (k rows permuted) have no ldmatrix form for 32-bit
+// elements.  A design of the backward's products on wgmma, measured
+// beside this one on the H100, was slower (PERF.md).
 //
 // Bound.  At the training shape (S 4096, D 128) attention does about
 // 4 * S / 2 * D operations for each of its 2 * S * D * 2 bytes a head:
@@ -119,6 +132,16 @@ constexpr int BWD_STEP = 16;      // rows of the tile streamed per step
 // memory of a block at head_dim 8 NT lets share an SM (see the file
 // header), so that NT 24 and 32 hold their accumulators unspilled
 constexpr int fwd_blocks(int nt) { return nt <= 16 ? 3 : nt <= 24 ? 2 : 1; }
+// Above NT 24 (head_dim 192) the forward (fwd_pair_body) runs its blocks
+// as pairs of warps, 16 query rows a pair: 8 pairs (128 rows) in
+// flash_fwd_kernel<32>, 4 pairs (64 rows) in flash_fwd_rows64_kernel<32>,
+// each alone on an SM; the wrapper picks the rows from the shape
+// (simt_fwd_plan) and the launcher refuses rows the instantiation lacks
+constexpr int FWD_QUAD_MAX_NT = 24;
+__host__ __device__ constexpr bool fwd_pairs(int nt) {
+  return nt > FWD_QUAD_MAX_NT;
+}
+constexpr int fwd_threads(int nt) { return fwd_pairs(nt) ? 512 : FWD_THREADS; }
 constexpr int bwd_blocks(int nt) { return nt <= 16 ? 2 : 1; }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -133,6 +156,14 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 2^x by the SFU alone (ex2.approx: relative error about 2^-22, 0 below
+// 2^-126), where exp2f adds a range check and two multiplies
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ bool attendable(int qp, int kp, int S, int causal,
@@ -380,6 +411,14 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
+// wait until every committed group has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+// the 64 threads of a pair of warps meet at named barrier `id` (1-15)
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
 
 // Rows [r0, r0 + R) of one head of x (rows `rs` floats apart from `base`)
 // into dst (R x ld) by cp.async, 16 bytes a copy when `vec4`, else 4;
@@ -430,9 +469,8 @@ __device__ __forceinline__ void zero_pad(float* dst, int rows, int D,
 // S = Q K^T for its 16 rows, the online softmax on the accumulators, and
 // O += P V with P taken from them as A fragments.
 // ---------------------------------------------------------------------------
-template <int NT>  // head_dim padded to 8 NT
-__global__ void __launch_bounds__(FWD_THREADS, fwd_blocks(NT))
-    flash_fwd_kernel(
+template <int NT>  // head_dim padded to 8 NT, up to 192
+__device__ __forceinline__ void fwd_quad_body(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int S, int H, int KH, int D, int causal,
@@ -592,6 +630,227 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_blocks(NT))
     else
       *dst = *src;
   }
+}
+
+// The forward at NT 32 (head_dim 193-256): one block per (16 PAIRS-row
+// q tile, h, b), the q tiles with the most keys launched first.  Its
+// warps form PAIRS pairs, a pair owning 16 query rows and each warp of it
+// half of head_dim's 8 NT columns: S's k steps and O's n tiles [HALF
+// half, HALF (half + 1)).  The block stages its Q tile, then streams
+// 16-key tiles of K and V, double-buffered by cp.async, one block barrier
+// a step.  Per tile each warp forms its half of S = Q K^T for the pair's
+// rows (Q and K fragments by ldmatrix); the two 16 x 16 halves meet in
+// shared memory and each warp adds the other's to its own (a + b = b +
+// a, so both hold the same S, m and l, whichever warp runs first); both
+// run the online softmax, and each adds P V to its half of O: 64
+// accumulators a thread, half the 4-warp body's.
+template <int NT, int PAIRS>
+__device__ __forceinline__ void fwd_pair_body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KH, int D, int causal,
+    int window, float scale, int vec4) {
+  constexpr int LD = 8 * NT + 4;
+  constexpr int HALF = NT / 2;  // k steps of S, n tiles of O a warp takes
+  constexpr int ROWS = 16 * PAIRS, T = 64 * PAIRS;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // last tile first
+  const int kvh = h / (H / KH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, half = warp & 1;
+  const int qr = pair * 16;   // the pair's first query row in the tile
+  const int w0 = q0 + qr;     // and its position
+  const int k0 = HALF * half;  // the warp's first k step of S, n tile of O
+  const float scale2 = scale * LOG2E;
+  const long long q_ss = (long long)H * D, k_ss = (long long)KH * D;
+  const long long q_base = (long long)b * S * q_ss + (long long)h * D;
+  const long long k_base = (long long)b * S * k_ss + (long long)kvh * D;
+
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                 // ROWS x LD: Q, later O
+  float* x_s = q_s + ROWS * LD;      // S halves: PAIRS x 2 x 32 x 8
+  float* st = x_s + PAIRS * 2 * 32 * 8;  // 2 stages of K, V (STEP x LD)
+  constexpr int STAGE = 2 * FWD_STEP * LD;
+
+  if (D < 8 * NT) {
+    zero_pad(q_s, ROWS, D, 8 * NT, LD);
+    zero_pad(st, 4 * FWD_STEP, D, 8 * NT, LD);
+  }
+
+  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(S, q0 + ROWS) : S;
+  lo = lo / FWD_STEP * FWD_STEP;
+  const int steps = max(0, (hi - lo + FWD_STEP - 1) / FWD_STEP);
+  auto stage = [&](int i) {
+    const int kt0 = lo + i * FWD_STEP;
+    float* k_s = st + (i & 1) * STAGE;
+    stage_rows<FWD_STEP, T>(k_s, k, k_base, k_ss, kt0, S, D, LD, vec4);
+    stage_rows<FWD_STEP, T>(k_s + FWD_STEP * LD, v, k_base, k_ss, kt0, S, D,
+                            LD, vec4);
+  };
+
+  stage_rows<ROWS, T>(q_s, q, q_base, q_ss, q0, S, D, LD, vec4);
+  if (steps > 0) stage(0);
+  cp_async_commit();
+
+  // keys [w_lo, w_hi) can reach one of the pair's rows
+  const int w_lo = window > 0 ? w0 - window + 1 : 0;
+  const int w_hi = causal ? min(S, w0 + 16) : S;
+  float acc[HALF][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < HALF; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float* mine = x_s + ((pair * 2 + half) * 32 + lane) * 8;
+  const float* theirs = x_s + ((pair * 2 + 1 - half) * 32 + lane) * 8;
+
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_all();  // step i's K and V (and Q) have landed
+    __syncthreads();     // and every warp is done with step i - 1's buffer
+    if (i + 1 < steps) stage(i + 1);
+    cp_async_commit();
+    const int kt0 = lo + i * FWD_STEP;
+    if (kt0 >= w_hi || kt0 + FWD_STEP <= w_lo) continue;  // the whole pair
+    const float* k_s = st + (i & 1) * STAGE;
+    const float* v_s = k_s + FWD_STEP * LD;
+    // this warp's half of S: rows g, g + 8; keys 8 j + 2 t, + 1; two
+    // accumulators a tile (even and odd k steps)
+    float c[2][4] = {}, c2[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HALF; ++kk) {
+      Frag<4> fa;
+      Frag<2> fb[2];
+      load_a_ldm(fa, q_s, LD, qr, 8 * (k0 + kk), lane);
+      load_b_pair_ldm(fb, k_s, LD, 0, 8 * (k0 + kk), lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma3((kk & 1) ? c2[j] : c[j], fa, fb[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] += c2[j][e];
+      *reinterpret_cast<float4*>(mine + 4 * j) =
+          make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
+    }
+    pair_sync(1 + pair);  // both halves are in x_s
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(theirs + 4 * j);
+      c[j][0] = (c[j][0] + x.x) * scale2;
+      c[j][1] = (c[j][1] + x.y) * scale2;
+      c[j][2] = (c[j][2] + x.z) * scale2;
+      c[j][3] = (c[j][3] + x.w) * scale2;
+    }
+    // the mask cuts this tile: the diagonal, the window's edge or S
+    if ((causal && kt0 + FWD_STEP - 1 > w0) ||
+        (window > 0 && kt0 <= w0 + 15 - window) || kt0 + FWD_STEP > S) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!attendable(w0 + g + (e >> 1) * 8, kt0 + 8 * j + 2 * t +
+                          (e & 1), S, causal, window))
+            c[j][e] = NEG_INF;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mx = quad_max(fmaxf(fmaxf(c[0][2 * r], c[0][2 * r + 1]),
+                                      fmaxf(c[1][2 * r], c[1][2 * r + 1])));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = m[r] > NEG_INF / 2 ? exp2_approx(m[r] - m_new) : 0.f;
+      m[r] = m_new;
+      l[r] *= alpha[r];  // this lane's part of the row sum
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = c[j][e];
+        c[j][e] = s > NEG_INF / 2 ? exp2_approx(s - m[e >> 1]) : 0.f;  // P
+        l[e >> 1] += c[j][e];
+      }
+#pragma unroll
+    for (int n = 0; n < HALF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    // O += P V on the warp's half, each 16-key product folded into acc in
+    // float32
+    Frag<4> fa[2];
+    a_from_acc(fa[0], c[0]);
+    a_from_acc(fa[1], c[1]);
+#pragma unroll
+    for (int n = 0; n < HALF; ++n) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        Frag<2> fb;
+        load_b_perm(fb, v_s, LD, 8 * j, 8 * (k0 + n), g, t);
+        mma3(pv, fa[j], fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += pv[e];
+    }
+  }
+
+  // O = acc / max(l, 1e-30) into the warp's rows and columns of q_s (Q's
+  // own, read by this warp alone), then out, 16 bytes a store when vec4
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+  float* o_s = q_s + qr * LD;
+#pragma unroll
+  for (int n = 0; n < HALF; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_s[(g + (e >> 1) * 8) * LD + 8 * (k0 + n) + 2 * t + (e & 1)] =
+          acc[n][e] / lc[e >> 1];
+  if (half == 0 && t == 0) {  // lse = m + log(l), m back in natural units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = w0 + g + 8 * r;
+      const float mn = m[r] > NEG_INF / 2 ? m[r] * LN2 : NEG_INF;
+      if (row < S) lse[((long long)b * H + h) * S + row] = mn + logf(lc[r]);
+    }
+  }
+  __syncwarp();
+  const int c_lo = 8 * k0, c_hi = min(D, c_lo + 8 * HALF);
+  const int w = vec4 ? 4 : 1, per_row = (c_hi - c_lo) / w;
+  for (int i = lane; i < 16 * per_row; i += 32) {
+    const int r = i / per_row, col = c_lo + (i - r * per_row) * w;
+    if (w0 + r >= S) break;
+    float* dst = o + q_base + (long long)(w0 + r) * q_ss + col;
+    const float* src = o_s + r * LD + col;
+    if (vec4)
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    else
+      *dst = *src;
+  }
+}
+
+template <int NT>  // head_dim padded to 8 NT
+__global__ void __launch_bounds__(fwd_threads(NT), fwd_blocks(NT))
+    flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KH, int D, int causal,
+    int window, float scale, int vec4) {
+  if constexpr (!fwd_pairs(NT))
+    fwd_quad_body<NT>(q, k, v, o, lse, S, H, KH, D, causal, window, scale,
+                      vec4);
+  else
+    fwd_pair_body<NT, 8>(q, k, v, o, lse, S, H, KH, D, causal, window,
+                         scale, vec4);
+}
+template <int NT>  // head_dim padded to 8 NT, above 192
+__global__ void __launch_bounds__(256, 1) flash_fwd_rows64_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KH, int D, int causal,
+    int window, float scale, int vec4) {
+  fwd_pair_body<NT, 4>(q, k, v, o, lse, S, H, KH, D, causal, window, scale,
+                       vec4);
 }
 
 // ---------------------------------------------------------------------------
@@ -960,10 +1219,13 @@ __global__ void __launch_bounds__(BWD_THREADS, bwd_blocks(NT))
 }
 
 // Dynamic shared memory of each kernel, in bytes.
+// (the forward: the pair body's at `rows` 128 or 64 above NT 24)
 template <int NT>
-size_t fwd_smem() {
+size_t fwd_smem(int rows) {
   const int ld = 8 * NT + 4;
-  return sizeof(float) * (FWD_ROWS * ld + 2 * 2 * FWD_STEP * ld);
+  if (!fwd_pairs(NT)) rows = FWD_ROWS;
+  const int halves = fwd_pairs(NT) ? rows / 16 * 2 * 32 * 8 : 0;  // S halves
+  return sizeof(float) * (rows * ld + halves + 2 * 2 * FWD_STEP * ld);
 }
 template <int NT>
 size_t dkdv_smem() {
@@ -1027,25 +1289,40 @@ template <int NT>
 cudaError_t launch_fwd_tiles(const float* q, const float* k, const float* v,
                              float* o, float* lse, int B, int S, int H,
                              int KH, int D, int causal, int window,
-                             float scale, int vec4, cudaStream_t stream) {
-  const size_t smem = fwd_smem<NT>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<NT>, smem);
+                             float scale, int vec4, int rows,
+                             cudaStream_t stream) {
+  if (rows != FWD_ROWS && !(fwd_pairs(NT) && rows == 128))
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem<NT>(rows);
+  const int tiles = (S + rows - 1) / rows;
+  const dim3 grid(H, B, tiles);
+  cudaError_t err;
+  if constexpr (fwd_pairs(NT)) {
+    if (rows == 64) {
+      err = allow_smem(flash_fwd_rows64_kernel<NT>, smem);
+      if (err != cudaSuccess) return err;
+      flash_fwd_rows64_kernel<NT><<<grid, 256, smem, stream>>>(
+          q, k, v, o, lse, S, H, KH, D, causal, window, scale, vec4);
+      return cudaGetLastError();
+    }
+  }
+  err = allow_smem(flash_fwd_kernel<NT>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + FWD_ROWS - 1) / FWD_ROWS;
-  flash_fwd_kernel<NT><<<dim3(H, B, tiles), FWD_THREADS, smem, stream>>>(
+  flash_fwd_kernel<NT><<<grid, fwd_threads(NT), smem, stream>>>(
       q, k, v, o, lse, S, H, KH, D, causal, window, scale, vec4);
   return cudaGetLastError();
 }
 
 cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                        float* o, float* lse, int B, int S, int H, int KH,
-                       int D, int causal, int window, float scale,
+                       int D, int causal, int window, float scale, int rows,
                        cudaStream_t stream) {
   const int vec4 = D % 4 == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v) && aligned16(o);
   return with_nt(D, [&](auto nt) {
     return launch_fwd_tiles<decltype(nt)::value>(
-        q, k, v, o, lse, B, S, H, KH, D, causal, window, scale, vec4, stream);
+        q, k, v, o, lse, B, S, H, KH, D, causal, window, scale, vec4, rows,
+        stream);
   });
 }
 
@@ -1139,7 +1416,9 @@ extern "C" {
 // Every tensor is contiguous float32: q, o, dout, dq (B, S, H, D); k, v,
 // dk, dv (B, S, KH, D); lse (B, H, S).  dtype must be 0 (float32; the
 // bf16 route is flash_attention_sm90.cu).  causal: 0 or 1; window: 0 =
-// none.  The backward's `delta` is float32 scratch of B x H x S elements;
+// none.  `rows`: the query rows a forward block owns, 64 up to head_dim
+// 192 and 128 or 64 above (flash_attention_fwd_tiling; the wrapper's
+// simt_fwd_plan picks), else cudaErrorInvalidValue.  The backward's `delta` is float32 scratch of B x H x S elements;
 // with `splits` > 1 (head_dim above 128 only) its dK/dV kernel splits
 // each key tile's work `splits` ways into `partials`, float32 scratch of 2
 // x splits x B x S x KH x D elements (else unused).  Return
@@ -1147,7 +1426,7 @@ extern "C" {
 int flash_attention_fwd_launch(int device, const void* q, const void* k,
                                const void* v, void* o, void* lse, int B,
                                int S, int H, int KH, int D, int causal,
-                               int window, float scale, int dtype,
+                               int window, float scale, int dtype, int rows,
                                void* stream) {
   if (bad_shape(B, S, H, KH, D) || dtype != 0)
     return (int)cudaErrorInvalidValue;
@@ -1156,7 +1435,7 @@ int flash_attention_fwd_launch(int device, const void* q, const void* k,
   return on_device(device, [&]() {
     return launch_fwd(f(q), f(k), f(v), static_cast<float*>(o),
                       static_cast<float*>(lse), B, S, H, KH, D, causal,
-                      window, scale, s);
+                      window, scale, rows, s);
   });
 }
 
@@ -1182,14 +1461,21 @@ int flash_attention_bwd_launch(int device, const void* q, const void* k,
 }
 
 // kernel_info of the forward, dK/dV and dQ kernels that take head_dim D,
-// five ints each into out[0 .. 15)
+// five ints each into out[0 .. 15), and above head_dim 192 of the 64-row
+// forward into out[15 .. 20) (else zeros there)
 int flash_attention_occupancy(int device, int D, int* out) {
   if (D <= 0 || D > DMAX) return (int)cudaErrorInvalidValue;
   return on_device(device, [&]() {
     return with_nt(D, [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
-      cudaError_t err = kernel_info(flash_fwd_kernel<NT>, FWD_THREADS,
-                                    fwd_smem<NT>(), out);
+      cudaError_t err = kernel_info(flash_fwd_kernel<NT>, fwd_threads(NT),
+                                    fwd_smem<NT>(128), out);
+      for (int i = 15; i < 20; ++i) out[i] = 0;
+      if constexpr (fwd_pairs(NT)) {
+        if (err == cudaSuccess)
+          err = kernel_info(flash_fwd_rows64_kernel<NT>, 256,
+                            fwd_smem<NT>(64), out + 15);
+      }
       if (err == cudaSuccess)
         err = kernel_info(flash_bwd_dkdv_kernel<NT>, BWD_THREADS,
                           dkdv_smem<NT>(), out + 5);
@@ -1201,10 +1487,24 @@ int flash_attention_occupancy(int device, int D, int* out) {
   });
 }
 
+// The forward's tiling, as the wrapper and the plain version must take it:
+// out[0] the keys a step (the plain version folds P V at that step),
+// out[1] the largest head_dim of the 4-warp body (64-row blocks only);
+// above it blocks of 128 or 64 rows of pairs of warps
+int flash_attention_fwd_tiling(int* out) {
+  out[0] = FWD_STEP;
+  out[1] = 8 * FWD_QUAD_MAX_NT;
+  return 0;
+}
+
 // The design of the forward's and backward's products, for the record.
 const char* flash_attention_fwd_design() {
   return "3xTF32 mma.sync m16n8k8 (hi*hi + hi*lo + lo*hi, truncated "
-         "halves); O summed in float32 one 16-key step at a time";
+         "halves); O summed in float32 one 16-key step at a time; at "
+         "head_dim 193-256 blocks of 128 or 64 query rows (picked from the "
+         "shape) as 8 or 4 pairs of warps, each warp half of head_dim (S "
+         "halves added through shared memory), Q and K fragments by "
+         "ldmatrix, 2^x by ex2.approx";
 }
 
 const char* flash_attention_bwd_design() {

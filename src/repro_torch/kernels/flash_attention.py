@@ -42,6 +42,8 @@ and no launch is counted.  A launch and a fake call alike add the call's
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import math
 from typing import Dict, Tuple
 
@@ -62,8 +64,9 @@ launches_d256_bwd = 0
 launches_d192_fwd = 0
 launches_d192_bwd = 0
 
-#: the float32 kernels keep a warp's 16 rows of the accumulator, all of
-#: head_dim's columns, in registers: up to 128 a thread at 256
+#: the float32 kernels keep a warp's 16 rows of the accumulator in
+#: registers, all of head_dim's columns up to 192 (96 a thread) and half
+#: of them, a pair of warps sharing the rows, above (64 a thread at 256)
 MAX_HEAD_DIM = 256
 
 #: head sizes of the sm90 kernels (templates); the d256 and d192 routes
@@ -87,6 +90,15 @@ D256_MAX_SPLITS = 4
 #: tile) over its 64-key tiles
 SIMT_SPLIT_MIN_HEAD_DIM = 128
 SIMT_BWD_TILE = 64
+#: above this head_dim a float32 forward block is pairs of warps, each
+#: warp half of head_dim, on 128 or 64 query rows (:func:`simt_fwd_plan`);
+#: the library states its own (:func:`simt_fwd_tiling`) and refuses rows
+#: its instantiation lacks
+SIMT_PAIR_MIN_HEAD_DIM = 192
+#: the device time of one 16-key step of a 128-row pair block over a
+#: 64-row one's, each alone on an SM: 1.65-1.77 at gemma3-1b's calls on
+#: the H100 (PERF.md §6)
+SIMT_FWD_STEP_COST_128 = 1.75
 
 _DTYPE_TAG = {torch.float32: 0, torch.bfloat16: 1}
 _lib_handle = None
@@ -144,7 +156,8 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [i32] * 7 + [ctypes.c_float, i32, ptr]
-        lib.flash_attention_fwd_launch.argtypes = [i32] + [ptr] * 5 + tail
+        lib.flash_attention_fwd_launch.argtypes = (
+            [i32] + [ptr] * 5 + tail[:-1] + [i32, ptr])     # + rows
         lib.flash_attention_fwd_launch.restype = i32
         lib.flash_attention_bwd_launch.argtypes = (
             [i32] + [ptr] * 11 + tail[:-1] + [i32, ptr])   # + splits
@@ -157,6 +170,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_occupancy.argtypes = [i32, i32, ptr]
         lib.flash_attention_occupancy.restype = i32
+        lib.flash_attention_fwd_tiling.argtypes = [ptr]
+        lib.flash_attention_fwd_tiling.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -169,19 +184,33 @@ def simt_design() -> dict:
             "bwd": lib.flash_attention_bwd_design().decode()}
 
 
+def simt_fwd_tiling() -> dict:
+    """The built float32 forward's tiling, from the library itself:
+    ``key_step``, the keys of each step (the plain version
+    ``ref.flash_attention_tf32x3_ref`` must fold at it), and
+    ``pair_min_head_dim``, above which its blocks are pairs of warps
+    (:data:`SIMT_PAIR_MIN_HEAD_DIM` here)."""
+    out = (ctypes.c_int * 2)()
+    _lib().flash_attention_fwd_tiling(out)
+    return {"key_step": out[0], "pair_min_head_dim": out[1]}
+
+
 def simt_occupancy(head_dim: int) -> dict:
     """What the current card makes of the float32 kernels that take
-    ``head_dim``: for the forward, dK/dV and dQ kernels, threads a block,
+    ``head_dim``: for the forward, dK/dV and dQ kernels, and above
+    :data:`SIMT_PAIR_MIN_HEAD_DIM` the forward on 64-row blocks
+    (``fwd_rows64``; ``fwd`` is then the 128-row one), threads a block,
     resident blocks an SM, registers a thread, local (spill) bytes a
     thread and dynamic shared memory a block."""
-    out = (ctypes.c_int * 15)()
+    out = (ctypes.c_int * 20)()
     _raise_on(_lib().flash_attention_occupancy(torch.cuda.current_device(),
                                                head_dim, out),
               "occupancy query", "simt")
     keys = ("threads", "blocks_per_sm", "registers", "local_bytes",
             "smem_bytes")
+    names = ("fwd", "dkdv", "dq", "fwd_rows64")
     return {k: dict(zip(keys, out[5 * i:5 * i + 5]))
-            for i, k in enumerate(("fwd", "dkdv", "dq"))}
+            for i, k in enumerate(names) if out[5 * i]}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,8 +260,9 @@ def _raise_on(err: int, what: str, route: str) -> None:
 
 def _dims(q, k, causal: bool, window: int, *more: int):
     """The launch's integer tail: shape, masks, scale, then ``more``
-    (simt: the dtype tag, and the backward's split count; the d256
-    backward: its split count) and the stream."""
+    (simt: the dtype tag, then the forward's rows a block or the
+    backward's split count; the d256 backward: its split count) and the
+    stream."""
     b, s, h, d = q.shape
     return (b, s, h, k.shape[2], d, int(bool(causal)), int(window),
             1.0 / math.sqrt(d), *more,
@@ -297,6 +327,40 @@ def simt_bwd_plan(b: int, s: int, h: int, kh: int, d: int, *,
             "partials": (2, splits, b, s, kh, d) if splits > 1 else None}
 
 
+def simt_fwd_plan(b: int, s: int, h: int, d: int, *, causal: bool = True,
+                  window: int = 0) -> int:
+    """Query rows a float32 (simt) forward block owns for q (b, s, h, d)
+    under the mask: 64 up to head_dim :data:`SIMT_PAIR_MIN_HEAD_DIM` (4
+    warps); above it 128 (8 pairs of warps) or 64 (4 pairs), whichever
+    the card should finish first.  Each block is alone on an SM, so the
+    estimate schedules the blocks' 16-key steps (from the mask) longest
+    first onto :data:`H100_SMS` SMs, each SM taking the next block when
+    its last ends, and prices a 128-row step at
+    :data:`SIMT_FWD_STEP_COST_128` 64-row ones.  The 128-row step does
+    more work a step for its time, but a causal mask over few blocks
+    (gemma3-1b's global layer at one sequence: 128 blocks of 128 rows for
+    132 SMs) leaves its longest block the whole time: 64 rows there."""
+    if d <= SIMT_PAIR_MIN_HEAD_DIM:
+        return 64
+    return _simt_fwd_rows(b * h, s, bool(causal), int(window))
+
+
+@functools.lru_cache(maxsize=64)
+def _simt_fwd_rows(heads: int, s: int, causal: bool, window: int) -> int:
+    cost = {}
+    for rows, step_cost in ((128, SIMT_FWD_STEP_COST_128), (64, 1.0)):
+        steps = []
+        for q0 in range(0, s, rows):   # the kernel's loop bounds
+            lo = max(0, q0 - window + 1) // 16 * 16 if window > 0 else 0
+            hi = min(s, q0 + rows) if causal else s
+            steps.append(max(0, -(-(hi - lo) // 16)))
+        loads = [0] * H100_SMS
+        for n in sorted(steps * heads, reverse=True):
+            heapq.heapreplace(loads, loads[0] + n)
+        cost[rows] = max(loads) * step_cost
+    return 128 if cost[128] <= cost[64] else 64
+
+
 def _record(route: str, direction: str, q: torch.Tensor, causal: bool,
             window: int) -> None:
     b, s, h, d = q.shape
@@ -320,11 +384,13 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                                  dtype=torch.float32)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    more: tuple = ()
+    if route == "simt":     # the dtype tag and the rows of a block
+        more = (_DTYPE_TAG[q.dtype],
+                simt_fwd_plan(b, s, h, d, causal=causal, window=window))
     err = _entry(route, "fwd_launch")(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(),
-        *_dims(q, k, causal, window,
-               *((_DTYPE_TAG[q.dtype],) if route == "simt" else ())))
+        out.data_ptr(), lse.data_ptr(), *_dims(q, k, causal, window, *more))
     _raise_on(err, "forward", route)
     launches_fwd += 1
     if route == "sm90":

@@ -108,21 +108,28 @@ def apply_rope(x: torch.Tensor, cos: Optional[torch.Tensor],
 
 
 @functools.lru_cache(maxsize=8)
-def _sinusoid_table(seq_len: int, d: int) -> torch.Tensor:
+def _sinusoid_table(seq_len: int, d: int) -> np.ndarray:
+    """The float32 numpy table, read-only: the cache holds no tensor, so
+    a fake and a real caller never share one."""
     pos = np.arange(seq_len)[:, None]
     dim = np.arange(d // 2)[None, :]
     inv = 1.0 / (10_000 ** (dim / max(d // 2 - 1, 1)))
     ang = pos * inv
-    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
-    return torch.from_numpy(table.astype(np.float32))
+    table = np.concatenate([np.sin(ang), np.cos(ang)],
+                           axis=-1).astype(np.float32)
+    table.setflags(write=False)
+    return table
 
 
 def sinusoidal_positions(seq_len: int, d: int, device: torch.device
                          ) -> torch.Tensor:
     """Whisper-style sinusoidal embeddings (S, d) float32 for the archs
     without rope: computed in float64 by numpy, then cast, as the JAX
-    package computes them (the table is built once for a shape)."""
-    return _sinusoid_table(seq_len, d).to(device)
+    package computes them (the numpy table is built once for a shape).
+    Each call makes a fresh tensor from it on ``device``: a fake tensor
+    under a fake-tensor mode (``launch.specs.FAKE_MODE``), a real one
+    outside it."""
+    return torch.tensor(_sinusoid_table(seq_len, d)).to(device)
 
 
 def decode_positions(lengths: torch.Tensor, d: int) -> torch.Tensor:

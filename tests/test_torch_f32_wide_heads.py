@@ -164,11 +164,15 @@ def test_mla_apply_real_head_dims_matches_jax():
 
 
 # (b, s, h, kh, d, causal, window, Pallas block): the float32 forward's
-# arithmetic at NT 32 (256, and 200 padded to 256) and NT 24 (192)
+# arithmetic at NT 32 (256, and 200 padded to 256) and NT 24 (192); at
+# NT 32 also GQA past one 128-row tile of the kernel, and a window without
+# the causal mask
 TF32X3_WIDE = {"d256_window": (1, 128, 4, 1, 256, True, 16, 32),
                "d192": (1, 128, 2, 2, 192, True, 0, 64),
                "d192_noncausal": (1, 100, 2, 2, 192, False, 0, 100),
-               "d200_gqa": (1, 96, 4, 2, 200, True, 20, 32)}
+               "d200_gqa": (1, 96, 4, 2, 200, True, 20, 32),
+               "d256_gqa": (1, 160, 4, 2, 256, True, 0, 32),
+               "d256_window_noncausal": (1, 96, 2, 1, 256, False, 24, 32)}
 
 
 @pytest.mark.parametrize("name", list(TF32X3_WIDE))
@@ -269,8 +273,9 @@ def test_chip_smoke_wide_cases_route_and_bounds():
     """``chip_smoke.py``'s float32 cases above head_dim 128 take the simt
     route at both new instantiations (NT 24 and 32, one head_dim padded
     inside the kernel from unaligned rows), its spill gate names every
-    kernel of both (dK/dV also in its split form) and the reduction of
-    the split dK/dV partials, and the
+    kernel of both (dK/dV also in its split form, the NT 32 forward also
+    on 64-row blocks) and the reduction of the split dK/dV partials, and
+    the
     bounds it prints at 8c's calls are the TF32 peak over three for 4 D
     (forward) and 10 D (backward) operations an attended pair and head."""
     cs = _chip_smoke()
@@ -286,8 +291,11 @@ def test_chip_smoke_wide_cases_route_and_bounds():
                   "flash_bwd_dkdv_split_kernel", "flash_bwd_dq_kernel"):
             assert f"{k}<{nt}>" in cs.SIMT_NO_SPILL
     assert "flash_bwd_reduce_kernel" in cs.SIMT_NO_SPILL
+    assert "flash_fwd_rows64_kernel<32>" in cs.SIMT_NO_SPILL
     want = {("simt_d256", 0): (0.4168, 1.0421),
             ("simt_d256", 512): (0.0977, 0.2442),
+            ("simt_d256_b1", 0): (0.2084, 0.5210),
+            ("simt_d256_b1", 512): (0.0488, 0.1221),
             ("simt_d192", 0): (5.0020, 12.5051)}
     for (key, window), (fwd, bwd) in want.items():
         shape = dict(cs.SIMT_WIDE_CASES[key][1], window=window)

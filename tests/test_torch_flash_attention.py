@@ -413,13 +413,15 @@ D256_PLANS = {
 
 # the float32 backward's dK/dV split plan above head_dim 128 (its 64-key
 # tiles and 64-query units: d256_bwd_plan's rule), at 8c's calls
-# (gemma3's global layer 2 ways, its window-512 layers and deepseek-v2
-# none), every phase-6 float32 case above 128 of chip_smoke.py (G = 3
-# over 4 splits: chunks crossing heads), and at head_dim 128, where two
-# dK/dV blocks share an SM and the plan never splits
+# (gemma3's global layer 2 ways at 2 sequences and 3 at 8c's one, its
+# window-512 layers and deepseek-v2 none), every phase-6 float32 case
+# above 128 of chip_smoke.py (G = 3 over 4 splits: chunks crossing
+# heads), and at head_dim 128, where two dK/dV blocks share an SM and the
+# plan never splits
 SIMT_PLANS = {
     "gemma3_global": ((2, 4096, 4, 1, 256, True, 0), 2),
     "gemma3_local": ((2, 4096, 4, 1, 256, True, 512), 1),
+    "gemma3_global_b1": ((1, 4096, 4, 1, 256, True, 0), 3),
     "deepseek": ((1, 4096, 128, 128, 192, True, 0), 1),
     "d192_noncausal": ((1, 777, 16, 16, 192, False, 0), 1),
     "d256_ragged": ((1, 1000, 8, 2, 256, True, 100), 3),
@@ -517,6 +519,50 @@ def test_simt_bwd_plan_covers_chip_smoke_cases():
             c[k] for k in ("b", "s", "h", "kh", "d", "causal", "window"))
     assert any(sp > 1 and (sh[2] // sh[3]) % sp
                for sh, sp in SIMT_PLANS.values())
+
+
+#: (b, s, h, d, causal, window) -> the query rows of a float32 forward
+#: block: 64 (4 warps) up to head_dim 192; above, 128 (8 pairs of warps)
+#: but where a causal mask leaves fewer 128-row blocks than SMs (gemma3-1b's
+#: global layer at 8c's one sequence: the longest block would set the
+#: time), and on phase 6's short ragged cases
+SIMT_FWD_PLANS = {
+    "gemma3_global": ((2, 4096, 4, 256, True, 0), 128),
+    "gemma3_global_b1": ((1, 4096, 4, 256, True, 0), 64),
+    "gemma3_local": ((2, 4096, 4, 256, True, 512), 128),
+    "gemma3_local_b1": ((1, 4096, 4, 256, True, 512), 128),
+    "d256_noncausal_b1": ((1, 4096, 4, 256, False, 0), 128),
+    "d256_ragged": ((1, 1000, 8, 256, True, 100), 64),
+    "d200": ((2, 777, 6, 200, True, 100), 64),
+    "deepseek": ((1, 4096, 128, 192, True, 0), 64),
+    "d128_global": ((2, 4096, 4, 128, True, 0), 64),
+}
+
+
+@pytest.mark.parametrize("name", list(SIMT_FWD_PLANS))
+def test_simt_fwd_plan(name):
+    (b, s, h, d, causal, window), rows = SIMT_FWD_PLANS[name]
+    assert FA.simt_fwd_plan(b, s, h, d, causal=causal,
+                            window=window) == rows
+
+
+def test_simt_fwd_plan_runs_both_tilings_in_chip_smoke():
+    """Phase 6's float32 cases above head_dim 192 hold the forward on
+    128-row and on 64-row blocks, and phase 8c's gemma3-1b global call
+    (one sequence: 64-row blocks) is among them and timed as a row of
+    the kernels line, windowed too (128-row blocks)."""
+    cs = _chip_smoke()
+    rows = {FA.simt_fwd_plan(*(c[k] for k in ("b", "s", "h", "d")),
+                             causal=c["causal"], window=c["window"])
+            for c in cs.SIMT_WIDE_HELD.values() if c["d"] > 192}
+    assert rows == {64, 128}
+    call = cs.GEMMA_F32_ATTN
+    assert call["b"] == 1 and call["s"] == cs.WIDE_TRAIN_TOKENS
+    assert call in cs.SIMT_WIDE_HELD.values()
+    assert cs.SIMT_WIDE_CASES["simt_d256_b1"][1:] == (call, "simt_d256")
+    plan = [FA.simt_fwd_plan(*(call[k] for k in ("b", "s", "h", "d")),
+                             causal=True, window=w) for w in (0, 512)]
+    assert plan == [64, 128]
 
 
 def test_simt_partials_of_gemma3_take_32_mib():

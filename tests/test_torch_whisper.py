@@ -53,6 +53,7 @@ from repro.util import resilience as jresilience
 from repro_torch import config as C
 from repro_torch.core import block_table as BT
 from repro_torch.launch import serve as LS
+from repro_torch.launch import specs as SP
 from repro_torch.launch import train as LT
 from repro_torch.models import (decode_step, forward_train,
                                 init_decode_state, params_from_numpy,
@@ -63,10 +64,12 @@ from repro_torch.models import model_zoo as MZ
 from repro_torch.serving import Request, ServeEngine
 from repro_torch.train import data as D
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.roofline.flop_stats import step_flops
 from repro_torch.train.train_loop import (TrainState, decayed_names,
                                           loss_fn, make_train_step,
                                           trainable)
 from repro_torch.util import resilience
+from repro_torch.util.device import is_fake
 from repro_torch.workloads.ingest import __main__ as CLI
 
 NAME = "whisper-tiny"
@@ -228,6 +231,52 @@ def test_sinusoidal_positions_bit_equal(seq_len, d):
     want = np.asarray(JL.sinusoidal_positions(seq_len, d))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fake_first", [True, False])
+def test_sinusoidal_positions_fake_and_real_never_mix(fake_first):
+    """The table's cache holds numpy, not a tensor: in one process a call
+    under ``FAKE_MODE`` returns a fake tensor and a real call a real one
+    with the JAX package's values, whichever comes first, and a real
+    result written in place leaves the next call's values alone."""
+    L._sinusoid_table.cache_clear()
+    want = np.asarray(JL.sinusoidal_positions(16, 64))
+    cpu = torch.device("cpu")
+
+    def fake():
+        with SP.FAKE_MODE:
+            got = L.sinusoidal_positions(16, 64, cpu)
+        assert is_fake(got)
+        assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+
+    def real():
+        got = L.sinusoidal_positions(16, 64, cpu)
+        assert not is_fake(got)
+        np.testing.assert_array_equal(got.numpy(), want)
+        got.add_(1.0)
+
+    for call in ((fake, real, real) if fake_first else (real, fake, real)):
+        call()
+
+
+def test_step_flops_after_a_real_forward():
+    """A real forward, then ``step_flops`` of the smoke variant at the
+    same lengths (the cached tables' keys) in the same process, then the
+    real forward again: the count equals one taken with the cache
+    emptied, and the second forward's logits are real and equal the
+    first's bit for bit."""
+    jcfg, cfg, _, _, model = _setup()
+    tb, _ = _batches(cfg, jcfg)
+    with torch.no_grad():
+        first, _ = forward_train(model, cfg, tb)
+    shape = C.ShapeConfig("t", tb["tokens"].shape[1], 2, "train")
+    got = step_flops(cfg, shape, device="cpu")
+    with torch.no_grad():
+        again, _ = forward_train(model, cfg, tb)
+    L._sinusoid_table.cache_clear()
+    assert got["total"] > 0 and got == step_flops(cfg, shape, device="cpu")
+    assert not is_fake(first) and not is_fake(again)
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("d", [384, 64, 2])
