@@ -281,13 +281,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
      c. full-width rwkv6-3b (bf16, random weights from a seed) served
         through the launcher at phase 4's shape with its depth cut to 4
         of its 32 layers (``RWKV_SERVE_LAYERS``: the script's time;
-        14d trains all 32), flat and radix tables: exactly 0 paged
+        14d trains 8), flat and radix tables: exactly 0 paged
         launches (no layer holds a KV cache), the same tokens in both
         modes, ms/step, tokens/s, peak memory;
-     d. full-width rwkv6-3b trained through the launcher at phase 7's
-        shape (8 x 4,096 tokens in 4 microbatches, 3 steps) with bf16
-        gradients and float32 AdamW moments: WKV launches exactly 768 +
-        384, finite nonzero losses and gradient norms, s/step, tokens/s,
+     d. full-width rwkv6-3b at 8 of its 32 layers
+        (``RWKV_TRAIN_LAYERS``: the cut that pays for phase 17) trained
+        through the launcher at phase 7's shape (8 x 4,096 tokens in 4
+        microbatches, 3 steps) with bf16 gradients and float32 AdamW
+        moments: WKV launches exactly 192 + 96, finite nonzero losses
+        and gradient norms, s/step, tokens/s,
         peak memory, and a fourth step under torch.profiler (time by
         operator);
  15. whisper-tiny, the encoder-decoder (4 + 4 layers, d_model 384, 6
@@ -329,7 +331,34 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         beside its s/step after the first step, each as a share of the
         card's peak, with the card's name and power limit (printed, not
         gated);
- 17. one JSON line describing every kernel, then the final ``ok`` line.
+ 17. the parallel paths (``repro_torch.parallel``), two ranks spawned
+     on the one card over gloo (NCCL refuses two ranks on one device;
+     gloo takes CUDA tensors for all-reduce, broadcast and all-gather):
+     a. data-parallel parity: full-width internlm2-1.8b at 2 layers in
+        float32, TF32 off, phase 8's 3,072-token sequence, one a rank:
+        the two-rank step's loss (1e-4), averaged gradients and AdamW
+        update (5e-5 of their scale) against one rank's step on both
+        sequences in two microbatches, both ranks' parameters equal, the
+        simt flash launches of each rank; then with ``compress`` (the
+        int8 all-reduce) each rank's float32 gradients and int8 codes
+        gathered to rank 0, the codes equal the formula's exactly and
+        the update equals AdamW of the formula's mean;
+     b. the launcher as two processes (``--num-processes 2
+        --process-id i --coordinator 127.0.0.1:<free port>
+        --compress-grads``) at full width, bf16, fsdp on, 8 of
+        internlm2's 24 layers, 2 steps of 4 x 4,096 tokens a rank in 2
+        microbatches: sm90 flash launches 64 + 32 a rank, equal losses
+        on both ranks, s/step, tokens/s, each rank's peak memory (their
+        sum under 70 GiB), the bytes each rank handed to collectives a
+        step (gloo's trip through host memory included: a figure for
+        this one-card arrangement, not a speed);
+     c. the paged decode's mesh branch on a (1, 2) mesh, phase 5's
+        engine and requests at full width, 2 layers, float32:
+        internlm2-1.8b with its kv heads split (8 / 4 heads a rank) and
+        gemma3-1b in query-head mode (2 / 1 heads a rank): streams equal
+        the one-rank engine's and greedy_reference's, prefill logits vs
+        one rank 1e-3, paged kernel launches 2 x steps a rank;
+ 18. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
 no result.
@@ -421,6 +450,7 @@ from repro_torch.roofline.flop_stats import (flop_stats,  # noqa: E402
 from repro_torch.train import data as DATA  # noqa: E402
 from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
                                          adamw_init)
+from repro_torch.train import train_loop as TL  # noqa: E402
 from repro_torch.train.train_loop import (TrainState,  # noqa: E402
                                           init_train_state, loss_fn,
                                           make_train_step, trainable)
@@ -2853,8 +2883,13 @@ RWKV_PARITY = dict(MOE_PARITY, requests=4)
 RWKV_PARITY_TOKENS = (2, 512)
 #: 14c: the serve's depth, cut from 32 layers to keep the script within
 #: its time (its two full-depth serves took 66.5-96.9 s, at 16 layers
-#: 38.9 s); every layer is the same RWKV block, and 14d trains all 32
+#: 38.9 s); every layer is the same RWKV block
 RWKV_SERVE_LAYERS = 4
+#: 14d trains rwkv6-3b at 8 of its 32 layers: the script's time (the cut
+#: pays for phase 17's two-rank runs, about 90 s on the card; 14d was the
+#: largest training path, 62 s at full depth); every layer is the same
+#: RWKV block
+RWKV_TRAIN_LAYERS = 8
 
 
 def wkv_inputs(b, s, h, hs, seed, w0=-0.5):
@@ -3314,16 +3349,18 @@ def phase_rwkv_serve() -> dict:
 
 
 def phase_rwkv_train() -> dict:
-    """14d: full-width rwkv6-3b (32 layers) trained through the launcher
-    at phase 7's shape (8 x 4,096 tokens in 4 microbatches, 3 steps),
+    """14d: full-width rwkv6-3b at :data:`RWKV_TRAIN_LAYERS` of its 32
+    layers trained through the launcher (``--layers``) at phase 7's
+    shape (8 x 4,096 tokens in 4 microbatches, 3 steps),
     bf16 gradients and float32 AdamW moments, every layer's recurrence
     through the WKV kernels (forward twice a step with the recompute of
     activation checkpointing, backward once); then a fourth step under
     torch.profiler."""
     ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    args = TRAIN.build_parser().parse_args(["--arch", RWKV,
-                                            "--ckpt-dir", ckpt_dir])
+    args = TRAIN.build_parser().parse_args(
+        ["--arch", RWKV, "--layers", str(RWKV_TRAIN_LAYERS),
+         "--ckpt-dir", ckpt_dir])
     torch.cuda.reset_peak_memory_stats()
     WK.launches_fwd = WK.launches_bwd = 0
     FA.launches_fwd = FA.launches_bwd = 0
@@ -3337,6 +3374,8 @@ def phase_rwkv_train() -> dict:
         for key in ("loss", "grad_norm"):
             check(bool(np.isfinite(m[key])) and m[key] != 0,
                   f"{key} {m[key]} is not finite and nonzero")
+    check(cfg.num_layers == RWKV_TRAIN_LAYERS,
+          f"14d trained {cfg.num_layers} layers")
     want = (2 * cfg.num_layers * micro * args.steps,
             cfg.num_layers * micro * args.steps)
     check(wkv == want, f"wkv launches (fwd, bwd) {wkv} != {want}")
@@ -3692,7 +3731,9 @@ def train_paths() -> dict:
             "12d": (dataclasses.replace(C.get_arch(DEEPSEEK),
                                         num_layers=DEEPSEEK_DEPTH), one),
             "13d": (jamba_cut("train"), one),
-            "14d": (C.get_arch(RWKV), launcher),
+            "14d": (dataclasses.replace(C.get_arch(RWKV),
+                                        num_layers=RWKV_TRAIN_LAYERS),
+                    launcher),
             "15d": (C.get_arch(WHISPER), launcher)}
 
 
@@ -5348,6 +5389,415 @@ def sweep_search_keys(sim: dict, kernel: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the parallel paths, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+#: two ranks, both on cuda:0: NCCL refuses two ranks on one device, so the
+#: group is gloo, which takes CUDA tensors for its all-reduce, broadcast
+#: and all-gather (send and receive are staged through the host,
+#: ``parallel/comm.py``); every collective's time includes gloo's own trip
+#: through host memory
+PAR_WORLD = 2
+#: 17a: phase 8's 3,072-token sequence, one a rank, 2 layers at full width
+PAR_TRAIN_TOKENS = 3072
+#: 17b: the launcher at full width, 8 of internlm2's 24 layers, 2 steps of 4
+#: x 4,096 tokens a rank in 2 microbatches; the ranks' peaks must sum under
+PAR_LAUNCHER = dict(layers=8, steps=2, microbatches=2)
+PAR_LAUNCHER_PEAK_GIB = 70.0
+#: 17c: phase 5's engine and requests, 2 layers at full width in float32,
+#: on a (1, 2) mesh: internlm2's 8 kv heads divide the model axis (each
+#: rank 8 / 4 heads); gemma3-1b's one kv head does not, and its pools fit
+#: the budget: query-head mode (each rank 2 / 1 heads)
+PAR_ENGINE = dict(max_batch=3, max_len=64, page_size=16)
+PAR_REQUESTS = dict(n=4, prompt_range=(8, 24), new_tokens=8, seed=1)
+PAR_DECODE = {"internlm2-1.8b": "kv", GEMMA: "qhead"}
+PAR_DECODE_LAYERS = 2
+
+
+def par_cfg(arch: str) -> C.ArchConfig:
+    return dataclasses.replace(C.get_arch(arch), num_layers=PAR_DECODE_LAYERS,
+                               dtype="float32")
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def par_requests(cfg) -> list:
+    p = PAR_REQUESTS
+    return SERVE.make_requests(p["n"], cfg.vocab_size, p["prompt_range"],
+                               p["new_tokens"], seed=p["seed"])
+
+
+def par_decode_reference() -> dict:
+    """17c's one-rank side, on the card in this process: the engine's
+    streams, greedy_reference's and the prefill logits of request 0."""
+    out = {}
+    for arch in PAR_DECODE:
+        cfg = par_cfg(arch)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+        eng = ServeEngine(cfg, model, **PAR_ENGINE, device="cuda")
+        reqs = par_requests(cfg)
+        for r in reqs:
+            eng.submit(r)
+        engine = {r.req_id: list(r.generated) for r in eng.run()}
+        greedy = {r.req_id: greedy_reference(
+            cfg, model, r.prompt, PAR_REQUESTS["new_tokens"],
+            kv_mode=BT.FLAT, max_len=PAR_ENGINE["max_len"],
+            page_size=PAR_ENGINE["page_size"], device="cuda") for r in reqs}
+        logits, _ = prefill(model, cfg, torch.tensor(
+            reqs[0].prompt[None], device="cuda"), kv_mode=BT.FLAT,
+            max_len=PAR_ENGINE["max_len"], page_size=PAR_ENGINE["page_size"])
+        out[arch] = {"engine": engine, "greedy": greedy,
+                     "logits": logits.cpu().numpy()}
+        del model, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_train_rank(rank: int, world: int, dev, mesh) -> dict:
+    """17a on one rank: the averaged gradients and the data-parallel
+    step, then rank 0's one-rank step on both sequences in two
+    microbatches; then the step with ``compress``, each rank's float32
+    gradients and int8 codes gathered to rank 0 and the formula applied
+    there."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import compression as CMP
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_loop import decayed_names
+
+    cfg = par_cfg("internlm2-1.8b")
+    opt = AdamWConfig(total_steps=10)
+    group = mesh.get_group("data")
+    data = DATA.SyntheticLM(cfg.vocab_size, PAR_TRAIN_TOKENS, world)
+    mine = {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch_at(0, rank, world).items()}
+    out = {}
+
+    # the data-parallel step, its flash launches counted and the averaged
+    # gradients it hands to AdamW recorded (the update overwrites them)
+    state = init_train_state(cfg, 2, dev)
+    p0 = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+    avg = {}
+
+    def recorded(opt_cfg, params, grads, *args, **kw):
+        avg.update({n: g.detach().clone() for n, g in grads.items()})
+        return adamw_update(opt_cfg, params, grads, *args, **kw)
+
+    comm.reset_stats()
+    zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(TL, "adamw_update", recorded):
+        state, m = make_train_step(cfg, opt, 1, mesh=mesh)(state, mine)
+    torch.cuda.synchronize()
+    out["dp_s"] = time.perf_counter() - t0
+    out["simt_launches"] = (FA.launches_fwd, FA.launches_bwd)
+    out["sm90_launches"] = (FA.launches_sm90_fwd, FA.launches_sm90_bwd)
+    out["dp_bytes"] = comm.stats["bytes"]
+    out["loss"] = m["loss"]
+    out["checksum"] = sum(float(p.detach().double().sum())
+                          for p in state.params.parameters())
+    if rank == 0:
+        both = {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(0).items()}
+        ref = init_train_state(cfg, 2, dev)
+        g_ref = {n: torch.zeros(p.shape, device=dev)
+                 for n, p in ref.params.named_parameters()}
+        for i in range(world):
+            mb = {k: v[i:i + 1] for k, v in both.items()}
+            l_i, _ = loss_fn(ref.params, cfg, mb)
+            l_i.backward()
+            for n, p in ref.params.named_parameters():
+                g_ref[n].add_(p.grad)
+                p.grad = None
+        out["grad_rel"] = max(rel_err(avg[n], g / world)
+                              for n, g in g_ref.items())
+        check(sorted(avg) == sorted(g_ref), "17a: the step's gradients "
+                                            "were not recorded")
+        del g_ref
+        ref, m_ref = make_train_step(cfg, opt, world)(ref, both)
+        out["ref_loss"] = m_ref["loss"]
+        params = dict(state.params.named_parameters())
+        out["update_rel"] = max(
+            rel_err(params[n].detach() - p0[n], p.detach() - p0[n])
+            for n, p in ref.params.named_parameters())
+        del ref
+    del avg, state
+    torch.cuda.empty_cache()
+
+    # the step with compress: record this rank's float32 gradients as the
+    # int8 all-reduce receives them
+    seen = {}
+    reduce = CMP.make_dp_int8_allreduce(mesh)
+
+    def recording(grads):
+        seen.update({n: g.detach().clone() for n, g in grads.items()})
+        return reduce(grads)
+
+    state = init_train_state(cfg, 2, dev)
+    state, _ = make_train_step(cfg, opt, 1, mesh=mesh,
+                               compress=recording)(state, mine)
+    codes_equal, mean = True, {}
+    for n, g in seen.items():
+        s_max = comm.all_reduce(CMP.quantize_int8(g)[1].clone(), group,
+                                torch.distributed.ReduceOp.MAX)
+        codes = comm.all_gather(CMP.requantize_int8(g, s_max)[None], group)
+        grads = comm.all_gather(g[None], group)
+        if rank == 0:
+            # the formula, written out: each rank's scale, the largest,
+            # the codes against it, their int32 sum, times it over world
+            scales = [x.abs().max() / 127.0 + 1e-12 for x in grads]
+            big = torch.stack(scales).max()
+            q = [torch.clamp(torch.round(x / big), -127, 127).to(torch.int8)
+                 for x in grads]
+            codes_equal &= all(torch.equal(a, b) for a, b in zip(q, codes))
+            total = sum(c.to(torch.int32) for c in q)
+            mean[n] = total.float() * big / float(world)
+        del codes, grads
+    if rank == 0:
+        ref = init_train_state(cfg, 2, dev)
+        params = dict(ref.params.named_parameters())
+        adamw_update(opt, params, mean, ref.opt,
+                     decay=decayed_names(ref.params))
+        got = dict(state.params.named_parameters())
+        out["compress_codes_equal"] = codes_equal
+        out["compress_update_max_abs"] = max(
+            float((got[n].detach() - p.detach()).abs().max())
+            for n, p in params.items())
+    del seen, state, mean
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_decode_rank(rank: int, world: int, dev) -> dict:
+    """17c on one rank: the engine over a (1, world) mesh, the prefill
+    logits under it, the paged kernel's launches."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.context import use_mesh
+    from repro_torch.serving import shard_requests
+
+    mesh = LM.make_mesh((1, world), ("data", "model"), "cuda")
+    out = {}
+    for arch, mode in PAR_DECODE.items():
+        cfg = par_cfg(arch)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                            dev)
+        eng = ServeEngine(cfg, model, **PAR_ENGINE, device=dev, mesh=mesh)
+        kp = eng.state["stack"][0]["kp"]
+        got_mode = SH.paged_mode(mesh, cfg, n_pages=kp.shape[0],
+                                 page=kp.shape[1])
+        for r in shard_requests(par_requests(cfg), mesh):
+            eng.submit(r)
+        PA.launches = 0
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = PA.launches
+        prompt = torch.tensor(par_requests(cfg)[0].prompt[None], device=dev)
+        with use_mesh(mesh):
+            logits, _ = prefill(model, cfg, prompt, kv_mode=BT.FLAT,
+                                max_len=PAR_ENGINE["max_len"],
+                                page_size=PAR_ENGINE["page_size"])
+        out[arch] = {"mode": got_mode, "pool": tuple(kp.shape),
+                     "streams": {r.req_id: list(r.generated) for r in done},
+                     "launches": launches, "steps": eng.sched.stats["steps"],
+                     "seconds": secs, "logits": logits.cpu().numpy()}
+        del model, eng
+    return out
+
+
+def parallel_rank(rank: int, world: int) -> dict:
+    """17a and 17c on one of the two ranks (spawned; ``cuda:0``)."""
+    from repro_torch.launch import mesh as LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    mesh = LM.make_mesh((world, 1), ("data", "model"), "cuda")
+    train = par_train_rank(rank, world, dev, mesh)
+    train["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode = par_decode_rank(rank, world, dev)
+    return {"train": train, "decode": decode,
+            "decode_seconds": time.perf_counter() - t0,
+            "backend": torch.distributed.get_backend(), "device": str(dev),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_launcher() -> list:
+    """17b: the training launcher as two processes, one a rank, meeting at
+    a free local port; each prints its summary as the last line."""
+    ckpt_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_ckpt_17b")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    port = free_port()
+    src = os.environ.get("CHIP_SMOKE_SRC") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    p = PAR_LAUNCHER
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         "--num-processes", str(PAR_WORLD), "--process-id", str(i),
+         "--coordinator", f"127.0.0.1:{port}", "--compress-grads",
+         "--layers", str(p["layers"]),
+         "--steps", str(p["steps"]), "--microbatches", str(p["microbatches"]),
+         "--ckpt-dir", ckpt_dir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(PAR_WORLD)]
+    outs = []
+    try:
+        outs = [proc.communicate(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    summaries = []
+    for i, (proc, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0, f"17b: launcher rank {i} exited "
+                                    f"{proc.returncode}:\n{stderr[-3000:]}")
+        summaries.append(json.loads(stdout.strip().splitlines()[-1]))
+    return summaries
+
+
+def phase_parallel(card: str) -> dict:
+    """17: data-parallel training (17a parity, 17b the launcher) and the
+    paged decode's mesh branch (17c), two ranks sharing the card."""
+    from repro_torch.launch import mesh as LM
+
+    t0 = time.perf_counter()
+    refs = par_decode_reference()
+    t_ref = time.perf_counter() - t0
+    ranks = LM.spawn(parallel_rank, PAR_WORLD, device="cuda",
+                     backend="gloo", timeout=900)
+    t_spawn = time.perf_counter() - t0 - t_ref
+    print(f"parallel: {PAR_WORLD} ranks on {ranks[0]['device']} ({card}) "
+          f"over {ranks[0]['backend']} (NCCL refuses two ranks on one "
+          "device; gloo takes CUDA tensors for all-reduce, broadcast and "
+          "all-gather, send / receive are staged through the host); peak "
+          f"memory a rank {[round(r['peak_gib'], 2) for r in ranks]} GiB")
+
+    # 17a
+    tr = [r["train"] for r in ranks]
+    a = tr[0]
+    for i, t in enumerate(tr):
+        check(t["simt_launches"][1] == 2 and t["simt_launches"][0] >= 2
+              and t["sm90_launches"] == (0, 0),
+              f"17a: rank {i} flash launches simt {t['simt_launches']} sm90 "
+              f"{t['sm90_launches']}: the float32 step left the simt route")
+    check(abs(tr[0]["checksum"] - tr[1]["checksum"]) == 0.0,
+          "17a: the ranks' parameters differ after the step")
+    dl = abs(a["loss"] - a["ref_loss"])
+    check(dl <= TRAIN_LOSS_TOL, f"17a: loss {a['loss']} vs one rank "
+                                f"{a['ref_loss']}")
+    check(a["grad_rel"] <= TRAIN_GRAD_TOL,
+          f"17a: averaged gradients {a['grad_rel']:.3e} of scale")
+    check(a["update_rel"] <= TRAIN_GRAD_TOL,
+          f"17a: AdamW update {a['update_rel']:.3e} of scale")
+    check(a["compress_codes_equal"], "17a: int8 codes differ")
+    check(a["compress_update_max_abs"] == 0.0,
+          f"17a: compressed update off the formula by "
+          f"{a['compress_update_max_abs']:.3e}")
+    print(f"17a data-parallel parity (internlm2-1.8b full width, "
+          f"{PAR_DECODE_LAYERS} layers, float32, TF32 off, "
+          f"{PAR_TRAIN_TOKENS} tokens a rank): loss {a['loss']:.6f} vs one "
+          f"rank on both sequences in 2 microbatches {a['ref_loss']:.6f} "
+          f"(diff {dl:.3e}, tol {TRAIN_LOSS_TOL:g}); averaged gradients "
+          f"max {a['grad_rel']:.3e} of scale, AdamW update {a['update_rel']:.3e}"
+          f" (tol {TRAIN_GRAD_TOL:g}); ranks' parameters equal; simt flash "
+          f"launches a rank {[t['simt_launches'] for t in tr]}; step "
+          f"{[round(t['dp_s'], 3) for t in tr]} s, "
+          f"{[t['dp_bytes'] for t in tr]} B to collectives a rank; with "
+          f"compress: int8 codes equal, update equal to the formula on rank "
+          f"0 (max |diff| {a['compress_update_max_abs']:g}); "
+          f"{[round(t['seconds'], 1) for t in tr]} s")
+
+    # 17c
+    decode = {}
+    for arch, mode in PAR_DECODE.items():
+        want = refs[arch]
+        per = [r["decode"][arch] for r in ranks]
+        for i, d in enumerate(per):
+            check(d["mode"] == mode, f"17c {arch}: rank {i} layout "
+                                     f"{d['mode']} != {mode}")
+            check(d["streams"] == want["engine"] == want["greedy"],
+                  f"17c {arch}: rank {i} streams {d['streams']} vs one rank "
+                  f"{want['engine']} / greedy_reference {want['greedy']}")
+            check(d["launches"] == PAR_DECODE_LAYERS * d["steps"],
+                  f"17c {arch}: rank {i} paged launches {d['launches']} != "
+                  f"{PAR_DECODE_LAYERS} x {d['steps']} steps")
+        diff = max(float(np.abs(d["logits"] - want["logits"]).max())
+                   for d in per)
+        check(diff <= LOGIT_TOL, f"17c {arch}: logits differ by {diff}")
+        decode[arch] = [d["launches"] for d in per]
+        print(f"17c paged decode under a (1, {PAR_WORLD}) mesh, {arch} "
+              f"(full width, {PAR_DECODE_LAYERS} layers, float32), {mode} "
+              f"layout: pools a rank {per[0]['pool']}; "
+              f"{len(want['engine'])} streams equal the one-rank engine's "
+              f"and greedy_reference's; prefill logits vs one rank max "
+              f"{diff:.3e} (tol {LOGIT_TOL:g}); paged launches a rank "
+              f"{decode[arch]} = {PAR_DECODE_LAYERS} x {per[0]['steps']} "
+              f"steps; {[round(d['seconds'], 3) for d in per]} s to serve")
+    t_par = time.perf_counter() - t0
+
+    # 17b
+    t1 = time.perf_counter()
+    runs = par_launcher()
+    t_launch = time.perf_counter() - t1
+    p = PAR_LAUNCHER
+    cfg = C.get_arch("internlm2-1.8b")
+    want = (2 * p["layers"] * p["microbatches"] * p["steps"],
+            p["layers"] * p["microbatches"] * p["steps"])
+    for s in runs:
+        check(s["world"] == PAR_WORLD and s["backend"] == "gloo",
+              f"17b: rank {s['rank']} ran on {s['world']} ranks, "
+              f"{s['backend']}")
+        check(tuple(s["sm90_launches"]) == want
+              and tuple(s["flash_launches"]) == want,
+              f"17b: rank {s['rank']} flash launches {s['flash_launches']} "
+              f"(sm90 {s['sm90_launches']}) != {want}")
+        check(all(np.isfinite(s["losses"])) and all(np.isfinite(
+            s["grad_norms"])), f"17b: rank {s['rank']} non-finite metrics")
+    check(runs[0]["losses"] == runs[1]["losses"],
+          "17b: the ranks report different losses")
+    peak = sum(s["peak_gib"] for s in runs)
+    check(peak < PAR_LAUNCHER_PEAK_GIB, f"17b: peak memory {peak:.2f} GiB")
+    print(f"17b launcher, {PAR_WORLD} processes (--num-processes "
+          f"{PAR_WORLD} --compress-grads; gloo: the ranks share a card), "
+          f"{cfg.name} full "
+          f"width, {p['layers']} of {cfg.num_layers} layers, bf16, fsdp on: "
+          f"{p['steps']} steps of {TRAIN.GLOBAL_BATCH // PAR_WORLD} x 4096 "
+          f"tokens a rank in {p['microbatches']} microbatches; losses "
+          f"{[round(x, 4) for x in runs[0]['losses']]}; s/step a rank "
+          f"{[[round(x, 3) for x in s['seconds']] for s in runs]} (first "
+          f"includes warm-up); {runs[0]['tokens_per_s']:.1f} tokens/s of the "
+          f"mesh after the first; peak memory a rank "
+          f"{[round(s['peak_gib'], 2) for s in runs]} GiB (sum {peak:.2f}); "
+          f"bytes to collectives a step a rank "
+          f"{[s['comm_bytes_per_step'] for s in runs]}; sm90 flash launches "
+          f"a rank {[s['sm90_launches'] for s in runs]}; {t_launch:.1f} s "
+          f"with start-up ({card}; gloo stages every collective through the "
+          "host, so these are this one-card arrangement's times, not a "
+          "data-parallel speed)")
+    print(f"phase 17 parts: one-rank references {t_ref:.1f} s, ranks "
+          f"(17a, 17c) {t_spawn:.1f} s, launcher (17b) {t_launch:.1f} s")
+    return {"paged": decode, "simt": [t["simt_launches"] for t in tr],
+            "sm90": [s["sm90_launches"] for s in runs],
+            "seconds": t_par + t_launch}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -5511,6 +5961,9 @@ def phases(card: str, paths: dict, counting) -> int:
                     "14d": rwkv_train["train"], "15d": whisper_train["train"]},
                    card, paths, counting.get(timeout=600))
     print(f"phase 16 (roofline): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parallel = phase_parallel(card)
+    print(f"phase 17 (parallel): {time.perf_counter() - t0:.1f} s")
 
     serve_t = timed["serve_bf16"]
     path_launches = {"sm90": train_launches, "simt": parity_launches,
@@ -5534,10 +5987,17 @@ def phases(card: str, paths: dict, counting) -> int:
             "jamba_train_launches": jamba_train["sm90"][direction == "bwd"],
             "whisper_train_launches":
                 whisper_train["sm90"][direction == "bwd"],
+            # phase 17b: the launcher's two ranks, each rank's launches
+            "parallel_launcher_rank_launches": [
+                s[direction == "bwd"] for s in parallel["sm90"]],
             **{f"whisper_{k}": flash_timed["whisper"][direction][k]
                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}}
            if route == "sm90" else {}),
+        # phase 17a: the data-parallel step's launches on each rank
+        **({"parallel_rank_launches": [
+            t[direction == "bwd"] for t in parallel["simt"]]}
+           if route == "simt" else {}),
     } for route in ROUTE_CASES
         for direction, n in zip(("fwd", "bwd"), path_launches[route])] + [{
         # the simt instantiations above head_dim 128 (NT 32, NT 24): 8c's
@@ -5591,6 +6051,11 @@ def phases(card: str, paths: dict, counting) -> int:
         "whisper_radix_serve_launches": whisper_serve[BT.RADIX],
         "whisper_audio_launches": whisper_audio["launches"][BT.FLAT],
         "whisper_radix_audio_launches": whisper_audio["launches"][BT.RADIX],
+        # phase 17c: the decode's mesh branch, each rank of a (1, 2) mesh
+        # at the shard's heads (internlm2 kv heads split, gemma3-1b query
+        # heads split)
+        **{f"{n.split('-')[0]}_mesh_rank_launches": v
+           for n, v in parallel["paged"].items()},
         **{f"{tag}_{k}": timed[f"{tag}_bf16"][k]
            for tag in ("gemma3_p16", "granite34b", "jamba", "whisper")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},

@@ -681,10 +681,17 @@ def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
     def count(a, dims=0):
         return a.to(torch.float32).sum(dim=dims)
 
+    def time_sum(a):
+        # over the chunk's steps, each lane's row contiguous: torch sums
+        # an inner dim in the same order whatever the number of lanes
+        # (over the outer dim the order follows the tensor's width), so
+        # a lane's float sums do not depend on the batch it runs in
+        return a.movedim(0, -1).contiguous().sum(dim=-1)
+
     cnt = {
-        "trans": trans.sum(dim=0),
+        "trans": time_sum(trans),
         "walks": count(walk),
-        "walk_cyc": torch.where(walk, walk_cyc, 0.0).sum(dim=0),
+        "walk_cyc": time_sum(torch.where(walk, walk_cyc, 0.0)),
         "l1tlb_miss": count(en0 & ~h_l1tlb),
         "pte_acc": count(need_mem, (0, -1)),
         "pte_l1_hit": count(pte_l1_hit, (0, -1)),
@@ -702,7 +709,7 @@ def sim_epilogue_ref(packed: torch.Tensor, work: torch.Tensor,
             -1, flat(bank5), flat(acc5).to(torch.float32))
     else:
         mem_n = count(pte_mem, (0, -1)) + count(data_mem)
-    return cnt, step_cyc.sum(dim=0), mem_n
+    return cnt, time_sum(step_cyc), mem_n
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,31 @@ path joins the 128 + 64 query and key columns into one head of 192, pads
 v to it and runs :func:`self_attention` (above the threshold the flash
 kernel at head_dim 192); its decode is the absorbed-matrix attention
 over a dense latent cache, whatever the KV mode: an MLA layer has no KV
-pool.  The mesh branch of the paged path (``_paged_attend_shardmap``)
-belongs to the parallel slice and is not ported yet.
+pool.
+
+The paged path's mesh branch (:func:`_paged_attend_mesh`, the JAX
+package's ``_paged_attend_shardmap``): with a ``DeviceMesh`` installed
+(``parallel.context.use_mesh``) whose ``model`` axis is above 1, each
+rank holds its ``state_sharding`` shard of the pools
+(``init_decode_state`` builds them so) and serves its data shard's
+sequences with shard-local page ids.  The projections are replicated:
+every model rank computes q, k, v for all heads and keeps its own.
+Three layouts, chosen by ``parallel.sharding.paged_mode``, the rule
+that also sizes the pools:
+  kv     kv heads divide ``model``: each rank attends over its kv heads
+         and their query groups, through the hand-written paged kernel
+         at the shard's heads;
+  qhead  (``qhead_strategy``) the pools are replicated over ``model``
+         and each rank's query heads read their kv head: the paged
+         kernel once for each kv head the rank's query heads read;
+  hd     head_dim split over ``model``: the float32 score partials are
+         all-reduced over ``model`` before the softmax.  The kernel
+         cannot take a sum in the middle of its softmax, and the JAX
+         package runs jnp there, so this mode runs plain torch; it is
+         chosen by the rule, never by a kernel's failure.
+Then ``y = sum over model of out_shard @ wo[the shard's rows]``, an
+all-reduce over ``model`` (the JAX package's ``einsum("bshd,hdD->bsD")``
+over a sharded ``out``).
 
 An encoder-decoder (whisper) adds :func:`cross_kv` and
 :func:`cross_attn_apply`: a decoder layer's queries over the encoder
@@ -57,8 +80,14 @@ from repro_torch import config as C
 from repro_torch.core import block_table as BT
 from repro_torch.core import kv_page_manager as KVM
 from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels.ref import _paged_mask
 from repro_torch.models.layers import (RMSNorm, apply_rope, dense_init,
                                        frozen, mm, rope_tables)
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.context import (axis_group, axis_rank,
+                                          axis_size, current_mesh,
+                                          model_size)
 
 BLOCKWISE_THRESHOLD = 2048
 NEG_INF = -1e30
@@ -318,10 +347,91 @@ def attn_decode_paged(attn: Attention, x: torch.Tensor, kp, vp,
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = _project_qkv(attn, x, step, cfg)
+    mesh = current_mesh()
+    if model_size(mesh) > 1:
+        return _paged_attend_mesh(mesh, attn, q, k[:, 0], v[:, 0], kp, vp,
+                                  step, cfg, window)
     KVM.append_kv(kp, vp, k[:, 0], v[:, 0], step.phys_new, step.slot)
     out = KOPS.paged_attention(q, kp, vp, step.phys_all, step.attend,
                                window=window)
     return out.reshape(b, 1, h * hd) @ attn.wo
+
+
+def _paged_attend_mesh(mesh, attn: Attention, q, k_new, v_new, kp, vp,
+                       step: DecodeStep, cfg, window: int) -> torch.Tensor:
+    """The shard-local paged append and attend of this rank (see the
+    module docstring).  q: (B, 1, H, hd), k_new / v_new: (B, K, hd) for
+    every head; kp / vp: this rank's (N, page, K', hd') pools;
+    ``step.phys_all``: (B, max_pages) shard-local page ids.  Returns the
+    layer's output y: (B, 1, D), the same on every model rank."""
+    b = q.shape[0]
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n_model = axis_size(mesh, "model")
+    r = axis_rank(mesh, "model")
+    dp = axis_size(mesh, SH.batch_axes(mesh)) if SH.batch_axes(mesh) else 1
+    mode = SH.paged_mode(mesh, cfg, n_pages=kp.shape[0] * dp,
+                         page=kp.shape[1])
+    wo3 = attn.wo.reshape(h, hd, cfg.d_model)
+    if mode == "replicated":
+        KVM.append_kv(kp, vp, k_new, v_new, step.phys_new, step.slot)
+        out = KOPS.paged_attention(q, kp, vp, step.phys_all, step.attend,
+                                   window=window)
+        return out.reshape(b, 1, h * hd) @ attn.wo
+    if mode == "hd":
+        hl = hd // n_model
+        cols = slice(r * hl, (r + 1) * hl)
+        KVM.append_kv(kp, vp, k_new[..., cols], v_new[..., cols],
+                      step.phys_new, step.slot)
+        out = _paged_hd_partial(mesh, q[..., cols], kp, vp, step, hd,
+                                window)
+        w_rows = wo3[:, cols]
+    else:
+        hq = h // n_model
+        heads = range(r * hq, (r + 1) * hq)
+        if mode == "kv":
+            kl = kh // n_model
+            kvs = slice(r * kl, (r + 1) * kl)
+            KVM.append_kv(kp, vp, k_new[:, kvs], v_new[:, kvs],
+                          step.phys_new, step.slot)
+            out = KOPS.paged_attention(q[:, :, r * hq:(r + 1) * hq], kp, vp,
+                                       step.phys_all, step.attend,
+                                       window=window)
+        else:                                          # qhead
+            KVM.append_kv(kp, vp, k_new, v_new, step.phys_new, step.slot)
+            g = h // kh
+            parts = []
+            # the rank's query heads, in runs that read one kv head
+            for j in sorted({i // g for i in heads}):
+                lo, hi = max(j * g, heads[0]), min((j + 1) * g, heads[-1] + 1)
+                parts.append(KOPS.paged_attention(
+                    q[:, :, lo:hi], kp[:, :, j:j + 1], vp[:, :, j:j + 1],
+                    step.phys_all, step.attend, window=window))
+            out = torch.cat(parts, dim=2)
+        w_rows = wo3[r * hq:(r + 1) * hq]
+    y = torch.einsum("bshd,hdD->bsD", out, w_rows)
+    return comm.all_reduce(y, axis_group(mesh, "model"))
+
+
+def _paged_hd_partial(mesh, q_l, kp, vp, step: DecodeStep, hd: int,
+                      window: int) -> torch.Tensor:
+    """head_dim-split paged attention: this rank's head_dim columns of q
+    (B, 1, H, hd / model) against its columns of the pools; the float32
+    score partials summed over ``model``, then the masked softmax and
+    the weighted sum of this rank's value columns.  Returns (B, 1, H,
+    hd / model) in q's dtype."""
+    b, _, h, hl = q_l.shape
+    _, page, kh, _ = kp.shape
+    ks, vs = KVM.gather_kv(kp, vp, step.phys_all)
+    qg = q_l.reshape(b, 1, kh, h // kh, hl)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), ks.float())
+    comm.all_reduce(scores, axis_group(mesh, "model"))
+    scores = scores / math.sqrt(hd)
+    mask = _paged_mask(step.phys_all, step.attend, page, window)
+    scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(vs.dtype).float(),
+                       vs.float())
+    return out.reshape(b, 1, h, hl).to(q_l.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import (RMSNorm, decode_positions,
                                        dense_init, embed_init, frozen,
                                        sinusoidal_positions)
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.context import (axis_size, current_mesh,
+                                          model_size)
 from repro_torch.util.device import DeviceLike, resolve_device
 
 DEFAULT_PAGE_SIZE = 64
@@ -274,6 +277,14 @@ def init_decode_state(cfg: C.ArchConfig, batch: int, max_len: int,
     replaces it with KVPageManager-built tables.  ``num_pages`` sizes the
     physical KV pools (default ``batch * max_pages``); callers with a
     host-side page allocator MUST pass their pool size.
+
+    Under a mesh (``parallel.context.use_mesh``) ``batch`` and
+    ``num_pages`` count this rank's own sequences and pages (its data
+    shard, with shard-local page ids), and a paged pool holds this
+    rank's shard of its heads or head_dim over ``model``
+    (``parallel.sharding.state_sharding``; ``paged_mode``).  Over a
+    ``model`` axis above 1 only paged GQA layers are split; a dense
+    cache and the other mixers' state are ROADMAP item 10b-ii.
     """
     device = resolve_device(device)
     max_pages = -(-max_len // page_size)
@@ -282,8 +293,9 @@ def init_decode_state(cfg: C.ArchConfig, batch: int, max_len: int,
                        else num_pages)
     state: Dict[str, Any] = {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "stack": T.stack_init_state(cfg, batch, padded_len, kv_mode,
-                                    page_size, pages_per_layer, device),
+        "stack": T.stack_init_state(
+            cfg, batch, padded_len, kv_mode, page_size, pages_per_layer,
+            device, _pool_heads(cfg, kv_mode, pages_per_layer, page_size)),
     }
     if kv_mode != "dense":
         flat = torch.arange(batch * max_pages, dtype=torch.int32,
@@ -296,6 +308,30 @@ def init_decode_state(cfg: C.ArchConfig, batch: int, max_len: int,
             (batch, cfg.encoder_seq_len, cfg.d_model),
             dtype=cfg.torch_dtype, device=device)
     return state
+
+
+def _pool_heads(cfg: C.ArchConfig, kv_mode: str, pages: int,
+                page_size: int) -> Optional[Tuple[int, int]]:
+    """This rank's (kv heads, head_dim) of a paged pool under the
+    installed mesh's ``model`` axis (None: the config's)."""
+    mesh = current_mesh()
+    n_model = model_size(mesh)
+    if n_model == 1:
+        return None
+    unsplit = [mk for mk, _ in cfg.layer_kinds()
+               if mk not in (C.ATTN, C.ATTN_LOCAL)]
+    if kv_mode == "dense" or unsplit:
+        raise NotImplementedError(
+            f"{cfg.name}: decode over a model axis of {n_model} with "
+            f"{'a dense cache' if kv_mode == 'dense' else unsplit[0]} "
+            "layers is ROADMAP item 10b-ii; the mesh branch splits paged "
+            "GQA layers")
+    axes = SH.batch_axes(mesh)
+    dp = axis_size(mesh, axes) if axes else 1
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    mode = SH.paged_mode(mesh, cfg, n_pages=pages * dp, page=page_size)
+    return {"kv": (kh // n_model, hd), "hd": (kh, hd // n_model)}.get(
+        mode, (kh, hd))
 
 
 @torch.no_grad()

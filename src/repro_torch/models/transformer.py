@@ -170,10 +170,13 @@ def block_apply_train(block: Block, x: torch.Tensor,
 
 def block_init_state(cfg, mixer_kind: str, ffn_kind: str, batch: int,
                      max_len: int, kv_mode: str, page_size: int,
-                     pages_per_layer: int, device: torch.device
+                     pages_per_layer: int, device: torch.device,
+                     pool_heads: Optional[Tuple[int, int]] = None
                      ) -> Dict[str, torch.Tensor]:
+    """``pool_heads``: the (kv heads, head_dim) of a paged pool, this
+    rank's shard of them under a mesh (default: the config's)."""
     st = _mixer_state(cfg, mixer_kind, batch, max_len, kv_mode, page_size,
-                      pages_per_layer, device)
+                      pages_per_layer, device, pool_heads)
     if cfg.rwkv is not None and ffn_kind == C.DENSE_FF:
         st["ffn_shift"] = torch.zeros((batch, cfg.d_model),
                                       dtype=torch.float32, device=device)
@@ -182,7 +185,9 @@ def block_init_state(cfg, mixer_kind: str, ffn_kind: str, batch: int,
 
 def _mixer_state(cfg, mixer_kind: str, batch: int, max_len: int,
                  kv_mode: str, page_size: int, pages_per_layer: int,
-                 device: torch.device) -> Dict[str, torch.Tensor]:
+                 device: torch.device,
+                 pool_heads: Optional[Tuple[int, int]] = None
+                 ) -> Dict[str, torch.Tensor]:
     dt = cfg.torch_dtype
     if mixer_kind == C.RWKV:
         return R.rwkv_init_state(cfg, batch, device)
@@ -199,7 +204,7 @@ def _mixer_state(cfg, mixer_kind: str, batch: int, max_len: int,
         shape = (batch, max_len, k, hd)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
-    shape = (pages_per_layer, page_size, k, hd)
+    shape = (pages_per_layer, page_size) + (pool_heads or (k, hd))
     return {"kp": torch.zeros(shape, dtype=dt, device=device),
             "vp": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -278,9 +283,11 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
 
 def stack_init_state(cfg, batch: int, max_len: int, kv_mode: str,
                      page_size: int, pages_per_layer: int,
-                     device: torch.device) -> List[Dict[str, Any]]:
+                     device: torch.device,
+                     pool_heads: Optional[Tuple[int, int]] = None
+                     ) -> List[Dict[str, Any]]:
     return [block_init_state(cfg, mk, fk, batch, max_len, kv_mode,
-                             page_size, pages_per_layer, device)
+                             page_size, pages_per_layer, device, pool_heads)
             for mk, fk in cfg.layer_kinds()]
 
 

@@ -9,7 +9,7 @@ prefix sharing, translation-aware admission).  Build requests with
 Import from this package: ``_engine`` and ``_scheduler`` are private.
 """
 from repro_torch.serving._engine import (ServeEngine,  # noqa: F401
-                                         greedy_reference)
+                                         greedy_reference, shard_requests)
 from repro_torch.serving._scheduler import (BatchScheduler,  # noqa: F401
                                             Request)
 from repro_torch.serving.fleet import (FleetEngine,  # noqa: F401

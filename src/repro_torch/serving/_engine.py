@@ -28,6 +28,14 @@ touched-PTE-line surcharge of the rebuilt row.  ONE decode loop serves
 every mechanism; :meth:`ServeEngine.throughput` then reports the
 SIMULATED machine's tokens/sec per mechanism (numpy host accounting,
 equal to the JAX package's), not the card's wall clock.
+
+Over a mesh (``mesh``, a ``DeviceMesh`` with ``data`` and ``model``
+axes) an engine is one data shard's: its slots, its page allocator and
+the requests it serves (:func:`shard_requests`) are this rank's, with
+shard-local page ids, and the engines of the ``model`` ranks of one data
+shard run in lockstep on the same requests, each holding its shard of
+the pools; every attention layer of every step takes the paged decode's
+mesh branch (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ from repro_torch.core.kv_page_manager import KVPageManager
 from repro_torch.models import decode_step, init_decode_state, prefill
 from repro_torch.models.model_zoo import Model, model_device
 from repro_torch.models.transformer import reset_recurrent_state
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.context import axis_rank, axis_size, use_mesh
 from repro_torch.serving._scheduler import BatchScheduler, Request
 from repro_torch.util import resilience
 from repro_torch.util.device import DeviceLike, resolve_device
@@ -58,8 +68,9 @@ class ServeEngine:
     def __init__(self, cfg, params: Model, *, max_batch: int = 8,
                  max_len: int = 256, page_size: int = 16,
                  table_mode: Optional[str] = None, cost_model=None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         _on_device(params, self.device)
         self.cfg = cfg
         self.params = params
@@ -76,10 +87,11 @@ class ServeEngine:
         self.max_batch = max_batch
         # the device KV pools must cover every physical page id the host
         # allocator can hand out
-        self.state = init_decode_state(cfg, max_batch, max_len,
-                                       kv_mode=BT.FLAT, page_size=page_size,
-                                       num_pages=max_pages_total,
-                                       device=self.device)
+        with use_mesh(mesh):
+            self.state = init_decode_state(
+                cfg, max_batch, max_len, kv_mode=BT.FLAT,
+                page_size=page_size, num_pages=max_pages_total,
+                device=self.device)
         # per-slot prompt progress; _slot_prompt holds the stream being
         # teacher-forced (effective prompt snapshot taken at admission,
         # so a preempted request re-prefills prompt + prior tokens)
@@ -141,8 +153,9 @@ class ServeEngine:
         state = dict(self.state)
         state["table"] = table
         state["lengths"] = lens
-        logits, self.state = decode_step(self.params, self.cfg, state,
-                                         tokens, kv_mode=mode)
+        with use_mesh(self.mesh):
+            logits, self.state = decode_step(self.params, self.cfg, state,
+                                             tokens, kv_mode=mode)
         # torch.argmax returns the first maximum, as np.argmax does
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
 
@@ -174,6 +187,16 @@ class ServeEngine:
         if mode == BT.RADIX:
             table = BT.radix_from_flat(table, leaf_size=self.kvm.leaf_size)
         return mode, table, torch.tensor(lens, device=self.device)
+
+
+def shard_requests(requests: List[Request], mesh) -> List[Request]:
+    """The requests of this rank's data shard: every ``dp``-th one from
+    the shard's index (the batch axes' size ``dp``; all of them without
+    batch axes)."""
+    axes = SH.batch_axes(mesh)
+    if not axes:
+        return list(requests)
+    return list(requests)[axis_rank(mesh, axes)::axis_size(mesh, axes)]
 
 
 def greedy_reference(cfg, params: Model, prompt: np.ndarray,

@@ -375,15 +375,13 @@ def run_bucketed(jobs: Sequence[SimJob], *, chunk: int,
       injected faults still exercise the retry path).  On the card a
       hung kernel cannot be cancelled (``util/resilience.py``).
 
-    ``devices > 1`` raises (sharding is ROADMAP module item 10).  Returns
+    ``devices``: each bucket's lanes split over that many cards
+    (``simulator.sim_devices``; each bucket's entry records the count
+    used as "devices").  Returns
     the per-job :class:`SimResult` list (job order preserved) plus the
     bucketing/compile stats dict ``sweep()`` exposes as
     ``SweepResult.stats`` (minus the grid-level entries); a "compile" is
     a bucket plan."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}: sharding the batch over several cards is "
-            "not ported yet (ROADMAP module item 10)")
     dev = resolve_device(device)
     if watchdog_s is None:
         watchdog_s = float(os.environ.get("SIM_DISPATCH_TIMEOUT", "0")
@@ -426,7 +424,7 @@ def run_bucketed(jobs: Sequence[SimJob], *, chunk: int,
                 "resume", f"bucket {bi} ({shape_str}, {len(idxs)} lanes) "
                           f"restored from {os.path.basename(ckpt_path)}")
             entry.update(compiles=0, total_s=0.0, compile_s_est=0.0,
-                         resumed=True)
+                         devices=0, resumed=True)
         else:
             before = runner_cache_info().misses
             tm: Dict = {}
@@ -439,7 +437,7 @@ def run_bucketed(jobs: Sequence[SimJob], *, chunk: int,
                         f"injected dispatch fault: {tag}")
                 return simulate_batch_varied(
                     [jobs[i] for i in idxs], length, chunk=chunk,
-                    timings=tm, device=dev)
+                    devices=devices, timings=tm, device=dev)
 
             outs = resilience.watchdog_call(
                 _dispatch, watchdog_s, tag=tag, retries=1,
@@ -448,7 +446,7 @@ def run_bucketed(jobs: Sequence[SimJob], *, chunk: int,
                 compiles=runner_cache_info().misses - before,
                 total_s=round(tm.get("total_s", 0.0), 3),
                 compile_s_est=round(tm.get("compile_s_est", 0.0), 3),
-                resumed=False)
+                devices=tm.get("devices", 1), resumed=False)
             if ckpt_path is not None:
                 resilience.write_npz(ckpt_path, _ckpt_pack(outs))
         for i, res in zip(idxs, outs):

@@ -41,9 +41,10 @@ Everything runs on one engine, the batched one: :func:`simulate` is
 one-core runs to its batch engine and pads them to two lanes, around an
 XLA reduction whose float order changes at width 1, to keep its two
 engines bit-identical; the port has one engine and needs neither.  Lanes
-never interact, but torch picks a reduction's order by shape, so a
-lane's float sums (cycles) may differ in the last bits between batch
-widths; its integer-valued counters do not.
+never interact, and a lane's sums over a chunk run in one order whatever
+the batch's width (the plain epilogue sums each lane's contiguous row,
+``ref.sim_epilogue_ref``; the kernel folds a lane's step tiles in a
+fixed order), so a lane's results do not depend on the batch it ran in.
 
 Bucket plans.  What a batch's (machine shape, walk-fn tuple, chunk)
 fixes — the table shapes, the hierarchy depth, whether there is a
@@ -59,14 +60,22 @@ and every plan launches one of their instantiations.
 recovery hook.
 
 A trace may be a ``"trace:<path>"`` spec of a real trace, ingested by
-:mod:`repro_torch.workloads.ingest`.  Sharding the batch over several
-cards (``devices > 1``) is not ported yet and raises (ROADMAP module
-item 10).
+:mod:`repro_torch.workloads.ingest`.
+
+Several cards (``devices``, the JAX rule of :func:`sim_devices`): the
+batch is padded to a multiple of the card count (pad lanes are job 0's
+machine and mechanisms with an empty trace, so no valid bit), split into
+that many lane groups (:func:`lane_groups`), and each group runs the
+same two kernels on its own card, the chunks issued to the cards in
+turn so they overlap; the results are gathered in job order
+(:func:`run_lane_groups`).  Lanes never meet, so each lane's counters
+do not depend on the split.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple
 
@@ -642,11 +651,12 @@ def simulate_batch(mach: "MachineConfig",
     ``traces`` is a sequence of trace dicts (each ``(num_cores, T_i)``);
     lanes with shorter traces are masked with per-sim valid bits, so
     mixed-length buckets are fine.  Lanes never interact.
-    ``devices > 1`` raises (sharding is ROADMAP module item 10).
+    ``devices``: the lanes split over that many cards
+    (:func:`simulate_batch_varied`).
     ``timings``, if given, is filled with wall clock: "total_s",
     "compile_s_est" (first-chunk excess over the steady per-chunk rate:
     the kernel's build and load, on the card), "run_s" (= total -
-    compile estimate), and "chunks"."""
+    compile estimate), "chunks" and "devices" (the cards used)."""
     names = DEFAULT_MECHS if mechs is None else tuple(mechs)
     return simulate_batch_varied(
         [SimJob(mach, tr, names) for tr in traces], length,
@@ -667,6 +677,26 @@ class SimJob:
     mechs: Tuple[str, ...] = DEFAULT_MECHS
 
 
+def sim_devices(devices: int | None, b: int, device="cuda") -> int:
+    """The cards a batch of ``b`` lanes runs on (the JAX package's rule):
+    ``devices``, or by default 1, or every card when ``SIM_DEVICES`` is
+    set; clamped to the cards there are (one for the CPU) and to
+    ``b``."""
+    dev = resolve_device(device)
+    have = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = devices
+    if n is None:
+        n = have if os.environ.get("SIM_DEVICES") else 1
+    return max(1, min(n, have, b))
+
+
+def lane_groups(b: int, n: int) -> List[range]:
+    """The lanes of each of ``n`` groups over ``b`` jobs padded to a
+    multiple of ``n`` (lanes ``>= b`` are pad lanes)."""
+    per = -(-b // n)
+    return [range(g * per, (g + 1) * per) for g in range(n)]
+
+
 def simulate_batch_varied(jobs: Sequence[SimJob],
                           length: int | None = None, *,
                           chunk: int = DEFAULT_CHUNK,
@@ -677,43 +707,80 @@ def simulate_batch_varied(jobs: Sequence[SimJob],
 
     The jobs must form one shape bucket: equal :func:`machine_shape` and
     equal mechanism walk-fn tuples (a ``ValueError`` names the offender
-    otherwise).  Everything value-like varies per lane."""
-    if devices is not None and devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}: sharding the batch over several cards is "
-            "not ported yet (ROADMAP module item 10)")
+    otherwise).  Everything value-like varies per lane.  ``devices``:
+    the lanes split over that many cards (:func:`sim_devices`; on the
+    card ``device`` names, ``cuda:0`` to ``cuda:n-1``), and ``timings``
+    records the count used as "devices"."""
     dev = resolve_device(device)
     if not jobs:
         return []
+    n = sim_devices(devices, len(jobs), dev)
+    group_devices = ([torch.device("cuda", g) for g in range(n)]
+                     if dev.type == "cuda" and n > 1 else [dev])
+    return run_lane_groups(jobs, group_devices, length, chunk=chunk,
+                           timings=timings)
+
+
+def run_lane_groups(jobs: Sequence[SimJob], group_devices: Sequence,
+                    length: int | None = None, *,
+                    chunk: int = DEFAULT_CHUNK,
+                    timings: Dict | None = None) -> List[SimResult]:
+    """The jobs as ``len(group_devices)`` lane groups (:func:`lane_groups`),
+    group g on ``group_devices[g]`` (the CPU tests give several CPU
+    devices), the chunks issued to the groups in turn; the results in
+    job order."""
     jobs = [j if not isinstance(j.trace, str)
             else dataclasses.replace(
                 j, trace=_resolve_trace(j.trace, j.mach.num_cores, length))
             for j in jobs]
-    bk, works = _prepare(jobs, length, chunk, dev)
-    state = init_state(bk.mach, bk.m, batch=bk.b, device=dev)
+    b, n = len(jobs), len(group_devices)
+    groups = lane_groups(b, n)
+    first = jobs[0]
+    empty = {k: first.trace[k][:, :0] for k in ("vpn", "off", "work")}
+    padded = list(jobs) + [dataclasses.replace(first, trace=empty)] * (
+        len(groups) * len(groups[0]) - b)
+    runs = []
+    groups = [g for g in groups if g[0] < b]    # a group of pads has no work
+    for lanes, gdev in zip(groups, group_devices):
+        gdev = resolve_device(gdev)
+        bk, works = _prepare([padded[i] for i in lanes], length, chunk, gdev)
+        runs.append((bk, works, init_state(bk.mach, bk.m, batch=bk.b,
+                                           device=gdev), gdev))
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for _, _, _, gdev in runs:
+            if gdev.type == "cuda":
+                torch.cuda.synchronize(gdev)
 
+    n_chunks = max(bk.n_chunks for bk, _, _, _ in runs)
     t0 = time.perf_counter()
     t_first = 0.0
-    for i in range(bk.n_chunks):
-        _run_chunk(bk, state, i)
+    for i in range(n_chunks):
+        for bk, _, state, _ in runs:
+            if i < bk.n_chunks:
+                _run_chunk(bk, state, i)
         if timings is not None and i == 0:
             sync()
             t_first = time.perf_counter() - t0
-    cnt = {k: v.cpu().numpy() for k, v in state["counters"].items()}
-    clock = state["clock"].cpu().numpy()
+    results: List[SimResult] = []
+    for (bk, works, state, _), lanes in zip(runs, groups):
+        results.extend(_results(bk, works, state,
+                                [padded[i] for i in lanes]))
     if timings is not None:
         total = time.perf_counter() - t0
-        steady = ((total - t_first) / (bk.n_chunks - 1)
-                  if bk.n_chunks > 1 else 0.0)
-        timings["chunks"] = bk.n_chunks
+        steady = ((total - t_first) / (n_chunks - 1)
+                  if n_chunks > 1 else 0.0)
+        timings["chunks"] = n_chunks
         timings["total_s"] = total
         timings["compile_s_est"] = max(0.0, t_first - steady)
         timings["run_s"] = total - timings["compile_s_est"]
+        timings["devices"] = n
+    return results[:b]
 
+
+def _results(bk: _Bucket, works, state: Dict, jobs) -> List[SimResult]:
+    cnt = {k: v.cpu().numpy() for k, v in state["counters"].items()}
+    clock = state["clock"].cpu().numpy()
     return [SimResult(
         mechs=jobs[i].mechs,
         cycles=clock[i],

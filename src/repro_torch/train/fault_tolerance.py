@@ -9,6 +9,15 @@
     checkpoint-restore when a step keeps failing;
   * straggler accounting: per-step wall-time EMA; steps slower than
     ``straggler_factor`` x EMA are counted.
+
+Over several ranks (the data-parallel launcher) a checkpoint holds the
+whole logical state, as one process writes it: ``gather`` makes it from
+the rank's (possibly sharded) state on every rank, the rank with
+``FaultConfig.writer`` writes it, and ``barrier`` holds the others until
+it is committed.  Checkpoints are mesh-agnostic, so a restart at another
+world size (one rank included) restores the same state.  A SIGTERM then
+saves at the next step boundary, where every rank takes part in the
+gather, instead of inside the handler.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ class FaultConfig:
     max_retries: int = 3
     backoff_s: float = 0.05
     straggler_factor: float = 3.0
+    #: this process writes the checkpoints (one rank of several)
+    writer: bool = True
 
 
 @dataclass
@@ -44,20 +55,37 @@ class GuardedTrainer:
     accounting.  ``state`` is a tree of tensors (see train.checkpoint)."""
 
     def __init__(self, cfg: FaultConfig, train_step: Callable,
-                 state: Any, start_step: int = 0):
+                 state: Any, start_step: int = 0,
+                 gather: Optional[Callable[[Any], Any]] = None,
+                 barrier: Optional[Callable[[], None]] = None):
         self.cfg = cfg
         self.train_step = train_step
         self.state = state
         self.step = start_step
         self.stats = FaultStats()
+        self.gather = gather
+        self.barrier = barrier
         self._stop = False
+        self._emergency = False
         self._prev_sigterm = None
+
+    def save(self, extra: Dict) -> None:
+        """Checkpoint the state at this step (every rank calls it)."""
+        tree = self.gather(self.state) if self.gather else self.state
+        if self.cfg.writer:
+            ckpt.save(self.cfg.ckpt_dir, self.step, tree, extra=extra,
+                      keep=self.cfg.keep)
+        if self.barrier is not None:
+            self.barrier()
 
     # -- lifecycle -----------------------------------------------------------
     def install_signal_handler(self):
         def handler(signum, frame):
             self._stop = True
             self.stats.emergency_saves += 1
+            if self.gather is not None:     # saved at the step boundary
+                self._emergency = True
+                return
             ckpt.save(self.cfg.ckpt_dir, self.step, self.state,
                       extra={"emergency": True}, keep=self.cfg.keep)
         self._prev_sigterm = signal.signal(signal.SIGTERM, handler)
@@ -80,6 +108,9 @@ class GuardedTrainer:
     # -- the guarded step ----------------------------------------------------
     def run_step(self, batch) -> Optional[Dict]:
         if self._stop:
+            if self._emergency:
+                self._emergency = False
+                self.save({"emergency": True})
             return None
         t0 = time.monotonic()
         last_err = None
@@ -93,7 +124,10 @@ class GuardedTrainer:
                 time.sleep(self.cfg.backoff_s * (2 ** attempt))
         else:
             # persistent failure: restore last good checkpoint and re-raise
-            self.maybe_restore()
+            # (over ranks the state is sharded: the launcher restores the
+            # whole state and shards it again when it restarts)
+            if self.gather is None:
+                self.maybe_restore()
             raise RuntimeError(
                 f"step {self.step} failed {self.cfg.max_retries}x"
             ) from last_err
@@ -106,6 +140,5 @@ class GuardedTrainer:
 
         self.step += 1
         if self.step % self.cfg.ckpt_every == 0:
-            ckpt.save(self.cfg.ckpt_dir, self.step, self.state,
-                      extra={"data_step": self.step}, keep=self.cfg.keep)
+            self.save({"data_step": self.step})
         return metrics

@@ -111,7 +111,8 @@ def _views(tensors: Dict[str, torch.Tensor], group: List[Piece]
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], opt_state,
-                 decay: Optional[Collection[str]] = None
+                 decay: Optional[Collection[str]] = None,
+                 gnorm: Optional[float] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object],
                             Dict[str, float]]:
     """One update of ``params`` (in place) from ``grads``.  Returns
@@ -119,10 +120,14 @@ def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
     buffers that the update is free to overwrite.  ``decay`` names the
     parameters that take weight decay (default: those with ``ndim >=
     2``; the train step passes the names whose JAX counterpart has
-    ``ndim >= 2``)."""
+    ``ndim >= 2``).  ``gnorm``: the global gradient norm the clip
+    takes, where ``grads`` are one rank's shards of the gradient (the
+    data-parallel step sums the shards' squared norms over the ranks);
+    by default the norm of ``grads``."""
     step = opt_state["step"] + 1
     names = list(params)
-    gnorm = host_float(global_norm([grads[n] for n in names]))
+    if gnorm is None:
+        gnorm = host_float(global_norm([grads[n] for n in names]))
     scale = float(torch.clamp(
         _f32(cfg.clip_norm) / max(_f32(gnorm), _f32(1e-9)), max=1.0))
     lr = schedule(cfg, step)

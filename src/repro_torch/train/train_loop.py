@@ -6,21 +6,49 @@ global batch), its softmax cross-entropy in float32 with a z-loss term.
 Gradients accumulate in float32 and the AdamW update applies once per
 step.  The model's parameters are updated in place; the state's
 optimizer moments are float32 dictionaries keyed by parameter name.
+
+Data parallelism (``mesh``, a ``DeviceMesh`` of this rank's process
+group): each rank trains on its own rows of the global batch
+(``SyntheticLM.batch_at(step, rank, world)``) in ``num_microbatches``
+microbatches of its own, and the gradients, the loss and its parts are
+averaged over the mesh's batch axes (``pod``, ``data``); with
+``compress`` (``parallel.compression.make_dp_int8_allreduce``) that
+reduction is the int8 all-reduce, after accumulation and before AdamW,
+where the JAX step applies ``compress``.  Rank r's microbatch j is rows
+``[(r * n + j) * B / (n * dp), ...)`` of the global batch: the JAX
+step's microbatch ``r * n + j`` of ``n * dp``, so a step on ``dp``
+ranks equals the JAX single-device step in ``n * dp`` microbatches, the
+MoE routing groups included; only the gradient sums run in another
+order.  With ``cfg.fsdp`` (:func:`shard_train_state`) each parameter
+and its AdamW moments are stored sharded over ``data`` on the dim
+``parallel.sharding.param_spec`` gives; the step gathers the
+parameters for the forward, reduces the gradients and keeps this
+rank's block, updates the blocks, and clips by the norm of the whole
+gradient (the shards' squared norms summed over the ranks).  A mesh
+with a ``model`` axis above 1 raises: tensor-parallel training is
+ROADMAP item 10b-ii.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models import forward_train, init_params
 from repro_torch.models.model_zoo import Model
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.context import axis_group, axis_rank, axis_size
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.util.device import DeviceLike, host_float, resolve_device
 
 Z_LOSS = 1e-4
 AUX_WEIGHT = 1e-2
-_PARALLEL = "ROADMAP module queue item 10, parallel/launch/roofline"
+#: the model attribute holding {name: dim} of the parameters stored
+#: sharded over ``data`` on that dim (:func:`shard_train_state`)
+FSDP_LAYOUT = "fsdp_layout"
+TENSOR_PARALLEL = ("training with a model axis above 1 (tensor "
+                   "parallelism) is ROADMAP item 10b-ii")
 
 
 class TrainState(NamedTuple):
@@ -97,19 +125,134 @@ def _microbatches(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v.chunk(n)[i] for k, v in batch.items()} for i in range(n)]
 
 
+class DataParallel:
+    """The data-parallel side of a step on ``mesh``: the process group
+    of its batch axes (``pod``, ``data``; all ranks when the ``model``
+    axis is 1) and the group and coordinate of its ``data`` axis, over
+    which FSDP storage is split."""
+
+    def __init__(self, mesh):
+        if SH.mesh_axes(mesh).get("model", 1) > 1:
+            raise NotImplementedError(TENSOR_PARALLEL)
+        axes = SH.batch_axes(mesh)
+        self.size = axis_size(mesh, axes) if axes else 1
+        self.group = axis_group(mesh, axes) if axes else None
+        has_data = "data" in SH.mesh_axes(mesh)
+        self.data_group = axis_group(mesh, "data") if has_data else None
+        self.data_size = axis_size(mesh, "data") if has_data else 1
+        self.data_rank = axis_rank(mesh, "data") if has_data else 0
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over the batch axes, in place."""
+        if self.size > 1:
+            comm.all_reduce(t, self.group).div_(self.size)
+        return t
+
+    def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` (split over data)."""
+        return t.chunk(self.data_size, dim)[self.data_rank].contiguous()
+
+    def gather(self, model: Model) -> Dict[str, torch.Tensor]:
+        """Every sharded parameter made whole in place (``p.data``);
+        returns the shards it held."""
+        layout = getattr(model, FSDP_LAYOUT)
+        shards = {}
+        for name, p in model.named_parameters():
+            if name in layout:
+                shards[name] = p.data
+                p.data = comm.all_gather(p.data, self.data_group,
+                                         layout[name])
+        return shards
+
+    def grad_norm(self, grads: Dict[str, torch.Tensor],
+                  sharded) -> float:
+        """The norm of the whole gradient: the sharded leaves' squared
+        norms summed over ``data``, the replicated leaves' counted
+        once."""
+        dev = next(iter(grads.values())).device
+        blocks = torch.zeros((), dtype=torch.float32, device=dev)
+        whole = torch.zeros((), dtype=torch.float32, device=dev)
+        for name, g in grads.items():
+            sq = torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+            if name in sharded:
+                blocks += sq
+            else:
+                whole += sq
+        comm.all_reduce(blocks, self.data_group)
+        return float(torch.sqrt(blocks + whole))
+
+
+def fsdp_dims(model: Model, mesh, cfg) -> Dict[str, int]:
+    """{name: dim} of the parameters ``param_spec`` shards over
+    ``data``."""
+    out = {}
+    for name, spec in SH.param_sharding(model, mesh, cfg).items():
+        for d, axes in enumerate(spec):
+            if axes is not None and "data" in (
+                    (axes,) if isinstance(axes, str) else axes):
+                out[name] = d
+    return out
+
+
+@torch.no_grad()
+def shard_train_state(state: TrainState, mesh, cfg) -> TrainState:
+    """``state`` (whole, the same on every rank) with each parameter that
+    ``param_spec`` shards over ``data``, and its AdamW moments, cut to
+    this rank's block; the model records the layout
+    (:data:`FSDP_LAYOUT`).  Without ``cfg.fsdp``, or on one data rank,
+    ``state`` as it is."""
+    dp = DataParallel(mesh)
+    model = state.params
+    setattr(model, FSDP_LAYOUT, {})
+    if not cfg.fsdp or dp.data_size == 1:
+        return state
+    layout = fsdp_dims(model, mesh, cfg)
+    params = dict(model.named_parameters())
+    for name, dim in layout.items():
+        params[name].data = dp.block(params[name].data, dim)
+        for key in ("mu", "nu"):
+            state.opt[key][name] = dp.block(state.opt[key][name], dim)
+    setattr(model, FSDP_LAYOUT, layout)
+    return state
+
+
+@torch.no_grad()
+def logical_state(state: TrainState, mesh=None) -> TrainState:
+    """The whole state on the host: every sharded parameter and moment
+    gathered (a collective: every rank calls it), as a TrainState whose
+    params are ``{name: tensor}`` (the parameters and buffers), so the
+    checkpoint it makes is the one a single process writes."""
+    model = state.params
+    layout = getattr(model, FSDP_LAYOUT, {})
+    dp = DataParallel(mesh) if layout else None
+
+    def whole(name, t):
+        if name in layout:
+            t = comm.all_gather(t, dp.data_group, layout[name])
+        return t.detach().cpu()
+
+    params = {n: whole(n, p) for n, p in model.named_parameters()}
+    params.update({n: b.detach().cpu() for n, b in model.named_buffers()})
+    opt = {key: {n: whole(n, t) for n, t in state.opt[key].items()}
+           for key in ("mu", "nu")}
+    opt["step"] = state.opt["step"]
+    return TrainState(params=params, opt=opt, rng=state.rng)
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                     compress=None, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics), metrics as
     floats: loss, xent, aux, grad_norm, lr (NaN but lr on fake
-    tensors)."""
-    if compress is not None:
-        raise NotImplementedError(
-            f"gradient compression is not ported yet ({_PARALLEL})")
-    if mesh is not None:
-        raise NotImplementedError(f"meshes are not ported yet ({_PARALLEL})")
+    tensors).  With ``mesh``, ``batch`` is this rank's rows and the
+    metrics are the averages over the data-parallel ranks; ``compress``
+    (a function of the gradient dictionary) replaces the data-parallel
+    mean, or without a mesh transforms the gradients before AdamW."""
+    dp = DataParallel(mesh) if mesh is not None else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.params
+        layout = getattr(model, FSDP_LAYOUT, {}) if dp else {}
+        shards = dp.gather(model) if layout else {}
         params = dict(model.named_parameters())
         model.zero_grad(set_to_none=True)
         if num_microbatches == 1:
@@ -135,8 +278,22 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
             torch._foreach_div_(list(grads.values()), num_microbatches)
             loss = loss / num_microbatches
             parts = {k: v / num_microbatches for k, v in sums.items()}
+        gnorm: Optional[float] = None
+        if dp is not None:
+            grads = (compress(grads) if compress is not None
+                     else {n: dp.mean(g) for n, g in grads.items()})
+            loss = dp.mean(loss.clone())
+            parts = {k: dp.mean(v.clone()) for k, v in parts.items()}
+            model.zero_grad(set_to_none=True)
+            for name, shard in shards.items():
+                params[name].data = shard
+                grads[name] = dp.block(grads[name], layout[name])
+            if layout:
+                gnorm = dp.grad_norm(grads, layout)
+        elif compress is not None:
+            grads = compress(grads)
         _, opt, om = adamw_update(opt_cfg, params, grads, state.opt,
-                                  decay=decayed_names(model))
+                                  decay=decayed_names(model), gnorm=gnorm)
         model.zero_grad(set_to_none=True)
         metrics = {"loss": host_float(loss),
                    **{k: host_float(v) for k, v in parts.items()}, **om}

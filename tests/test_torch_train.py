@@ -10,6 +10,7 @@ float32 arithmetic, rounded in other orders).  Data, checkpoints and
 restarts are held bit for bit.
 """
 import dataclasses
+import json
 import os
 import types
 
@@ -242,10 +243,41 @@ def test_microbatching_matches_full_batch():
 
 
 def test_train_step_raises_for_parallel_options():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(CFG, OPT, compress=lambda g: g)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(CFG, OPT, mesh=object())
+    """``compress`` without a mesh transforms the accumulated gradients
+    before AdamW, where the JAX step applies it: the same transform on
+    both sides (the gradients negated: a continuous one, so the two
+    updates stay within the model tolerance; an int8 round trip would
+    flip codes on float noise) gives the same update.  A mesh with a
+    ``model`` axis above 1 raises, naming ROADMAP item 10b-ii.  The
+    data-parallel step and the int8 all-reduce are held in
+    ``tests/test_torch_parallel_train.py``."""
+    tb, jb = _batch()
+    model = _model()
+    seen = {}
+
+    def negate(grads):
+        seen.update(grads)
+        return {n: -g for n, g in grads.items()}
+
+    state, m = make_train_step(CFG, OPT, 2, compress=negate)(
+        TrainState(model, adamw_init(dict(model.named_parameters())), 0), tb)
+    jstep = jtl.make_train_step(JCFG, JOPT, 2, compress=lambda g: jax.tree.map(
+        lambda a: -a, g))
+    jstate, jm = jstep(jtl.TrainState(JPARAMS, jopt.adamw_init(JPARAMS),
+                                      jax.random.PRNGKey(0)), jb)
+    assert sorted(seen) == sorted(n for n, _ in model.named_parameters())
+    assert all(g.dtype == torch.float32 for g in seen.values())
+    np.testing.assert_allclose(m["loss"], float(jm["loss"]), **TOL)
+    np.testing.assert_allclose(m["grad_norm"], float(jm["grad_norm"]),
+                               **TOL)
+    _assert_tree_close(params_to_numpy(state.params), jstate.params, TOL)
+
+    class ModelAxis:
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 2}
+
+    with pytest.raises(NotImplementedError, match="item 10b-ii"):
+        make_train_step(CFG, OPT, mesh=ModelAxis())
 
 
 # ---------------------------------------------------------------------------
@@ -440,9 +472,45 @@ def test_print_profile_leaves_out_step_ranges(capsys):
 
 
 def test_launcher_raises_for_multihost_flags(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LT.main(["--local-smoke", "--device", "cpu", "--coordinator",
-                 "localhost:1234", "--ckpt-dir", str(tmp_path)])
+    """The multi-process flags: two CPU ranks of ``--local-smoke``, one
+    process each, meet at a ``file://`` coordinator, train on their own
+    rows with ``--compress-grads`` and print the same losses; rank 0
+    writes the checkpoint, which one process resumes.  The flags that
+    need ranks raise without them."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    common = ["--local-smoke", "--device", "cpu", "--steps", "2",
+              "--num-processes", "2", "--compress-grads",
+              "--coordinator", f"file://{tmp_path}/rendezvous",
+              "--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "2"]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *common,
+         "--process-id", str(i)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    summaries = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    assert [s["rank"] for s in summaries] == [0, 1]
+    for s in summaries:
+        assert s["world"] == 2 and s["mesh"] == {"data": 2, "model": 1}
+        assert s["backend"] == "gloo" and s["steps"] == 2
+        assert s["comm_bytes_per_step"][0] > 0
+        assert np.all(np.isfinite(s["losses"]))
+    assert summaries[0]["losses"] == summaries[1]["losses"]
+    assert ckpt.latest_step(str(tmp_path / "ckpt")) == 2
+    out = LT.main(["--local-smoke", "--device", "cpu", "--steps", "3",
+                   "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert out["stats"].restores == 1 and len(out["history"]) == 1
+    with pytest.raises(ValueError, match="need ranks"):
+        LT.main(["--local-smoke", "--device", "cpu", "--compress-grads",
+                 "--ckpt-dir", str(tmp_path / "other")])
+    with pytest.raises(ValueError, match="--process-id"):
+        LT.main(["--local-smoke", "--device", "cpu", "--num-processes", "2",
+                 "--process-id", "2", "--ckpt-dir", str(tmp_path / "x")])
 
 
 def test_launcher_raises_without_card(tmp_path):
