@@ -345,9 +345,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         the update equals AdamW of the formula's mean;
      b. the launcher as two processes (``--num-processes 2
         --process-id i --coordinator 127.0.0.1:<free port>
-        --compress-grads``) at full width, bf16, fsdp on, 8 of
+        --compress-grads``) at full width, bf16, fsdp on, 4 of
         internlm2's 24 layers, 2 steps of 4 x 4,096 tokens a rank in 2
-        microbatches: sm90 flash launches 64 + 32 a rank, equal losses
+        microbatches: sm90 flash launches 32 + 16 a rank, equal losses
         on both ranks, s/step, tokens/s, each rank's peak memory (their
         sum under 70 GiB), the bytes each rank handed to collectives a
         step (gloo's trip through host memory included: a figure for
@@ -358,6 +358,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
         gemma3-1b in query-head mode (2 / 1 heads a rank): streams equal
         the one-rank engine's and greedy_reference's, prefill logits vs
         one rank 1e-3, paged kernel launches 2 x steps a rank;
+     d. tensor parallelism on the same (1, 2) mesh in the same ranks:
+        one float32 train step of 17a's shape (2 layers at full width,
+        TF32 off, one 3,072-token sequence read by both ranks) of
+        internlm2-1.8b (8 / 4 heads of 128 a rank, the simt route) and
+        gemma3-1b (2 / 1 heads of 256 a rank, its one kv head whole on
+        both, simt NT 32; its tied vocab of 262,144 split), against the
+        one-rank step computed once in the parent (its gradients and
+        parameters passed to the ranks in a file): loss 1e-4, the
+        gradient norm, each rank's gradients (its blocks) and AdamW
+        moments 5e-5 of their scale, both ranks' replicated parameters
+        equal, simt flash launches 4 + 2 a rank and no other route; the
+        update's error printed, s/step, the bytes each rank handed to
+        collectives, peak memory a rank;
  18. one JSON line describing every kernel, then the final ``ok`` line.
 
 It imports nothing of JAX.  Without a card it exits non-zero and prints
@@ -5400,9 +5413,10 @@ def sweep_search_keys(sim: dict, kernel: str) -> dict:
 PAR_WORLD = 2
 #: 17a: phase 8's 3,072-token sequence, one a rank, 2 layers at full width
 PAR_TRAIN_TOKENS = 3072
-#: 17b: the launcher at full width, 8 of internlm2's 24 layers, 2 steps of 4
-#: x 4,096 tokens a rank in 2 microbatches; the ranks' peaks must sum under
-PAR_LAUNCHER = dict(layers=8, steps=2, microbatches=2)
+#: 17b: the launcher at full width, 4 of internlm2's 24 layers (8 until
+#: 17d was added), 2 steps of 4 x 4,096 tokens a rank in 2 microbatches;
+#: the ranks' peaks must sum under
+PAR_LAUNCHER = dict(layers=4, steps=2, microbatches=2)
 PAR_LAUNCHER_PEAK_GIB = 70.0
 #: 17c: phase 5's engine and requests, 2 layers at full width in float32,
 #: on a (1, 2) mesh: internlm2's 8 kv heads divide the model axis (each
@@ -5412,6 +5426,22 @@ PAR_ENGINE = dict(max_batch=3, max_len=64, page_size=16)
 PAR_REQUESTS = dict(n=4, prompt_range=(8, 24), new_tokens=8, seed=1)
 PAR_DECODE = {"internlm2-1.8b": "kv", GEMMA: "qhead"}
 PAR_DECODE_LAYERS = 2
+#: 17d: tensor parallelism on a (1, 2) mesh, one float32 step of 17a's
+#: shape (2 layers at full width, one 3,072-token sequence, read by both
+#: ranks): internlm2-1.8b's kv heads split (8 / 4 heads of 128 a rank,
+#: the simt route at D 128), gemma3-1b's one kv head whole on both ranks
+#: (2 / 1 heads of 256, simt NT 32, its window layers) and its tied vocab
+#: of 262,144 split; each rank's simt launches (forward with the remat
+#: recompute, backward)
+PAR_TP = ("internlm2-1.8b", GEMMA)
+PAR_TP_SEED = 3
+PAR_TP_LAUNCHES = (2 * PAR_DECODE_LAYERS, PAR_DECODE_LAYERS)
+#: 17d's update gate reads the elements whose clipped gradient c g is at
+#: least this many times AdamW's eps: there step 1's g / (|g| + eps) is
+#: sign(g) to within eps |dg| / g^2, under 1e-5 of the update for the
+#: gradients' summation-order noise; nearer 0 that noise moves it by up
+#: to the whole update
+PAR_TP_UPDATE_MIN_EPS = 1e3
 
 
 def par_cfg(arch: str) -> C.ArchConfig:
@@ -5572,15 +5602,13 @@ def par_train_rank(rank: int, world: int, dev, mesh) -> dict:
     return out
 
 
-def par_decode_rank(rank: int, world: int, dev) -> dict:
-    """17c on one rank: the engine over a (1, world) mesh, the prefill
+def par_decode_rank(rank: int, world: int, dev, mesh) -> dict:
+    """17c on one rank: the engine over the (1, world) mesh, the prefill
     logits under it, the paged kernel's launches."""
-    from repro_torch.launch import mesh as LM
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel.context import use_mesh
     from repro_torch.serving import shard_requests
 
-    mesh = LM.make_mesh((1, world), ("data", "model"), "cuda")
     out = {}
     for arch, mode in PAR_DECODE.items():
         cfg = par_cfg(arch)
@@ -5611,8 +5639,143 @@ def par_decode_rank(rank: int, world: int, dev) -> dict:
     return out
 
 
-def parallel_rank(rank: int, world: int) -> dict:
-    """17a and 17c on one of the two ranks (spawned; ``cuda:0``)."""
+def par_tp_batch(cfg, dev) -> dict:
+    data = DATA.SyntheticLM(cfg.vocab_size, PAR_TRAIN_TOKENS, 1)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in data.batch_at(0).items()}
+
+
+def par_tp_step(cfg, state, dev, mesh=None):
+    """One step of 17d, the gradients handed to AdamW recorded, timed,
+    its flash launches and collective bytes counted."""
+    from repro_torch.parallel import comm
+
+    handed, update = {}, TL.adamw_update
+
+    def recorded(opt_cfg, params, grads, *args, **kw):
+        handed.update({n: g.detach().clone() for n, g in grads.items()})
+        return update(opt_cfg, params, grads, *args, **kw)
+
+    step = make_train_step(cfg, AdamWConfig(total_steps=10), 1, mesh=mesh)
+    batch = par_tp_batch(cfg, dev)
+    comm.reset_stats()
+    zero_flash_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with mock.patch.object(TL, "adamw_update", recorded):
+        state, m = step(state, batch)
+    torch.cuda.synchronize(dev)
+    return state, handed, {
+        "loss": m["loss"], "grad_norm": m["grad_norm"],
+        "s": time.perf_counter() - t0,
+        "bytes": comm.stats["bytes"], "calls": comm.stats["calls"],
+        "simt": (FA.launches_fwd, FA.launches_bwd),
+        "other_routes": route_launches()}
+
+
+def par_tp_reference(ref_dir: str) -> dict:
+    """17d's one-rank step of each arch, computed once in this process
+    before the ranks start (TF32 off, as in the ranks): the gradients it
+    hands to AdamW and the parameters after it saved to ``ref_dir`` (the
+    ranks read their blocks), its loss, time and launches returned."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(ref_dir, exist_ok=True)
+    out = {}
+    for arch in PAR_TP:
+        cfg = par_cfg(arch)
+        state = init_train_state(cfg, PAR_TP_SEED, "cuda")
+        state, grads, info = par_tp_step(cfg, state, "cuda")
+        torch.save({"grads": {n: g.cpu() for n, g in grads.items()},
+                    "params": {n: p.detach().cpu() for n, p in
+                               state.params.named_parameters()}},
+                   os.path.join(ref_dir, f"{arch}.pt"))
+        out[arch] = info
+        del state, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_tp_rank(rank: int, world: int, dev, mesh, ref_dir: str,
+                norms: dict) -> dict:
+    """17d on one rank: each arch's tensor-parallel step from the same
+    seed as the one-rank step, its gradients, AdamW moments and update
+    against the rank's blocks of the one-rank step's (``norms``: its
+    gradient norms)."""
+    from repro_torch.parallel import tensor as TPAR
+
+    tp = TPAR.tensor_parallel(mesh)
+    out = {}
+    for arch in PAR_TP:
+        ref_norm = norms[arch]
+        cfg = par_cfg(arch)
+        state = TL.shard_train_state(init_train_state(cfg, PAR_TP_SEED, dev),
+                                     mesh, cfg)
+        layout = getattr(state.params, TL.MODEL_LAYOUT)
+        p0 = {n: p.detach().clone()
+              for n, p in state.params.named_parameters()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, grads, info = par_tp_step(cfg, state, dev, mesh)
+        info["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        ref = torch.load(os.path.join(ref_dir, f"{arch}.pt"), mmap=True,
+                         weights_only=True)
+
+        def mine(t, name):
+            if name in layout:
+                t = t.chunk(tp.size, layout[name])[tp.rank]
+            return t.to(dev)
+
+        params = dict(state.params.named_parameters())
+        info["grad_rel"] = max(rel_err(g, mine(ref["grads"][n], n))
+                               for n, g in grads.items())
+        # AdamW's moments after its first step, the state step 2 reads,
+        # from the one-rank step's gradients and clip (its norm): mu =
+        # (1 - b1) c g, nu = (1 - b2) (c g)^2
+        opt = AdamWConfig()
+        clip = min(1.0, opt.clip_norm / ref_norm)
+        info["mu_rel"] = max(rel_err(state.opt["mu"][n], mine(
+            ref["grads"][n], n) * (1 - opt.b1) * clip) for n in params)
+        info["nu_rel"] = max(rel_err(state.opt["nu"][n], torch.square(
+            mine(ref["grads"][n], n) * clip) * (1 - opt.b2)) for n in params)
+        # the update AdamW applied to the rank's blocks against the one
+        # rank's, of its largest element, where |c g| >= 1e3 eps
+        # (PAR_TP_UPDATE_MIN_EPS), less one float32 spacing of the new
+        # weight (p + lr u rounds to a neighbour when u moves by the
+        # noise); the share of elements read
+        worst, kept, total = 0.0, 0, 0
+        for n, p in params.items():
+            want_p = mine(ref["params"][n], n)
+            want = want_p - p0[n]
+            keep = (mine(ref["grads"][n], n) * clip).abs() >= (
+                PAR_TP_UPDATE_MIN_EPS * opt.eps)
+            mag = want_p.abs()
+            spacing = torch.nextafter(mag, torch.full_like(
+                mag, float("inf"))) - mag
+            off = ((p.detach() - want_p).abs() - spacing).clamp_min(0)
+            if keep.any():
+                worst = max(worst, float(off[keep].max()
+                                         / want.abs().max().clamp_min(1e-30)))
+            kept += int(keep.sum())
+            total += keep.numel()
+        info["update_rel"], info["update_share"] = worst, kept / total
+        info["replicated_sum"] = sum(
+            float(p.detach().double().sum()) for n, p in params.items()
+            if n not in layout)
+        info["heads"] = (state.params.stack.layers[0].mixer.wq.shape[1]
+                         // cfg.head_dim,
+                         state.params.stack.layers[0].mixer.wk.shape[1]
+                         // cfg.head_dim)
+        info["partial"] = len(getattr(state.params, TL.MODEL_PARTIAL))
+        info["vocab_block"] = tuple(state.params.embed.shape)
+        out[arch] = info
+        del state, grads, p0, ref, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(rank: int, world: int, tp_ref_dir: str,
+                  tp_norms: dict) -> dict:
+    """17a, 17c and 17d on one of the two ranks (spawned; ``cuda:0``)."""
     from repro_torch.launch import mesh as LM
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5623,11 +5786,18 @@ def parallel_rank(rank: int, world: int) -> dict:
     train = par_train_rank(rank, world, dev, mesh)
     train["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    decode = par_decode_rank(rank, world, dev)
+    model_mesh = LM.make_mesh((1, world), ("data", "model"), "cuda")
+    decode = par_decode_rank(rank, world, dev, model_mesh)
+    decode_seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    tensor = par_tp_rank(rank, world, dev, model_mesh, tp_ref_dir,
+                         tp_norms)
     return {"train": train, "decode": decode,
-            "decode_seconds": time.perf_counter() - t0,
+            "decode_seconds": decode_seconds, "tensor": tensor,
+            "tensor_seconds": time.perf_counter() - t0,
             "backend": torch.distributed.get_backend(), "device": str(dev),
-            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            "peak_gib": peak}
 
 
 def free_port() -> int:
@@ -5673,15 +5843,25 @@ def par_launcher() -> list:
 
 
 def phase_parallel(card: str) -> dict:
-    """17: data-parallel training (17a parity, 17b the launcher) and the
-    paged decode's mesh branch (17c), two ranks sharing the card."""
+    """17: data-parallel training (17a parity, 17b the launcher), the
+    paged decode's mesh branch (17c) and tensor-parallel training (17d),
+    two ranks sharing the card."""
     from repro_torch.launch import mesh as LM
 
     t0 = time.perf_counter()
     refs = par_decode_reference()
-    t_ref = time.perf_counter() - t0
-    ranks = LM.spawn(parallel_rank, PAR_WORLD, device="cuda",
-                     backend="gloo", timeout=900)
+    tp_ref_dir = os.path.join(_build.BUILD_DIR.parent, "chip_smoke_tp_ref")
+    shutil.rmtree(tp_ref_dir, ignore_errors=True)
+    try:
+        t_tp = time.perf_counter()
+        tp_refs = par_tp_reference(tp_ref_dir)
+        t_tp = time.perf_counter() - t_tp
+        t_ref = time.perf_counter() - t0
+        ranks = LM.spawn(parallel_rank, PAR_WORLD, tp_ref_dir,
+                         {a: r["grad_norm"] for a, r in tp_refs.items()},
+                         device="cuda", backend="gloo", timeout=900)
+    finally:
+        shutil.rmtree(tp_ref_dir, ignore_errors=True)
     t_spawn = time.perf_counter() - t0 - t_ref
     print(f"parallel: {PAR_WORLD} ranks on {ranks[0]['device']} ({card}) "
           f"over {ranks[0]['backend']} (NCCL refuses two ranks on one "
@@ -5750,6 +5930,67 @@ def phase_parallel(card: str) -> dict:
               f"{diff:.3e} (tol {LOGIT_TOL:g}); paged launches a rank "
               f"{decode[arch]} = {PAR_DECODE_LAYERS} x {per[0]['steps']} "
               f"steps; {[round(d['seconds'], 3) for d in per]} s to serve")
+    # 17d
+    tensor = {}
+    for arch in PAR_TP:
+        want = tp_refs[arch]
+        per = [r["tensor"][arch] for r in ranks]
+        for i, t in enumerate(per):
+            check(t["simt"] == PAR_TP_LAUNCHES and not any(
+                sum(v) for v in t["other_routes"].values()),
+                f"17d {arch}: rank {i} flash launches simt {t['simt']} "
+                f"(others {t['other_routes']}) != {PAR_TP_LAUNCHES}")
+            dl = abs(t["loss"] - want["loss"])
+            check(dl <= TRAIN_LOSS_TOL, f"17d {arch}: rank {i} loss "
+                                        f"{t['loss']} vs one rank "
+                                        f"{want['loss']}")
+            for key, what in (("grad_rel", "gradients"),
+                              ("mu_rel", "AdamW first moments"),
+                              ("nu_rel", "AdamW second moments"),
+                              ("update_rel", "AdamW update")):
+                check(t[key] <= TRAIN_GRAD_TOL,
+                      f"17d {arch}: rank {i} {what} {t[key]:.3e} of scale "
+                      "from one rank's")
+            dn = abs(t["grad_norm"] / want["grad_norm"] - 1)
+            check(dn <= TRAIN_GRAD_TOL, f"17d {arch}: rank {i} gradient "
+                                        f"norm {t['grad_norm']} vs one rank "
+                                        f"{want['grad_norm']}")
+        check(per[0]["replicated_sum"] == per[1]["replicated_sum"],
+              f"17d {arch}: the ranks' replicated parameters differ")
+        check(want["simt"] == PAR_TP_LAUNCHES,
+              f"17d {arch}: one rank's simt launches {want['simt']}")
+        cfg = par_cfg(arch)
+        act = PAR_TRAIN_TOKENS * cfg.d_model * 4
+        tensor[arch] = [t["simt"] for t in per]
+        print(f"17d tensor parallelism on a (1, {PAR_WORLD}) mesh, {arch} "
+              f"(full width, {PAR_DECODE_LAYERS} layers, float32, TF32 off, "
+              f"one {PAR_TRAIN_TOKENS}-token sequence on both ranks): "
+              f"heads a rank {per[0]['heads'][0]} / {per[0]['heads'][1]} of "
+              f"{cfg.head_dim} ({per[0]['partial']} kv weights whole, their "
+              f"gradients summed over model), vocab block "
+              f"{per[0]['vocab_block']}; loss "
+              f"{[round(t['loss'], 6) for t in per]} vs one rank "
+              f"{want['loss']:.6f} (tol {TRAIN_LOSS_TOL:g}); gradient norm "
+              f"{[t['grad_norm'] for t in per]} vs {want['grad_norm']}; "
+              f"gradients {[format(t['grad_rel'], '.3e') for t in per]}, "
+              f"AdamW moments "
+              f"{[format(max(t['mu_rel'], t['nu_rel']), '.3e') for t in per]}"
+              " "
+              f"of scale, the update "
+              f"{[format(t['update_rel'], '.3e') for t in per]} of scale "
+              f"where |c g| >= {PAR_TP_UPDATE_MIN_EPS:g} eps "
+              f"({per[0]['update_share']:.4f} of the elements), one float32 "
+              f"spacing of the weight allowed (tol {TRAIN_GRAD_TOL:g}); "
+              "replicated parameters "
+              f"equal on both ranks; simt flash launches a rank "
+              f"{tensor[arch]} (one rank {want['simt']}); s/step a rank "
+              f"{[round(t['s'], 3) for t in per]} (one rank "
+              f"{want['s']:.3f}); bytes to collectives a step a rank "
+              f"{[t['bytes'] for t in per]} in {per[0]['calls']} calls "
+              f"({per[0]['bytes'] / act:.3f} x a (1, {PAR_TRAIN_TOKENS}, "
+              f"{cfg.d_model}) float32 activation); peak memory a rank "
+              f"{[round(t['peak_gib'], 2) for t in per]} GiB ({card}; gloo "
+              "on one card: no tensor-parallel speed)")
     t_par = time.perf_counter() - t0
 
     # 17b
@@ -5791,10 +6032,12 @@ def phase_parallel(card: str) -> dict:
           f"with start-up ({card}; gloo stages every collective through the "
           "host, so these are this one-card arrangement's times, not a "
           "data-parallel speed)")
-    print(f"phase 17 parts: one-rank references {t_ref:.1f} s, ranks "
-          f"(17a, 17c) {t_spawn:.1f} s, launcher (17b) {t_launch:.1f} s")
+    print(f"phase 17 parts: one-rank references {t_ref:.1f} s (17d's "
+          f"{t_tp:.1f} s), ranks (17a, 17c, 17d) {t_spawn:.1f} s (17d "
+          f"{[round(r['tensor_seconds'], 1) for r in ranks]} s), launcher "
+          f"(17b) {t_launch:.1f} s")
     return {"paged": decode, "simt": [t["simt_launches"] for t in tr],
-            "sm90": [s["sm90_launches"] for s in runs],
+            "tensor": tensor, "sm90": [s["sm90_launches"] for s in runs],
             "seconds": t_par + t_launch}
 
 
@@ -5994,9 +6237,13 @@ def phases(card: str, paths: dict, counting) -> int:
                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}}
            if route == "sm90" else {}),
-        # phase 17a: the data-parallel step's launches on each rank
+        # phase 17a: the data-parallel step's launches on each rank; 17d:
+        # internlm2-1.8b's tensor-parallel step at 8 / 4 heads a rank
         **({"parallel_rank_launches": [
-            t[direction == "bwd"] for t in parallel["simt"]]}
+            t[direction == "bwd"] for t in parallel["simt"]],
+            "tensor_parallel_rank_launches": [
+            t[direction == "bwd"] for t in parallel["tensor"][
+                "internlm2-1.8b"]]}
            if route == "simt" else {}),
     } for route in ROUTE_CASES
         for direction, n in zip(("fwd", "bwd"), path_launches[route])] + [{
@@ -6013,6 +6260,10 @@ def phases(card: str, paths: dict, counting) -> int:
             "library_ms", "library_backend", "tflops")},
         **{k: v for k, v in flash_timed[key][direction].items()
            if k.startswith("window")},
+        # 17d: gemma3-1b's tensor-parallel step at 2 / 1 heads a rank
+        **({"tensor_parallel_rank_launches": [
+            t[direction == "bwd"] for t in parallel["tensor"][GEMMA]]}
+           if path == "simt_d256" else {}),
     } for key, (_, _, path) in SIMT_WIDE_CASES.items()
         for direction in ("fwd", "bwd")]
     print(json.dumps({"kernels": [{

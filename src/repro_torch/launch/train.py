@@ -51,8 +51,12 @@ ranks (``--compress-grads``: by the int8 all-reduce of
 the parameters and AdamW moments are stored sharded over ``data``
 (``train_loop.shard_train_state``).  Rank 0 writes the checkpoints, each
 the whole logical state, so a restart at another world size resumes.
-``--layers`` cuts the config to its first layers.  A ``model`` axis
-above 1 (tensor parallelism) is ROADMAP item 10b-ii.  With several
+``--layers`` cuts the config to its first layers.  Each rank reads the
+rows of its coordinate on the mesh's batch axes, so the ranks of one
+``model`` group read the same rows.  The launcher's ``model`` axis is 1:
+tensor parallelism (``train_loop.make_train_step`` on a mesh with a
+``model`` axis above 1, ``parallel.tensor``) gets a launcher flag with
+ROADMAP item 10c.  With several
 ranks the last line a rank prints is a JSON summary of its run (s/step,
 tokens/s of the whole mesh, peak memory, collective bytes a step, flash
 launches).
@@ -73,6 +77,8 @@ from repro_torch import config as C
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.launch import mesh as LM
 from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.context import axis_rank, axis_size
 from repro_torch.util.profile import print_profile
 from repro_torch.train.data import SyntheticLM, add_modality_stubs
 from repro_torch.train.fault_tolerance import FaultConfig, GuardedTrainer
@@ -173,6 +179,11 @@ def train(args: argparse.Namespace) -> Dict:
     state = init_train_state(cfg, args.seed, device)
     data = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch)
     multi = mesh is not None
+    # the rows of this rank's batch-axes coordinate (a model group's
+    # ranks share them)
+    axes = SH.batch_axes(mesh) if multi else ()
+    row, rows = ((axis_rank(mesh, axes), axis_size(mesh, axes)) if axes
+                 else (0, 1))
     guard = GuardedTrainer(
         FaultConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                     writer=rank == 0), step_fn, state,
@@ -194,7 +205,7 @@ def train(args: argparse.Namespace) -> Dict:
         with prof or contextlib.nullcontext():
             while guard.step < args.steps:
                 raw = add_modality_stubs(
-                    data.batch_at(guard.step, rank=rank, world=world), cfg,
+                    data.batch_at(guard.step, rank=row, world=rows), cfg,
                     seed=guard.step)
                 batch = {k: torch.from_numpy(v).to(device)
                          for k, v in raw.items()}

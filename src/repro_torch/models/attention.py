@@ -54,6 +54,14 @@ Then ``y = sum over model of out_shard @ wo[the shard's rows]``, an
 all-reduce over ``model`` (the JAX package's ``einsum("bshd,hdD->bsD")``
 over a sharded ``out``).
 
+Training over a ``model`` axis (``parallel.tensor``): :func:`attn_apply`
+with ``tp`` takes this rank's blocks of the weights, projects and ropes
+its ``h / m`` query heads and the kv heads they read
+(``tensor.head_layout``), runs :func:`self_attention` on them (above
+2,048 tokens the flash kernels at the local head counts) and sums its
+part of y (:func:`attn_shard`, through ``wo``'s row block) over
+``model``.
+
 An encoder-decoder (whisper) adds :func:`cross_kv` and
 :func:`cross_attn_apply`: a decoder layer's queries over the encoder
 output's keys and values, the masked softmax of :func:`full_attention`
@@ -85,6 +93,7 @@ from repro_torch.models.layers import (RMSNorm, apply_rope, dense_init,
                                        frozen, mm, rope_tables)
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as SH
+from repro_torch.parallel import tensor as TP
 from repro_torch.parallel.context import (axis_group, axis_rank,
                                           axis_size, current_mesh,
                                           model_size)
@@ -265,17 +274,48 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0
 # ---------------------------------------------------------------------------
 def attn_apply(attn: Attention, x: torch.Tensor,
                cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
-               cfg, window: int = 0, causal: bool = True) -> torch.Tensor:
+               cfg, window: int = 0, causal: bool = True,
+               tp: Optional[TP.TensorParallel] = None) -> torch.Tensor:
     """GQA self-attention, causal for a decoder layer and not for an
     encoder's, keys older than ``window`` positions masked if ``window``
     > 0.  x: (B, S, D); ``cos``/``sin``: rope tables at the sequence's
     positions (:func:`rope_tables`, built once for all layers; None
-    without rope).  Returns y: (B, S, D)."""
+    without rope).  With ``tp`` (tensor parallelism over ``model``) the
+    weights are this rank's blocks, x is the output of
+    ``parallel.tensor.copy_to_model``, and the rank's
+    :func:`attn_shard` is summed over ``model``.  Returns y: (B, S,
+    D)."""
+    y = attn_shard(attn, x, cos, sin, cfg, window, causal, tp)
+    return TP.reduce_from_model(y, tp)
+
+
+def attn_shard(attn: Attention, x: torch.Tensor,
+               cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
+               cfg, window: int = 0, causal: bool = True,
+               tp: Optional[TP.TensorParallel] = None) -> torch.Tensor:
+    """The attention of the rank's heads (``parallel.tensor.head_layout``)
+    through ``wo``'s row block: the rank's part of y (all of it without
+    ``tp``).  The flash kernels run at the local head counts."""
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wk, wv, index = attn.wk, attn.wv, None
+    if tp is not None:
+        lay = TP.head_layout(h, kh, tp)
+        h, kh, index = lay.heads, lay.kv_heads, lay.kv_index
+        if not lay.kv_split:     # whole weights: the kv heads read here
+            cols = slice(lay.kv0 * hd, (lay.kv0 + kh) * hd)
+            wk, wv = wk[:, cols], wv[:, cols]
+        if attn.wq.shape[1] != h * hd or wk.shape[1] != kh * hd:
+            raise ValueError(
+                f"wq {tuple(attn.wq.shape)} / wk {tuple(wk.shape)} are not "
+                f"a block of {h} / {kh} heads of {hd}: shard the weights "
+                "over model (train_loop.shard_train_state)")
     q = apply_rope(mm(x, attn.wq).reshape(b, s, h, hd), cos, sin)
-    k = apply_rope(mm(x, attn.wk).reshape(b, s, kh, hd), cos, sin)
-    v = mm(x, attn.wv).reshape(b, s, kh, hd)
+    k = apply_rope(mm(x, wk).reshape(b, s, kh, hd), cos, sin)
+    v = mm(x, wv).reshape(b, s, kh, hd)
+    if index is not None:        # one kv head for each query head
+        idx = torch.tensor(index, device=x.device)
+        k, v = k[:, :, idx], v[:, :, idx]
     out = self_attention(q, k, v, causal=causal, window=window)
     return mm(out.reshape(b, s, h * hd), attn.wo)
 

@@ -18,6 +18,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.parallel import tensor as TP
+
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
     """An inference-only parameter."""
@@ -165,7 +167,13 @@ class FFN(nn.Module):
                                             device))
 
 
-def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
+def ffn_apply(ffn: FFN, x: torch.Tensor,
+              tp: Optional[TP.TensorParallel] = None) -> torch.Tensor:
+    """The FFN of x (..., D).  With ``tp`` (``parallel.tensor``: the
+    weights split over ``model``) ``w_up`` / ``w_gate`` are this rank's
+    column blocks and ``w_down`` its row block, x is the output of
+    ``copy_to_model``, and the rank's part of y is summed over
+    ``model``."""
     up = mm(x, ffn.w_up)
     if ffn.gated:
         gate = F.silu(mm(x, ffn.w_gate).float())
@@ -173,7 +181,7 @@ def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return mm(h, ffn.w_down)
+    return TP.reduce_from_model(mm(h, ffn.w_down), tp)
 
 
 class ReluSqFFN(nn.Module):

@@ -41,6 +41,7 @@ from repro_torch.models.layers import (RMSNorm, decode_positions,
                                        dense_init, embed_init, frozen,
                                        sinusoidal_positions)
 from repro_torch.parallel import sharding as SH
+from repro_torch.parallel import tensor as TP
 from repro_torch.parallel.context import (axis_size, current_mesh,
                                           model_size)
 from repro_torch.util.device import DeviceLike, resolve_device
@@ -212,8 +213,14 @@ def params_to_numpy(model: Model, *, grads: bool = False
     return out
 
 
-def _logits(model: Model, cfg, x: torch.Tensor) -> torch.Tensor:
+def _logits(model: Model, cfg, x: torch.Tensor,
+            tp: Optional[TP.TensorParallel] = None) -> torch.Tensor:
+    """float32 logits; with ``tp`` and a vocab the ``model`` axis divides,
+    the rank's vocab block of them (the head's column block, or the
+    tied embedding's row block that the lookup reads)."""
     x = model.final_norm(x, cfg.rms_norm_eps)
+    if TP.vocab_block(cfg.vocab_size, tp) is not None:
+        x = TP.copy_to_model(x, tp)
     head = model.embed.T if model.lm_head is None else model.lm_head
     return (x @ head).float()
 
@@ -243,9 +250,19 @@ def forward_train(model: Model, cfg: C.ArchConfig,
     D), prepended to the token embeddings, and for an encoder-decoder
     its ``audio_frames`` (B, S_enc, D), which the encoder reads.  A
     config without rope adds sinusoidal positions to the embeddings.
-    Returns (logits (B, Tv + S_tok, V) float32, aux_loss scalar)."""
+    Returns (logits (B, Tv + S_tok, V) float32, aux_loss scalar).
+
+    Under an installed mesh whose ``model`` axis is above 1
+    (``parallel.context.use_mesh``; the train step installs its own)
+    the model holds this rank's blocks (``train_loop.shard_train_state``)
+    and runs tensor-parallel (``parallel.tensor``): the embedding and
+    the head are vocab-parallel where the axis divides the vocab, and
+    the logits are the rank's vocab block, never gathered."""
+    tp = TP.tensor_parallel()
+    if tp is not None:
+        TP.check_supported(cfg, tp.size)
     tokens = batch["tokens"]
-    x = model.embed[tokens.long()]
+    x = TP.vocab_embed(model.embed, tokens.long(), cfg.vocab_size, tp)
     if cfg.vision_tokens:
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     s = x.shape[1]
@@ -256,8 +273,8 @@ def forward_train(model: Model, cfg: C.ArchConfig,
     enc_out = (_encode(model, cfg, batch["audio_frames"]) if cfg.is_encdec
                else None)
     x, aux = T.stack_apply_train(model.stack, x, positions, cfg,
-                                 enc_out=enc_out)
-    return _logits(model, cfg, x), aux
+                                 enc_out=enc_out, tp=tp)
+    return _logits(model, cfg, x, tp), aux
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +301,7 @@ def init_decode_state(cfg: C.ArchConfig, batch: int, max_len: int,
     rank's shard of its heads or head_dim over ``model``
     (``parallel.sharding.state_sharding``; ``paged_mode``).  Over a
     ``model`` axis above 1 only paged GQA layers are split; a dense
-    cache and the other mixers' state are ROADMAP item 10b-ii.
+    cache and the other mixers' state are ROADMAP item 10b-ii-c.
     """
     device = resolve_device(device)
     max_pages = -(-max_len // page_size)
@@ -324,7 +341,7 @@ def _pool_heads(cfg: C.ArchConfig, kv_mode: str, pages: int,
         raise NotImplementedError(
             f"{cfg.name}: decode over a model axis of {n_model} with "
             f"{'a dense cache' if kv_mode == 'dense' else unsplit[0]} "
-            "layers is ROADMAP item 10b-ii; the mesh branch splits paged "
+            "layers is ROADMAP item 10b-ii-c; the mesh branch splits paged "
             "GQA layers")
     axes = SH.batch_axes(mesh)
     dp = axis_size(mesh, axes) if axes else 1

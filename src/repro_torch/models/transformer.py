@@ -50,6 +50,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models.layers import (FFN, ReluSqFFN, RMSNorm, ffn_apply,
                                        relu_sq_ffn_apply, rope_tables)
+from repro_torch.parallel import tensor as TP
 
 _MIXERS = (C.ATTN, C.ATTN_LOCAL, C.ATTN_MLA, C.MAMBA, C.RWKV)
 #: the keys of a layer's decode state that carry a sequence's recurrent
@@ -116,12 +117,14 @@ class Block(nn.Module):
 
 
 def _ffn(block: Block, h: torch.Tensor, cfg,
-         shift_prev: Optional[torch.Tensor] = None
+         shift_prev: Optional[torch.Tensor] = None,
+         tp: Optional[TP.TensorParallel] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, aux): aux is the MoE's load-balance loss, 0 for a dense FFN.
     The channel mix shifts h (the norm2 output) along the sequence in
     training, zero first; in decode it takes ``shift_prev`` (B, D), the
-    previous token's."""
+    previous token's.  With ``tp`` a dense FFN runs on its blocks, h
+    through ``copy_to_model``."""
     if block.moe:
         return MOE.moe_apply(block.ffn, h, cfg)
     zero = torch.zeros((), device=h.device)
@@ -129,7 +132,7 @@ def _ffn(block: Block, h: torch.Tensor, cfg,
         prev = (F.pad(h, (0, 0, 1, 0))[:, :-1] if shift_prev is None
                 else shift_prev[:, None].to(h.dtype))
         return relu_sq_ffn_apply(block.ffn, h, prev), zero
-    return ffn_apply(block.ffn, h), zero
+    return ffn_apply(block.ffn, TP.copy_to_model(h, tp), tp), zero
 
 
 def _cross(block: Block, x: torch.Tensor, enc_out: Optional[torch.Tensor],
@@ -147,12 +150,17 @@ def block_apply_train(block: Block, x: torch.Tensor,
                       cos: Optional[torch.Tensor],
                       sin: Optional[torch.Tensor], cfg,
                       enc_out: Optional[torch.Tensor] = None,
-                      causal: bool = True
+                      causal: bool = True,
+                      tp: Optional[TP.TensorParallel] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); ``cos``/``sin`` at the block's ``rope_width``
     (None for a Mamba or an RWKV block, and without rope); ``enc_out``
     the encoder output a cross block attends to; ``causal`` False for an
-    encoder block.  Returns (x', aux)."""
+    encoder block.  With ``tp`` (a GQA block with a dense FFN, its
+    weights split over ``model``) the attention's and the FFN's inputs
+    pass ``copy_to_model``, where the JAX block constrains its
+    activations; the norms and the residual stream stay replicated.
+    Returns (x', aux)."""
     h = block.norm1(x, cfg.rms_norm_eps)
     if block.mamba:
         x = x + M.mamba_apply(block.mixer, h, cfg)
@@ -161,10 +169,10 @@ def block_apply_train(block: Block, x: torch.Tensor,
     elif block.mla:
         x = x + A.mla_apply(block.mixer, h, cos, sin, cfg)
     else:
-        x = x + A.attn_apply(block.mixer, h, cos, sin, cfg, block.window,
-                             causal)
+        x = x + A.attn_apply(block.mixer, TP.copy_to_model(h, tp), cos, sin,
+                             cfg, block.window, causal, tp)
     x = _cross(block, x, enc_out, cfg)
-    y, aux = _ffn(block, block.norm2(x, cfg.rms_norm_eps), cfg)
+    y, aux = _ffn(block, block.norm2(x, cfg.rms_norm_eps), cfg, tp=tp)
     return x + y, aux
 
 
@@ -258,14 +266,18 @@ class Stack(nn.Module):
 def stack_apply_train(stack: Stack, x: torch.Tensor,
                       positions: torch.Tensor, cfg, *,
                       enc_out: Optional[torch.Tensor] = None,
-                      causal: bool = True
+                      causal: bool = True,
+                      tp: Optional[TP.TensorParallel] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D); positions: (B|1, S); ``enc_out``: the encoder output
     of an encoder-decoder's decoder stack; ``causal`` False for its
-    encoder.  Returns (x, aux_sum).  The rope tables are built once for
+    encoder; ``tp``: the ``model`` axis the blocks' weights are split
+    over.  Returns (x, aux_sum).  The rope tables are built once for
     all layers, one pair for each width a layer rotates (inside a
     checkpointed block they would be rebuilt in the backward's
-    recompute)."""
+    recompute).  ``tp`` is an argument of each block, not read from
+    the installed mesh, because a checkpointed block's recompute runs
+    in the backward, on autograd's own thread for a card."""
     rope = {w: rope_tables(positions, w, cfg.rope_theta)
             for w in A.rope_widths(cfg)}
     aux = torch.zeros((), device=x.device)
@@ -273,10 +285,10 @@ def stack_apply_train(stack: Stack, x: torch.Tensor,
         cos, sin = rope.get(block.rope_width, (None, None))
         if cfg.remat:
             x, a = checkpoint(block_apply_train, block, x, cos, sin, cfg,
-                              enc_out, causal, use_reentrant=False)
+                              enc_out, causal, tp, use_reentrant=False)
         else:
             x, a = block_apply_train(block, x, cos, sin, cfg, enc_out,
-                                     causal)
+                                     causal, tp)
         aux = aux + a
     return x, aux
 

@@ -8,9 +8,16 @@ Without an installed mesh every such branch is skipped.
 
 :func:`constrain_act` is the activation constraint of the JAX package:
 a no-op without a mesh or when ``x`` is not a DTensor, else a
-redistribution of ``x`` to ``valid_spec(..., allow_uneven=True)``.  Its
-call sites in the models come with tensor-parallel training (ROADMAP
-item 10b-ii); the port's eager layers take plain tensors today.
+redistribution of ``x`` to ``valid_spec(..., allow_uneven=True)``.  The
+port's eager layers take plain tensors, so in tensor-parallel training
+the JAX package's ``constrain_act`` sites (the attention's q / k / v and
+output, the FFN's up projection, the block's residual stream) are the
+boundaries of ``parallel.tensor``: ``copy_to_model`` before the
+attention and the FFN (``models/transformer.py`` ``block_apply_train``),
+``reduce_from_model`` after ``wo`` and ``w_down``
+(``models/attention.py`` ``attn_apply``, ``models/layers.py``
+``ffn_apply``).  Training installs its mesh here for the forward and
+backward (``train.train_loop.make_train_step``).
 
 :func:`axis_group` is the process group of one mesh axis or of several
 (the batch axes ``("pod", "data")`` together), and :func:`axis_rank`

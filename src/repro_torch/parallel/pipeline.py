@@ -14,7 +14,7 @@ output, as the JAX package's ``psum`` of ``outs`` does.  Bubble fraction
 The stage function must be shape-preserving (d_model in == d_model
 out), as the framework's block stacks are.  The runner is forward only:
 no path of the JAX package differentiates through it, and the port's
-autodiff through it is ROADMAP item 10b-ii.
+autodiff through it is ROADMAP item 10b-ii-d.
 """
 from __future__ import annotations
 

@@ -33,6 +33,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.parallel import tensor as TP
+
+
 class P(tuple):
     """A partition spec: one entry per tensor dim (``None``, an axis name
     or a tuple of axis names), as ``jax.sharding.PartitionSpec``."""
@@ -167,6 +170,40 @@ def param_sharding(model, mesh, cfg) -> Dict[str, P]:
     return {name: param_spec(tuple(name.split(".")), tuple(p.shape), mesh,
                              cfg.fsdp)
             for name, p in model.named_parameters()}
+
+
+def train_spec(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+               cfg) -> P:
+    """The storage of one parameter in the port's train step: its
+    :func:`param_spec`, with the ``model`` split kept only where the
+    compute path splits the weight (``parallel.tensor.splits_weight``).
+    ``valid_spec`` keeps ``wk`` / ``wv``'s column split wherever ``kh x
+    head_dim`` divides the axis, which can cut a head in two (gemma3-1b's
+    one kv head at ``model`` 2); GSPMD reshards that away, eager code
+    cannot run attention on half a head, so those weights stay whole on
+    every rank (``parallel.tensor.head_layout``)."""
+    spec = param_spec(path, shape, mesh, cfg.fsdp)
+    if not TP.splits_weight(path[-1], cfg, mesh_axes(mesh).get("model", 1)):
+        spec = P(*(None if a == "model" else a for a in spec))
+    return spec
+
+
+def train_sharding(model, mesh, cfg) -> Dict[str, P]:
+    """{name: :func:`train_spec`} for each of the model's parameters."""
+    return {name: train_spec(tuple(name.split(".")), tuple(p.shape), mesh,
+                             cfg)
+            for name, p in model.named_parameters()}
+
+
+def axis_dims(specs: Dict[str, P], axis: str) -> Dict[str, int]:
+    """{name: dim} of the specs that split a dim over ``axis``."""
+    out = {}
+    for name, spec in specs.items():
+        for d, axes in enumerate(spec):
+            if axes is not None and axis in (
+                    (axes,) if isinstance(axes, str) else axes):
+                out[name] = d
+    return out
 
 
 # ---------------------------------------------------------------------------

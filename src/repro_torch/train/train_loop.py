@@ -24,12 +24,31 @@ and its AdamW moments are stored sharded over ``data`` on the dim
 ``parallel.sharding.param_spec`` gives; the step gathers the
 parameters for the forward, reduces the gradients and keeps this
 rank's block, updates the blocks, and clips by the norm of the whole
-gradient (the shards' squared norms summed over the ranks).  A mesh
-with a ``model`` axis above 1 raises: tensor-parallel training is
-ROADMAP item 10b-ii.
+gradient (the shards' squared norms summed over the ranks).
+
+Tensor parallelism (a ``model`` axis above 1, ``parallel.tensor``):
+:func:`shard_train_state` cuts each parameter the ``model`` axis splits
+(``parallel.sharding.train_spec``) and its AdamW moments to this rank's
+block, and the step runs the forward and backward under the mesh
+(``context.use_mesh``), so the layers run on their shards between the
+``copy_to_model`` / ``reduce_from_model`` boundaries and the loss takes
+the vocab-split logits through the vocab-parallel log-sum-exp and gold
+logit.  The ranks of one ``model`` group read the same rows, so a step
+on a ``(d, m)`` mesh still equals the JAX single-device step in ``n x
+d`` microbatches.  The gradients of ``wk`` / ``wv`` kept whole where the
+kv heads do not divide the axis are partial and are summed over
+``model``; every other gradient is the rank's block or, for a
+replicated leaf (the norms), equal on every ``model`` rank.  The clip's
+norm sums the squared norms of the split leaves over the axes that split
+them and counts the replicated leaves once.  It covers the dense
+attention stack (``attn`` / ``attn_local`` mixers, dense FFNs); the
+other mixers raise (``parallel.tensor.check_supported``: ROADMAP item
+10b-ii-b), and so do query heads or an FFN width that do not divide the
+axis.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -38,7 +57,9 @@ from repro_torch.models import forward_train, init_params
 from repro_torch.models.model_zoo import Model
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as SH
-from repro_torch.parallel.context import axis_group, axis_rank, axis_size
+from repro_torch.parallel import tensor as TP
+from repro_torch.parallel.context import (axis_group, axis_rank, axis_size,
+                                          use_mesh)
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.util.device import DeviceLike, host_float, resolve_device
 
@@ -47,8 +68,12 @@ AUX_WEIGHT = 1e-2
 #: the model attribute holding {name: dim} of the parameters stored
 #: sharded over ``data`` on that dim (:func:`shard_train_state`)
 FSDP_LAYOUT = "fsdp_layout"
-TENSOR_PARALLEL = ("training with a model axis above 1 (tensor "
-                   "parallelism) is ROADMAP item 10b-ii")
+#: ... and over ``model`` (tensor parallelism)
+MODEL_LAYOUT = "model_layout"
+#: the model attribute naming, in parameter order, the parameters kept
+#: whole over ``model`` whose gradients are partial there (``wk`` /
+#: ``wv`` where the kv heads do not divide the axis)
+MODEL_PARTIAL = "model_partial"
 
 
 class TrainState(NamedTuple):
@@ -86,8 +111,9 @@ def loss_fn(model: Model, cfg, batch: Dict[str, torch.Tensor]
         mask = torch.ones(targets.shape, device=logits.device)
     else:
         mask = mask[:, 1:].float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    tp = TP.tensor_parallel()       # the vocab may be split over model
+    logz = TP.vocab_logz(logits, cfg.vocab_size, tp)
+    gold = TP.vocab_gold(logits, targets, cfg.vocab_size, tp)
     xent = (logz - gold) * mask
     zloss = Z_LOSS * torch.square(logz) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
@@ -126,14 +152,13 @@ def _microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 
 class DataParallel:
-    """The data-parallel side of a step on ``mesh``: the process group
-    of its batch axes (``pod``, ``data``; all ranks when the ``model``
-    axis is 1) and the group and coordinate of its ``data`` axis, over
-    which FSDP storage is split."""
+    """The parallel sides of a step on ``mesh``: the process group of its
+    batch axes (``pod``, ``data``; all ranks when the ``model`` axis is
+    1), the group and coordinate of its ``data`` axis, over which FSDP
+    storage is split, and its ``model`` axis (``tp``, None at 1)."""
 
     def __init__(self, mesh):
-        if SH.mesh_axes(mesh).get("model", 1) > 1:
-            raise NotImplementedError(TENSOR_PARALLEL)
+        self.tp = TP.tensor_parallel(mesh)
         axes = SH.batch_axes(mesh)
         self.size = axis_size(mesh, axes) if axes else 1
         self.group = axis_group(mesh, axes) if axes else None
@@ -164,71 +189,82 @@ class DataParallel:
                                          layout[name])
         return shards
 
-    def grad_norm(self, grads: Dict[str, torch.Tensor],
-                  sharded) -> float:
-        """The norm of the whole gradient: the sharded leaves' squared
-        norms summed over ``data``, the replicated leaves' counted
-        once."""
+    def grad_norm(self, grads: Dict[str, torch.Tensor], data_split,
+                  model_split) -> float:
+        """The norm of the whole gradient: each split leaf's squared norm
+        summed over the axes that split it (``data_split``: FSDP blocks;
+        ``model_split``: tensor-parallel blocks; a leaf may be in both),
+        the replicated leaves' counted once."""
         dev = next(iter(grads.values())).device
-        blocks = torch.zeros((), dtype=torch.float32, device=dev)
-        whole = torch.zeros((), dtype=torch.float32, device=dev)
+        sums = torch.zeros(4, dtype=torch.float32, device=dev)
         for name, g in grads.items():
-            sq = torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
-            if name in sharded:
-                blocks += sq
-            else:
-                whole += sq
-        comm.all_reduce(blocks, self.data_group)
-        return float(torch.sqrt(blocks + whole))
-
-
-def fsdp_dims(model: Model, mesh, cfg) -> Dict[str, int]:
-    """{name: dim} of the parameters ``param_spec`` shards over
-    ``data``."""
-    out = {}
-    for name, spec in SH.param_sharding(model, mesh, cfg).items():
-        for d, axes in enumerate(spec):
-            if axes is not None and "data" in (
-                    (axes,) if isinstance(axes, str) else axes):
-                out[name] = d
-    return out
+            at = (name in data_split) + 2 * (name in model_split)
+            sums[at] += torch.square(
+                torch.linalg.vector_norm(g, dtype=torch.float32))
+        # [whole, data, model, both]: data-split sums over data, then
+        # the model-split ones (with the blocks of both) over model
+        if data_split:
+            sums[1::2] = comm.all_reduce(sums[1::2].clone(),
+                                         self.data_group)
+        if model_split:
+            sums[2] = comm.all_reduce(sums[2:].sum(), self.tp.group)
+            sums[3] = 0
+        return float(torch.sqrt(sums.sum()))
 
 
 @torch.no_grad()
 def shard_train_state(state: TrainState, mesh, cfg) -> TrainState:
     """``state`` (whole, the same on every rank) with each parameter that
-    ``param_spec`` shards over ``data``, and its AdamW moments, cut to
-    this rank's block; the model records the layout
-    (:data:`FSDP_LAYOUT`).  Without ``cfg.fsdp``, or on one data rank,
-    ``state`` as it is."""
+    ``train_spec`` splits over ``model``, and under ``cfg.fsdp`` over
+    ``data``, and its AdamW moments, cut to this rank's block; the model
+    records the layouts (:data:`FSDP_LAYOUT`, :data:`MODEL_LAYOUT`) and
+    the leaves whose gradients are partial over ``model``
+    (:data:`MODEL_PARTIAL`).  Without a split, ``state`` as it is."""
+    TP.check_supported(cfg, SH.mesh_axes(mesh).get("model", 1))
     dp = DataParallel(mesh)
     model = state.params
-    setattr(model, FSDP_LAYOUT, {})
-    if not cfg.fsdp or dp.data_size == 1:
-        return state
-    layout = fsdp_dims(model, mesh, cfg)
-    params = dict(model.named_parameters())
-    for name, dim in layout.items():
-        params[name].data = dp.block(params[name].data, dim)
-        for key in ("mu", "nu"):
-            state.opt[key][name] = dp.block(state.opt[key][name], dim)
+    specs = SH.train_sharding(model, mesh, cfg)
+    layout = (SH.axis_dims(specs, "data")
+              if cfg.fsdp and dp.data_size > 1 else {})
+    mlayout = SH.axis_dims(specs, "model") if dp.tp else {}
+    # in parameter order: every rank must call the collectives in one
+    # order (a set's order follows the process's string hash)
+    partial = tuple(n for n in specs if dp.tp and n not in mlayout
+                    and n.split(".")[-1] in ("wk", "wv"))
     setattr(model, FSDP_LAYOUT, layout)
+    setattr(model, MODEL_LAYOUT, mlayout)
+    setattr(model, MODEL_PARTIAL, partial)
+    params = dict(model.named_parameters())
+    cut = {"data": layout, "model": mlayout}
+    for name, spec in specs.items():
+        spec = SH.P(*(a if a in cut and name in cut[a] else None
+                      for a in spec))
+        if not any(spec):
+            continue
+        params[name].data = SH.shard_tensor(params[name].data, spec, mesh)
+        for key in ("mu", "nu"):
+            state.opt[key][name] = SH.shard_tensor(state.opt[key][name],
+                                                   spec, mesh)
     return state
 
 
 @torch.no_grad()
 def logical_state(state: TrainState, mesh=None) -> TrainState:
     """The whole state on the host: every sharded parameter and moment
-    gathered (a collective: every rank calls it), as a TrainState whose
-    params are ``{name: tensor}`` (the parameters and buffers), so the
-    checkpoint it makes is the one a single process writes."""
+    gathered over ``data`` and ``model`` (a collective: every rank calls
+    it), as a TrainState whose params are ``{name: tensor}`` (the
+    parameters and buffers), so the checkpoint it makes is the one a
+    single process writes."""
     model = state.params
     layout = getattr(model, FSDP_LAYOUT, {})
-    dp = DataParallel(mesh) if layout else None
+    mlayout = getattr(model, MODEL_LAYOUT, {})
+    dp = DataParallel(mesh) if layout or mlayout else None
 
     def whole(name, t):
         if name in layout:
             t = comm.all_gather(t, dp.data_group, layout[name])
+        if name in mlayout:
+            t = comm.all_gather(t, dp.tp.group, mlayout[name])
         return t.detach().cpu()
 
     params = {n: whole(n, p) for n, p in model.named_parameters()}
@@ -243,43 +279,33 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                     compress=None, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics), metrics as
     floats: loss, xent, aux, grad_norm, lr (NaN but lr on fake
-    tensors).  With ``mesh``, ``batch`` is this rank's rows and the
+    tensors).  With ``mesh``, ``batch`` is this rank's rows (those of
+    its batch-axes coordinate: the ranks of one ``model`` group read the
+    same rows), the state is :func:`shard_train_state`'s, and the
     metrics are the averages over the data-parallel ranks; ``compress``
     (a function of the gradient dictionary) replaces the data-parallel
     mean, or without a mesh transforms the gradients before AdamW."""
+    if mesh is not None:
+        TP.check_supported(cfg, SH.mesh_axes(mesh).get("model", 1))
     dp = DataParallel(mesh) if mesh is not None else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.params
         layout = getattr(model, FSDP_LAYOUT, {}) if dp else {}
+        mlayout = getattr(model, MODEL_LAYOUT, {}) if dp else {}
+        if dp and dp.tp and not hasattr(model, MODEL_LAYOUT):
+            raise ValueError("a model axis above 1 trains the blocks of "
+                             "shard_train_state")
         shards = dp.gather(model) if layout else {}
         params = dict(model.named_parameters())
         model.zero_grad(set_to_none=True)
-        if num_microbatches == 1:
-            loss, parts = loss_fn(model, cfg, batch)
-            loss.backward()
-            grads = {n: p.grad for n, p in params.items()}
-            loss = loss.detach()
-        else:
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for n, p in params.items()}
-            loss = torch.zeros((), device=next(iter(params.values())).device)
-            sums: Dict[str, torch.Tensor] = {}
-            for mb in _microbatches(batch, num_microbatches):
-                mb_loss, mb_parts = loss_fn(model, cfg, mb)
-                mb_loss.backward()
-                for n, p in params.items():
-                    grads[n].add_(p.grad)
-                    p.grad = None
-                loss += mb_loss.detach()
-                for k, v in mb_parts.items():
-                    sums[k] = sums.get(k, 0) + v
-            torch._foreach_div_(list(grads.values()), num_microbatches)
-            loss = loss / num_microbatches
-            parts = {k: v / num_microbatches for k, v in sums.items()}
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            loss, grads, parts = _accumulate(model, cfg, batch, params,
+                                             num_microbatches)
         gnorm: Optional[float] = None
         if dp is not None:
+            for name in getattr(model, MODEL_PARTIAL, ()):
+                comm.all_reduce(grads[name], dp.tp.group)
             grads = (compress(grads) if compress is not None
                      else {n: dp.mean(g) for n, g in grads.items()})
             loss = dp.mean(loss.clone())
@@ -288,8 +314,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
             for name, shard in shards.items():
                 params[name].data = shard
                 grads[name] = dp.block(grads[name], layout[name])
-            if layout:
-                gnorm = dp.grad_norm(grads, layout)
+            if layout or mlayout:
+                gnorm = dp.grad_norm(grads, layout, mlayout)
         elif compress is not None:
             grads = compress(grads)
         _, opt, om = adamw_update(opt_cfg, params, grads, state.opt,
@@ -300,3 +326,29 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, num_microbatches: int = 1,
         return TrainState(params=model, opt=opt, rng=state.rng), metrics
 
     return train_step
+
+
+def _accumulate(model: Model, cfg, batch: Dict[str, torch.Tensor],
+                params: Dict[str, torch.Tensor], num_microbatches: int):
+    """(loss, float32 gradients, parts) of ``batch``: the means over its
+    microbatches."""
+    if num_microbatches == 1:
+        loss, parts = loss_fn(model, cfg, batch)
+        loss.backward()
+        return loss.detach(), {n: p.grad for n, p in params.items()}, parts
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in params.items()}
+    loss = torch.zeros((), device=next(iter(params.values())).device)
+    sums: Dict[str, torch.Tensor] = {}
+    for mb in _microbatches(batch, num_microbatches):
+        mb_loss, mb_parts = loss_fn(model, cfg, mb)
+        mb_loss.backward()
+        for n, p in params.items():
+            grads[n].add_(p.grad)
+            p.grad = None
+        loss += mb_loss.detach()
+        for k, v in mb_parts.items():
+            sums[k] = sums.get(k, 0) + v
+    torch._foreach_div_(list(grads.values()), num_microbatches)
+    return (loss / num_microbatches, grads,
+            {k: v / num_microbatches for k, v in sums.items()})

@@ -50,6 +50,7 @@ PARALLEL_MODULES = ["repro_torch.parallel", "repro_torch.parallel.sharding",
                     "repro_torch.parallel.comm",
                     "repro_torch.parallel.compression",
                     "repro_torch.parallel.pipeline",
+                    "repro_torch.parallel.tensor",
                     "repro_torch.launch.mesh"]
 
 

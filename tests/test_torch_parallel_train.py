@@ -21,7 +21,11 @@ side only.  ``cfg.fsdp`` (parameters and moments stored sharded over
 int8 all-reduce) against the formula applied to both ranks' float32
 gradients, then the port's AdamW; a 2-rank run checkpointed by rank 0
 (the whole logical state) and resumed on 1 rank against an
-uninterrupted run.
+uninterrupted run.  The same ranks run the tensor-parallel cases of
+``tests/test_torch_parallel_tensor.py`` on a ``(1, 2)`` mesh (its
+helpers and tolerances) and a ``(1, 2)`` run checkpointed and resumed
+on 1 rank; a ``model`` axis still raises for the other mixers (ROADMAP
+item 10b-ii-b) and for query heads it does not divide.
 """
 import dataclasses
 
@@ -42,10 +46,13 @@ from repro_torch.parallel import compression as CMP
 from repro_torch.train import data as D
 from repro_torch.train.fault_tolerance import FaultConfig, GuardedTrainer
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train import train_loop as TL
 from repro_torch.train.train_loop import (TrainState, decayed_names,
                                           logical_state, loss_fn,
                                           make_train_step, shard_train_state,
                                           trainable)
+
+import test_torch_parallel_tensor as TPT
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -58,6 +65,12 @@ CASES = {"internlm2": ("internlm2-1.8b", 4, 16, 1, 2),
          "granite_moe": ("granite-moe-1b-a400m", 2, 512, 1, 2)}
 #: AdamW's eps of each case (see the module docstring)
 EPS = {"granite_moe": 1e-4}
+#: the arch of the tensor-parallel checkpoint case
+TP_CKPT_ARCH = "gemma3-1b"
+#: fixtures of that module used here by their names: one intra-op
+#: thread in this process while the module runs (autouse), and its JAX
+#: steps shared by the processes of a parallel test run
+one_thread, jax_runs = TPT.one_thread, TPT.jax_runs
 
 
 def _opt(key):
@@ -95,7 +108,7 @@ def _named(state):
             for n, p in state.params.named_parameters()}
 
 
-def _rank_cases(rank, world, trees, ckpt_dir):
+def _rank_cases(rank, world, trees, ckpt_dir, tp_ckpt_dir):
     mesh = LM.make_mesh((world, 1), ("data", "model"), "cpu")
     out = {}
     for key, (arch, b, s, n, steps) in CASES.items():
@@ -145,6 +158,25 @@ def _rank_cases(rank, world, trees, ckpt_dir):
     for i in range(2):
         guard.run_step(_batch(fcfg, 4, 16, i, rank, world))
     out["ckpt_step"] = guard.step
+
+    # tensor parallelism on a (1, 2) mesh, the cases of
+    # tests/test_torch_parallel_tensor.py, which holds (2, 2) and (1, 4)
+    tmesh = LM.make_mesh((1, world), ("data", "model"), "cpu")
+    for arch in TPT.ARCHS:
+        out[f"tp_{arch}"] = TPT.train_case(tmesh, arch)
+    # ... and two of its steps checkpointed by rank 0 (the model blocks
+    # gathered)
+    cfg, _ = TPT.cfgs(TP_CKPT_ARCH)
+    state = TL.shard_train_state(TPT.state(cfg), tmesh, cfg)
+    guard = GuardedTrainer(
+        FaultConfig(ckpt_dir=tp_ckpt_dir, ckpt_every=2, writer=rank == 0),
+        make_train_step(cfg, TPT.opts(TP_CKPT_ARCH)[0], TPT.MICRO,
+                        mesh=tmesh), state,
+        gather=lambda st: logical_state(st, tmesh),
+        barrier=lambda: torch.distributed.barrier())
+    for i in range(2):
+        guard.run_step(TPT.rows(TPT.global_batch(cfg, i), tmesh))
+    out["tp_ckpt_step"] = guard.step
     return out
 
 
@@ -152,7 +184,9 @@ def _rank_cases(rank, world, trees, ckpt_dir):
 def ranks(tmp_path_factory):
     trees = {a: _tree(a) for a in {c[0] for c in CASES.values()}}
     ckpt_dir = str(tmp_path_factory.mktemp("ckpt"))
-    return trees, ckpt_dir, LM.spawn(_rank_cases, WORLD, trees, ckpt_dir)
+    tp_ckpt_dir = str(tmp_path_factory.mktemp("tp_ckpt"))
+    return trees, (ckpt_dir, tp_ckpt_dir), LM.spawn(
+        _rank_cases, WORLD, trees, ckpt_dir, tp_ckpt_dir)
 
 
 @pytest.mark.parametrize("key", sorted(CASES))
@@ -258,7 +292,7 @@ def test_checkpoint_resumes_on_one_rank(ranks):
     process restores it into an unsharded state and runs steps 3-4 on
     the global batch in 2 microbatches: equal to 4 uninterrupted steps
     on one rank."""
-    trees, ckpt_dir, results = ranks
+    trees, (ckpt_dir, _), results = ranks
     assert [r["ckpt_step"] for r in results] == [2, 2]
     cfg, _ = _cfgs("internlm2-1.8b")
     fcfg = dataclasses.replace(cfg, fsdp=True)
@@ -278,12 +312,69 @@ def test_checkpoint_resumes_on_one_rank(ranks):
     assert guard.state.opt["step"] == 4
 
 
+@pytest.mark.parametrize("arch", TPT.ARCHS)
+def test_tensor_parallel_on_two_ranks_matches_the_jax_step(ranks, jax_runs,
+                                                           arch):
+    """A (1, 2) mesh: both ranks one model group, reading every row in 2
+    microbatches (tests/test_torch_parallel_tensor.py's tolerances)."""
+    for r in ranks[2]:
+        TPT.assert_matches_jax(r[f"tp_{arch}"], jax_runs(arch, 256), arch,
+                               256)
+
+
+@pytest.mark.parametrize("arch", TPT.ARCHS)
+def test_tensor_parallel_on_two_ranks_matches_one_rank(ranks, arch):
+    for r in ranks[2]:
+        TPT.assert_matches_one_rank(r[f"tp_{arch}"], arch, 256, False)
+
+
+def test_tensor_parallel_checkpoint_resumes_on_one_rank(ranks):
+    """Rank 0 wrote the whole state (the model blocks and their moments
+    gathered) at step 2 of a (1, 2) run of gemma3-1b (vocab and query
+    heads split, its one kv head whole); one process restores it and
+    runs steps 3-4: equal to 4 uninterrupted steps on one rank within
+    the tensor-parallel tolerance (test_torch_parallel_tensor.py)."""
+    _, (_, tp_ckpt_dir), results = ranks
+    assert [r["tp_ckpt_step"] for r in results] == [2, 2]
+    cfg, _ = TPT.cfgs(TP_CKPT_ARCH)
+    step = make_train_step(cfg, TPT.opts(TP_CKPT_ARCH)[0], TPT.MICRO)
+    guard = GuardedTrainer(FaultConfig(ckpt_dir=tp_ckpt_dir,
+                                       ckpt_every=100),
+                           step, TPT.state(cfg))
+    assert guard.maybe_restore() and guard.step == 2
+    while guard.step < 4:
+        guard.run_step(TPT.global_batch(cfg, guard.step))
+    ref = TPT.state(cfg)
+    for i in range(4):
+        ref, _ = step(ref, TPT.global_batch(cfg, i))
+    got, want = _named(guard.state), _named(ref)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], **TOL,
+                                   err_msg=name)
+    assert guard.state.opt["step"] == 4
+
+
 class FakeMesh:
     axis_names = ("data", "model")
-    shape = {"data": 1, "model": 2}
+
+    def __init__(self, model):
+        self.shape = {"data": 1, "model": model}
 
 
-def test_a_model_axis_raises_naming_the_roadmap_item():
-    cfg, _ = _cfgs("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="item 10b-ii"):
-        make_train_step(cfg, OPT, mesh=FakeMesh())
+#: (arch, model axis, what the message names): the mixers still refused
+#: over ``model`` and the uneven-heads case
+REFUSED = [("granite-moe-1b-a400m", 2, "item 10b-ii-b"),
+           ("deepseek-v2-236b", 2, "item 10b-ii-b"),
+           ("jamba-1.5-large-398b", 2, "item 10b-ii-b"),
+           ("rwkv6-3b", 2, "item 10b-ii-b"),
+           ("whisper-tiny", 2, "item 10b-ii-b"),
+           ("internlm2-1.8b", 3, "uneven heads")]
+
+
+@pytest.mark.parametrize("arch,model,match", REFUSED)
+def test_a_model_axis_raises_naming_the_roadmap_item(arch, model, match):
+    cfg, _ = _cfgs(arch)
+    with pytest.raises(NotImplementedError, match=match):
+        make_train_step(cfg, OPT, mesh=FakeMesh(model))
+    with pytest.raises(NotImplementedError, match=match):
+        shard_train_state(None, FakeMesh(model), cfg)   # before any read

@@ -248,9 +248,10 @@ def test_train_step_raises_for_parallel_options():
     both sides (the gradients negated: a continuous one, so the two
     updates stay within the model tolerance; an int8 round trip would
     flip codes on float noise) gives the same update.  A mesh with a
-    ``model`` axis above 1 raises, naming ROADMAP item 10b-ii.  The
-    data-parallel step and the int8 all-reduce are held in
-    ``tests/test_torch_parallel_train.py``."""
+    ``model`` axis above 1 raises for an MoE stack, naming ROADMAP item
+    10b-ii-b (every mixer left: below).  The data-parallel step and the
+    int8 all-reduce are held in ``tests/test_torch_parallel_train.py``,
+    the tensor-parallel step in ``tests/test_torch_parallel_tensor.py``."""
     tb, jb = _batch()
     model = _model()
     seen = {}
@@ -272,12 +273,25 @@ def test_train_step_raises_for_parallel_options():
                                **TOL)
     _assert_tree_close(params_to_numpy(state.params), jstate.params, TOL)
 
-    class ModelAxis:
-        axis_names = ("data", "model")
-        shape = {"data": 1, "model": 2}
+    with pytest.raises(NotImplementedError, match="item 10b-ii-b"):
+        make_train_step(C.smoke_variant(C.get_arch("granite-moe-1b-a400m")),
+                        OPT, mesh=ModelAxis())
 
-    with pytest.raises(NotImplementedError, match="item 10b-ii"):
-        make_train_step(CFG, OPT, mesh=ModelAxis())
+
+class ModelAxis:
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 2}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b", "rwkv6-3b",
+                                  "whisper-tiny"])
+def test_train_step_model_axis_raises_for_the_mixers_left(arch):
+    """MoE, MLA, Mamba, RWKV and the encoder-decoder over a ``model``
+    axis above 1: ROADMAP item 10b-ii-b."""
+    with pytest.raises(NotImplementedError, match="item 10b-ii-b"):
+        make_train_step(C.smoke_variant(C.get_arch(arch)), OPT,
+                        mesh=ModelAxis())
 
 
 # ---------------------------------------------------------------------------
